@@ -1,0 +1,604 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+It needs one CUDA device and the CUDA toolkit (``nvcc``); without a CUDA
+device it exits non-zero before printing any result.  Phases, each of which
+ends the run with a non-zero exit if it fails:
+
+1. card name and power limit, torch/CUDA versions; build every CUDA kernel
+   of the path from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``.
+2. kernels: each kernel held against its plain PyTorch version on the card
+   (odd shapes, int8/int32 codes, packed int4, L from 15 to 65535, grid
+   and off-grid floats); then each held against it again and timed at the
+   main path's shapes at batch 64, beside one PyTorch library call
+   computing the same function, and its bound.
+3. main path at the paper's width 64 on 32x32 frames: ``compile(...,
+   datapath="int")`` and ``"f32"`` on the card; int == f32 == interpreter
+   and card == CPU, bit for bit; weight bytes; launches per forward;
+   compile time, latency and throughput.
+4. few-shot requests: support shots registered into a PrototypeStore on
+   the card and queries classified through the deployed int artifact;
+   prototypes and similarities agree with a CPU store's run within a stated
+   tolerance, predictions are equal.  Then, after every latency has been
+   taken, ``torch.profiler`` traces the int forwards: device time by
+   kernel and an estimate of the device's busy share.
+5. a JSON line of every kernel with its launches on the main path and its
+   numbers, the card's name and power limit, and a last line
+   ``{"ok": true, "device": {...}}``.
+
+Launch counters are set to 0 just before phases 3-4 (the main path) and
+read just after; launches made while comparing or timing kernels in phase
+2 do not count.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth, int8 tensor-core
+# rate, float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_OPS = 67e12
+
+WIDTH = 64
+IMG = 32
+BATCH = 64
+INT_WEIGHT_BYTES = 6_697_920
+F32_WEIGHT_BYTES = 26_388_480
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+SLEEP_CYCLES = 20_000_000     # about 10 ms of device clock
+
+
+def cuda_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after one warm-up call.  The launches queue behind a device-side sleep,
+    so the host has enqueued them all before the first one starts and the
+    card runs them back to back: a slow host adds no idle gaps to the time
+    of a short kernel.  A function that waits for the card inside still
+    pays its own waits."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(torch, fn, reps: int = 10) -> float:
+    """Mean host wall-clock of ``fn`` with the device synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def layer_shapes(width: int, batch: int, img: int):
+    """(name, M, K, N) of the 8 MVAU layers of ResNet-9 at this size."""
+    from repro_torch.models import resnet9
+
+    out, hw = [], img
+    for blk in resnet9.plan(width):
+        out.append((blk["name"], batch * hw * hw, 9 * blk["cin"], blk["cout"]))
+        if blk.get("pool"):
+            hw //= 2
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def check_kernels(torch, Q, KM, KG):
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(1234)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64
+                             ).to(torch.int32)
+
+    err = {"mvau_int": 0.0, "mvau": 0.0, "gap": 0.0}
+    # L > 64 takes the kernels' binary-search epilogue (sorted tables)
+    cases = [(7, 36, 8, 15), (16, 130, 129, 15), (5, 64, 32, 255),
+             (130, 200, 96, 512), (1000, 27, 64, 15), (300, 4608, 512, 15),
+             (70, 40, 24, 4095), (9, 64, 136, 65535)]
+    for m, k, n, L in cases:
+        x = ri(0, 16, (m, k))
+        w = ri(-32, 32, (k, n))
+        t = torch.sort(ri(-500, 4000, (n, L)), dim=1).values
+        want = KM.mvau_int_plain(x, w, t, -3)
+        for xd, wd in ((torch.int8, torch.int8), (torch.int32, torch.int32),
+                       (torch.int8, torch.int32)):
+            got = KM.mvau_int(x.to(xd).to(dev), w.to(wd).to(dev), t.to(dev), -3)
+            torch.cuda.synchronize()
+            d = (got.cpu() - want).abs().max().item() if want.numel() else 0
+            err["mvau_int"] = max(err["mvau_int"], float(d))
+            check(torch.equal(got.cpu(), want),
+                  f"mvau_int {m}x{k}x{n} L={L} {xd}/{wd} differs by {d}")
+        if n % 2 == 0:
+            w4 = ri(-8, 8, (k, n))
+            want4 = KM.mvau_int_plain(x, w4, t, 2)
+            got4 = KM.mvau_int(x.to(torch.int8).to(dev),
+                               Q.pack_int4(w4).to(dev), t.to(dev), 2,
+                               w_packed=True)
+            torch.cuda.synchronize()
+            check(torch.equal(got4.cpu(), want4),
+                  f"mvau_int packed int4 {m}x{k}x{n} L={L} differs")
+        # float MVAU on the grid: every partial sum exact -> bit for bit
+        xf, wf = x.float() * 0.25, w.float() / 32
+        tf = torch.sort(torch.randn((n, L), generator=gen) * 4, dim=1).values
+        xf, wf, tf = xf.to(dev), wf.to(dev), tf.to(dev)
+        got = KM.mvau(xf, wf, tf, -4.0, 0.5, 0.25)
+        want = KM.mvau_plain(xf, wf, tf, -4.0, 0.5, 0.25)
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item() if want.numel() else 0
+        err["mvau"] = max(err["mvau"], float(d))
+        check(torch.equal(got, want), f"mvau grid {m}x{k}x{n} L={L} differs by {d}")
+        # int8 x int8 sub-path of the float MVAU
+        ti = torch.sort(ri(-500, 4000, (n, L)), dim=1).values.to(dev)
+        x8, w8 = x.to(torch.int8).to(dev), w.to(torch.int8).to(dev)
+        check(torch.equal(KM.mvau(x8, w8, ti, 1.0, 0.25, -0.5),
+                          KM.mvau_plain(x8, w8, ti, 1.0, 0.25, -0.5)),
+              f"mvau int8 sub-path {m}x{k}x{n} differs")
+
+    # float MVAU off the grid.  Tolerance: the kernel (FMA, K-tile order)
+    # and the plain version (library GEMM) round their float32 sums
+    # differently, so a count may differ by one level, and only where the
+    # exact (float64) accumulator lies within 1e-5 of the row's |x|·|w| of a
+    # threshold; everywhere else the outputs are equal.
+    xo = torch.rand((257, 300), generator=gen) * 4 - 2
+    wo = torch.rand((300, 130), generator=gen) * 4 - 2
+    spec = Q.FixedPointSpec(8, 4, signed=True)
+    to = torch.as_tensor(Q.thresholds_for(spec))[None, :].expand(130, 255)
+    to = to.contiguous()
+    xo, wo, to = xo.to(dev), wo.to(dev), to.to(dev)
+    got = KM.mvau(xo, wo, to, float(spec.qmin), 1.0, 0.0)
+    want = KM.mvau_plain(xo, wo, to, float(spec.qmin), 1.0, 0.0)
+    acc64 = xo.double() @ wo.double()
+    scale64 = xo.double().abs() @ wo.double().abs()
+    near = ((acc64[..., None] - to.double()[None]).abs()
+            <= 1e-5 * scale64[..., None]).any(dim=-1)
+    diff = (got - want).abs()
+    err["mvau"] = max(err["mvau"], float(diff.max().item()))
+    check(bool((diff[~near] == 0).all()), "mvau off-grid differs away from "
+          "a threshold")
+    check(bool((diff <= 1.0).all()), "mvau off-grid differs by more than one "
+          "level")
+    log(f"kernel check mvau off-grid: {int((diff > 0).sum())} of "
+        f"{diff.numel()} outputs differ by one level, all within 1e-5 of a "
+        "threshold")
+
+    for shape in ((2, 8, 8, 16), (64, 4, 4, 512), (3, 5, 7, 24)):
+        for dt in (torch.int8, torch.int32):
+            xi = ri(-100, 100, shape).to(dt).to(dev)
+            g, p = KG.gap(xi), KG.gap_plain(xi)
+            check(g.dtype == torch.int32 and torch.equal(g, p),
+                  f"gap {dt} {shape} differs")
+        xg = (ri(0, 64, shape).float() * 0.25).to(dev)     # on the grid
+        check(torch.equal(KG.gap(xg), KG.gap_plain(xg)), f"gap f32 grid {shape}")
+        xr = torch.randn(shape, generator=gen).to(dev)      # off the grid
+        d = (KG.gap(xr) - KG.gap_plain(xr)).abs().max().item()
+        err["gap"] = max(err["gap"], float(d))
+        # tolerance: float32 sums in another order, as the reference tests
+        check(torch.allclose(KG.gap(xr), KG.gap_plain(xr), rtol=1e-5,
+                             atol=1e-5), f"gap f32 {shape} off by {d}")
+    log(f"kernel check: all kernels equal their plain versions "
+        f"(max abs err {err})")
+    return err
+
+
+def time_kernels(torch, Q, KM, KG, ref, err):
+    """Each kernel at the main path's shapes at batch 64: the kernel, its
+    plain version, one library call, and the bound."""
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(7)
+    rows = []
+    tot = {"mvau_int": [0.0, 0.0, 0.0, 0, 0], "mvau": [0.0, 0.0, 0.0, 0, 0]}
+    tot_core = 0.0
+    for name, m, k, n in layer_shapes(WIDTH, BATCH, IMG):
+        L = 15
+        x = torch.randint(0, 16, (m, k), generator=gen).to(torch.int8).to(dev)
+        w = torch.randint(-32, 32, (k, n), generator=gen).to(torch.int8).to(dev)
+        t = torch.sort(torch.randint(-2000, 2000, (n, L), generator=gen),
+                       dim=1).values.to(torch.int32).to(dev)
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8         # _int_mm wants /8
+        xpad = torch.nn.functional.pad(x, (0, kp - k))
+        wpad = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+
+        def lib_int():
+            acc = torch._int_mm(xpad, wpad)[:, :n]
+            return ref.threshold_counts_fast(acc, t)
+
+        x32 = x.to(torch.int32)       # int32 codes take the CUDA-core kernel
+        want = KM.mvau_int_plain(x, w, t, 0)
+        for xx in (x, x32):
+            got = KM.mvau_int(xx, w, t, 0)
+            d = (got - want).abs().max().item()
+            err["mvau_int"] = max(err["mvau_int"], float(d))
+            check(torch.equal(got, want), f"mvau_int {name} at the main "
+                  f"path's shape ({xx.dtype}) differs by {d}")
+        ms = cuda_ms(torch, lambda: KM.mvau_int(x, w, t, 0))
+        core_ms = cuda_ms(torch, lambda: KM.mvau_int(x32, w, t, 0))
+        tot_core += core_ms
+        plain = cuda_ms(torch, lambda: KM.mvau_int_plain(x, w, t, 0), reps=10)
+        lib = cuda_ms(torch, lib_int)
+        nbytes = x.numel() + w.numel() + 4 * t.numel() + 4 * m * n
+        ops = 2 * m * k * n
+        for i, v in enumerate((ms, plain, lib, nbytes, ops)):
+            tot["mvau_int"][i] += v
+        rows.append(("mvau_int", name, m, k, n, ms, plain, lib,
+                     max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3,
+                     core_ms))
+
+        xf = (x.float() * 0.25).contiguous()
+        wf = (w.float() / 32).contiguous()
+        tf = (t.float() / 128).contiguous()
+
+        # on the grid: every partial sum exact -> bit for bit
+        got = KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0)
+        want = KM.mvau_plain(xf, wf, tf, 0.0, 0.25, 0.0)
+        d = (got - want).abs().max().item()
+        err["mvau"] = max(err["mvau"], float(d))
+        check(torch.equal(got, want), f"mvau {name} at the main path's shape "
+              f"differs by {d}")
+
+        def lib_f32():
+            return quant_count(torch.matmul(xf, wf), tf)
+
+        def quant_count(acc, tt):
+            return 0.25 * ref.threshold_counts_fast(acc, tt).to(torch.float32)
+
+        ms = cuda_ms(torch, lambda: KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0))
+        plain = cuda_ms(torch, lambda: KM.mvau_plain(xf, wf, tf, 0.0, 0.25,
+                                                     0.0), reps=10)
+        lib = cuda_ms(torch, lib_f32)
+        nbytes = 4 * (xf.numel() + wf.numel() + tf.numel() + m * n)
+        for i, v in enumerate((ms, plain, lib, nbytes, ops)):
+            tot["mvau"][i] += v
+        rows.append(("mvau", name, m, k, n, ms, plain, lib,
+                     max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS) * 1e3,
+                     None))
+
+    for r in rows:
+        core = "" if r[9] is None else f" int32_codes_cuda_core_ms={r[9]:.4f}"
+        log(f"kernel {r[0]:8s} {r[1]:4s} M={r[2]:6d} K={r[3]:5d} N={r[4]:4d}: "
+            f"kernel_ms={r[5]:.4f} plain_ms={r[6]:.4f} library_ms={r[7]:.4f} "
+            f"bound_ms={r[8]:.4f}{core}")
+    log(f"kernel mvau_int sum over the 8 layers: int8 tensor-core path "
+        f"{tot['mvau_int'][0]:.4f} ms, int32-code CUDA-core path "
+        f"{tot_core:.4f} ms")
+
+    xg = torch.randint(0, 64, (BATCH, 4, 4, 8 * WIDTH),
+                       generator=gen).to(torch.int32).to(dev)
+    xgf = (xg.float() * 0.25).contiguous()            # on the grid
+    for xx in (xg, xgf):
+        got, want = KG.gap(xx), KG.gap_plain(xx)
+        d = (got - want).abs().max().item()
+        err["gap"] = max(err["gap"], float(d))
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"gap {xx.dtype} at the main path's shape differs by {d}")
+    g_ms = cuda_ms(torch, lambda: KG.gap(xg), reps=100)
+    g_plain = cuda_ms(torch, lambda: KG.gap_plain(xg), reps=100)
+    g_lib = cuda_ms(torch, lambda: torch.sum(xg, dim=(1, 2),
+                                             dtype=torch.int32), reps=100)
+    g_bytes = 4 * xg.numel() + 4 * BATCH * 8 * WIDTH
+    g_ops = xg.numel()
+    gf_ms = cuda_ms(torch, lambda: KG.gap(xgf), reps=100)
+    log(f"kernel gap      (64,4,4,512) int32: kernel_ms={g_ms:.4f} "
+        f"plain_ms={g_plain:.4f} library_ms={g_lib:.4f} "
+        f"bound_ms={g_bytes / PEAK_BYTES_PER_S * 1e3:.5f}; float32 input: "
+        f"kernel_ms={gf_ms:.4f}")
+
+    def entry(name, source, replaces, t, ops_peak):
+        ms, plain, lib, nbytes, ops = t
+        b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / ops_peak * 1e3
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "library_ms": lib}
+
+    return [
+        entry("mvau_int", "src/repro_torch/csrc/mvau.cu",
+              "src/repro/kernels/mvau.py:195", tot["mvau_int"], PEAK_INT8_OPS),
+        entry("mvau", "src/repro_torch/csrc/mvau.cu",
+              "src/repro/kernels/mvau.py:140", tot["mvau"], PEAK_F32_OPS),
+        entry("gap", "src/repro_torch/csrc/gap.cu",
+              "src/repro/kernels/gap.py:41",
+              [g_ms, g_plain, g_lib, g_bytes, g_ops], PEAK_F32_OPS),
+    ]
+
+
+def profile_forward(torch, label: str, fn, reps: int = 5):
+    """Device time by kernel over ``reps`` forwards at batch 64
+    (torch.profiler, CUDA activity); returns the device-busy ms per
+    forward, or None when the profiler saw no device time.  The profiler's
+    own host cost stretches the traced run's wall time, so the busy share
+    printed here is a floor."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kern)
+    if busy_us <= 0:
+        log(f"profile {label}: device time not measured (no CUDA events)")
+        return None
+    log(f"profile {label} (batch {BATCH}, {reps} forwards): traced wall "
+        f"{wall_us / reps / 1e3:.3f} ms/forward, device busy "
+        f"{busy_us / reps / 1e3:.3f} ms/forward ({busy_us / wall_us:.1%}), "
+        f"{sum(e.count for e in kern) / reps:.0f} kernels/forward")
+    for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]:
+        log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/forward "
+            f"{e.count / reps:5.1f}x  {e.key[:90]}")
+    return busy_us / reps / 1e3
+
+
+# ---------------------------------------------------------------------------
+# Phases 3-4: the main path
+# ---------------------------------------------------------------------------
+def main_path(torch, np, B):
+    import repro_torch
+    from repro_torch.core.graph import execute
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.fsl.pipeline import FSLPipeline
+    from repro_torch.models import resnet9
+    from repro_torch.serve.store import PrototypeStore
+
+    qcfg = QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), WIDTH,
+                                 device="cuda")
+    params_cpu = {k: {kk: v.cpu() for kk, v in blk.items()}
+                  for k, blk in params.items()}
+    data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
+    rng = np.random.default_rng(0)
+    x_np, _ = data.batch(rng.integers(0, 42, BATCH),
+                         rng.integers(0, 10_000, BATCH))
+    x = torch.from_numpy(x_np).cuda()
+    x_q = fake_quant(x, qcfg.act)
+
+    t0 = time.perf_counter()
+    dm_int = repro_torch.compile(params, qcfg, recipe="resnet9",
+                                 datapath="int", device="cuda")
+    t1 = time.perf_counter()
+    dm_f32 = repro_torch.compile(params, qcfg, recipe="resnet9",
+                                 datapath="f32", device="cuda")
+    t2 = time.perf_counter()
+    log(f"compile: int {t1 - t0:.3f} s, f32 {t2 - t1:.3f} s (width {WIDTH})")
+    ops = dm_int.op_counts()
+    log(f"int artifact: {len(dm_int.graph.nodes)} nodes {ops}; "
+        f"dispatch {sorted({r['kernel'] for r in dm_int.dispatch_table()})}")
+    check(ops.get("mvau_int") == 8 and ops.get("global_acc_pool") == 1,
+          f"int artifact ops {ops}")
+    check(all(r["kernel"] == "fused-cuda" for r in dm_int.dispatch_table()
+              if r["op"] == "mvau_int"), "an mvau_int node is not on the kernel")
+    check(dm_int.weight_bytes() == INT_WEIGHT_BYTES,
+          f"int weight bytes {dm_int.weight_bytes()}")
+    check(dm_f32.weight_bytes() == F32_WEIGHT_BYTES,
+          f"f32 weight bytes {dm_f32.weight_bytes()}")
+    log(f"weight bytes: int {dm_int.weight_bytes()} f32 "
+        f"{dm_f32.weight_bytes()}")
+
+    def delta(fn):
+        before = dict(B.launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: B.launch_counts[k] - before[k] for k in before}
+
+    f_int, d = delta(lambda: dm_int(x))
+    check(d == {"mvau_int": 8, "mvau": 0, "gap": 1}, f"int forward launches {d}")
+    f_f32, d = delta(lambda: dm_f32(x_q))
+    check(d == {"mvau_int": 0, "mvau": 8, "gap": 1}, f"f32 forward launches {d}")
+    (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
+    check(d["mvau"] == 8, f"interpreter launches {d}")
+    (f_interp_int,) = execute(dm_int.graph, {"x": x})
+    check(f_int.dtype == torch.float32 and tuple(f_int.shape) == (BATCH, 512),
+          f"features {f_int.dtype} {tuple(f_int.shape)}")
+    check(bool(torch.isfinite(f_int).all()), "non-finite features")
+    check(torch.equal(f_int, f_f32), "int features != f32 features")
+    check(torch.equal(f_int, f_interp), "int features != interpreter (f32 graph)")
+    check(torch.equal(f_int, f_interp_int), "int features != interpreter "
+          "(int graph, plain versions)")
+    dm_cpu = repro_torch.compile(params_cpu, qcfg, recipe="resnet9",
+                                 datapath="int", device="cpu")
+    f_cpu = dm_cpu(x_np)
+    check(torch.equal(f_int.cpu(), f_cpu), "card features != CPU features")
+    log("main path: int == f32 == interpreter on the card, card == CPU, "
+        "bit for bit")
+
+    pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
+    feats = pipe.deploy(params, datapath="int")
+    f_flip, d = delta(lambda: feats(x))
+    check(d == {"mvau_int": 16, "mvau": 0, "gap": 2}, f"flip ensemble {d}")
+    feats_f32 = pipe.deploy(params, datapath="f32")
+    f_flip32, d = delta(lambda: feats_f32(x))
+    check(d == {"mvau_int": 0, "mvau": 16, "gap": 2}, f"f32 flip ensemble {d}")
+    check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
+    check(torch.equal(f_flip, pipe.features(params, x)),
+          "deployed flip features != QAT forward")
+    log("launches per forward: int 8 mvau_int + 1 gap, flip ensemble 16 + 2; "
+        "f32 8 mvau + 1 gap, flip ensemble 16 + 2")
+
+    # every latency is taken before the first traced run: once the profiler
+    # has traced the card, later eager launches in the process run slower
+    x1 = x[:1].contiguous()
+    walls = {}
+    for label, fn in (("int artifact", dm_int), ("int flip ensemble", feats)):
+        b1 = wall_ms(torch, lambda: fn(x1))
+        b64 = walls[label] = wall_ms(torch, lambda: fn(x))
+        log(f"latency {label}: batch 1 {b1:.3f} ms, batch {BATCH} "
+            f"{b64:.3f} ms ({BATCH / b64 * 1e3:.1f} images/s)")
+    b64_f32 = wall_ms(torch, lambda: dm_f32(x_q))
+    log(f"latency f32 artifact: batch {BATCH} {b64_f32:.3f} ms "
+        f"({BATCH / b64_f32 * 1e3:.1f} images/s)")
+
+    # -- few-shot requests ---------------------------------------------------
+    # the card's head against the same head on the CPU: row norms and the
+    # similarity are float reductions in another order, so prototypes and
+    # similarities agree within rtol 1e-5 / atol 1e-6 (as the CPU tests hold
+    # the port against JAX) and predictions are equal
+    pipe_cpu = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cpu")
+    feats_cpu = pipe_cpu.deploy(params_cpu, datapath="int")
+    tol = dict(rtol=1e-5, atol=1e-6)
+    ep_rng = np.random.default_rng(100)
+    lat = {"register": [], "register_head": [], "classify": [],
+           "classify_head": []}
+    accs, worst = [], 0.0
+    for _ in range(3):
+        ep = data.episode(ep_rng, 5, 5, 15)
+        stores = {"cuda": PrototypeStore(), "cpu": PrototypeStore(device="cpu")}
+        check(stores["cuda"].device.type == "cuda", "store is not on the card")
+        preds, sims = {}, {}
+        for dev, fn in (("cuda", feats), ("cpu", feats_cpu)):
+            store, out, ss = stores[dev], [], []
+            for way in range(5):
+                shots = ep["support_x"][ep["support_y"] == way]
+                t0 = time.perf_counter()
+                f = fn(shots)
+                t1 = time.perf_counter()
+                store.register(way, f)
+                t2 = time.perf_counter()
+                if dev == "cuda":
+                    lat["register"].append((t2 - t0) * 1e3)
+                    lat["register_head"].append((t2 - t1) * 1e3)
+            for lo in range(0, len(ep["query_x"]), 15):
+                t0 = time.perf_counter()
+                f = fn(ep["query_x"][lo:lo + 15])
+                t1 = time.perf_counter()
+                ids, sim = store.classify(f)
+                t2 = time.perf_counter()
+                if dev == "cuda":
+                    lat["classify"].append((t2 - t0) * 1e3)
+                    lat["classify_head"].append((t2 - t1) * 1e3)
+                out += ids
+                ss.append(sim)
+            preds[dev], sims[dev] = np.asarray(out), np.concatenate(ss)
+        check(np.array_equal(preds["cuda"], preds["cpu"]),
+              "few-shot predictions differ between card and CPU")
+        p_gpu, p_cpu = (stores[d].prototypes()[0] for d in ("cuda", "cpu"))
+        worst = max(worst, float(np.abs(p_gpu - p_cpu).max()),
+                    float(np.abs(sims["cuda"] - sims["cpu"]).max()))
+        check(np.allclose(p_gpu, p_cpu, **tol),
+              "prototypes differ between card and CPU beyond rtol 1e-5")
+        check(np.allclose(sims["cuda"], sims["cpu"], **tol),
+              "similarities differ between card and CPU beyond rtol 1e-5")
+        accs.append(float((preds["cuda"] == ep["query_y"]).mean()))
+    med = {k: float(np.median(v)) for k, v in lat.items()}
+    log(f"few-shot: 3 episodes 5-way 5-shot 15-query, accuracy {accs} "
+        f"(random weights); register request (5 shots) median "
+        f"{med['register']:.3f} ms, of which the store {med['register_head']:.3f}"
+        f" ms; classify request (15 queries) median {med['classify']:.3f} ms, "
+        f"of which the store {med['classify_head']:.3f} ms; head on the card; "
+        f"predictions equal the CPU run's, prototypes and similarities within "
+        f"{worst:.3g} of it")
+
+    # -- where the device time goes (traced last; see above) ------------------
+    for label, fn in (("int artifact", dm_int), ("int flip ensemble", feats)):
+        busy = profile_forward(torch, label, lambda: fn(x))
+        if busy is not None:
+            log(f"device busy share {label}, batch {BATCH}: estimate "
+                f"{busy / walls[label]:.1%} = busy {busy:.3f} ms/forward "
+                f"(traced run) / wall {walls[label]:.3f} ms/forward (untraced "
+                "run above)")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: no CUDA device; this script runs only "
+                         "on the card\n")
+        return 2
+    import numpy as np
+
+    from repro_torch.core import quant as Q
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import gap as KG
+    from repro_torch.kernels import mvau as KM
+    from repro_torch.kernels import ref
+
+    resolve_device(None)               # TF32 off for every f32 product
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    log(f"card: {smi_line}")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    info = B.build(force=True)
+    log(f"build: {len(B.SOURCES)} sources with nvcc for sm_90a in "
+        f"{info.seconds:.2f} s -> {info.path.name}")
+    for line in info.ptxas.splitlines():
+        if "registers" in line:
+            log(f"  ptxas: {line.strip()}")
+    B.library()
+
+    err = check_kernels(torch, Q, KM, KG)
+    kernels = time_kernels(torch, Q, KM, KG, ref, err)
+
+    B.reset_launch_counts()
+    main_path(torch, np, B)
+    counts = dict(B.launch_counts)
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+        check(k["launches"] > 0, f"kernel {k['name']} never ran on the main path")
+    log("kernels " + " ".join(f"{k['name']}={k['launches']}" for k in kernels))
+    log(json.dumps({"kernels": kernels}))
+    log(smi_line)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        sys.stderr.write(f"chip_smoke FAILED: {e}\n")
+        sys.exit(1)

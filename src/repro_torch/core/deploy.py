@@ -1,0 +1,331 @@
+"""``repro_torch.compile()`` — lower a QAT graph to a deployment artifact on
+the card.
+
+Counterpart of the JAX package's ``core/deploy.py``: pick a
+:class:`BuildRecipe`, stream the graph through the :class:`PassManager`,
+then lower the HW-mapped graph to one callable:
+
+* initializers (integer weight codes, threshold tables) move to the device
+  once, at compile time;
+* each node dispatches through the kernel table of
+  :func:`repro_torch.kernels.ops.graph_op_impls` (the CUDA MVAU and
+  GlobalAccPool kernels on the card, their plain versions on the CPU) or
+  the interpreter executors for pure data-movement ops.
+
+PyTorch runs eagerly, so there is no trace to compile: ``warmup`` runs each
+batch bucket once and ``trace_count`` counts first runs of a new input
+shape, the eager analogue of the reference's retrace counter.  Capturing
+each bucket as a CUDA graph is later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import recipes as R
+from repro_torch.core.graph import _EXECUTORS, Graph, GraphBuildError, as_tensor
+from repro_torch.core.passes import PassManager, PassTrace
+from repro_torch.device import DeviceLike, resolve_device
+
+__all__ = ["DeployedModel", "bucket_for", "compile", "lower_graph",
+           "normalize_buckets", "pow2_buckets"]
+
+
+def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
+    """Close a (streamlined) graph over its initializers, moved to
+    ``device`` once, and return a ``(*inputs) -> tuple(outputs)`` function.
+    """
+    from repro_torch.kernels import ops as kops
+
+    dev = resolve_device(device)
+    impls = dict(_EXECUTORS)
+    impls.update(kops.graph_op_impls())
+    missing = sorted({n.op for n in graph.nodes if n.op not in impls})
+    if missing:
+        raise GraphBuildError(f"cannot lower graph '{graph.name}': no "
+                              f"implementation for ops {missing}")
+    consts = {k: as_tensor(v, dev) for k, v in graph.initializers.items()}
+    nodes = [n.copy() for n in graph.nodes]       # freeze against later edits
+    input_names = tuple(graph.inputs)
+    output_names = tuple(graph.outputs)
+
+    def apply_fn(*inputs):
+        if len(inputs) != len(input_names):
+            raise TypeError(f"graph '{graph.name}' takes {len(input_names)} "
+                            f"input(s) {input_names}, got {len(inputs)}")
+        env: Dict[str, torch.Tensor] = dict(consts)
+        env.update(zip(input_names, inputs))
+        with torch.no_grad():
+            for node in nodes:
+                out = impls[node.op](node, *[env[i] for i in node.inputs])
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                for name, val in zip(node.outputs, outs):
+                    env[name] = val
+        return tuple(env[o] for o in output_names)
+
+    return apply_fn
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n."""
+    if n <= 0:
+        raise ValueError(f"batch size must be positive, got {n}")
+    fit = [b for b in buckets if b >= n]
+    if not fit:
+        raise ValueError(f"batch {n} exceeds largest bucket "
+                         f"{max(buckets)}; raise max_batch / split upstream")
+    return min(fit)
+
+
+def pow2_buckets(max_batch: int) -> Tuple[int, ...]:
+    """(1, 2, 4, ..., max_batch) — max_batch is included even off-power."""
+    bs = []
+    b = 1
+    while b < max_batch:
+        bs.append(b)
+        b *= 2
+    bs.append(max_batch)
+    return tuple(bs)
+
+
+def normalize_buckets(buckets: Sequence[int]) -> Tuple[int, ...]:
+    """Dedup + sort a bucket list; rejects empty lists and non-positive or
+    non-integral sizes."""
+    bs = set()
+    for b in buckets:
+        if int(b) != b or int(b) < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets!r}")
+        bs.add(int(b))
+    if not bs:
+        raise ValueError("buckets must be non-empty")
+    return tuple(sorted(bs))
+
+
+@dataclasses.dataclass
+class DeployedModel:
+    """A compiled, executable deployment artifact on one device.
+
+    ``__call__`` runs the lowered graph (a single tensor when the graph has
+    a single output).  ``warmup(buckets, example)`` runs one padded batch
+    per bucket and ``batched(x)`` pads any batch up to its bucket and slices
+    the result back, so steady-state serving sees a fixed set of shapes
+    (``trace_count`` stays flat after warmup).
+    """
+
+    graph: Graph
+    recipe_name: str
+    trace: PassTrace
+    apply: Callable
+    input_names: Tuple[str, ...]
+    output_names: Tuple[str, ...]
+    device: torch.device
+    datapath: str = "f32"
+    pass_names: Tuple[str, ...] = ()
+    _buckets: Optional[Tuple[int, ...]] = None
+    _shapes: Set[Tuple] = dataclasses.field(default_factory=set)
+
+    @property
+    def trace_count(self) -> int:
+        """How many distinct input shapes have run: flat after ``warmup``
+        == the serving loop only ever sees warmed buckets."""
+        return len(self._shapes)
+
+    @property
+    def buckets(self) -> Optional[Tuple[int, ...]]:
+        return self._buckets
+
+    def _inputs(self, args) -> Tuple[torch.Tensor, ...]:
+        return tuple(as_tensor(a, self.device) for a in args)
+
+    def _run(self, *xs: torch.Tensor):
+        self._shapes.add(tuple((tuple(x.shape), x.dtype) for x in xs))
+        return self.apply(*xs)
+
+    def warmup(self, buckets: Sequence[int],
+               example: Union[torch.Tensor, np.ndarray]) -> Tuple[int, ...]:
+        """Run one zero batch per bucket.  ``example`` is a BATCHED input of
+        any batch size; its trailing dims/dtype define the sample shape."""
+        ex = as_tensor(example, self.device)
+        if ex.ndim < 1:
+            raise ValueError("example must be batched (leading batch axis)")
+        bs = normalize_buckets(buckets)
+        for b in bs:
+            x = torch.zeros((b,) + tuple(ex.shape[1:]), dtype=ex.dtype,
+                            device=self.device)
+            if ((tuple(x.shape), x.dtype),) not in self._shapes:
+                self._run(x)
+        self._buckets = bs
+        return bs
+
+    def batched(self, x: Union[torch.Tensor, np.ndarray]):
+        """Run a batch padded up to the nearest warmed bucket and slice the
+        result back (every op in the HW graph is per-sample independent)."""
+        if self._buckets is None:
+            raise RuntimeError("call warmup(buckets, example) before "
+                               "batched()")
+        x = as_tensor(x, self.device)
+        n = x.shape[0]
+        b = bucket_for(n, self._buckets)
+        if b != n:
+            pad = torch.zeros((b - n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            x = torch.cat([x, pad])
+        outs = tuple(o[:n] for o in self._run(x))
+        return outs[0] if len(self.output_names) == 1 else outs
+
+    def __call__(self, *inputs, **feeds):
+        if feeds:
+            try:
+                args = tuple(feeds[n] for n in self.input_names)
+            except KeyError as e:
+                raise TypeError(f"missing graph input {e}; expected "
+                                f"{self.input_names}") from None
+            if inputs:
+                raise TypeError("pass inputs positionally or by name, not both")
+        else:
+            args = inputs
+        outs = self._run(*self._inputs(args))
+        return outs[0] if len(self.output_names) == 1 else outs
+
+    def op_counts(self) -> Dict[str, int]:
+        from repro_torch.core.passes import op_histogram
+
+        return op_histogram(self.graph)
+
+    def dispatch_table(self) -> list:
+        """Per-node kernel dispatch: ``[{"tensor", "op", "kernel"}]``, from
+        :func:`repro_torch.kernels.ops.kernel_dispatch` — the same decision
+        function the deployed executors run."""
+        from repro_torch.kernels import ops as kops
+
+        emulated = self.device.type != "cuda"
+        rows = []
+        for n in self.graph.nodes:
+            rows.append({"tensor": n.outputs[0], "op": n.op,
+                         "kernel": kops.kernel_dispatch(n, emulated)})
+        return rows
+
+    def qdq_counts(self) -> Dict[str, int]:
+        """Surviving quantize/dequantize nodes and interior round-trip
+        pairs (quantize fed directly by a dequantize)."""
+        q = dq = pairs = 0
+        for n in self.graph.nodes:
+            if n.op == "quantize":
+                q += 1
+                p = self.graph.producer(n.inputs[0])
+                if p is not None and p.op == "dequantize":
+                    pairs += 1
+            elif n.op == "dequantize":
+                dq += 1
+        return {"quantize": q, "dequantize": dq, "interior_pairs": pairs}
+
+    def weight_bytes(self) -> int:
+        """Storage bytes across all baked-in constants (weight codes,
+        threshold tables); packed int4 counts at packed density."""
+        return int(sum(np.asarray(v).nbytes
+                       for v in self.graph.initializers.values()))
+
+    def throughput(self, *inputs, iters: int = 20) -> Dict[str, float]:
+        """Wall-clock of the artifact on BATCHED ``inputs``, synchronized
+        with the device: ``{"ms_per_call", "calls_per_s", "batch"}``."""
+        xs = self._inputs(inputs)
+        n = int(xs[0].shape[0]) if xs and xs[0].ndim else 1
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        self._run(*xs)                                   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(max(iters, 1)):
+            self._run(*xs)
+        sync()
+        dt = (time.perf_counter() - t0) / max(iters, 1)
+        return {"ms_per_call": dt * 1e3, "calls_per_s": 1.0 / dt,
+                "batch": float(n)}
+
+    def report(self, sample_input=None, iters: int = 20) -> str:
+        ops = ", ".join(f"{k}×{v}" for k, v in sorted(self.op_counts().items()))
+        head = (f"DeployedModel('{self.graph.name}', recipe='{self.recipe_name}', "
+                f"datapath='{self.datapath}', device='{self.device}', "
+                f"{len(self.graph.nodes)} nodes: {ops})\n"
+                f"  weight storage: {self.weight_bytes()} bytes")
+        qdq = self.qdq_counts()
+        head += (f"\n  quantize/dequantize surviving: {qdq['quantize']}/"
+                 f"{qdq['dequantize']} (interior pairs: "
+                 f"{qdq['interior_pairs']})")
+        head += "\n  kernel dispatch:"
+        for row in self.dispatch_table():
+            head += (f"\n    {row['tensor']:28s} {row['op']:20s} "
+                     f"-> {row['kernel']}")
+        if sample_input is not None:
+            t = self.throughput(sample_input, iters=iters)
+            head += (f"\n  measured: {t['ms_per_call']:.2f} ms/call "
+                     f"({t['calls_per_s']:.1f} calls/s) on {self.device}")
+        return head + "\n" + self.trace.report()
+
+
+def compile(graph_or_model: Any, qcfg: Any = None, *,
+            recipe: Union[str, R.BuildRecipe],
+            datapath: str = "f32",
+            fuse: bool = True,
+            sample_input: Optional[Any] = None,
+            verify_feeds: Optional[Dict[str, Any]] = None,
+            device: DeviceLike = None,
+            rtol: float = 1e-5, atol: float = 1e-6) -> DeployedModel:
+    """Build a :class:`DeployedModel` on ``device`` (default: the card).
+
+    Args mirror the reference's ``repro.compile``:
+      graph_or_model: a :class:`Graph`, or the recipe's native model object
+        (a ResNet-9 param tree for ``recipe="resnet9"``).
+      qcfg: the :class:`QuantConfig`, forwarded to the exporter.
+      recipe: registered recipe name or a :class:`BuildRecipe`.
+      datapath: ``"f32"`` runs the HW graph in float emulation of the
+        fixed-point grid; ``"int"`` appends ``infer_datatypes`` +
+        ``lower_to_integer_datapath`` (+ ``fuse_integer_datapath`` with
+        ``fuse``): integer weight codes and ``mvau_int`` nodes, bit-for-bit
+        equal to ``"f32"`` on the grid.
+      sample_input / verify_feeds: golden input(s) for per-pass IO
+        verification, executed on ``device``.
+      device: where the artifact runs; ``"cpu"`` takes the plain versions.
+    """
+    if datapath not in ("f32", "int"):
+        raise ValueError(f"datapath must be 'f32' or 'int', got {datapath!r}")
+    dev = resolve_device(device)
+    rec = R.recipe(recipe) if isinstance(recipe, str) else recipe
+    if isinstance(graph_or_model, Graph):
+        graph = graph_or_model
+    elif rec.exporter is not None:
+        graph = rec.exporter(graph_or_model, qcfg)
+    else:
+        raise TypeError(
+            f"recipe '{rec.name}' has no exporter; pass a Graph (got "
+            f"{type(graph_or_model).__name__})")
+    if sample_input is not None and verify_feeds is None:
+        if len(graph.inputs) != 1:
+            raise ValueError("sample_input needs a single-input graph; use "
+                             "verify_feeds for multi-input graphs")
+        verify_feeds = {graph.inputs[0]: sample_input}
+
+    passes = list(rec.passes)
+    if datapath == "int":
+        passes += ["infer_datatypes", "lower_to_integer_datapath"]
+        if fuse:
+            passes.append("fuse_integer_datapath")
+    result = PassManager(rtol=rtol, atol=atol, device=dev).run(
+        graph, passes, verify_feeds=verify_feeds)
+    hw = result.graph
+    from repro_torch.core.passes import resolve_pass
+
+    return DeployedModel(
+        graph=hw, recipe_name=rec.name, trace=result.trace,
+        apply=lower_graph(hw, dev),
+        input_names=tuple(hw.inputs), output_names=tuple(hw.outputs),
+        device=dev, datapath=datapath,
+        pass_names=tuple(resolve_pass(p).name for p in passes))

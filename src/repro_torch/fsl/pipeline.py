@@ -1,0 +1,160 @@
+"""End-to-end few-shot pipeline (paper Fig. 1): frozen-backbone feature
+extraction over support sets, then NCM inference over queries.
+
+Counterpart of the JAX package's ``fsl/pipeline.py`` (its serving half:
+``FSLPipeline`` with ``for_point``/``features``/``deploy`` and
+``evaluate_episodes``; backbone pretraining is a later slice of the port).
+The backbone runs at an arbitrary fixed-point bit-width (QuantConfig), and
+the SAME QuantConfig drives the QAT forward and the deployed graph, so the
+accuracy measured through ``deploy`` is the deployed accuracy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import as_tensor
+from repro_torch.core.quant import QuantConfig
+from repro_torch.core.recipes import recipe
+from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fsl import ncm
+
+
+def _flip_w(x: torch.Tensor) -> torch.Tensor:
+    """Mirror NHWC frames along W (the reference's ``x[:, :, ::-1]``;
+    PyTorch has no negative strides)."""
+    return torch.flip(x, dims=[2])
+
+
+@dataclasses.dataclass
+class FSLPipeline:
+    width: int = 16
+    qcfg: Optional[QuantConfig] = None
+    # Backbone architecture, resolved through the BuildRecipe registry.
+    arch: str = "resnet9"
+    n_way: int = 5
+    k_shot: int = 5
+    n_query: int = 15
+    easy_augment: bool = True   # EASY-style augmented shots (flip ensembling)
+    device: DeviceLike = None   # None: the card
+    # deploy() memo: (id(params), datapath) -> feats fn, LRU-bounded; the
+    # params ref is kept inside the value so the id can never be recycled
+    # while cached.
+    deploy_cache_size: int = 4
+    _deploy_cache: "OrderedDict" = dataclasses.field(
+        default_factory=lambda: OrderedDict(), repr=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    @classmethod
+    def for_point(cls, w_bits: int, a_bits: int, *, width: int = 8,
+                  **kwargs) -> "FSLPipeline":
+        """Pipeline at a DSE grid point (``QuantConfig.grid_point``)."""
+        return cls(width=width, qcfg=QuantConfig.grid_point(w_bits, a_bits),
+                   **kwargs)
+
+    def _hooks(self):
+        return recipe(self.arch).workload_hooks("fsl")
+
+    def features(self, params, x) -> torch.Tensor:
+        """QAT-forward features (with the flip ensemble when enabled)."""
+        fwd = self._hooks().forward
+        x = as_tensor(x, self.device)
+        with torch.no_grad():
+            f = fwd(params, x, self.qcfg, self.width)
+            if self.easy_augment:
+                f = f + fwd(params, _flip_w(x), self.qcfg, self.width)
+        return f
+
+    def deploy(self, params, datapath: str = "f32"):
+        """Compile the backbone into a :class:`DeployedModel` on the
+        pipeline's device and return a feature function numerically
+        identical to :meth:`features`.
+
+        ``datapath="int"`` deploys the integer datapath (integer weight
+        codes + ``mvau_int`` on the CUDA kernel).  The int graph opens with
+        its own ``quantize`` node and ``quantize(fake_quant(x)) ==
+        quantize(x)`` on any grid, so only the f32 emulation keeps the input
+        ``fake_quant``.  Repeated calls with the SAME params object and
+        datapath return the SAME function.
+
+        The returned function carries ``.deployed_model``, ``.params``,
+        ``.trace_count()`` (distinct input shapes run) and
+        ``.warmup(buckets, img=...)``.
+        """
+        from repro_torch.core.deploy import compile as compile_graph
+        from repro_torch.core.deploy import normalize_buckets
+        from repro_torch.core.quant import fake_quant
+
+        if self.qcfg is None:
+            raise ValueError("deploy() needs a QuantConfig: the compiled "
+                             "graph bakes thresholds for a specific grid")
+        key = (id(params), datapath)
+        cached = self._deploy_cache.get(key)
+        if cached is not None and cached.params is params:
+            self._deploy_cache.move_to_end(key)
+            return cached
+        dm = compile_graph(params, self.qcfg, recipe=self.arch,
+                           datapath=datapath, device=self.device)
+        act = self.qcfg.act
+        flip = self.easy_augment
+        quant_in = datapath != "int"
+        shapes = set()
+
+        def feats(x) -> torch.Tensor:
+            x = as_tensor(x, dm.device)
+            shapes.add((tuple(x.shape), x.dtype))
+            f = dm(fake_quant(x, act) if quant_in else x)
+            if flip:
+                xf = _flip_w(x)
+                f = f + dm(fake_quant(xf, act) if quant_in else xf)
+            return f
+
+        def warmup(buckets, img: int = 32) -> tuple:
+            """Run one zero batch per bucket of (b, img, img, 3) frames."""
+            bs = normalize_buckets(buckets)
+            for b in bs:
+                feats(torch.zeros((b, img, img, 3), dtype=torch.float32,
+                                  device=dm.device))
+            return bs
+
+        feats.deployed_model = dm
+        feats.params = params
+        feats.trace_count = lambda: len(shapes)
+        feats.warmup = warmup
+        self._deploy_cache[key] = feats
+        while len(self._deploy_cache) > max(self.deploy_cache_size, 1):
+            self._deploy_cache.popitem(last=False)
+        return feats
+
+
+def evaluate_episodes(backbone_params, data: SyntheticImages,
+                      pipe: FSLPipeline, n_episodes: int = 20,
+                      seed: int = 100, feats_fn=None) -> Tuple[float, float]:
+    """Mean ± 95% CI accuracy over novel-class episodes (paper Table II).
+
+    ``feats_fn`` overrides the feature extractor — pass
+    ``pipe.deploy(params)`` to score episodes through the compiled
+    DeployedModel instead of the QAT forward.  The NCM head runs on the
+    device of the features, as the store's does.
+    """
+    feats = feats_fn or (lambda x: pipe.features(backbone_params, x))
+    rng = np.random.default_rng(seed)
+    accs = []
+    for _ in range(n_episodes):
+        ep = data.episode(rng, pipe.n_way, pipe.k_shot, pipe.n_query)
+        sf = feats(ep["support_x"])
+        qf = feats(ep["query_x"])
+        acc = ncm.ncm_accuracy(qf, torch.as_tensor(ep["query_y"]), sf,
+                               torch.as_tensor(ep["support_y"]), pipe.n_way)
+        accs.append(float(acc))
+    accs = np.asarray(accs)
+    ci = 1.96 * accs.std() / np.sqrt(len(accs))
+    return float(accs.mean()), float(ci)

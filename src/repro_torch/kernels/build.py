@@ -1,0 +1,156 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` by hand, ``ctypes`` to bind.
+
+The sources under ``repro_torch/csrc/`` have a plain C interface and include
+no PyTorch header, so each compiles in seconds.  At first use every source
+compiles to an object file in parallel (one ``nvcc`` each, all started
+together), the objects link into one shared library for ``sm_90a``, and
+``ctypes`` loads it.  The library's name carries a digest of the sources and
+flags, so an edited source builds anew and an unchanged one is reused.
+
+The build directory is ``repro_torch/_build/`` inside the checkout (listed in
+``.gitignore``).  Nothing here runs at import time: the CPU tests import
+every module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("mvau.cu", "gap.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launches of each kernel in this process: every wrapper adds one where it
+# launches its kernel and nowhere else (chip_smoke.py reads these to show
+# the main path went through the kernels).
+launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau": 0, "gap": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    path: Path
+    seconds: float          # 0.0 when an up-to-date library was reused
+    built: bool
+    ptxas: str              # -Xptxas -v report: registers, shared memory, spills
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.encode())
+        h.update((CSRC_DIR / src).read_bytes())
+    h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(force: bool = False) -> BuildInfo:
+    """Compile (or reuse) the kernel library; returns where it is and what
+    the build cost."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = _digest()
+    lib = BUILD_DIR / f"librepro_kernels-{digest}.so"
+    log = BUILD_DIR / f"ptxas-{digest}.log"
+    if lib.exists() and not force:
+        return BuildInfo(lib, 0.0, False,
+                         log.read_text() if log.exists() else "")
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs: List[subprocess.Popen] = []
+    objs: List[Path] = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{Path(src).stem}-{digest}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(CSRC_DIR / src),
+             "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = []
+    failed = []
+    for src, p in zip(SOURCES, procs):
+        out, _ = p.communicate()
+        reports.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(reports))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    ptxas = "\n".join(reports)
+    log.write_text(ptxas)
+    return BuildInfo(lib, time.perf_counter() - t0, True, ptxas)
+
+
+class KernelLibrary:
+    """The loaded shared library with typed entry points."""
+
+    def __init__(self, info: BuildInfo):
+        self.info = info
+        lib = ctypes.CDLL(str(info.path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.mvau_int = lib.repro_mvau_int
+        self.mvau_int.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p]
+        self.mvau_f32 = lib.repro_mvau_f32
+        self.mvau_f32.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
+        self.mvau_i8 = lib.repro_mvau_i8
+        self.mvau_i8.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
+        self.gap = lib.repro_gap
+        self.gap.argtypes = [p, i, p, i, i, i, p]
+        for fn in (self.mvau_int, self.mvau_f32, self.mvau_i8, self.gap):
+            fn.restype = ctypes.c_int
+        self._lib = lib
+
+
+_LOCK = threading.Lock()
+_LIBRARY: Optional[KernelLibrary] = None
+
+
+def library() -> KernelLibrary:
+    """Build on first use, then return the loaded library."""
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            _LIBRARY = KernelLibrary(build())
+        return _LIBRARY
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error (cudaGetLastError != 0)."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: "
+                           f"cudaError {rc}")

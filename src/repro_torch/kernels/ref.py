@@ -1,0 +1,140 @@
+"""Plain PyTorch versions of every kernel on the port's path.
+
+These are the semantic ground truth, op for op the JAX package's
+``kernels/ref.py``: the CPU execution path of the port, and the bar each
+hand-written CUDA kernel is held to on the card (``chip_smoke.py``).
+
+Integer matmuls: PyTorch multiplies int32 matrices on the CPU (with the
+same wrapping int32 arithmetic as the reference) but not on CUDA.  On a
+CUDA tensor the plain integer product runs in float64, which is exact for
+every graph the integer lowering admits: it refuses any layer whose
+partial sums leave int32, far inside float64's 53-bit mantissa.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.device import ieee_f32
+
+
+def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        ieee_f32()
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
+         out_base: int = 0, out_scale: float = 1.0,
+         out_bias: float = 0.0) -> torch.Tensor:
+    """Matrix-Vector-Activation Unit: ``threshold_count(x @ w)``.
+
+    x: (..., K) float (values on a fixed-point grid), w: (K, N),
+    thresholds: (L,) or (N, L).  Output: float32
+    ``out_scale * (out_base + Σᵢ 1[y ≥ Tᵢ]) + out_bias``.
+    """
+    y = _f32_matmul(x, w)
+    return quant.multithreshold(y, thresholds, out_base, out_scale, out_bias)
+
+
+def matmul_int(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
+    """Bare integer-code matmul: int32 accumulate, int32 out."""
+    if x_codes.is_cuda:
+        acc = torch.matmul(x_codes.to(torch.float64), w_codes.to(torch.float64))
+        return acc.to(torch.int32)
+    return torch.matmul(x_codes.to(torch.int32), w_codes.to(torch.int32))
+
+
+def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
+             thresholds_int: torch.Tensor, out_base: int = 0) -> torch.Tensor:
+    """Integer-domain MVAU: integer codes, int32 accumulate, int thresholds."""
+    acc = matmul_int(x_codes, w_codes)
+    counts = quant.threshold_counts(acc, thresholds_int)
+    return (out_base + counts).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Fast integer paths — bit-identical to the versions above, chosen by the
+# deploy-time dispatch (kernels/ops.py) from static node attrs.
+# --------------------------------------------------------------------------
+def matmul_int_fast(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                    acc_f32_exact: bool = False) -> torch.Tensor:
+    """Integer-code matmul through the f32 GEMM when the lowering proved
+    every partial sum fits ±2**24 (``acc_f32_exact``): every intermediate is
+    then an integer exactly representable in float32, so the truncating
+    cast back to int32 is the identity on the true sum."""
+    if acc_f32_exact:
+        return _f32_matmul(x_codes, w_codes).to(torch.int32)
+    return matmul_int(x_codes, w_codes)
+
+
+def _counts_unrolled(acc: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """Per-level unrolled compare-count: L adds of a (..., N) compare."""
+    counts = torch.zeros(acc.shape, dtype=torch.int32, device=acc.device)
+    for level in range(thresholds.shape[-1]):
+        counts += (acc >= thresholds[..., level]).to(torch.int32)
+    return counts
+
+
+_UNROLL_MAX_LEVELS = 64   # above this, sorted tables binary-search instead
+
+
+def threshold_counts_fast(acc: torch.Tensor,
+                          thresholds_int: torch.Tensor) -> torch.Tensor:
+    """``Σᵢ 1[acc ≥ Tᵢ]``: unrolled below 64 levels, else
+    :func:`quant.threshold_counts` (binary search on sorted tables)."""
+    if thresholds_int.shape[-1] < _UNROLL_MAX_LEVELS:
+        return _counts_unrolled(acc, thresholds_int.to(acc.device))
+    return quant.threshold_counts(acc, thresholds_int)
+
+
+def mvau_int_fast(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                  thresholds_int: torch.Tensor, out_base: int = 0,
+                  acc_f32_exact: bool = False) -> torch.Tensor:
+    """Fused integer MVAU via the fast GEMM + fast threshold count;
+    bit-for-bit equal to :func:`mvau_int`."""
+    acc = matmul_int_fast(x_codes, w_codes, acc_f32_exact)
+    counts = threshold_counts_fast(acc, thresholds_int)
+    return (out_base + counts).to(torch.int32)
+
+
+def multithreshold_int(x_codes: torch.Tensor, thresholds_int: torch.Tensor,
+                       out_base: int = 0) -> torch.Tensor:
+    """Integer-domain MultiThreshold: ``base + Σᵢ 1[x ≥ Tᵢ]`` over int32
+    codes with an int32 threshold table (scales already folded in)."""
+    counts = quant.threshold_counts(x_codes.to(torch.int32), thresholds_int)
+    return (out_base + counts).to(torch.int32)
+
+
+def requantize(q: torch.Tensor, shift: int, bits: int, frac_bits: int,
+               signed: bool = True) -> torch.Tensor:
+    """Exact integer regrid: codes at scale ``2**-f1`` → codes at
+    ``2**-(f1+shift)``, round-half-even, saturating.
+
+    Downshifts split ``q = (q >> k) * 2**k + r`` and round the remainder to
+    even; upshifts pre-clip so the left shift can never overflow int32.
+    """
+    spec = quant.FixedPointSpec(bits, frac_bits, signed)
+    q = q.to(torch.int32)
+    if shift >= 0:
+        hi_pre = spec.qmax >> shift
+        lo_pre = -((-spec.qmin) >> shift)
+        q = torch.clamp(q, lo_pre - 1, hi_pre + 1) << shift
+        return torch.clamp(q, spec.qmin, spec.qmax)
+    k = -shift
+    q2 = q >> k                          # arithmetic shift: floor(q / 2**k)
+    r = q - (q2 << k)                    # remainder in [0, 2**k)
+    half = 1 << (k - 1)
+    up = (r > half) | ((r == half) & ((q2 & 1) == 1))
+    q2 = q2 + up.to(torch.int32)
+    return torch.clamp(q2, spec.qmin, spec.qmax)
+
+
+def gap(x: torch.Tensor) -> torch.Tensor:
+    """GlobalAccPool: spatial **sum** (N,H,W,C) -> (N,C); no division
+    (paper Sec. III-D).  Integer inputs accumulate in int32 and come back
+    as int32 (``torch.sum`` of int32 alone would return int64)."""
+    if not x.dtype.is_floating_point:
+        return torch.sum(x.to(torch.int32), dim=(1, 2)).to(torch.int32)
+    return torch.sum(x.to(torch.float32), dim=(1, 2))

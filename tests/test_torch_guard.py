@@ -1,0 +1,66 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the JAX package ``repro``, and importing
+the port builds nothing."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+assert not [m for m in sys.modules if m.startswith("repro_torch.")], \
+    "import repro_torch must be lazy"
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+repro_torch.compile, repro_torch.QuantConfig, repro_torch.FixedPointSpec
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(mods), bad)
+"""
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15 and bad == "[]", out.stdout
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
+                        r"|import\s+repro\.|from\s+repro\.|from\s+repro\s)",
+                        re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_repro_import_in_source(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), f"{path} imports jax or repro"
+
+
+def test_kernel_build_is_lazy():
+    """Importing the kernel modules neither calls nvcc nor loads a library
+    (the CPU tests import every module on machines without CUDA)."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import repro_torch.kernels.ops, repro_torch.kernels.build as B; "
+         "print(B._LIBRARY is None)"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "True", out.stderr
