@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA H100 and check them.
 
 Run from the repository root with no arguments::
 
@@ -10,13 +10,14 @@ device it exits non-zero before printing any result.  Phases, each of which
 ends the run with a non-zero exit if it fails:
 
 1. card name and power limit, torch/CUDA versions; build every CUDA kernel
-   of the path from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``.
-2. kernels: each kernel held against its plain PyTorch version on the card
+   of the port from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``
+   (one ``nvcc`` per source, all started together).
+2. FSL kernels: each held against its plain PyTorch version on the card
    (odd shapes, int8/int32 codes, packed int4, L from 15 to 65535, grid
    and off-grid floats); then each held against it again and timed at the
-   main path's shapes at batch 64, beside one PyTorch library call
+   FSL path's shapes at batch 64, beside one PyTorch library call
    computing the same function, and its bound.
-3. main path at the paper's width 64 on 32x32 frames: ``compile(...,
+3. FSL path at the paper's width 64 on 32x32 frames: ``compile(...,
    datapath="int")`` and ``"f32"`` on the card; int == f32 == interpreter
    and card == CPU, bit for bit; weight bytes; launches per forward;
    compile time, latency and throughput.
@@ -26,18 +27,29 @@ ends the run with a non-zero exit if it fails:
    tolerance, predictions are equal.  Then, after every latency has been
    taken, ``torch.profiler`` traces the int forwards: device time by
    kernel and an estimate of the device's busy share.
-5. a JSON line of every kernel with its launches on the main path and its
+5. LM decode path, Qwen2.5-3B at full width and depth with random weights
+   drawn on the card: ``qmatmul`` held against its plain version (ragged
+   shapes, the 7 decode projections at batch 4, a prefill shape; w8 and
+   w4; bit for bit on integer inputs), then timed over one decode step's
+   252 launches beside its bound and cuBLAS on pre-cast codes;
+   ``generate`` at w8 and w4 (batch 4, prompt 8, 16 new tokens, twice
+   each: identical tokens), launches per step, per-step latency, w8
+   against bf16 top-1 agreement, a traced step's device time by kernel
+   and busy share; then a 2-layer full-width copy decodes on the card and
+   on the CPU, and their logits and greedy tokens are compared.
+6. a JSON line of every kernel with its launches on its path and its
    numbers, the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are set to 0 just before phases 3-4 (the main path) and
-read just after; launches made while comparing or timing kernels in phase
-2 do not count.
+Launch counters are set to 0 just before each path (phases 3-4, and the
+``generate`` runs of phase 5) and read just after; launches made while
+comparing or timing kernels do not count.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -76,7 +88,8 @@ def log(msg: str) -> None:
 SLEEP_CYCLES = 20_000_000     # about 10 ms of device clock
 
 
-def cuda_ms(torch, fn, reps: int = 20) -> float:
+def cuda_ms(torch, fn, reps: int = 20,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
     after one warm-up call.  The launches queue behind a device-side sleep,
     so the host has enqueued them all before the first one starts and the
@@ -87,7 +100,7 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -430,9 +443,11 @@ def main_path(torch, np, B):
         return out, {k: B.launch_counts[k] - before[k] for k in before}
 
     f_int, d = delta(lambda: dm_int(x))
-    check(d == {"mvau_int": 8, "mvau": 0, "gap": 1}, f"int forward launches {d}")
+    check(d == {"mvau_int": 8, "mvau": 0, "gap": 1, "qmatmul": 0},
+          f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
-    check(d == {"mvau_int": 0, "mvau": 8, "gap": 1}, f"f32 forward launches {d}")
+    check(d == {"mvau_int": 0, "mvau": 8, "gap": 1, "qmatmul": 0},
+          f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
@@ -453,10 +468,12 @@ def main_path(torch, np, B):
     pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
-    check(d == {"mvau_int": 16, "mvau": 0, "gap": 2}, f"flip ensemble {d}")
+    check(d == {"mvau_int": 16, "mvau": 0, "gap": 2,
+              "qmatmul": 0}, f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
-    check(d == {"mvau_int": 0, "mvau": 16, "gap": 2}, f"f32 flip ensemble {d}")
+    check(d == {"mvau_int": 0, "mvau": 16, "gap": 2,
+              "qmatmul": 0}, f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
           "deployed flip features != QAT forward")
@@ -546,6 +563,434 @@ def main_path(torch, np, B):
                 "run above)")
 
 
+
+# ---------------------------------------------------------------------------
+# LM decode path: w8/w4 weight-only Qwen2.5-3B serving, the qmatmul kernel
+# ---------------------------------------------------------------------------
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 8, 16
+PEAK_BF16_OPS = 989e12
+QMM_LAUNCHES_PER_STEP = 252        # 7 projections x 36 layers
+QMM_SLEEP_CYCLES = 10 * SLEEP_CYCLES
+CPU_CHECK_LAYERS, CPU_CHECK_STEPS = 2, 16
+# card vs CPU on bf16 logits up to about 4.5 in size, where one ulp is
+# 0.03125: the CPU port and the JAX reference differ by one ulp at this
+# width and depth, so two ulps
+CPU_CHECK_TOL = 0.0625
+
+
+def _projections(cfg):
+    """(name, K, N) of the 7 quantized projections of one layer."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    return [("wq", d, cfg.n_heads * cfg.hd), ("wk", d, kv), ("wv", d, kv),
+            ("wo", cfg.n_heads * cfg.hd, d), ("w_gate", d, f),
+            ("w_up", d, f), ("w_down", f, d)]
+
+
+def _leaf(blocks, name):
+    return blocks["mlp" if name.startswith("w_") else "attn"][name]
+
+
+def check_qmatmul(torch, Q, KQ, cfg):
+    """qmatmul against its plain version on the card: ragged M, N, K (the
+    scalar and the vector weight loads), the decode shapes at batch 4 and
+    one prefill shape (batch 4 x prompt 8), f32 and bf16 x, w8 and w4.
+    Tolerance: only the order of the float32 sum differs, so the error is
+    held within 2e-5 of S = sum_k |bf16(x)| |code| scale (plus one bf16
+    rounding of the output for bf16 x).  On integer-valued x with small
+    codes every partial sum is an integer below 2^24: bit for bit."""
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(4321)
+    shapes = [(1, 32, 16), (5, 130, 66), (3, 37, 12), (9, 515, 264),
+              (70, 300, 130)]
+    shapes += [(LM_BATCH, k, n) for _, k, n in _projections(cfg)]
+    shapes.append((LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff))
+    worst = {"abs": 0.0, "rel": 0.0, "abs_decode": 0.0}
+    n_checked = 0
+    for bits in (8, 4):
+        lim = 8 if bits == 4 else 128
+        for m, k, n in shapes:
+            codes = torch.randint(-lim, lim, (k, n), generator=gen)
+            w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
+                 else codes.to(torch.int8)).to(dev)
+            s = (torch.rand((n,), generator=gen) * 0.02 + 0.001).to(dev)
+            for xdt in (torch.float32, torch.bfloat16):
+                x = (torch.rand((m, k), generator=gen) * 2 - 1).to(xdt).to(dev)
+                got = KQ.qmatmul(x, w, s, bits)
+                want = KQ.qmatmul_plain(x, w, s, bits)
+                torch.cuda.synchronize()
+                check(got.dtype == xdt and got.shape == want.shape,
+                      f"qmatmul {m}x{k}x{n} w{bits} {xdt}: {got.dtype} "
+                      f"{tuple(got.shape)}")
+                S = (x.to(torch.bfloat16).float().abs()
+                     @ codes.to(dev).float().abs()) * s
+                d = (got.float() - want.float()).abs()
+                tol = 2e-5 * S
+                if xdt == torch.bfloat16:
+                    tol = tol + want.float().abs() * 2.0 ** -7
+                check(bool((d <= tol).all()),
+                      f"qmatmul {m}x{k}x{n} w{bits} {xdt} differs by "
+                      f"{d.max().item():.3g} beyond the tolerance")
+                worst["abs"] = max(worst["abs"], d.max().item())
+                worst["rel"] = max(worst["rel"],
+                                   (d / S.clamp_min(1e-30)).max().item())
+                if m == LM_BATCH and k >= cfg.d_model:
+                    worst["abs_decode"] = max(worst["abs_decode"],
+                                              d.max().item())
+                n_checked += 1
+        lim = 8 if bits == 4 else 32
+        for m, k, n in ((LM_BATCH, cfg.d_model, 256), (LM_BATCH, cfg.d_ff,
+                                                       cfg.d_model), (7, 100, 18)):
+            codes = torch.randint(-lim, lim, (k, n), generator=gen)
+            w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
+                 else codes.to(torch.int8)).to(dev)
+            x = torch.randint(-16, 17, (m, k), generator=gen).float().to(dev)
+            s = torch.full((n,), 0.5, device=dev)
+            check(torch.equal(KQ.qmatmul(x, w, s, bits),
+                              KQ.qmatmul_plain(x, w, s, bits)),
+                  f"qmatmul {m}x{k}x{n} w{bits} on integers is not bit "
+                  "for bit")
+            n_checked += 1
+    log(f"kernel check qmatmul: {n_checked} cases, w8 and w4, f32 and bf16 "
+        f"x; max abs err {worst['abs']:.3g} (decode shapes "
+        f"{worst['abs_decode']:.3g}), max err / sum|x||w|scale "
+        f"{worst['rel']:.3g} (tolerance 2e-5); integer inputs bit for bit")
+    return worst["abs_decode"]
+
+
+def _dense_bytes(tree):
+    """(code bytes, scale bytes, fp weight count) of the dense leaves."""
+    codes = scales = fp = 0
+    if isinstance(tree, dict):
+        if "w_codes" in tree:
+            return (tree["w_codes"].numel(), 4 * tree["w_scale"].numel(), 0)
+        if "w" in tree and getattr(tree["w"], "ndim", 0) >= 2:
+            return (0, 0, tree["w"].numel())
+        for v in tree.values():
+            c, s, f = _dense_bytes(v)
+            codes, scales, fp = codes + c, scales + s, fp + f
+    return codes, scales, fp
+
+
+def time_qmatmul(torch, Q, KQ, cfg, trees):
+    """qmatmul over one decode step: for each projection, the 36 layers'
+    weights in turn (as decode streams them, so nothing sits in the 50 MB
+    L2), at batch 4 in bf16 — the kernel, its plain version, and the
+    library yardstick: cuBLAS bf16 GEMM on codes cast to bf16 before the
+    timing (twice w8's bytes, four times w4's), then x scale."""
+    dev = "cuda"
+    n = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for bits, tree in trees.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+               "ops": 0}
+        rows = []
+        for name, k, nn in _projections(cfg):
+            leaf = _leaf(tree["blocks"], name)
+            codes, scale = leaf["w_codes"], leaf["w_scale"]
+            x = torch.rand((LM_BATCH, k), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+            got = KQ.qmatmul(x, codes[0], scale[0], bits)
+            want = KQ.qmatmul_plain(x, codes[0], scale[0], bits)
+            wint = Q.unpack_int4(codes[0]) if bits == 4 else codes[0]
+            S = (x.float().abs() @ wint.float().abs()) * scale[0]
+            check(bool(((got.float() - want.float()).abs()
+                        <= 2e-5 * S + want.float().abs() * 2.0 ** -7).all()),
+                  f"qmatmul {name} w{bits} on the model's weights differs")
+            # 5 x 36 launches queue behind a ~100 ms device-side sleep, so
+            # the host's per-call cost does not pace the card
+            ms = cuda_ms(torch, lambda: [KQ.qmatmul(x, codes[i], scale[i],
+                                                    bits) for i in range(n)],
+                         reps=5, sleep_cycles=QMM_SLEEP_CYCLES) / n
+            plain = cuda_ms(torch, lambda: [KQ.qmatmul_plain(
+                x, codes[i], scale[i], bits) for i in range(n)], reps=1,
+                sleep_cycles=QMM_SLEEP_CYCLES) / n
+            w16 = [(Q.unpack_int4(codes[i]) if bits == 4
+                    else codes[i]).to(torch.bfloat16) for i in range(n)]
+            lib = cuda_ms(torch, lambda: [
+                (torch.matmul(x, w16[i]) * scale[i]).to(torch.bfloat16)
+                for i in range(n)], reps=5,
+                sleep_cycles=QMM_SLEEP_CYCLES) / n
+            del w16
+            nbytes = (codes[0].numel() + 4 * nn + 2 * LM_BATCH * (k + nn))
+            rows.append((name, k, nn, ms, plain, lib,
+                         nbytes / PEAK_BYTES_PER_S * 1e3))
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bytes", nbytes),
+                           ("ops", 2 * LM_BATCH * k * nn)):
+                tot[key] += v * n
+        for name, k, nn, ms, plain, lib, bound in rows:
+            log(f"kernel qmatmul w{bits} {name:6s} M={LM_BATCH} K={k:5d} "
+                f"N={nn:5d}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms={lib:.4f} bound_ms={bound:.4f} "
+                f"({(k * nn // (2 if bits == 4 else 1)) / ms / 1e6:.0f} "
+                "GB/s of codes)")
+        b_ms = tot["bytes"] / PEAK_BYTES_PER_S * 1e3
+        o_ms = tot["ops"] / PEAK_BF16_OPS * 1e3
+        tot["bound_ms"] = max(b_ms, o_ms)
+        tot["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        log(f"kernel qmatmul w{bits}, one decode step ({n} layers x 7 = "
+            f"{7 * n} launches, batch {LM_BATCH}): kernel_ms={tot['ms']:.4f} "
+            f"plain_ms={tot['plain_ms']:.4f} library_ms="
+            f"{tot['library_ms']:.4f} bound_ms={tot['bound_ms']:.4f} "
+            f"({tot['bytes']} bytes)")
+        out[bits] = tot
+    return out
+
+
+def profile_decode(torch, label, step_fn, reps):
+    """Device time by kernel over ``reps`` decode steps (torch.profiler,
+    CUDA activity) and, in the same traced run, the CUDA-event time from
+    the first step's start to the last one's end: the busy share of that
+    one run.  The profiler's host cost stretches the traced run, so the
+    share is a floor for the untraced loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            step_fn()
+        end.record()
+        end.synchronize()
+    elapsed = start.elapsed_time(end) / reps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kern)
+    if busy_us <= 0:
+        log(f"profile {label}: device time not measured (no CUDA events)")
+        return None, elapsed
+    busy = busy_us / reps / 1e3
+    log(f"profile {label} ({reps} decode steps, traced): {elapsed:.3f} "
+        f"ms/step between CUDA events, device busy {busy:.3f} ms/step "
+        f"({busy / elapsed:.1%} of that same run), "
+        f"{sum(e.count for e in kern) / reps:.0f} kernels/step")
+    for e in sorted(kern, key=lambda e: -e.device_time_total)[:10]:
+        log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/step "
+            f"{e.count / reps:6.1f}x  {e.key[:90]}")
+    return busy, elapsed
+
+
+def lm_path(torch, np, B, Q, KQ):
+    """The port's LM decode-serving path at Qwen2.5-3B's full width and
+    depth on the card, at w8 and w4; returns the qmatmul kernel's numbers
+    and the path's launch counts."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import (make_decode_step,
+                                          quantize_tree_for_serving)
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+
+    cfg = get_config(LM_ARCH)
+    err = check_qmatmul(torch, Q, KQ, cfg)
+
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    q = {bits: lm.with_head_copy(quantize_tree_for_serving(params, bits), cfg)
+         for bits in (8, 4)}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    p0 = lm.with_head_copy(params, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"lm: {LM_ARCH} full size ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} padded {cfg.vocab_padded}), {n_params} float32 "
+        f"parameters drawn on the card in {t1 - t0:.2f} s; w8 and w4 "
+        f"serving quantization {t2 - t1:.2f} s")
+    _, _, fp = _dense_bytes(params)
+    for bits in (8, 4):
+        c, s, _ = _dense_bytes(q[bits])
+        log(f"lm weight bytes w{bits}: codes {c} + scales {s} = {c + s}")
+    log(f"lm weight bytes bf16: {2 * fp} (the same {fp} dense weights)")
+    check(_dense_bytes(q[8])[0] == fp and 2 * _dense_bytes(q[4])[0] == fp,
+          "code bytes are not 1 (w8) and 1/2 (w4) per weight")
+
+    timing = time_qmatmul(torch, Q, KQ, cfg, q)
+
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    steps = LM_PROMPT + LM_TOKENS
+
+    # -- the path: counted ---------------------------------------------------
+    B.reset_launch_counts()
+    gens, walls = {}, {}
+    for bits in (8, 4):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(generate(q[bits], cfg, prompt, LM_TOKENS))
+            torch.cuda.synchronize()
+            walls.setdefault(bits, []).append(time.perf_counter() - t0)
+        check(tuple(runs[0].shape) == (LM_BATCH, LM_TOKENS),
+              f"w{bits} generated {tuple(runs[0].shape)}")
+        check(torch.equal(runs[0], runs[1]),
+              f"w{bits}: two runs gave different tokens")
+        check(bool(((runs[0] >= 0) & (runs[0] < cfg.vocab)).all()),
+              f"w{bits} token outside the vocabulary")
+        gens[bits] = runs[0]
+    counts = dict(B.launch_counts)
+    per_step = counts["qmatmul"] / (4 * steps)
+    check(per_step == QMM_LAUNCHES_PER_STEP,
+          f"qmatmul launches per decode step {per_step}, expected "
+          f"{QMM_LAUNCHES_PER_STEP}")
+    check(counts["mvau_int"] == counts["mvau"] == counts["gap"] == 0,
+          f"LM path launched FSL kernels: {counts}")
+    for bits in (8, 4):
+        w = min(walls[bits])
+        log(f"lm generate w{bits}: batch {LM_BATCH}, prompt {LM_PROMPT}, "
+            f"{LM_TOKENS} new tokens, {steps} decode steps in {w * 1e3:.1f} "
+            f"ms ({LM_BATCH * LM_TOKENS / w:.1f} tok/s, best of 2); two runs "
+            f"gave identical tokens; sample {gens[bits][0][:8].tolist()}")
+    log(f"lm launches: qmatmul {counts['qmatmul']} over 4 generate runs of "
+        f"{steps} steps = {per_step:.0f} per decode step")
+
+    # -- per-step decode latency, untraced ----------------------------------
+    decode = make_decode_step(cfg)
+    step_ms = {}
+    for bits, tree in ((8, q[8]), (4, q[4]), (0, p0)):
+        cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
+        tok = torch.as_tensor(prompt[:, :1], dtype=torch.int32, device="cuda")
+        for t in range(LM_PROMPT):
+            tok, cache = decode(tree, {"tokens": torch.as_tensor(
+                prompt[:, t:t + 1], dtype=torch.int32, device="cuda")}, cache)
+        state = {"tok": tok[:, None], "cache": cache}
+
+        def one():
+            nxt, state["cache"] = decode(tree, {"tokens": state["tok"]},
+                                         state["cache"])
+            state["tok"] = nxt[:, None]
+
+        torch.cuda.synchronize()
+        n_timed = LM_TOKENS // 2
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        for _ in range(n_timed):
+            one()
+        end.record()
+        end.synchronize()
+        host = (time.perf_counter() - h0) * 1e3 / n_timed
+        step_ms[bits] = start.elapsed_time(end) / n_timed
+        logits, _ = lm.decode_step(tree, state["tok"], state["cache"], cfg)
+        check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
+              f"w{bits} logits not finite")
+        log(f"lm decode step {'bf16' if bits == 0 else f'w{bits}'} "
+            f"(untraced, {n_timed} steps): {step_ms[bits]:.3f} ms/step "
+            f"between CUDA events, host {host:.3f} ms/step, "
+            f"{LM_BATCH / step_ms[bits] * 1e3:.1f} tok/s; logits finite")
+
+    # -- w8 against bf16: top-1 agreement (printed, not asserted) ------------
+    seq = torch.cat([torch.as_tensor(prompt, dtype=torch.int32,
+                                     device="cuda"), gens[8]], dim=1)
+    top = {}
+    for bits, tree in ((0, p0), (8, q[8])):
+        logits, _ = lm.forward(tree, {"tokens": seq}, cfg)
+        check(bool(torch.isfinite(logits[..., :cfg.vocab].float()).all()),
+              f"forward w{bits} logits not finite")
+        top[bits] = logits[..., :cfg.vocab].argmax(-1)
+    agree = (top[0] == top[8]).float().mean().item()
+    log(f"lm top-1 agreement w8 vs bf16 (forward over prompt + w8 tokens, "
+        f"{seq.numel()} positions): {agree:.4f}")
+
+    # -- where the time goes: traced last ------------------------------------
+    cache = lm.init_cache(cfg, LM_BATCH, 64)
+    state = {"tok": torch.as_tensor(prompt[:, :1], dtype=torch.int32,
+                                    device="cuda"), "cache": cache}
+
+    def traced_step():
+        nxt, state["cache"] = decode(q[8], {"tokens": state["tok"]},
+                                     state["cache"])
+        state["tok"] = nxt[:, None]
+
+    busy, traced = profile_decode(torch, "w8 decode", traced_step, 8)
+    if busy is not None:
+        log(f"device busy share w8 decode step: {busy / traced:.1%} in the "
+            f"traced run; busy {busy:.3f} ms over the untraced step's "
+            f"{step_ms[8]:.3f} ms estimates {busy / step_ms[8]:.1%}")
+
+    # -- card against CPU: 2 layers at full width, w8 ------------------------
+    small = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
+    two = dict(params, blocks=tree_map(
+        lambda t: t[:CPU_CHECK_LAYERS].contiguous(), params["blocks"]))
+    del p0
+    q_dev = lm.with_head_copy(quantize_tree_for_serving(two, 8), small)
+    q_cpu = lm.with_head_copy(quantize_tree_for_serving(
+        tree_map(lambda t: t.cpu(), two), 8), small)
+    for (a, b) in zip(tree_leaves(q_dev), tree_leaves(q_cpu)):
+        check(torch.equal(a.cpu(), b), "w8 codes or scales differ between "
+              "card and CPU")
+    caches = {"cuda": lm.init_cache(small, LM_BATCH, CPU_CHECK_STEPS + 1),
+              "cpu": lm.init_cache(small, LM_BATCH, CPU_CHECK_STEPS + 1,
+                                   device="cpu")}
+    tok = torch.as_tensor(prompt[:, :1], dtype=torch.int32)
+    worst, compared, skipped = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for t in range(CPU_CHECK_STEPS):
+        feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32)
+                if t < LM_PROMPT else tok)
+        lc, caches["cpu"] = lm.decode_step(q_cpu, feed, caches["cpu"], small)
+        lg, caches["cuda"] = lm.decode_step(q_dev, feed.cuda(),
+                                            caches["cuda"], small)
+        lc = lc[:, :small.vocab].float()
+        lg = lg[:, :small.vocab].float().cpu()
+        check(bool(torch.isfinite(lg).all()), "card logits not finite")
+        worst = max(worst, float((lg - lc).abs().max()))
+        top2 = torch.topk(lc, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * CPU_CHECK_TOL
+        check(torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure]),
+              f"step {t}: greedy tokens differ between card and CPU at a "
+              "top-2 margin above twice the tolerance")
+        compared += int(sure.sum())
+        skipped += int((~sure).sum())
+        tok = lc.argmax(-1, keepdim=True).to(torch.int32)
+    check(worst <= CPU_CHECK_TOL, f"card and CPU logits differ by {worst}")
+    log(f"lm card vs CPU ({CPU_CHECK_LAYERS} layers, full width, w8, "
+        f"{CPU_CHECK_STEPS} teacher-forced steps, {time.perf_counter() - t0:.1f}"
+        f" s): logits within {worst:.4g} (tolerance {CPU_CHECK_TOL}); greedy "
+        f"tokens equal at {compared} decisions, {skipped} skipped at a top-2 "
+        f"margin <= {2 * CPU_CHECK_TOL}")
+
+    w8, w4 = timing[8], timing[4]
+    entry = {"name": "qmatmul", "route": "cuda",
+             "source": "src/repro_torch/csrc/qmatmul.cu",
+             "replaces": "src/repro/kernels/qmatmul.py:64",
+             "launches": counts["qmatmul"], "max_abs_err": err,
+             "ms": w8["ms"], "plain_ms": w8["plain_ms"],
+             "bound_ms": w8["bound_ms"], "bound_by": w8["bound_by"],
+             "library_ms": w8["library_ms"],
+             "per": f"one {LM_ARCH} decode step at batch {LM_BATCH}, w8 "
+                    f"({QMM_LAUNCHES_PER_STEP} launches)",
+             "w4": {k: w4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+    return entry, counts
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
 
@@ -560,6 +1005,7 @@ def main() -> int:
     from repro_torch.kernels import build as B
     from repro_torch.kernels import gap as KG
     from repro_torch.kernels import mvau as KM
+    from repro_torch.kernels import qmatmul as KQ
     from repro_torch.kernels import ref
 
     resolve_device(None)               # TF32 off for every f32 product
@@ -573,9 +1019,13 @@ def main() -> int:
     info = B.build(force=True)
     log(f"build: {len(B.SOURCES)} sources with nvcc for sm_90a in "
         f"{info.seconds:.2f} s -> {info.path.name}")
-    for line in info.ptxas.splitlines():
-        if "registers" in line:
-            log(f"  ptxas: {line.strip()}")
+    for section in info.ptxas.split("== ")[1:]:
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
+                                                  section)})
+        spills = sorted({int(b) for b in re.findall(
+            r"(\d+) bytes spill stores", section)})
+        log(f"  ptxas {section.split()[0]}: registers per kernel {regs}, "
+            f"spill stores {spills} bytes")
     B.library()
 
     err = check_kernels(torch, Q, KM, KG)
@@ -583,11 +1033,18 @@ def main() -> int:
 
     B.reset_launch_counts()
     main_path(torch, np, B)
-    counts = dict(B.launch_counts)
+    fsl_counts = dict(B.launch_counts)
+    qmm, lm_counts = lm_path(torch, np, B, Q, KQ)
+    kernels.append(qmm)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        check(k["launches"] > 0, f"kernel {k['name']} never ran on the main path")
-    log("kernels " + " ".join(f"{k['name']}={k['launches']}" for k in kernels))
+        by_path = {"fsl": fsl_counts[k["name"]],
+                   "lm_decode": lm_counts[k["name"]]}
+        k["launches_by_path"] = by_path
+        k["launches"] = by_path["lm_decode" if k["name"] == "qmatmul"
+                                else "fsl"]
+        check(k["launches"] > 0, f"kernel {k['name']} never ran on its path")
+    log("kernels " + " ".join(f"{k['name']}={k['launches_by_path']}"
+                              for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

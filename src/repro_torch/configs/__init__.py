@@ -1,0 +1,11 @@
+"""Architecture configs of the port (public-literature dims; see each module).
+
+Importing this package registers every config; ``--arch <id>`` resolves via
+:func:`repro_torch.models.common.get_config`.  This slice of the port
+carries the dense ``qwen2.5-3b`` only; the JAX package's other configs wait
+for the slices that build their families.
+"""
+
+from repro_torch.configs import qwen2_5_3b  # noqa: F401
+
+ASSIGNED = ["qwen2.5-3b"]

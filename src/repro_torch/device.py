@@ -31,12 +31,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def ieee_f32() -> None:
-    """Keep every float32 product on the card in full IEEE float32.
+    """Keep every float32 product and every bf16 product's sum on the card
+    in full IEEE float32.
 
     TF32 keeps ten mantissa bits; the integer lowering's ``acc_f32_exact``
     proof and the f32 artifact's bit-exactness against the int artifact
     both assume 24.  PyTorch's matmul default is already off, cuDNN's is on:
-    both are set explicitly.
+    both are set explicitly.  cuBLAS may also reduce the split-K partial
+    sums of a bf16 product in bf16, which PyTorch allows by default; XLA
+    accumulates bf16 dots in float32, so that is turned off too.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -28,14 +28,15 @@ from typing import Dict, List, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mvau.cu", "gap.cu")
+SOURCES = ("mvau.cu", "gap.cu", "qmatmul.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each kernel in this process: every wrapper adds one where it
 # launches its kernel and nowhere else (chip_smoke.py reads these to show
 # the main path went through the kernels).
-launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau": 0, "gap": 0}
+launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau": 0, "gap": 0,
+                                  "qmatmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -131,7 +132,10 @@ class KernelLibrary:
         self.mvau_i8.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
         self.gap = lib.repro_gap
         self.gap.argtypes = [p, i, p, i, i, i, p]
-        for fn in (self.mvau_int, self.mvau_f32, self.mvau_i8, self.gap):
+        self.qmatmul = lib.repro_qmatmul
+        self.qmatmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, p]
+        for fn in (self.mvau_int, self.mvau_f32, self.mvau_i8, self.gap,
+                   self.qmatmul):
             fn.restype = ctypes.c_int
         self._lib = lib
 

@@ -15,9 +15,11 @@ import torch
 from repro_torch.core import quant as Q
 from repro_torch.kernels import gap as kgap
 from repro_torch.kernels import mvau as kmvau
+from repro_torch.kernels import qmatmul as kqmm
 from repro_torch.kernels import ref
 
-__all__ = ["mvau", "mvau_int", "gap", "graph_op_impls", "kernel_dispatch"]
+__all__ = ["mvau", "mvau_int", "qmatmul", "gap", "graph_op_impls",
+           "kernel_dispatch"]
 
 
 def _as_2d(x: torch.Tensor):
@@ -57,6 +59,16 @@ def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
                                         device=x_codes.device), n)
     y = kmvau.mvau_int(x2.contiguous(), w_codes.contiguous(), t2.contiguous(),
                        out_base=int(out_base), w_packed=w_packed)
+    return y.reshape(*lead, n)
+
+
+def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
+            bits: int = 8) -> torch.Tensor:
+    """Weight-only quantized matmul (w8a16 / w4a16 serving path)."""
+    x2, lead = _as_2d(x)
+    n = w_codes.shape[1] * (2 if bits == 4 else 1)
+    y = kqmm.qmatmul(x2.contiguous(), w_codes.contiguous(),
+                     scale.contiguous(), bits=bits)
     return y.reshape(*lead, n)
 
 

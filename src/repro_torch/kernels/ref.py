@@ -131,6 +131,27 @@ def requantize(q: torch.Tensor, shift: int, bits: int, frac_bits: int,
     return torch.clamp(q2, spec.qmin, spec.qmax)
 
 
+def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
+            bits: int = 8) -> torch.Tensor:
+    """Weight-only quantized matmul: ``x @ (codes * scale)``.
+
+    x: (..., K) bf16/f32; w_codes: int8 (K, N) for bits==8 or packed int4
+    (K, N//2) for bits==4; scale: per-output-channel (N,) or scalar.
+    Activations are consumed at bf16 (the tensor cores' input precision);
+    codes are exact in bf16 (|code| <= 128).  Accumulation is float32, the
+    scale multiplies the accumulator once, and the result has x's dtype.
+    """
+    if bits == 4:
+        w_int = quant.unpack_int4(w_codes)
+    elif bits == 8:
+        w_int = w_codes.to(torch.int32)
+    else:
+        raise ValueError(f"unsupported weight bits {bits}")
+    x16 = x.to(torch.bfloat16).to(torch.float32)
+    acc = _f32_matmul(x16, w_int.to(torch.float32))
+    return (acc * scale).to(x.dtype)
+
+
 def gap(x: torch.Tensor) -> torch.Tensor:
     """GlobalAccPool: spatial **sum** (N,H,W,C) -> (N,C); no division
     (paper Sec. III-D).  Integer inputs accumulate in int32 and come back

@@ -117,3 +117,123 @@ def test_store_head_on_the_card(card):
     (g_ids, g_sims), (c_ids, c_sims) = gpu.classify(_t(q, card)), cpu.classify(q)
     assert g_ids == c_ids
     np.testing.assert_allclose(g_sims, c_sims, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# qmatmul: the w8/w4 LM decode path's kernel
+# ---------------------------------------------------------------------------
+def _qmm_inputs(m, k, n, bits, xdt, dev, seed, exact=False):
+    rng = np.random.default_rng(seed)
+    lim = 8 if bits == 4 else (32 if exact else 128)
+    codes = rng.integers(-lim, lim, size=(k, n)).astype(np.int32)
+    if exact:
+        x = rng.integers(-16, 17, size=(m, k)).astype(np.float32)
+    else:
+        x = rng.uniform(-1, 1, size=(m, k)).astype(np.float32)
+    s = rng.uniform(0.001, 0.02, size=(n,)).astype(np.float32)
+    w = (Q.pack_int4(torch.from_numpy(codes)) if bits == 4
+         else torch.from_numpy(codes.astype(np.int8)))
+    return (_t(x, dev).to(xdt), w.to(dev), _t(s, dev),
+            torch.from_numpy(codes).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 32, 16), (5, 130, 66), (3, 37, 12),
+                                   (9, 515, 264), (4, 2048, 256),
+                                   (4, 2048, 11008), (4, 11008, 2048),
+                                   (32, 2048, 2048)])
+def test_qmatmul_kernel_equals_plain(card, m, k, n, bits, xdt):
+    """Ragged M, N, K (scalar and vector weight loads), the decode shapes
+    at batch 4 and a prefill shape.  Only the order of the float32 sum
+    differs: the error stays within 2e-5 of sum_k |bf16(x)| |code| scale,
+    plus one bf16 rounding of the output for bf16 x."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    dt = getattr(torch, xdt)
+    x, w, s, codes = _qmm_inputs(m, k, n, bits, dt, card, m * k + n)
+    before = B.launch_counts["qmatmul"]
+    got = KQ.qmatmul(x, w, s, bits)
+    assert B.launch_counts["qmatmul"] == before + 1
+    want = KQ.qmatmul_plain(x, w, s, bits)
+    assert got.dtype == dt and got.shape == want.shape
+    scale = (x.to(torch.bfloat16).float().abs() @ codes.float().abs()) * s
+    tol = 2e-5 * scale
+    if dt == torch.bfloat16:
+        tol = tol + want.float().abs() * 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_qmatmul_wrapper_checks(card):
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, _ = _qmm_inputs(4, 64, 32, 8, torch.bfloat16, card, 1)
+    before = B.launch_counts["qmatmul"]
+    for bad in ((x.half(), w, s), (x, w, s[:-1]), (x, w.cpu(), s),
+                (x, w.to(torch.int32), s), (x.T, w, s)):
+        with pytest.raises(ValueError):
+            KQ.qmatmul(*bad, 8)
+    assert B.launch_counts["qmatmul"] == before
+    assert KQ.qmatmul(x[:0], w, s, 8).shape == (0, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_kernel_exact_on_integers(card, bits):
+    """Integer-valued x and small codes: every partial sum is an integer
+    below 2^24, so the kernel equals the plain version bit for bit."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    for m, k, n in ((4, 2048, 256), (4, 11008, 2048), (7, 100, 18)):
+        x, w, s, _ = _qmm_inputs(m, k, n, bits, torch.float32, card, k,
+                                 exact=True)
+        s = torch.full_like(s, 0.5)
+        assert torch.equal(KQ.qmatmul(x, w, s, bits),
+                           KQ.qmatmul_plain(x, w, s, bits))
+
+
+@pytest.mark.cuda
+def test_full_width_decode_card_equals_cpu(card):
+    """Qwen2.5-3B at full width, 2 layers, w8: teacher-forced decode logits
+    on the card against the CPU within atol 0.0625 (bf16 logits up to
+    about 4.5 in size, where one ulp is 0.03125; the CPU port and the JAX
+    reference differed by one ulp at this size), and equal greedy tokens
+    wherever the CPU's top-2 margin exceeds twice that."""
+    import dataclasses
+
+    from repro_torch.launch.steps import quantize_tree_for_serving
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    params = lm.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    cpu = _tree_map(lambda t: t.cpu(), params)
+    q_card = lm.with_head_copy(quantize_tree_for_serving(params, 8), cfg)
+    q_cpu = lm.with_head_copy(quantize_tree_for_serving(cpu, 8), cfg)
+    assert torch.equal(q_card["blocks"]["mlp"]["w_up"]["w_codes"].cpu(),
+                       q_cpu["blocks"]["mlp"]["w_up"]["w_codes"])
+    B_, T = 2, 6
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (B_, T))
+    caches = {d: lm.init_cache(cfg, B_, T + 1, device=d)
+              for d in ("cuda", "cpu")}
+    tol = 0.0625
+    for t in range(T):
+        tok = torch.from_numpy(toks[:, t:t + 1].astype(np.int32))
+        lc, caches["cpu"] = lm.decode_step(q_cpu, tok, caches["cpu"], cfg)
+        lg, caches["cuda"] = lm.decode_step(q_card, tok.to(card),
+                                            caches["cuda"], cfg)
+        lc = lc[:, :cfg.vocab].float()
+        lg = lg[:, :cfg.vocab].float().cpu()
+        assert bool(torch.isfinite(lg).all())
+        assert float((lg - lc).abs().max()) <= tol, f"step {t}"
+        top2 = torch.topk(lc, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure])
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)

@@ -23,6 +23,10 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"repro_torch.kernels.qmatmul", "repro_torch.models.lm",
+        "repro_torch.launch.serve", "repro_torch.configs.qwen2_5_3b"} <= set(mods)
+from repro_torch.models.common import get_config
+get_config("qwen2.5-3b")
 repro_torch.compile, repro_torch.QuantConfig, repro_torch.FixedPointSpec
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -38,7 +42,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]", out.stdout
+    assert int(n) >= 35 and bad == "[]", out.stdout
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"

@@ -1,0 +1,209 @@
+"""The port's dense decoder LM on the CPU, against the JAX package.
+
+On ``reduce_config(qwen2.5-3b)`` (2 layers, d 64, 4 heads / 2 KV heads,
+vocab 97) with float32 and with bfloat16 compute, and serving weights at
+bf16 (bits 0), w8 and w4, the same JAX parameter tree carried across with
+``params_from_numpy``: ``forward``, ``prefill`` and teacher-forced
+``decode_step`` logits agree with the reference within
+
+* atol 5e-3 in float32 compute.  The port repeats the reference's
+  roundings op for op (bf16 projections, the bf16 bias add, silu as XLA
+  expands it), so most runs agree within 2.4e-7: float32 summation order
+  and the last bit of exp/rsqrt.  But every projection still rounds to
+  bf16, and where an accumulator lies at a bf16 rounding boundary the two
+  summation orders round one ulp apart; one such element moved the logits
+  by up to 2.7e-3 (measured over 18 seeds and bit-widths);
+* rtol and atol 1e-2 in bf16 compute: the logits are bf16 (one ulp is
+  3.9e-3 at their scale, |logit| < 1), the head's bf16 product sums in
+  another order than XLA's, and the same boundary flips occur; 5.9e-3 was
+  the most measured over 18 seeds and bit-widths.
+
+Port-internal checks mirror the reference's own: decode equals the
+full-sequence forward (``tests/test_archs.py``), and w8 serving logits
+keep the bf16 model's top-1 token (``tests/test_fsl.py``).
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.launch.steps import quantize_tree_for_serving as j_quantize_tree  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.common import get_config as j_get_config  # noqa: E402
+from repro.models.testing import reduce_config as j_reduce  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_prefill_step,
+    quantize_tree_for_serving,
+)
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.common import get_config  # noqa: E402
+from repro_torch.models.testing import reduce_config  # noqa: E402
+
+TOL = {"float32": 5e-3, "bfloat16": 1e-2}
+RTOL = {"float32": 0.0, "bfloat16": 1e-2}
+B, S = 2, 16
+
+
+def _cfgs(compute_dtype, **over):
+    j = j_reduce(j_get_config("qwen2.5-3b"), compute_dtype=compute_dtype,
+                 **over)
+    t = reduce_config(get_config("qwen2.5-3b"), compute_dtype=compute_dtype,
+                      **over)
+    return j, t
+
+
+def _carry(jp):
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                             device="cpu")
+
+
+def _np(a, vocab):
+    if isinstance(a, torch.Tensor):
+        a = a.to(torch.float32).numpy()
+    return np.asarray(a, np.float32)[..., :vocab]
+
+
+def _tokens(cfg, seed=1, shape=(B, S)):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape
+                                                ).astype(np.int32)
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_forward_prefill_decode_equal_jax(compute_dtype, bits):
+    jc, tc = _cfgs(compute_dtype)
+    jp = jlm.init_params(jax.random.PRNGKey(bits), jc)
+    if bits:
+        jp = j_quantize_tree(jp, bits)
+    tp = _carry(jp)
+    toks = _tokens(jc)
+    tol = dict(rtol=RTOL[compute_dtype], atol=TOL[compute_dtype])
+
+    jl, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jc)
+    tl, aux = tlm.forward(tp, {"tokens": torch.from_numpy(toks)}, tc)
+    assert tl.dtype == getattr(torch, compute_dtype) and float(aux) == 0.0
+    np.testing.assert_allclose(_np(tl, jc.vocab), _np(jl, jc.vocab), **tol)
+
+    jpf = jlm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    tpf = make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    assert tuple(tpf.shape) == (B, jc.vocab_padded)
+    np.testing.assert_allclose(_np(tpf, jc.vocab), _np(jpf, jc.vocab), **tol)
+
+    jcache = jlm.init_cache(jc, B, S + 4, dtype=jnp.dtype(compute_dtype))
+    tcache = tlm.init_cache(tc, B, S + 4, dtype=getattr(torch, compute_dtype),
+                            device="cpu")
+    step = jax.jit(lambda p, t, c: jlm.decode_step(p, t, c, jc))
+    for t in range(S):
+        jd, jcache = step(jp, jnp.asarray(toks[:, t:t + 1]), jcache)
+        td, tcache = tlm.decode_step(tp, torch.from_numpy(toks[:, t:t + 1]),
+                                     tcache, tc)
+        np.testing.assert_allclose(_np(td, jc.vocab), _np(jd, jc.vocab),
+                                   err_msg=f"step {t}", **tol)
+    np.testing.assert_array_equal(tcache["attn"]["len"].numpy(),
+                                  np.asarray(jcache["attn"]["len"]))
+    # the cached keys are bf16 projections in either compute dtype: a
+    # boundary flip moves one by a bf16 ulp, under 1% of its value
+    np.testing.assert_allclose(
+        tcache["attn"]["k"].to(torch.float32).numpy(),
+        np.asarray(jcache["attn"]["k"], np.float32), rtol=1e-2, atol=1e-2)
+
+
+def test_gelu_mlp_equals_jax():
+    """The gelu MLP (tanh form, jax.nn.gelu's default) on a reduced config
+    with act="gelu", forward logits against the reference."""
+    jc, tc = _cfgs("float32", act="gelu")
+    jp = jlm.init_params(jax.random.PRNGKey(4), jc)
+    tp = _carry(jp)
+    assert "w_gate" not in tp["blocks"]["mlp"]
+    toks = _tokens(jc, 2)
+    jl, _ = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jc)
+    tl, _ = tlm.forward(tp, {"tokens": torch.from_numpy(toks)}, tc)
+    np.testing.assert_allclose(_np(tl, jc.vocab), _np(jl, jc.vocab), rtol=0,
+                               atol=TOL["float32"])
+
+
+def test_init_params_tree_matches_reference():
+    """The port's own init has the reference tree's keys, shapes and dtypes
+    (stacked layer leaves), and its distributions' ranges."""
+    jc, tc = _cfgs("float32")
+    want = jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype)),
+        jlm.init_params(jax.random.PRNGKey(0), jc))
+    tp = tlm.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
+    got = jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")), tp)
+    assert got == want
+    wq = tp["blocks"]["attn"]["wq"]["w"]
+    assert float(wq.abs().max()) <= 1 / np.sqrt(tc.d_model)
+    assert float(tp["blocks"]["attn"]["wq"]["b"].abs().max()) == 0.0
+    assert abs(float(tp["embed"].std()) - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_decode_matches_forward(bits):
+    """Token-by-token decode reproduces the full-sequence forward inside
+    the port (float32 compute: the product shapes differ, so sums may
+    round apart in the last bits; 1.8e-7 was measured)."""
+    _, cfg = _cfgs("float32")
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    if bits:
+        params = quantize_tree_for_serving(params, bits)
+    toks = torch.from_numpy(_tokens(cfg))
+    full, _ = tlm.forward(params, {"tokens": toks}, cfg)
+    cache = tlm.init_cache(cfg, B, S + 4, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(S):
+        logits, cache = tlm.decode_step(params, toks[:, t:t + 1], cache, cfg)
+        outs.append(logits)
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_serving_quantization_consistency(compute_dtype):
+    """w8 serving logits keep the bf16 model's top-1 token on nearly all
+    positions (the reference's bar: > 0.9)."""
+    _, cfg = _cfgs(compute_dtype)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    q8 = quantize_tree_for_serving(params, 8)
+    toks = torch.from_numpy(_tokens(cfg, 1, (2, 12)))
+    ref, _ = tlm.forward(params, {"tokens": toks}, cfg)
+    got, _ = tlm.forward(q8, {"tokens": toks}, cfg)
+    agree = (ref.argmax(-1) == got.argmax(-1)).to(torch.float32).mean()
+    assert float(agree) > 0.9, f"w8 top-1 agreement too low: {agree}"
+
+
+def test_later_slices_raise():
+    """What this slice does not build raises NotImplementedError naming
+    the missing piece instead of computing something else."""
+    _, cfg = _cfgs("float32")
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    long = torch.from_numpy(_tokens(cfg, 3, (1, 3 * cfg.prefill_chunk)))
+    with pytest.raises(NotImplementedError, match="chunked"):
+        tlm.forward(params, {"tokens": long}, cfg)
+    for over in (dict(family="moe", moe_experts=4, moe_top_k=2),
+                 dict(attention="mla"), dict(family="ssm")):
+        with pytest.raises(NotImplementedError):
+            tlm.init_params(torch.Generator(), dataclasses.replace(cfg, **over),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        tlm.forward(params, {"tokens": long[:, :4]},
+                    dataclasses.replace(cfg, pos="mrope"))
+    with pytest.raises(NotImplementedError, match="MoE expert banks"):
+        quantize_tree_for_serving({"moe": {"w_gate": torch.zeros((2, 4, 6))}},
+                                  8)
+    head = quantize_tree_for_serving({"lm_head": {"w": torch.ones((4, 6))}},
+                                     8)["lm_head"]
+    with pytest.raises(NotImplementedError, match="quantized dense"):
+        L.dense(head, torch.ones((1, 4)), dtype=torch.float32)
