@@ -14,19 +14,26 @@ ends the run with a non-zero exit if it fails:
    (one ``nvcc`` per source, all started together).
 2. FSL kernels: each held against its plain PyTorch version on the card
    (odd shapes, int8/int32 codes, packed int4, L from 15 to 65535, grid
-   and off-grid floats); then each held against it again and timed at the
-   FSL path's shapes at batch 64, beside one PyTorch library call
-   computing the same function, and its bound.
+   and off-grid floats; the conv-form integer MVAU on every kernel /
+   stride / pad the im2col node takes, with forced K splits); then each
+   held against it again and timed at the FSL path's shapes at batch 64,
+   beside its bound and PyTorch library calls computing the same function
+   (``torch._int_mm`` + count on pre-built patches, and with the unfold
+   im2col a PyTorch user would write); the integer MVAU in conv form and
+   in GEMM form on pre-built patches.
 3. FSL path at the paper's width 64 on 32x32 frames: ``compile(...,
-   datapath="int")`` and ``"f32"`` on the card; int == f32 == interpreter
-   and card == CPU, bit for bit; weight bytes; launches per forward;
-   compile time, latency and throughput.
+   datapath="int")`` and ``"f32"`` on the card, every im2col of the int
+   artifact folded into its conv-form MVAU; int == f32 == interpreter and
+   card == CPU, bit for bit; weight bytes; launches per forward; compile
+   time, latency and throughput.
 4. few-shot requests: support shots registered into a PrototypeStore on
    the card and queries classified through the deployed int artifact;
    prototypes and similarities agree with a CPU store's run within a stated
    tolerance, predictions are equal.  Then, after every latency has been
    taken, ``torch.profiler`` traces the int forwards: device time by
-   kernel and an estimate of the device's busy share.
+   kernel, kernels per forward and an estimate of the device's busy share.
+   After the path's launch counts are read, the 8 conv-form launches are
+   timed again on the activations and weights one forward gives them.
 5. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
    shapes, the 7 decode projections at batch 4, a prefill shape; w8 and
@@ -121,12 +128,13 @@ def wall_ms(torch, fn, reps: int = 10) -> float:
 
 
 def layer_shapes(width: int, batch: int, img: int):
-    """(name, M, K, N) of the 8 MVAU layers of ResNet-9 at this size."""
+    """(name, frame side, C, N) of the 8 conv MVAU layers of ResNet-9 at
+    this size: 3x3, stride 1, pad 1, so M = batch x side^2 and K = 9 C."""
     from repro_torch.models import resnet9
 
     out, hw = [], img
     for blk in resnet9.plan(width):
-        out.append((blk["name"], batch * hw * hw, 9 * blk["cin"], blk["cout"]))
+        out.append((blk["name"], hw, blk["cin"], blk["cout"]))
         if blk.get("pool"):
             hw //= 2
     return out
@@ -214,6 +222,11 @@ def check_kernels(torch, Q, KM, KG):
         f"{diff.numel()} outputs differ by one level, all within 1e-5 of a "
         "threshold")
 
+    n_conv = check_conv_kernel(torch, Q, KM, ri, err)
+    log(f"kernel check mvau_int conv form: {n_conv} cases bit for bit "
+        "(kernel/stride/pad 1/1/0, 3/1/1, 3/2/1, 3/2/0; C 3, 16, 24; N 8, 72; "
+        "int8 and packed int4 weights; 15 and 255 levels; K split 1, 2, 3)")
+
     for shape in ((2, 8, 8, 16), (64, 4, 4, 512), (3, 5, 7, 24)):
         for dt in (torch.int8, torch.int32):
             xi = ri(-100, 100, shape).to(dt).to(dev)
@@ -233,6 +246,50 @@ def check_kernels(torch, Q, KM, KG):
     return err
 
 
+def check_conv_kernel(torch, Q, KM, ri, err):
+    """The conv-form kernel against its plain version (``ref.im2col`` +
+    ``mvau_int_plain``) on the card, on the CPU tests' odd cases; the
+    split-K path on forced splits.  Bit for bit."""
+    dev = "cuda"
+    n_cases = 0
+    for kernel, stride, pad in ((1, 1, 0), (3, 1, 1), (3, 2, 1), (3, 2, 0)):
+        for c in (3, 16, 24):
+            for n in (8, 72):
+                for batch, hw, packed, levels in ((1, 7, False, 15),
+                                                  (3, 9, True, 255),
+                                                  (3, 7, True, 15),
+                                                  (1, 9, False, 255)):
+                    x = ri(0, 16, (batch, hw, hw, c)).to(torch.int8).to(dev)
+                    k = kernel * kernel * c
+                    w = ri(-8, 8, (k, n)) if packed else ri(-32, 32, (k, n))
+                    w = (Q.pack_int4(w) if packed else w.to(torch.int8)).to(dev)
+                    t = torch.sort(ri(-600, 900, (n, levels)), dim=1).values
+                    t = t.to(dev)
+                    want = KM.mvau_int_conv_plain(x, w, t, kernel, stride, pad,
+                                                  -3, packed)
+                    for splits in (None, 2, 3):
+                        got = KM.mvau_int_conv(x, w, t, kernel, stride, pad,
+                                               -3, packed, splits=splits)
+                        torch.cuda.synchronize()
+                        d = (got - want).abs().max().item()
+                        err["mvau_int"] = max(err["mvau_int"], float(d))
+                        check(torch.equal(got, want),
+                              f"mvau_int_conv {batch}x{hw}x{hw}x{c} N={n} "
+                              f"k/s/p={kernel}/{stride}/{pad} L={levels} "
+                              f"packed={packed} splits={splits} differs by {d}")
+                        n_cases += 1
+    return n_cases
+
+
+def im2col_unfold(torch, x, kernel, stride, pad):
+    """The patch rows as a PyTorch user would build them: pad, unfold,
+    permute to patch order (kh, kw, c), copy."""
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    p = xp.unfold(1, kernel, stride).unfold(2, kernel, stride)
+    b, oh, ow = p.shape[:3]
+    return p.permute(0, 1, 2, 4, 5, 3).reshape(b * oh * ow, -1)
+
+
 def time_kernels(torch, Q, KM, KG, ref, err):
     """Each kernel at the main path's shapes at batch 64: the kernel, its
     plain version, one library call, and the bound."""
@@ -240,13 +297,18 @@ def time_kernels(torch, Q, KM, KG, ref, err):
     gen = torch.Generator().manual_seed(7)
     rows = []
     tot = {"mvau_int": [0.0, 0.0, 0.0, 0, 0], "mvau": [0.0, 0.0, 0.0, 0, 0]}
-    tot_core = 0.0
-    for name, m, k, n in layer_shapes(WIDTH, BATCH, IMG):
+    conv = {"gemm_form_ms": 0.0, "gemm_form_bytes": 0, "library_im2col_ms": 0.0,
+            "int32_codes_cuda_core_ms": 0.0, "layer_ms": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, hw, cin, n in layer_shapes(WIDTH, BATCH, IMG):
         L = 15
-        x = torch.randint(0, 16, (m, k), generator=gen).to(torch.int8).to(dev)
+        m, k = BATCH * hw * hw, 9 * cin
+        x4 = torch.randint(0, 16, (BATCH, hw, hw, cin), generator=gen
+                           ).to(torch.int8).to(dev)          # NHWC codes
         w = torch.randint(-32, 32, (k, n), generator=gen).to(torch.int8).to(dev)
         t = torch.sort(torch.randint(-2000, 2000, (n, L), generator=gen),
                        dim=1).values.to(torch.int32).to(dev)
+        x = ref.im2col(x4, 3, 1, 1).reshape(m, k).contiguous()   # patch rows
         kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8         # _int_mm wants /8
         xpad = torch.nn.functional.pad(x, (0, kp - k))
         wpad = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
@@ -254,6 +316,11 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         def lib_int():
             acc = torch._int_mm(xpad, wpad)[:, :n]
             return ref.threshold_counts_fast(acc, t)
+
+        def lib_im2col():
+            xp = torch.nn.functional.pad(im2col_unfold(torch, x4, 3, 1, 1),
+                                         (0, kp - k))
+            return ref.threshold_counts_fast(torch._int_mm(xp, wpad)[:, :n], t)
 
         x32 = x.to(torch.int32)       # int32 codes take the CUDA-core kernel
         want = KM.mvau_int_plain(x, w, t, 0)
@@ -263,18 +330,38 @@ def time_kernels(torch, Q, KM, KG, ref, err):
             err["mvau_int"] = max(err["mvau_int"], float(d))
             check(torch.equal(got, want), f"mvau_int {name} at the main "
                   f"path's shape ({xx.dtype}) differs by {d}")
-        ms = cuda_ms(torch, lambda: KM.mvau_int(x, w, t, 0))
+        got = KM.mvau_int_conv(x4, w, t, 3, 1, 1).reshape(m, n)
+        d = (got - want).abs().max().item()
+        err["mvau_int"] = max(err["mvau_int"], float(d))
+        check(torch.equal(got, want), f"mvau_int_conv {name} at the main "
+              f"path's shape differs by {d}")
+        check(torch.equal(lib_im2col(), want), f"{name}: the im2col yardstick "
+              "computes another function")
+        ms = cuda_ms(torch, lambda: KM.mvau_int_conv(x4, w, t, 3, 1, 1))
+        gemm_ms = cuda_ms(torch, lambda: KM.mvau_int(x, w, t, 0))
         core_ms = cuda_ms(torch, lambda: KM.mvau_int(x32, w, t, 0))
-        tot_core += core_ms
-        plain = cuda_ms(torch, lambda: KM.mvau_int_plain(x, w, t, 0), reps=10)
+        plain = cuda_ms(torch, lambda: KM.mvau_int_conv_plain(x4, w, t, 3, 1, 1),
+                        reps=10)
         lib = cuda_ms(torch, lib_int)
-        nbytes = x.numel() + w.numel() + 4 * t.numel() + 4 * m * n
+        lib2 = cuda_ms(torch, lib_im2col)
+        # the conv form reads the int8 activation, the GEMM form its patches
+        nbytes = x4.numel() + w.numel() + 4 * t.numel() + 4 * m * n
+        gemm_bytes = x.numel() + w.numel() + 4 * t.numel() + 4 * m * n
         ops = 2 * m * k * n
         for i, v in enumerate((ms, plain, lib, nbytes, ops)):
             tot["mvau_int"][i] += v
+        conv["layer_ms"].append(ms)
+        for key, v in (("gemm_form_ms", gemm_ms), ("gemm_form_bytes", gemm_bytes),
+                       ("library_im2col_ms", lib2),
+                       ("int32_codes_cuda_core_ms", core_ms)):
+            conv[key] += v
         rows.append(("mvau_int", name, m, k, n, ms, plain, lib,
                      max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3,
-                     core_ms))
+                     f" gemm_form_ms={gemm_ms:.4f} gemm_form_bound_ms="
+                     f"{max(gemm_bytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3:.4f}"
+                     f" library_im2col_ms={lib2:.4f} splits="
+                     f"{KM.tc_splits(m, n, k, sms)} int32_codes_cuda_core_ms="
+                     f"{core_ms:.4f}"))
 
         xf = (x.float() * 0.25).contiguous()
         wf = (w.float() / 32).contiguous()
@@ -303,16 +390,24 @@ def time_kernels(torch, Q, KM, KG, ref, err):
             tot["mvau"][i] += v
         rows.append(("mvau", name, m, k, n, ms, plain, lib,
                      max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS) * 1e3,
-                     None))
+                     ""))
 
     for r in rows:
-        core = "" if r[9] is None else f" int32_codes_cuda_core_ms={r[9]:.4f}"
         log(f"kernel {r[0]:8s} {r[1]:4s} M={r[2]:6d} K={r[3]:5d} N={r[4]:4d}: "
             f"kernel_ms={r[5]:.4f} plain_ms={r[6]:.4f} library_ms={r[7]:.4f} "
-            f"bound_ms={r[8]:.4f}{core}")
-    log(f"kernel mvau_int sum over the 8 layers: int8 tensor-core path "
-        f"{tot['mvau_int'][0]:.4f} ms, int32-code CUDA-core path "
-        f"{tot_core:.4f} ms")
+            f"bound_ms={r[8]:.4f}{r[9]}")
+    i_ops = tot["mvau_int"][4]
+    conv["gemm_form_bound_ms"] = max(conv["gemm_form_bytes"] / PEAK_BYTES_PER_S,
+                                     i_ops / PEAK_INT8_OPS) * 1e3
+    log(f"kernel mvau_int sum over the 8 layers at batch {BATCH}: conv form "
+        f"{tot['mvau_int'][0]:.4f} ms (bound "
+        f"{max(tot['mvau_int'][3] / PEAK_BYTES_PER_S, i_ops / PEAK_INT8_OPS) * 1e3:.4f}"
+        f" ms: {tot['mvau_int'][3]} bytes of int8 NHWC codes, weights, tables "
+        f"and int32 codes; {i_ops} operations); GEMM form on pre-built patches "
+        f"{conv['gemm_form_ms']:.4f} ms (bound {conv['gemm_form_bound_ms']:.4f} "
+        f"ms); int32-code CUDA-core path {conv['int32_codes_cuda_core_ms']:.4f}"
+        f" ms; torch._int_mm + count {tot['mvau_int'][2]:.4f} ms on pre-built "
+        f"patches, {conv['library_im2col_ms']:.4f} ms with the unfold im2col")
 
     xg = torch.randint(0, 64, (BATCH, 4, 4, 8 * WIDTH),
                        generator=gen).to(torch.int32).to(dev)
@@ -335,7 +430,7 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         f"bound_ms={g_bytes / PEAK_BYTES_PER_S * 1e3:.5f}; float32 input: "
         f"kernel_ms={gf_ms:.4f}")
 
-    def entry(name, source, replaces, t, ops_peak):
+    def entry(name, source, replaces, t, ops_peak, **extra):
         ms, plain, lib, nbytes, ops = t
         b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / ops_peak * 1e3
         return {"name": name, "route": "cuda", "source": source,
@@ -343,11 +438,17 @@ def time_kernels(torch, Q, KM, KG, ref, err):
                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
                 "bound_ms": max(b_ms, o_ms),
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "library_ms": lib}
+                "library_ms": lib, **extra}
 
     return [
         entry("mvau_int", "src/repro_torch/csrc/mvau.cu",
-              "src/repro/kernels/mvau.py:195", tot["mvau_int"], PEAK_INT8_OPS),
+              "src/repro/kernels/mvau.py:195", tot["mvau_int"], PEAK_INT8_OPS,
+              form="conv (implicit GEMM on int8 NHWC codes, wgmma)",
+              gemm_form_ms=conv["gemm_form_ms"],
+              gemm_form_bound_ms=conv["gemm_form_bound_ms"],
+              library_im2col_ms=conv["library_im2col_ms"],
+              int32_codes_cuda_core_ms=conv["int32_codes_cuda_core_ms"],
+              layer_ms=conv["layer_ms"]),
         entry("mvau", "src/repro_torch/csrc/mvau.cu",
               "src/repro/kernels/mvau.py:140", tot["mvau"], PEAK_F32_OPS),
         entry("gap", "src/repro_torch/csrc/gap.cu",
@@ -384,7 +485,7 @@ def profile_forward(torch, label: str, fn, reps: int = 5):
         f"{wall_us / reps / 1e3:.3f} ms/forward, device busy "
         f"{busy_us / reps / 1e3:.3f} ms/forward ({busy_us / wall_us:.1%}), "
         f"{sum(e.count for e in kern) / reps:.0f} kernels/forward")
-    for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]:
+    for e in sorted(kern, key=lambda e: -e.device_time_total):
         log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/forward "
             f"{e.count / reps:5.1f}x  {e.key[:90]}")
     return busy_us / reps / 1e3
@@ -428,7 +529,9 @@ def main_path(torch, np, B):
     check(ops.get("mvau_int") == 8 and ops.get("global_acc_pool") == 1,
           f"int artifact ops {ops}")
     check(all(r["kernel"] == "fused-cuda" for r in dm_int.dispatch_table()
-              if r["op"] == "mvau_int"), "an mvau_int node is not on the kernel")
+              if r["op"] in ("mvau_int", "im2col")),
+          "an mvau_int node is not on the kernel, or an im2col not folded")
+    check(len(dm_int.apply.folded) == 8, f"folded im2col {dm_int.apply.folded}")
     check(dm_int.weight_bytes() == INT_WEIGHT_BYTES,
           f"int weight bytes {dm_int.weight_bytes()}")
     check(dm_f32.weight_bytes() == F32_WEIGHT_BYTES,
@@ -561,6 +664,46 @@ def main_path(torch, np, B):
                 f"{busy / walls[label]:.1%} = busy {busy:.3f} ms/forward "
                 f"(traced run) / wall {walls[label]:.3f} ms/forward (untraced "
                 "run above)")
+    return dm_int, x
+
+
+def time_real_inputs(torch, KM, dm_int, x, random_ms):
+    """The 8 conv-form launches of one int forward at batch 64 timed on the
+    activations and weights that forward gives them (captured by lowering
+    the artifact's graph once more with a recording executor), beside the
+    same shapes on random codes; returns the sum."""
+    from repro_torch.core.deploy import lower_graph
+    from repro_torch.kernels import ops as kops
+
+    captured = []
+    run_pair = kops.conv_mvau_int_node
+
+    def record(conv, node, xx, w, t):
+        captured.append((node.outputs[0], conv.attrs, node.attrs, xx, w, t))
+        return run_pair(conv, node, xx, w, t)
+
+    kops.conv_mvau_int_node = record
+    try:
+        fn = lower_graph(dm_int.graph, "cuda")
+    finally:
+        kops.conv_mvau_int_node = run_pair
+    (f_rec,) = fn(x)
+    check(torch.equal(f_rec, dm_int(x)) and len(captured) == 8,
+          f"recorded forward: {len(captured)} conv-form calls")
+    total = 0.0
+    for (name, conv, attrs, xx, w, t), r_ms in zip(captured, random_ms):
+        k, st, pd = conv["kernel"], conv["stride"], conv["pad"]
+        x8 = xx.to(torch.int8)
+        ms = cuda_ms(torch, lambda: KM.mvau_int_conv(
+            x8, w, t, k, st, pd, attrs.get("out_base", 0),
+            bool(attrs.get("w_packed"))))
+        total += ms
+        log(f"kernel mvau_int {name.split('_')[0]:4s} on the width-64 artifact's own "
+            f"inputs {tuple(x8.shape)}: {ms:.4f} ms (random codes {r_ms:.4f} "
+            "ms)")
+    log(f"kernel mvau_int sum over the 8 layers on the artifact's own inputs: "
+        f"{total:.4f} ms (random codes {sum(random_ms):.4f} ms)")
+    return total
 
 
 
@@ -1032,8 +1175,12 @@ def main() -> int:
     kernels = time_kernels(torch, Q, KM, KG, ref, err)
 
     B.reset_launch_counts()
-    main_path(torch, np, B)
+    dm_int, x = main_path(torch, np, B)
     fsl_counts = dict(B.launch_counts)
+    mv = next(k for k in kernels if k["name"] == "mvau_int")
+    mv["real_inputs_ms"] = time_real_inputs(torch, KM, dm_int, x,
+                                            mv.pop("layer_ms"))
+    del dm_int, x
     qmm, lm_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
     for k in kernels:

@@ -39,7 +39,15 @@ __all__ = ["DeployedModel", "bucket_for", "compile", "lower_graph",
 def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
     """Close a (streamlined) graph over its initializers, moved to
     ``device`` once, and return a ``(*inputs) -> tuple(outputs)`` function.
+
+    Each ``im2col`` that :func:`repro_torch.kernels.ops.conv_pairs` pairs
+    with its ``mvau_int`` is folded into one conv-form MVAU call on the
+    im2col node's input: the patch tensor never enters the environment.
+    The folded im2col outputs are listed in the function's ``folded``
+    attribute.  The graph itself is not changed.
     """
+    import functools
+
     from repro_torch.kernels import ops as kops
 
     dev = resolve_device(device)
@@ -53,6 +61,21 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
     nodes = [n.copy() for n in graph.nodes]       # freeze against later edits
     input_names = tuple(graph.inputs)
     output_names = tuple(graph.outputs)
+    pairs = kops.conv_pairs(nodes, output_names)
+    convs = {n.outputs[0]: n for n in nodes if n.outputs[0] in pairs}
+    steps = []                                    # (fn, input names, outputs)
+    for node in nodes:
+        if node.outputs[0] in pairs:
+            continue                              # runs inside its consumer
+        conv = convs.get(node.inputs[0]) if node.op == "mvau_int" else None
+        if conv is not None:
+            steps.append((functools.partial(kops.conv_mvau_int_node, conv,
+                                            node),
+                          (conv.inputs[0],) + tuple(node.inputs[1:]),
+                          node.outputs))
+        else:
+            steps.append((functools.partial(impls[node.op], node),
+                          tuple(node.inputs), node.outputs))
 
     def apply_fn(*inputs):
         if len(inputs) != len(input_names):
@@ -61,13 +84,14 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
         env: Dict[str, torch.Tensor] = dict(consts)
         env.update(zip(input_names, inputs))
         with torch.no_grad():
-            for node in nodes:
-                out = impls[node.op](node, *[env[i] for i in node.inputs])
+            for fn, ins, outs_names in steps:
+                out = fn(*[env[i] for i in ins])
                 outs = out if isinstance(out, (tuple, list)) else (out,)
-                for name, val in zip(node.outputs, outs):
+                for name, val in zip(outs_names, outs):
                     env[name] = val
         return tuple(env[o] for o in output_names)
 
+    apply_fn.folded = tuple(pairs)
     return apply_fn
 
 
@@ -204,10 +228,12 @@ class DeployedModel:
         from repro_torch.kernels import ops as kops
 
         emulated = self.device.type != "cuda"
+        folded = kops.conv_pairs(self.graph.nodes, self.graph.outputs)
         rows = []
         for n in self.graph.nodes:
             rows.append({"tensor": n.outputs[0], "op": n.op,
-                         "kernel": kops.kernel_dispatch(n, emulated)})
+                         "kernel": kops.kernel_dispatch(
+                             n, emulated, n.outputs[0] in folded)})
         return rows
 
     def qdq_counts(self) -> Dict[str, int]:

@@ -246,18 +246,10 @@ class Graph:
 def _ex_im2col(node: Node, x: torch.Tensor) -> torch.Tensor:
     """NHWC patch extraction -> (N, OH, OW, KH*KW*C), patch order
     (kh, kw, c).  FINN's Conv lowering."""
-    k, s, p = node.attrs["kernel"], node.attrs["stride"], node.attrs["pad"]
-    n, h, w, c = x.shape
-    xp = torch.nn.functional.pad(x, (0, 0, p, p, p, p))
-    oh = (h + 2 * p - k) // s + 1
-    ow = (w + 2 * p - k) // s + 1
-    ar_k = torch.arange(k, device=x.device)
-    idx_h = (torch.arange(oh, device=x.device) * s)[:, None] + ar_k[None, :]
-    idx_w = (torch.arange(ow, device=x.device) * s)[:, None] + ar_k[None, :]
-    rows = xp[:, idx_h]                      # (N, OH, K, W', C)
-    patches = rows[:, :, :, idx_w]           # (N, OH, K, OW, K, C)
-    patches = patches.permute(0, 1, 3, 2, 4, 5)  # (N, OH, OW, K, K, C)
-    return patches.reshape(n, oh, ow, k * k * c)
+    from repro_torch.kernels import ref
+
+    return ref.im2col(x, node.attrs["kernel"], node.attrs["stride"],
+                      node.attrs["pad"])
 
 
 def _ex_matmul(node: Node, x: torch.Tensor, w: torch.Tensor,

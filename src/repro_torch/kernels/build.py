@@ -125,7 +125,9 @@ class KernelLibrary:
         lib = ctypes.CDLL(str(info.path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.mvau_int = lib.repro_mvau_int
-        self.mvau_int.argtypes = [p, i, p, i, p, p, i, i, i, i, i, p]
+        self.mvau_int.argtypes = [p, i, p, i, p, p, i, i, i, i, i, i, p, p, p]
+        self.mvau_int_conv = lib.repro_mvau_int_conv
+        self.mvau_int_conv.argtypes = [p, p, i, p, p] + [i] * 11 + [p, p, p]
         self.mvau_f32 = lib.repro_mvau_f32
         self.mvau_f32.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
         self.mvau_i8 = lib.repro_mvau_i8
@@ -134,8 +136,8 @@ class KernelLibrary:
         self.gap.argtypes = [p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
         self.qmatmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, p]
-        for fn in (self.mvau_int, self.mvau_f32, self.mvau_i8, self.gap,
-                   self.qmatmul):
+        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_f32,
+                   self.mvau_i8, self.gap, self.qmatmul):
             fn.restype = ctypes.c_int
         self._lib = lib
 

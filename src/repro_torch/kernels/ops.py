@@ -18,8 +18,9 @@ from repro_torch.kernels import mvau as kmvau
 from repro_torch.kernels import qmatmul as kqmm
 from repro_torch.kernels import ref
 
-__all__ = ["mvau", "mvau_int", "qmatmul", "gap", "graph_op_impls",
-           "kernel_dispatch"]
+__all__ = ["mvau", "mvau_int", "mvau_int_conv", "qmatmul", "gap",
+           "conv_pairs", "conv_mvau_int_node", "graph_op_impls",
+           "kernel_dispatch", "mvau_int_node"]
 
 
 def _as_2d(x: torch.Tensor):
@@ -62,6 +63,20 @@ def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
     return y.reshape(*lead, n)
 
 
+def mvau_int_conv(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
+                  thresholds_int: torch.Tensor, kernel: int, stride: int,
+                  pad: int, out_base: int = 0,
+                  w_packed: bool = False) -> torch.Tensor:
+    """Conv-form integer MVAU: (B, H, W, C) NHWC codes in, (B, OH, OW, N)
+    int32 codes out, the patch rows read by the kernel itself."""
+    n = w_codes.shape[1] * (2 if w_packed else 1)
+    t2 = _thresholds_2d(torch.as_tensor(thresholds_int, dtype=torch.int32,
+                                        device=x_nhwc.device), n)
+    return kmvau.mvau_int_conv(x_nhwc.contiguous(), w_codes.contiguous(),
+                               t2.contiguous(), kernel, stride, pad,
+                               out_base=int(out_base), w_packed=w_packed)
+
+
 def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
             bits: int = 8) -> torch.Tensor:
     """Weight-only quantized matmul (w8a16 / w4a16 serving path)."""
@@ -80,7 +95,29 @@ def gap(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Graph-node lowering (core.deploy dispatches HW ops onto these kernels)
 # ---------------------------------------------------------------------------
-def kernel_dispatch(node, emulated: bool) -> str:
+def conv_pairs(nodes, outputs) -> dict:
+    """``{im2col output: the mvau_int node it feeds}`` for every ``im2col``
+    whose output is read by exactly one node, an ``int8_ok`` ``mvau_int``
+    that takes it as its activation, and is not a graph output.  The
+    lowering folds each such pair into one conv-form MVAU call, so the
+    patch tensor never exists; other ``im2col`` nodes run as they are."""
+    readers: dict = {}
+    for n in nodes:
+        for name in n.inputs:
+            readers.setdefault(name, []).append(n)
+    pairs = {}
+    for n in nodes:
+        if n.op != "im2col" or n.outputs[0] in outputs:
+            continue
+        users = readers.get(n.outputs[0], [])
+        if (len(users) == 1 and users[0].op == "mvau_int"
+                and users[0].inputs[0] == n.outputs[0]
+                and users[0].attrs.get("int8_ok")):
+            pairs[n.outputs[0]] = users[0]
+    return pairs
+
+
+def kernel_dispatch(node, emulated: bool, folded: bool = False) -> str:
     """Which datapath a graph node executes on — the single decision point.
 
     ``emulated`` is True off the card (CPU tensors).  The deploy-time
@@ -90,9 +127,14 @@ def kernel_dispatch(node, emulated: bool) -> str:
     name the CUDA kernels where the reference names Pallas.  Every
     ``mvau_int`` node runs the fused kernel on the card, whatever its
     table length: the reference's L <= 512 gate is a TPU choice, and the
-    CUDA kernel binary-searches long tables.
+    CUDA kernel binary-searches long tables.  ``folded`` marks an
+    ``im2col`` node that :func:`conv_pairs` folds into its MVAU.
 
-    * ``fused-cuda`` — the fused integer MVAU kernel (``csrc/mvau.cu``);
+    * ``fused-cuda`` — the fused integer MVAU on the int8 tensor cores
+      (``csrc/mvau.cu``), and on the card a folded ``im2col``: the
+      kernel's conv-form loader reads the patches;
+    * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores, for
+      codes that do not fit int8 (explicit ``im2col``);
     * ``cuda``       — the float MVAU / GlobalAccPool kernels;
     * ``f32-gemm``   — exact integer compute through the f32 GEMM
       (proof obligation ``acc_f32_exact`` discharged at lowering time);
@@ -104,7 +146,8 @@ def kernel_dispatch(node, emulated: bool) -> str:
     op = node.op
     if op == "mvau_int":
         if not emulated:
-            return "fused-cuda"
+            return ("fused-cuda" if node.attrs.get("int8_ok")
+                    else "fused-cuda-core")
         if node.attrs.get("acc_f32_exact"):
             return "f32-gemm"
         return "ref-oracle"
@@ -121,7 +164,43 @@ def kernel_dispatch(node, emulated: bool) -> str:
         return "int-shift"
     if op in ("mvau", "global_acc_pool"):
         return "ref-oracle" if emulated else "cuda"
+    if op == "im2col" and folded and not emulated:
+        return "fused-cuda"
     return "xla"
+
+
+def mvau_int_node(node, x, w, t):
+    """Executor of an ``mvau_int`` node on (M, K) patch rows or codes."""
+    base = node.attrs.get("out_base", 0)
+    disp = kernel_dispatch(node, not x.is_cuda)
+    packed = bool(node.attrs.get("w_packed"))
+    if disp.startswith("fused-cuda"):
+        if node.attrs.get("int8_ok"):
+            x = x.to(torch.int8)
+            if not packed:
+                w = w.to(torch.int8)
+        return mvau_int(x, w, t, out_base=base, w_packed=packed)
+    if packed:
+        w = Q.unpack_int4(w)
+    return ref.mvau_int_fast(x, w, t, out_base=base,
+                             acc_f32_exact=disp == "f32-gemm")
+
+
+def conv_mvau_int_node(conv, node, x, w, t):
+    """Executor of a folded ``im2col`` -> ``mvau_int`` pair (see
+    :func:`conv_pairs`) on the im2col node's input ``x``.  On the card the
+    activation is narrowed to int8 (one cast, a ninth of the patches') and
+    the conv-form kernel reads the patch rows itself.  Off the card the
+    node takes its own route, as labelled, on patches local to this
+    call."""
+    k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
+    if kernel_dispatch(node, not x.is_cuda) == "fused-cuda":
+        packed = bool(node.attrs.get("w_packed"))
+        return mvau_int_conv(x.to(torch.int8),
+                             w if packed else w.to(torch.int8), t, k, s, p,
+                             out_base=node.attrs.get("out_base", 0),
+                             w_packed=packed)
+    return mvau_int_node(node, ref.im2col(x, k, s, p), w, t)
 
 
 def graph_op_impls():
@@ -140,21 +219,6 @@ def graph_op_impls():
         return mvau(x, w, t, out_base=node.attrs.get("out_base", 0),
                     out_scale=node.attrs.get("out_scale", 1.0),
                     out_bias=node.attrs.get("out_bias", 0.0))
-
-    def _mvau_int_node(node, x, w, t):
-        base = node.attrs.get("out_base", 0)
-        disp = kernel_dispatch(node, not x.is_cuda)
-        if disp == "fused-cuda":
-            packed = bool(node.attrs.get("w_packed"))
-            if node.attrs.get("int8_ok"):
-                x = x.to(torch.int8)
-                if not packed:
-                    w = w.to(torch.int8)
-            return mvau_int(x, w, t, out_base=base, w_packed=packed)
-        if node.attrs.get("w_packed"):
-            w = Q.unpack_int4(w)
-        return ref.mvau_int_fast(x, w, t, out_base=base,
-                                 acc_f32_exact=disp == "f32-gemm")
 
     def _matmul_int_node(node, x, w):
         disp = kernel_dispatch(node, not x.is_cuda)
@@ -180,7 +244,7 @@ def graph_op_impls():
             return torch.sum(x.to(torch.int32), dim=axes).to(torch.int32)
         return torch.sum(x, dim=axes)
 
-    return {"mvau": _mvau_node, "mvau_int": _mvau_int_node,
+    return {"mvau": _mvau_node, "mvau_int": mvau_int_node,
             "matmul_int": _matmul_int_node,
             "multithreshold_int": _multithreshold_int_node,
             "requantize": _requantize_node,

@@ -38,6 +38,23 @@ def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     return quant.multithreshold(y, thresholds, out_base, out_scale, out_bias)
 
 
+def im2col(x: torch.Tensor, kernel: int, stride: int, pad: int) -> torch.Tensor:
+    """NHWC patch extraction -> (N, OH, OW, KH*KW*C), patch order
+    (kh, kw, c), zero outside the image.  FINN's Conv lowering."""
+    k, s, p = kernel, stride, pad
+    n, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, p, p, p, p))
+    oh = (h + 2 * p - k) // s + 1
+    ow = (w + 2 * p - k) // s + 1
+    ar_k = torch.arange(k, device=x.device)
+    idx_h = (torch.arange(oh, device=x.device) * s)[:, None] + ar_k[None, :]
+    idx_w = (torch.arange(ow, device=x.device) * s)[:, None] + ar_k[None, :]
+    rows = xp[:, idx_h]                      # (N, OH, K, W', C)
+    patches = rows[:, :, :, idx_w]           # (N, OH, K, OW, K, C)
+    patches = patches.permute(0, 1, 3, 2, 4, 5)  # (N, OH, OW, K, K, C)
+    return patches.reshape(n, oh, ow, k * k * c)
+
+
 def matmul_int(x_codes: torch.Tensor, w_codes: torch.Tensor) -> torch.Tensor:
     """Bare integer-code matmul: int32 accumulate, int32 out."""
     if x_codes.is_cuda:

@@ -54,6 +54,58 @@ def test_mvau_kernels_equal_plain(card, m, k, n, levels):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride,pad", [(1, 1, 0), (3, 1, 1), (3, 2, 1),
+                                               (3, 2, 0)])
+@pytest.mark.parametrize("c", [3, 16, 24])
+def test_conv_mvau_kernel_equals_plain(card, kernel, stride, pad, c):
+    """The conv-form kernel against its plain version (im2col + mvau_int)
+    on the CPU tests' cases, int8 activations (the kernel's input): batch
+    1 and 3, 7x7 and 9x9, N 8 and 72, int8 and packed int4 weights, 15 and
+    255 levels, and forced K-splits; bit for bit."""
+    rng = np.random.default_rng(10 * kernel + c)
+    for n in (8, 72):
+        for batch, hw in ((1, 7), (3, 9)):
+            for packed in (False, True):
+                for levels in (15, 255):
+                    x = _t(rng.integers(0, 16, size=(batch, hw, hw, c)
+                                        ).astype(np.int8), card)
+                    k = kernel * kernel * c
+                    lim = 8 if packed else 32
+                    w = rng.integers(-lim, lim, size=(k, n)).astype(np.int32)
+                    wt = (Q.pack_int4(torch.from_numpy(w)) if packed
+                          else torch.from_numpy(w.astype(np.int8))).to(card)
+                    t = _t(np.sort(rng.integers(-600, 900, size=(n, levels)),
+                                   axis=1).astype(np.int32), card)
+                    want = KM.mvau_int_conv_plain(x, wt, t, kernel, stride,
+                                                  pad, -3, packed)
+                    before = B.launch_counts["mvau_int"]
+                    got = KM.mvau_int_conv(x, wt, t, kernel, stride, pad, -3,
+                                           packed)
+                    assert B.launch_counts["mvau_int"] == before + 1
+                    assert torch.equal(got, want)
+                    for splits in (2, 3):
+                        assert torch.equal(KM.mvau_int_conv(
+                            x, wt, t, kernel, stride, pad, -3, packed,
+                            splits=splits), want)
+
+
+@pytest.mark.cuda
+def test_conv_mvau_wrapper_raises_on_the_card(card):
+    """A CUDA tensor reaching the conv form launches the kernel or raises:
+    int32 codes (they take im2col + mvau_int), int32 weights, tensors on
+    two devices."""
+    x = torch.zeros((2, 5, 5, 4), dtype=torch.int8, device=card)
+    w = torch.zeros((36, 6), dtype=torch.int8, device=card)
+    t = torch.zeros((6, 15), dtype=torch.int32, device=card)
+    before = B.launch_counts["mvau_int"]
+    for bad in ((x.to(torch.int32), w, t), (x, w.to(torch.int32), t),
+                (x, w.cpu(), t), (x, w, t.cpu())):
+        with pytest.raises(ValueError):
+            KM.mvau_int_conv(*bad, 3, 1, 1)
+    assert B.launch_counts["mvau_int"] == before
+
+
+@pytest.mark.cuda
 def test_gap_kernel_and_wrapper_checks(card):
     rng = np.random.default_rng(3)
     for dt in (np.int8, np.int32):
@@ -88,6 +140,11 @@ def test_main_path_card_equals_cpu(card):
     assert B.launch_counts["gap"] - before["gap"] == 1
     assert torch.equal(f.cpu(), dm_cpu(x))
     assert torch.equal(f, dm32(Q.fake_quant(_t(x, card), qcfg.act)))
+    # every im2col is folded into the conv-form kernel on the card
+    labels = {(r["op"], r["kernel"]) for r in dm.dispatch_table()
+              if r["op"] in ("im2col", "mvau_int")}
+    assert labels == {("im2col", "fused-cuda"), ("mvau_int", "fused-cuda")}
+    assert len(dm.apply.folded) == 8
 
 
 @pytest.mark.cuda

@@ -212,7 +212,8 @@ def test_wrappers_validate_inputs_on_cpu():
     """CPU tensors take the plain versions; the dispatch labels off the card
     equal the reference's off-TPU labels.  On the card every ``mvau_int``
     node takes the fused kernel, however long its table (the reference's
-    L <= 512 gate is a TPU choice; the CUDA kernel binary-searches)."""
+    L <= 512 gate is a TPU choice; the CUDA kernel binary-searches): the
+    tensor-core one for ``int8_ok`` codes, the CUDA-core one otherwise."""
     from repro.core.graph import Node as JNode
     from repro_torch.core.graph import Node as TNode
 
@@ -227,7 +228,10 @@ def test_wrappers_validate_inputs_on_cpu():
         on_card = tops.kernel_dispatch(TNode(op, [], [], attrs), False)
         assert "pallas" not in on_card
     assert tops.kernel_dispatch(TNode("mvau_int", [], [], {}), False) \
-        == "fused-cuda"
+        == "fused-cuda-core"
     assert tops.kernel_dispatch(TNode("mvau_int", [], [],
                                       {"acc_f32_exact": True}), False) \
+        == "fused-cuda-core"
+    assert tops.kernel_dispatch(TNode("mvau_int", [], [],
+                                      {"int8_ok": True}), False) \
         == "fused-cuda"

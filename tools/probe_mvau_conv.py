@@ -1,0 +1,244 @@
+#!/usr/bin/env python3
+"""Where the conv-form integer MVAU spends its time on the card.
+
+Builds ``src/repro_torch/csrc/mvau.cu`` as it stands and three variants of
+it side by side (one ``nvcc`` each, all started together), then times each
+on the 8 conv layers of the paper's w6a4 ResNet-9 at width 64, batch 64,
+32x32 frames (CUDA events, random codes):
+
+* ``kernel``      the source as committed;
+* ``no_mma``      the wgmma instructions removed;
+* ``no_loads``    the A copies and the B global loads removed;
+* ``phases``      the source with clock64 stamps: cycles per block in the
+                  prologue, the mainloop (and per K-tile), the split-K
+                  reduction, the threshold count and the stores.
+
+and the committed kernel with L = 0 levels (no count), and on forced K
+splits (1, 2, 4, 6, 8) for the layers whose output tiles are fewer than the
+SMs.  The variants compute wrong values; only the committed kernel is held
+against the plain version.  Run on the machine with the card::
+
+    PYTHONPATH=src python3 tools/probe_mvau_conv.py
+
+The variants are text edits of the source: an edit that no longer applies
+stops the run, naming the text it looked for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import build as B  # noqa: E402
+from repro_torch.kernels import mvau as KM  # noqa: E402
+from repro_torch.models import resnet9  # noqa: E402
+
+BATCH, WIDTH, IMG, LEVELS = 64, 64, 32, 15
+SRC = (ROOT / "src/repro_torch/csrc/mvau.cu").read_text()
+OUT = B.BUILD_DIR / "probe"
+
+DBG = """
+extern "C" int probe_read(unsigned long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, g_phase, sizeof(g_phase));
+}
+extern "C" int probe_reset() {
+  unsigned long long z[8] = {0};
+  return (int)cudaMemcpyToSymbol(g_phase, z, sizeof(z));
+}
+"""
+
+
+def edit(text: str, old: str, new: str) -> str:
+    if old not in text:
+        raise SystemExit(f"probe edit no longer applies: {old[:70]!r}")
+    return text.replace(old, new)
+
+
+def variants() -> dict:
+    no_mma = edit(SRC, """        wgmma_m64n64k32(acc[i], wgmma_desc(a_sm + stage * TC_BM * TC_BK +
+                                           i * 64 * TC_BK + 32 * kk),
+                        db);""", "        if (db == 1) acc[i][0][0] += 1;")
+    no_loads = edit(edit(
+        SRC, "          cp_async16(smem_u32(dst + swz(row, a_seg)), src, ok);", ""),
+        """            const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+                static_cast<const int8_t*>(w) + static_cast<size_t>(kk) * N +
+                n));""", "            const uint2 v = make_uint2(kk, n);")
+    ph = edit(SRC, "namespace {\n", "__device__ unsigned long long g_phase[8];\n"
+              "namespace {\n")
+    ph = edit(ph, "  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n"
+              "  const int warp = tid >> 5;\n  // warpgroup",
+              "  const long long T0 = clock64();\n  const int tid = threadIdx.x;\n"
+              "  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
+              "  // warpgroup")
+    ph = edit(ph, "  for (int i = 0; i < nkt; ++i) {\n    cp_async_wait",
+              "  const long long T1 = clock64();\n"
+              "  for (int i = 0; i < nkt; ++i) {\n    cp_async_wait")
+    ph = edit(ph, "  cp_async_wait<0>();\n  __syncthreads();\n",
+              "  cp_async_wait<0>();\n  __syncthreads();\n"
+              "  const long long T2 = clock64();\n")
+    ph = edit(ph, "  // ---- epilogue: threshold counts in registers",
+              "  const long long T3 = clock64();\n"
+              "  // ---- epilogue: threshold counts in registers")
+    ph = edit(ph, "  const bool pairs = (N & 1) == 0;",
+              "  const long long T4 = clock64();\n"
+              "  const bool pairs = (N & 1) == 0;")
+    stamps = ("  if (tid == 0) {\n    const long long T5 = clock64();\n"
+              "    const long long d[5] = {T1 - T0, T2 - T1, T3 - T2, T4 - T3, "
+              "T5 - T4};\n"
+              "    for (int q = 0; q < 5; ++q) atomicAdd(&g_phase[q], "
+              "(unsigned long long)d[q]);\n"
+              "    atomicAdd(&g_phase[5], 1ull);\n"
+              "    atomicAdd(&g_phase[6], (unsigned long long)nkt);\n  }\n")
+    ph = edit(ph, "}\n\ntemplate <int VEC, int WK, bool FLOAT_OUT>\nint launch_conv(",
+              stamps + "}\n\ntemplate <int VEC, int WK, bool FLOAT_OUT>\n"
+              "int launch_conv(")
+    return {"kernel": SRC, "no_mma": no_mma, "no_loads": no_loads,
+            "phases": ph + DBG}
+
+
+def build_all(srcs: dict) -> dict:
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = B._nvcc()
+    procs = {}
+    for name, text in srcs.items():
+        (OUT / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *B.ARCH_FLAGS, *B.CFLAGS, "-shared", "-o",
+             str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, p in procs.items():
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        fn = lib.repro_mvau_int_conv
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, I, P, P] + [I] * 11 + [P, P, P]
+        fn.restype = I
+        libs[name] = (lib, fn)
+    return libs
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        sys.stderr.write("probe_mvau_conv: needs the card\n")
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}")
+    t0 = time.perf_counter()
+    libs = build_all(variants())
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator().manual_seed(0)
+    counts = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    layers, hw = [], IMG
+    for blk in resnet9.plan(WIDTH):
+        cin, n = blk["cin"], blk["cout"]
+        x = torch.randint(0, 16, (BATCH, hw, hw, cin), generator=gen
+                          ).to(torch.int8).cuda()
+        w = torch.randint(-32, 32, (9 * cin, n), generator=gen
+                          ).to(torch.int8).cuda()
+        t = torch.sort(torch.randint(-2000, 2000, (n, LEVELS), generator=gen),
+                       dim=1).values.to(torch.int32).cuda()
+        layers.append((blk["name"], hw, cin, n, x, w, t))
+        if blk.get("pool"):
+            hw //= 2
+
+    def launcher(fn, hw, cin, n, x, w, t, splits):
+        m = BATCH * hw * hw
+        tiles = -(-m // 128) * -(-n // 128)
+        ws = (torch.empty(tiles * splits * 128 * 128, dtype=torch.int32,
+                          device="cuda") if splits > 1 else None)
+        out = torch.empty((BATCH, hw, hw, n), dtype=torch.int32, device="cuda")
+
+        def go():
+            rc = fn(x.data_ptr(), w.data_ptr(), 0, t.data_ptr(), out.data_ptr(),
+                    BATCH, hw, hw, cin, 3, 1, 1, n, t.shape[1], 0, splits,
+                    None if ws is None else ws.data_ptr(), counts.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+        return go, out
+
+    def plan(hw, cin, n):
+        return KM.tc_splits(BATCH * hw * hw, n, 9 * cin, sms)
+
+    names = " ".join(f"{lay[0]:>7s}" for lay in layers)
+    print(f"{'variant':14s} {'sum':>7s} {names}   (ms, batch {BATCH})")
+    for vname, (_, fn) in libs.items():
+        per = []
+        for name, hw, cin, n, x, w, t in layers:
+            go, out = launcher(fn, hw, cin, n, x, w, t, plan(hw, cin, n))
+            if vname == "kernel":
+                go()
+                torch.cuda.synchronize()
+                if not torch.equal(out, KM.mvau_int_conv_plain(x, w, t, 3, 1, 1)):
+                    raise SystemExit(f"{name}: the kernel differs from its "
+                                     "plain version")
+            per.append(cuda_ms(go))
+        print(f"{vname:14s} {sum(per):7.4f} " + " ".join(f"{v:7.4f}" for v in per))
+    per = []
+    for name, hw, cin, n, x, w, t in layers:
+        go, _ = launcher(libs["kernel"][1], hw, cin, n, x, w, t[:, :0].contiguous(),
+                         plan(hw, cin, n))
+        per.append(cuda_ms(go))
+    print(f"{'kernel, L=0':14s} {sum(per):7.4f} " + " ".join(f"{v:7.4f}" for v in per))
+
+    print("K splits (ms) where the output tiles are fewer than the SMs:")
+    for name, hw, cin, n, x, w, t in layers:
+        m = BATCH * hw * hw
+        if -(-m // 128) * -(-n // 128) >= sms:
+            continue
+        row = {s: cuda_ms(launcher(libs["kernel"][1], hw, cin, n, x, w, t, s)[0])
+               for s in (1, 2, 4, 6, 8)}
+        print(f"  {name}: planned {plan(hw, cin, n)}; " +
+              ", ".join(f"{s}: {v:.4f}" for s, v in row.items()))
+
+    lib, fn = libs["phases"]
+    buf = (ctypes.c_ulonglong * 8)()
+    print("cycles per block (thread 0, clock64), phases variant:")
+    for name, hw, cin, n, x, w, t in layers:
+        go, _ = launcher(fn, hw, cin, n, x, w, t, plan(hw, cin, n))
+        go()
+        torch.cuda.synchronize()
+        lib.probe_reset()
+        go()
+        torch.cuda.synchronize()
+        lib.probe_read(buf)
+        nb = max(1, buf[5])
+        print(f"  {name}: {buf[5]} blocks reached the end, "
+              f"{buf[6] / nb:.1f} K-tiles each; prologue {buf[0] / nb:.0f}, "
+              f"mainloop {buf[1] / nb:.0f} ({buf[1] / max(1, buf[6]):.0f} per "
+              f"K-tile), split-K {buf[2] / nb:.0f}, count {buf[3] / nb:.0f}, "
+              f"stores {buf[4] / nb:.0f}")
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
