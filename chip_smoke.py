@@ -36,14 +36,17 @@ ends the run with a non-zero exit if it fails:
    timed again on the activations and weights one forward gives them.
 5. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
-   shapes, the 7 decode projections at batch 4, a prefill shape; w8 and
-   w4; bit for bit on integer inputs), then timed over one decode step's
-   252 launches beside its bound and cuBLAS on pre-cast codes;
-   ``generate`` at w8 and w4 (batch 4, prompt 8, 16 new tokens, twice
-   each: identical tokens), launches per step, per-step latency, w8
-   against bf16 top-1 agreement, a traced step's device time by kernel
-   and busy share; then a 2-layer full-width copy decodes on the card and
-   on the CPU, and their logits and greedy tokens are compared.
+   shapes, the 7 decode projections at batch 4, a prefill shape, forced K
+   splits at both column-tile widths; w8 and w4; bit for bit on integer
+   inputs; two launches bit for bit), then timed over one decode step's
+   252 launches beside its bound and cuBLAS on pre-cast codes, with GB/s
+   of codes per projection and the w4/w8 ratio; ``generate`` at w8 and w4
+   (batch 4, prompt 8, 16 new tokens, twice each: identical tokens),
+   launches per step, per-step latency, w8 against bf16 top-1 agreement,
+   a traced step's device time by kernel and busy share (252 qmatmul
+   kernels per step, none a separate split-K reduce); then a 2-layer
+   full-width copy decodes on the card and on the CPU, and their logits
+   and greedy tokens are compared.
 6. a JSON line of every kernel with its launches on its path and its
    numbers, the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -748,7 +751,8 @@ def check_qmatmul(torch, Q, KQ, cfg):
               (70, 300, 130)]
     shapes += [(LM_BATCH, k, n) for _, k, n in _projections(cfg)]
     shapes.append((LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff))
-    worst = {"abs": 0.0, "rel": 0.0, "abs_decode": 0.0}
+    decode = {(LM_BATCH, k, n) for _, k, n in _projections(cfg)}
+    worst = {"abs": 0.0, "of_tol": 0.0, "rel_f32": 0.0, "abs_decode": 0.0}
     n_checked = 0
     for bits in (8, 4):
         lim = 8 if bits == 4 else 128
@@ -775,11 +779,17 @@ def check_qmatmul(torch, Q, KQ, cfg):
                       f"qmatmul {m}x{k}x{n} w{bits} {xdt} differs by "
                       f"{d.max().item():.3g} beyond the tolerance")
                 worst["abs"] = max(worst["abs"], d.max().item())
-                worst["rel"] = max(worst["rel"],
-                                   (d / S.clamp_min(1e-30)).max().item())
-                if m == LM_BATCH and k >= cfg.d_model:
+                worst["of_tol"] = max(worst["of_tol"],
+                                      (d / tol.clamp_min(1e-30)).max().item())
+                if xdt == torch.float32:
+                    worst["rel_f32"] = max(worst["rel_f32"], (
+                        d / S.clamp_min(1e-30)).max().item())
+                if (m, k, n) in decode:
                     worst["abs_decode"] = max(worst["abs_decode"],
                                               d.max().item())
+                    check(torch.equal(got, KQ.qmatmul(x, w, s, bits)),
+                          f"qmatmul {m}x{k}x{n} w{bits} {xdt}: two launches "
+                          "differ")
                 n_checked += 1
         lim = 8 if bits == 4 else 32
         for m, k, n in ((LM_BATCH, cfg.d_model, 256), (LM_BATCH, cfg.d_ff,
@@ -794,10 +804,32 @@ def check_qmatmul(torch, Q, KQ, cfg):
                   f"qmatmul {m}x{k}x{n} w{bits} on integers is not bit "
                   "for bit")
             n_checked += 1
+        # every forced K split, a ragged one (5) included, both tile widths
+        m, k, n = LM_BATCH, cfg.d_model, 320
+        codes = torch.randint(-lim, lim, (k, n), generator=gen)
+        w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
+             else codes.to(torch.int8)).to(dev)
+        s = (torch.rand((n,), generator=gen) * 0.02 + 0.001).to(dev)
+        x = (torch.rand((m, k), generator=gen) * 2 - 1).to(torch.bfloat16
+                                                            ).to(dev)
+        want = KQ.qmatmul_plain(x, w, s, bits).float()
+        tol = (2e-5 * (x.float().abs() @ codes.to(dev).float().abs()) * s
+               + want.abs() * 2.0 ** -7)
+        for bn in (64, 128):
+            for splits in (1, 2, 4, 8, 5):
+                got = KQ.qmatmul(x, w, s, bits, splits=splits, bn=bn)
+                check(bool(((got.float() - want).abs() <= tol).all()),
+                      f"qmatmul w{bits} bn {bn} splits {splits} differs")
+                n_checked += 1
     log(f"kernel check qmatmul: {n_checked} cases, w8 and w4, f32 and bf16 "
-        f"x; max abs err {worst['abs']:.3g} (decode shapes "
-        f"{worst['abs_decode']:.3g}), max err / sum|x||w|scale "
-        f"{worst['rel']:.3g} (tolerance 2e-5); integer inputs bit for bit")
+        f"x, forced splits 1/2/4/8/5 at both tile widths; max abs err "
+        f"{worst['abs']:.3g} (decode shapes {worst['abs_decode']:.3g}); "
+        f"max err / applied tolerance {worst['of_tol']:.3g} (passes at <= 1; "
+        f"the tolerance is 2e-5 sum|bf16(x)||code|scale, plus one bf16 "
+        f"rounding of the output for bf16 x); for f32 x, max err / "
+        f"sum|bf16(x)||code|scale {worst['rel_f32']:.3g} (tolerance 2e-5); "
+        "integer inputs bit for bit; two launches bit for bit at the decode "
+        "shapes")
     return worst["abs_decode"]
 
 
@@ -859,6 +891,7 @@ def time_qmatmul(torch, Q, KQ, cfg, trees):
             nbytes = (codes[0].numel() + 4 * nn + 2 * LM_BATCH * (k + nn))
             rows.append((name, k, nn, ms, plain, lib,
                          nbytes / PEAK_BYTES_PER_S * 1e3))
+            tot.setdefault("per_projection", {})[name] = ms
             for key, v in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib), ("bytes", nbytes),
                            ("ops", 2 * LM_BATCH * k * nn)):
@@ -879,6 +912,15 @@ def time_qmatmul(torch, Q, KQ, cfg, trees):
             f"{tot['library_ms']:.4f} bound_ms={tot['bound_ms']:.4f} "
             f"({tot['bytes']} bytes)")
         out[bits] = tot
+    if 8 in out and 4 in out:
+        for name, k, nn in _projections(cfg):
+            w8, w4 = out[8]["per_projection"][name], out[4]["per_projection"][name]
+            log(f"kernel qmatmul {name:6s} K={k:5d} N={nn:5d}: w8 "
+                f"{k * nn / w8 / 1e6:.0f} GB/s, w4 {k * nn / 2 / w4 / 1e6:.0f} "
+                f"GB/s of codes; w4/w8 time {w4 / w8:.3f} (w8 {w8 / w4:.2f}x "
+                "the w4 time)")
+        log(f"kernel qmatmul one decode step: w4/w8 time "
+            f"{out[4]['ms'] / out[8]['ms']:.3f}")
     return out
 
 
@@ -908,7 +950,7 @@ def profile_decode(torch, label, step_fn, reps):
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
-        return None, elapsed
+        return None, elapsed, kern
     busy = busy_us / reps / 1e3
     log(f"profile {label} ({reps} decode steps, traced): {elapsed:.3f} "
         f"ms/step between CUDA events, device busy {busy:.3f} ms/step "
@@ -917,7 +959,7 @@ def profile_decode(torch, label, step_fn, reps):
     for e in sorted(kern, key=lambda e: -e.device_time_total)[:10]:
         log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/step "
             f"{e.count / reps:6.1f}x  {e.key[:90]}")
-    return busy, elapsed
+    return busy, elapsed, kern
 
 
 def lm_path(torch, np, B, Q, KQ):
@@ -1057,8 +1099,19 @@ def lm_path(torch, np, B, Q, KQ):
                                      state["cache"])
         state["tok"] = nxt[:, None]
 
-    busy, traced = profile_decode(torch, "w8 decode", traced_step, 8)
+    reps = 8
+    busy, traced, kern = profile_decode(torch, "w8 decode", traced_step, reps)
+    qmm = [e for e in kern if "qmm_" in e.key]
+    check(not any("qmm_reduce" in e.key for e in kern),
+          "a qmm_reduce kernel ran in the w8 decode profile")
     if busy is not None:
+        n_qmm = sum(e.count for e in qmm) / reps
+        check(n_qmm == QMM_LAUNCHES_PER_STEP,
+              f"{n_qmm} qmatmul kernels per profiled decode step, expected "
+              f"{QMM_LAUNCHES_PER_STEP}")
+        log(f"profile w8 decode: qmatmul {n_qmm:.0f} kernels/step, "
+            f"{sum(e.device_time_total for e in qmm) / reps / 1e3:.4f} "
+            "ms/step of device time; no qmm_reduce kernel")
         log(f"device busy share w8 decode step: {busy / traced:.1%} in the "
             f"traced run; busy {busy:.3f} ms over the untraced step's "
             f"{step_ms[8]:.3f} ms estimates {busy / step_ms[8]:.1%}")

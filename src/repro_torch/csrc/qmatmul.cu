@@ -16,30 +16,56 @@
 // and K, N are in the thousands, so each weight byte serves M rows: about
 // 2M operations per byte at w8, far below the ridge of any unit.  An ideal
 // kernel is bound by the bytes of the codes: 2.77 GB per Qwen2.5-3B decode
-// step at w8, 0.83 ms at 3.35 TB/s.
+// step at w8 (0.83 ms at 3.35 TB/s), half that at w4.
 //
-// What this design does about it: it streams the weights once, on the
-// CUDA cores, and keeps everything else on chip.
-// * A block owns BN = 64 output columns and a K slice.  Its 256 threads
-//   are 8 columns wide and 32 rows deep: thread (tk, tc) reads 8 columns
-//   (8 bytes at w8, 4 packed bytes at w4) of rows tk, tk + 32, ..., with
-//   UNROLL row loads in flight before it computes; neighbouring threads
-//   read neighbouring bytes.
-// * The block's rows of x (MT <= 8 of them) are staged in shared memory as
-//   float32 already rounded to bf16, KC rows of K at a time, laid out
-//   [k][m] so that one 16-byte shared load gives four rows' values.
-// * Codes become float32 without a conversion instruction: a byte with its
-//   sign bit flipped, placed in the low mantissa of 2^23, is 2^23 + 128 + c
-//   (a nibble likewise with 8), and one subtraction leaves c exactly.
-// * The 32 partial sums of each column are added in a fixed order through
-//   shared memory, so the result does not depend on scheduling.
-// * When the column tiles alone would leave SMs idle (decode's projections
-//   with N = 256 or 2048), the wrapper splits K over grid.y: each split
-//   writes its float32 sums into scratch that the wrapper allocated, and a
-//   second kernel adds the splits in order, scales and casts.
-// Ragged M, N and K are masked in the kernel; nothing is padded.
-// Left for later: tensor cores (mma/wgmma), TMA and a pipelined ring of
-// weight tiles, and fusing the bias add and the next cast.
+// What this design does about it: it keeps enough weight bytes in flight
+// to cover the DRAM latency, and spends few instructions per code.
+// * A block (256 threads, 8 warps) owns BN = 64 or 128 output columns, up
+//   to 8 rows of x and a K slice.  Its column tile streams through a ring
+//   of STAGES = 3 shared-memory stages of 16 KB of codes each (KS rows of
+//   K: 128 at w8 and BN = 128, up to 512 at w4 and BN = 64), filled by
+//   16-byte cp.async.cg; two stages (32 KB) are in flight while the block
+//   computes the third, at w4 as at w8 (a w4 stage spans twice the rows),
+//   and an SM holds two blocks.
+//   Each row is padded by 16 bytes, so the fragment reads below hit
+//   distinct banks.  One __syncthreads per stage, before the next copies
+//   are issued: none stands between issuing a stage and computing an
+//   earlier one.
+// * x is staged once per block in bf16 ([row][k], padded rows), its chunks
+//   copied in the same cp.async group as the stage of weights that first
+//   reads them (bf16 x, K a multiple of 8), or converted by plain loads
+//   (float32 x, ragged K) before the first stage is computed.
+// * The products run on the bf16 tensor cores, mma.sync m16n8k16 with
+//   float32 accumulators, in swap-AB form: the weight tile (16 output
+//   columns x 16 of K) is A, x^T (16 of K x 8 rows of x, zero past M) is B.
+//   A thread reads its CPT = BN / 8 columns of rows 2t, 2t+1, 2t+8, 2t+9
+//   of a 16-row step (16, 8 or 4 bytes a row) and pairs consecutive rows
+//   of one column with byte permutes; MMA row g of tile i is column
+//   CPT g + 2i, row g + 8 column CPT g + 2i + 1, so a thread's accumulators
+//   hold 2 rows of x x CPT contiguous columns.
+// * Codes become bf16 exactly with bit operations into the mantissa of a
+//   biased bf16 and one bf16x2 FMA: a nibble n gives 0x4300 | (n ^ 8) =
+//   136 + c, minus 136.  A byte cannot (bf16 has 8 significant bits, the
+//   biased byte needs 9), so it is split: (128 + (c & 127)) - (128 +
+//   (c & 128)) = c, both operands exact bf16, their difference exact.
+// * The 8 warps split each stage's 16-row steps; at the end their sums are
+//   added in warp order through shared memory (the ring's space), then
+//   scaled and cast.  Where the column tiles alone would leave SMs idle,
+//   K is split over grid.y within this one launch: each split writes its
+//   float32 sums to scratch, and the last block of a column tile to arrive
+//   (a per-tile counter that block resets; one thread fences for the
+//   block) adds the splits in split order, scales and casts.  The order of
+//   every sum is fixed, so repeated calls give identical bits.
+// Ragged M, N and K are masked in the kernel (zero-filled copies past K
+// and past N); N not a multiple of 16 bytes takes byte loads into the same
+// ring.  Left for later: overlapping a call's first copies with the
+// previous kernel (programmatic dependent launch), and one launch for the
+// projections that share x (q/k/v, gate/up).
+//
+// Measurement builds: -DQMM_NO_MMA drops the tensor-core MMAs and
+// -DQMM_NO_COPY the weight copies (both compute wrong values), and
+// -DQMM_CLOCK sums each block's clock64 cycles per phase (thread 0); only
+// tools/sweep_qmatmul_splits.py builds them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,20 +73,110 @@
 
 namespace {
 
-constexpr int BN = 64;          // output columns per block
-constexpr int CPT = 8;          // columns per thread
-constexpr int TC = BN / CPT;    // threads across the columns: 8
-constexpr int THREADS = 256;
-constexpr int TK = THREADS / TC;  // threads down K: 32
-constexpr int KC = 256;         // rows of K staged per shared-memory chunk
-constexpr int UNROLL = 8;       // weight-row loads in flight per thread
-static_assert(TK * UNROLL <= KC, "one unrolled sweep must fit a chunk");
+// The block's geometry; the -D overrides exist for
+// tools/sweep_qmatmul_splits.py --variants.
+#ifndef QMM_WARPS
+#define QMM_WARPS 8
+#endif
+#ifndef QMM_STAGES
+#define QMM_STAGES 3
+#endif
+#ifndef QMM_STAGE_BYTES
+#define QMM_STAGE_BYTES 16384
+#endif
+constexpr int WARPS = QMM_WARPS;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = QMM_STAGES;
+constexpr int STAGE_BYTES = QMM_STAGE_BYTES;  // codes per ring stage
+constexpr int PAD = 16;            // bytes after each staged row
+constexpr int MT8 = 8;             // rows of x an MMA covers
 
-__device__ __forceinline__ float bf16_value(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+#ifdef QMM_CLOCK
+// cycles of thread 0 summed over blocks: prologue, waits, compute, warp
+// sums and stores, split handshake, last block's sum; blocks, last blocks
+__device__ unsigned long long g_qmm_cycles[8];
+#define QMM_CLOCK_START long long qmm_t = clock64()
+#define QMM_STAMP(i)                                                     \
+  do {                                                                   \
+    if (threadIdx.x == 0) {                                              \
+      const long long now = clock64();                                   \
+      atomicAdd(&g_qmm_cycles[i], static_cast<unsigned long long>(now - qmm_t)); \
+      qmm_t = now;                                                       \
+    }                                                                    \
+  } while (0)
+#define QMM_COUNT(i)                                                     \
+  do {                                                                   \
+    if (threadIdx.x == 0) atomicAdd(&g_qmm_cycles[i], 1ull);             \
+  } while (0)
+#else
+#define QMM_CLOCK_START
+#define QMM_STAMP(i)
+#define QMM_COUNT(i)
+#endif
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ float bf16_value(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// d = a * b + c on bf16 pairs (exact whenever the result is)
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Two int8 codes (bytes 0 and 2 of w) as a bf16 pair, exactly.
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
+  const uint32_t lo = (w & 0x007F007Fu) | 0x43004300u;  // 128 + (c & 127)
+  const uint32_t hi = (w & 0x00800080u) | 0x43004300u;  // 128 + (c & 128)
+  return fma_bf16x2(hi, 0xBF80BF80u, lo);                // lo - hi
+}
+
+// Two int4 codes (bits 0-3 and 16-19 of w) as a bf16 pair, exactly.
+__device__ __forceinline__ uint32_t i4x2_to_bf16x2(uint32_t w) {
+  const uint32_t v = (w & 0x000F000Fu) ^ 0x43084308u;   // 136 + c
+  return fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);        // v * 1 - 136
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+#ifndef QMM_NO_MMA
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#else
+  d[0] += __int_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1);
+#endif
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
+  return v;
 }
 
 template <typename T>
@@ -74,218 +190,367 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Raw code bytes of row k, columns c0 .. c0 + 7 (zero where masked).
-template <int BITS, bool VEC>
-__device__ __forceinline__ void load_row(const int8_t* __restrict__ w, int N,
-                                         int k, int c0, bool valid,
-                                         uint32_t (&raw)[2]) {
-  raw[0] = 0u;
-  raw[1] = 0u;
-  if (!valid) return;
-  if (BITS == 8) {
-    const int8_t* row = w + static_cast<size_t>(k) * N;
-    if (VEC) {
-      if (c0 < N) {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + c0));
-        raw[0] = v.x;
-        raw[1] = v.y;
-      }
-    } else {
+template <int BITS, int BN>
+struct Tile {
+  static constexpr int ROW = BN * BITS / 8;         // code bytes of a row
+  static constexpr int RS = ROW + PAD;              // staged row stride
+  static constexpr int KS = STAGE_BYTES / ROW;      // rows of K per stage
+  static constexpr int CHUNKS = ROW / 16;           // 16-byte copies a row
+  static constexpr int CPT = BN / 8;                // columns per thread
+  static constexpr int WPR = CPT * BITS / 32;       // 32-bit words a row
+  static constexpr int NT = CPT / 2;                // m16 tiles per warp
+  static constexpr int STEPS = KS / 16;             // MMA k-steps a stage
+  static constexpr int CPJ = KS * CHUNKS / THREADS; // copies a thread issues
+  static_assert(STEPS % WARPS == 0, "each warp takes whole k-steps");
+  static_assert(THREADS % CHUNKS == 0 && CPJ * THREADS == KS * CHUNKS,
+                "a thread copies whole chunks of one column range");
+  static_assert(STAGES * KS * RS >= WARPS * MT8 * BN * 4,
+                "the warp sums fit in the ring");
+};
+
+// The four k-rows (2t, 2t+1, 2t+8, 2t+9) of a thread's columns as A
+// fragments of the NT m16 tiles.
+template <int BITS, int BN>
+__device__ __forceinline__ void a_fragments(const uint8_t* rows, int g, int t,
+                                            uint32_t (&a)[Tile<BITS, BN>::NT][4]) {
+  using T = Tile<BITS, BN>;
+  uint32_t r[4][T::WPR];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        if (c0 + j < N) {
-          const uint32_t b = static_cast<uint8_t>(__ldg(row + c0 + j));
-          raw[j >> 2] |= b << (8 * (j & 3));
-        }
-      }
+  for (int h = 0; h < 4; ++h) {
+    const int k = 2 * t + (h & 1) + 8 * (h >> 1);
+    const uint8_t* p = rows + k * T::RS + g * (T::WPR * 4);
+    if constexpr (T::WPR == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      r[h][0] = v.x;
+      r[h][1] = v.y;
+      r[h][2] = v.z;
+      r[h][3] = v.w;
+    } else if constexpr (T::WPR == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      r[h][0] = v.x;
+      r[h][1] = v.y;
+    } else {
+      r[h][0] = *reinterpret_cast<const uint32_t*>(p);
     }
-  } else {
-    const int np = N >> 1;  // packed bytes per row
-    const int p0 = c0 >> 1;
-    const int8_t* row = w + static_cast<size_t>(k) * np;
-    if (VEC) {
-      if (p0 < np) raw[0] = __ldg(reinterpret_cast<const uint32_t*>(row + p0));
-    } else {
+  }
 #pragma unroll
-      for (int j = 0; j < CPT / 2; ++j) {
-        if (p0 + j < np) {
-          const uint32_t b = static_cast<uint8_t>(__ldg(row + p0 + j));
-          raw[0] |= b << (8 * j);
-        }
+  for (int i = 0; i < T::NT; ++i) {
+    // columns j = 2i (MMA row g) and j + 1 (row g + 8) of the thread's CPT
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {       // k-rows 2t, 2t+1 (h=0); +8, +9 (h=1)
+      const uint32_t* r0 = r[2 * h];
+      const uint32_t* r1 = r[2 * h + 1];
+      uint32_t p0, p1;
+      if constexpr (BITS == 8) {
+        const int q = i / 2;              // word of columns 2i, 2i + 1
+        const int b = 2 * (i % 2);        // their bytes b, b + 1
+        // bytes 0, 2 <- column 2i of rows r0, r1; then column 2i + 1
+        p0 = i8x2_to_bf16x2(__byte_perm(r0[q], r1[q], b | ((4 + b) << 8)));
+        p1 = i8x2_to_bf16x2(
+            __byte_perm(r0[q], r1[q], (b + 1) | ((5 + b) << 8)));
+      } else {
+        const int q = i / 4;              // word of 8 columns
+        const int p = 2 * (i % 4);        // nibble of column 2i
+        // nibbles 0-3 <- 4 columns of r0, 4-7 <- the same of r1
+        const uint32_t w = __byte_perm(r0[q], r1[q], p < 4 ? 0x5410 : 0x7632);
+        p0 = i4x2_to_bf16x2(w >> (4 * (p % 4)));
+        p1 = i4x2_to_bf16x2(w >> (4 * (p % 4 + 1)));
       }
+      a[i][2 * h] = p0;       // MMA row g:     k 2t, 2t+1 (+8)
+      a[i][2 * h + 1] = p1;   // MMA row g + 8: the same k
     }
   }
 }
 
-// The 8 codes of a row as exact float32 values.
-template <int BITS>
-__device__ __forceinline__ void codes_to_f32(const uint32_t (&raw)[2],
-                                             float (&f)[CPT]) {
-  if (BITS == 8) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t u = raw[h] ^ 0x80808080u;  // c + 128 in each byte
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f[4 * h + i] =
-            __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + i)) -
-            8388736.0f;  // 2^23 + 128
-    }
-  } else {
-    const uint32_t u = raw[0] ^ 0x88888888u;  // c + 8 in each nibble
-#pragma unroll
-    for (int q = 0; q < CPT; ++q)
-      f[q] = __int_as_float(0x4B000000u | ((u >> (4 * q)) & 0xFu)) -
-             8388616.0f;  // 2^23 + 8
-  }
-}
-
-template <int BITS, typename XT, int MT, bool VEC>
+template <int BITS, typename XT, int BN, bool VEC, bool VECX>
 __global__ void __launch_bounds__(THREADS)
     qmm_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, XT* __restrict__ out,
-               float* __restrict__ partial, int M, int K, int N,
-               int k_per_split) {
-  constexpr int RM = MT < 4 ? MT : 4;  // rows reduced per round
-  __shared__ __align__(16) float xs[KC * MT];
-  __shared__ float red[TK * RM * BN];
+               float* __restrict__ ws, int* __restrict__ tile_counts, int M,
+               int K, int N, int mt, int k_per_split) {
+  using T = Tile<BITS, BN>;
+  QMM_CLOCK_START;
+  QMM_COUNT(6);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
+  uint8_t* const ring = smem;
+  __nv_bfloat16* const xs =
+      reinterpret_cast<__nv_bfloat16*>(smem + STAGES * T::KS * T::RS);
 
   const int tid = threadIdx.x;
-  const int tc = tid % TC;
-  const int tk = tid / TC;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int n0 = blockIdx.x * BN;
-  const int c0 = n0 + tc * CPT;
-  const int m0 = blockIdx.z * MT;
+  const int m0 = blockIdx.z * mt;
+  const int rows = min(mt, M - m0);
   const int kb = blockIdx.y * k_per_split;
-  const int ke = min(K, kb + k_per_split);
+  const int kn = min(K, kb + k_per_split) - kb;
+  const int ntiles = (kn + T::KS - 1) / T::KS;
+  const int XS = ntiles * T::KS + 8;        // staged x row stride (bf16)
+  const int NB = N * BITS / 8;              // code bytes of a row of w
+  const uint8_t* const wb = reinterpret_cast<const uint8_t*>(w);
 
-  float acc[MT][CPT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[m][j] = 0.f;
+  // A thread copies the same 16 bytes of columns (cb) of rows r0, r0 +
+  // RSTEP, ... of every stage: its source advances by a stage's rows.
+  constexpr int RSTEP = THREADS / T::CHUNKS;
+  const int cb = (tid % T::CHUNKS) * 16;
+  const int r0 = tid / T::CHUNKS;
+  const int nb = n0 * BITS / 8 + cb;
+  const bool col_ok = nb < NB;
+  const uint8_t* const wsrc =
+      wb + (col_ok ? static_cast<size_t>(kb + r0) * NB + nb : 0);
+  const int kn16 = (kn + 15) & ~15;       // rows a k-step may read
 
-  for (int kc = kb; kc < ke; kc += KC) {
-    const int kn = min(KC, ke - kc);
-    for (int i = tid; i < KC * MT; i += THREADS) {
-      const int m = i / KC;
-      const int kk = i % KC;
-      float v = 0.f;
-      if (kk < kn && m0 + m < M)
-        v = bf16_value(x[static_cast<size_t>(m0 + m) * K + kc + kk]);
-      xs[kk * MT + m] = v;
-    }
-    __syncthreads();
-    for (int kk0 = 0; kk0 < kn; kk0 += TK * UNROLL) {
-      uint32_t raw[UNROLL][2];
+  // copies of tile s of the K slice into ring stage st (plus x's chunks);
+  // rows past the slice are zero-filled up to the end of their k-step and
+  // not copied beyond it (no k-step reads them)
+  auto load_tile = [&](int s, int st) {
+    uint8_t* dst = ring + st * T::KS * T::RS + r0 * T::RS + cb;
+#ifndef QMM_NO_COPY
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int kk = kk0 + u * TK + tk;
-        load_row<BITS, VEC>(w, N, kc + kk, c0, kk < kn, raw[u]);
-      }
+    for (int j = 0; j < T::CPJ; ++j) {
+      const int r = s * T::KS + r0 + j * RSTEP;   // row in the K slice
+      if (r >= kn16) break;
+      const bool ok = col_ok && r < kn;
+      const uint8_t* src =
+          ok ? wsrc + static_cast<size_t>(s * T::KS + j * RSTEP) * NB : wb;
+      if constexpr (VEC) {
+        cp_async16(smem_u32(dst + j * RSTEP * T::RS), src, ok);
+      } else {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int kk = kk0 + u * TK + tk;
-        if (kk < kn) {
-          float f[CPT];
-          codes_to_f32<BITS>(raw[u], f);
-          const float* xr = xs + kk * MT;
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float xv = xr[m];
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) acc[m][j] = fmaf(xv, f[j], acc[m][j]);
-          }
-        }
+        for (int i = 0; i < 16; ++i)
+          if (ok && nb + i < NB)
+            v[i >> 2] |= static_cast<uint32_t>(__ldg(src + i)) << (8 * (i & 3));
+        *reinterpret_cast<uint4*>(dst + j * RSTEP * T::RS) =
+            make_uint4(v[0], v[1], v[2], v[3]);
       }
     }
-    __syncthreads();
+#endif
+    if constexpr (VECX) {
+      constexpr int XC = T::KS / 8;   // 16-byte chunks of a row's K tile
+      for (int c = tid; c < rows * XC; c += THREADS) {
+        const int m = c / XC;
+        const int kk = s * T::KS + (c % XC) * 8;
+        if (kk >= kn16) continue;
+        const bool ok = kk < kn;
+        cp_async16(smem_u32(xs + m * XS + kk),
+                   x + (ok ? static_cast<size_t>(m0 + m) * K + kb + kk : 0),
+                   ok);
+      }
+    }
+  };
+
+  // ---- prologue: STAGES - 1 tiles in flight ----
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  if constexpr (!VECX) {
+    for (int i = tid; i < rows * ntiles * T::KS; i += THREADS) {
+      const int m = i / (ntiles * T::KS);
+      const int kk = i % (ntiles * T::KS);
+      xs[m * XS + kk] = kk < kn ? to_bf16(x[static_cast<size_t>(m0 + m) * K +
+                                            kb + kk])
+                                : __float2bfloat16_rn(0.f);
+    }
   }
 
-  // Column sums over the 32 K-groups, in order tk = 0, 1, ..., 31.
-  const int col = tid % BN;
-  const int rm = tid / BN;
-  const int n = n0 + col;
+  float acc[T::NT][4];
 #pragma unroll
-  for (int r = 0; r < MT / RM; ++r) {
+  for (int i = 0; i < T::NT; ++i)
 #pragma unroll
-    for (int mm = 0; mm < RM; ++mm)
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // this thread's first output task (task = tid) has its scales loaded
+  // while the block streams, off the epilogue's path
+  constexpr int C4 = BN / 4;            // float4 chunks of a row
+  // the scales of a task's 4 columns, loaded before its sums are ready
+  auto scales = [&](int c4, float (&sc)[4]) {
+    const int n = n0 + 4 * c4;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        red[(tk * RM + mm) * BN + tc * CPT + j] = acc[r * RM + mm][j];
+    for (int j = 0; j < 4; ++j) sc[j] = n + j < N ? __ldg(scale + n + j) : 0.f;
+  };
+  float sc_first[4];
+  scales(tid % C4, sc_first);
+  QMM_STAMP(0);
+
+  // ---- mainloop ----
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    if (rm < RM) {
-      float s = 0.f;
-      for (int t = 0; t < TK; ++t) s += red[(t * RM + rm) * BN + col];
-      const int m = m0 + r * RM + rm;
-      if (m < M && n < N) {
-        if (gridDim.y == 1)
-          out[static_cast<size_t>(m) * N + n] =
-              from_f32<XT>(__fmul_rn(s, scale[n]));
-        else
-          partial[(static_cast<size_t>(blockIdx.y) * M + m) * N + n] = s;
+    QMM_STAMP(1);
+    if (it + STAGES - 1 < ntiles)
+      load_tile(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const uint8_t* st = ring + (it % STAGES) * T::KS * T::RS;
+#pragma unroll
+    for (int j = 0; j < T::STEPS / WARPS; ++j) {
+      const int step = warp + WARPS * j;
+      const int kk = it * T::KS + 16 * step;   // row in the K slice
+      if (kk >= kn) break;
+      uint32_t b0 = 0u, b1 = 0u;
+      if (g < rows) {
+        const __nv_bfloat16* xr = xs + g * XS + kk + 2 * t;
+        b0 = *reinterpret_cast<const uint32_t*>(xr);
+        b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+      }
+      uint32_t a[T::NT][4];
+      a_fragments<BITS, BN>(st + 16 * step * T::RS, g, t, a);
+#pragma unroll
+      for (int i = 0; i < T::NT; ++i) mma_bf16(acc[i], a[i], b0, b1);
+    }
+    QMM_STAMP(2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- the warps' sums, added in warp order (the ring's space) ----
+  float* const red = reinterpret_cast<float*>(smem);   // [warp][row][BN]
+  // thread (g, t): rows 2t, 2t + 1; columns CPT g + 2i (c0, c1), + 1 (c2, c3)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 2 * t + h;
+    if (m < rows) {
+      float* dst = red + (warp * MT8 + m) * BN + T::CPT * g;
+#pragma unroll
+      for (int i = 0; i < T::NT; ++i)
+        *reinterpret_cast<float2*>(dst + 2 * i) =
+            make_float2(acc[i][h], acc[i][2 + h]);
+    }
+  }
+  __syncthreads();
+
+  const int tasks = rows * C4;
+  const bool split = gridDim.y > 1;
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  float4* const part = reinterpret_cast<float4*>(ws) +
+      static_cast<size_t>(tile) * gridDim.y * (MT8 * C4);
+  auto store = [&](int m, int c4, float4 v, const float (&sc)[4]) {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    const int n = n0 + 4 * c4;
+    XT* o = out + static_cast<size_t>(m0 + m) * N + n;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n + j < N) o[j] = from_f32<XT>(__fmul_rn(e[j], sc[j]));
+  };
+  for (int task = tid; task < tasks; task += THREADS) {
+    const int m = task / C4;
+    const int c4 = task % C4;
+    float sc[4] = {sc_first[0], sc_first[1], sc_first[2], sc_first[3]};
+    if (!split && task != tid) scales(c4, sc);
+    float4 v = reinterpret_cast<const float4*>(red)[m * C4 + c4];
+#pragma unroll
+    for (int wp = 1; wp < WARPS; ++wp) {
+      const float4 u = reinterpret_cast<const float4*>(red)[(wp * MT8 + m) * C4 + c4];
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    if (split)
+      __stcg(part + blockIdx.y * (MT8 * C4) + m * C4 + c4, v);
+    else
+      store(m, c4, v, sc);
+  }
+  QMM_STAMP(3);
+  if (!split) return;
+
+  // ---- split K: the last block of the tile adds the splits in order ----
+  // One thread fences on the block's behalf after the barrier (release),
+  // takes the count, and fences again before the barrier that lets the
+  // block read the other splits' sums (acquire), as CUTLASS's semaphores do.
+  __syncthreads();
+  if (tid == 0) {
+    fence_acq_rel_gpu();
+    s_last = atomicAdd(tile_counts + tile, 1) == static_cast<int>(gridDim.y) - 1;
+    fence_acq_rel_gpu();
+  }
+  __syncthreads();
+  QMM_STAMP(4);
+  if (!s_last) return;
+  QMM_COUNT(7);
+  for (int task = tid; task < tasks; task += THREADS) {
+    const int m = task / C4;
+    const int c4 = task % C4;
+    float sc[4] = {sc_first[0], sc_first[1], sc_first[2], sc_first[3]};
+    if (task != tid) scales(c4, sc);
+    const float4* p = part + m * C4 + c4;
+    const int S = static_cast<int>(gridDim.y);
+    float4 v = __ldcg(p);
+    int z = 1;
+    for (; z + 4 <= S; z += 4) {        // 4 loads in flight, added in order
+      float4 u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        u[i] = __ldcg(p + static_cast<size_t>(z + i) * (MT8 * C4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v.x += u[i].x; v.y += u[i].y; v.z += u[i].z; v.w += u[i].w;
       }
     }
-    __syncthreads();
+    for (; z < S; ++z) {
+      const float4 u = __ldcg(p + static_cast<size_t>(z) * (MT8 * C4));
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    store(m, c4, v, sc);
   }
+  if (tid == 0) tile_counts[tile] = 0;
+  QMM_STAMP(5);
 }
 
-// Split-K epilogue: add the splits' sums in order, scale, cast.
-template <typename XT>
-__global__ void qmm_reduce_kernel(const float* __restrict__ partial,
-                                  const float* __restrict__ scale,
-                                  XT* __restrict__ out, int M, int N,
-                                  int splits) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(M) * N;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += partial[sp * total + i];
-  out[i] = from_f32<XT>(__fmul_rn(s, scale[i % N]));
-}
-
-template <int BITS, typename XT, int MT>
-int launch(const void* x, const int8_t* w, const float* scale, void* out,
-           float* partial, int M, int K, int N, int splits, int k_per_split,
-           cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, splits, (M + MT - 1) / MT);
-  const bool vec = N % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % (BITS == 8 ? 8 : 4) == 0;
-  const XT* xx = static_cast<const XT*>(x);
-  XT* oo = static_cast<XT*>(out);
-  if (vec)
-    qmm_kernel<BITS, XT, MT, true><<<grid, THREADS, 0, s>>>(
-        xx, w, scale, oo, partial, M, K, N, k_per_split);
-  else
-    qmm_kernel<BITS, XT, MT, false><<<grid, THREADS, 0, s>>>(
-        xx, w, scale, oo, partial, M, K, N, k_per_split);
-  if (splits > 1) {
-    const size_t total = static_cast<size_t>(M) * N;
-    const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
-    qmm_reduce_kernel<XT><<<blocks, THREADS, 0, s>>>(partial, scale, oo, M, N,
-                                                     splits);
+template <int BITS, typename XT, int BN, bool VEC, bool VECX>
+int launch_one(const void* x, const int8_t* w, const float* scale, void* out,
+               float* ws, int* counts, int M, int K, int N, int mt,
+               int splits, int k_per_split, cudaStream_t s) {
+  using T = Tile<BITS, BN>;
+  const int ntiles = (k_per_split + T::KS - 1) / T::KS;
+  const size_t smem = static_cast<size_t>(STAGES) * T::KS * T::RS +
+                      static_cast<size_t>(mt) * (ntiles * T::KS + 8) * 2;
+  auto kern = qmm_kernel<BITS, XT, BN, VEC, VECX>;
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted = smem;
   }
+  const dim3 grid((N + BN - 1) / BN, splits, (M + mt - 1) / mt);
+  kern<<<grid, THREADS, smem, s>>>(
+      static_cast<const XT*>(x), w, scale, static_cast<XT*>(out), ws, counts,
+      M, K, N, mt, k_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BITS, typename XT, int BN>
+int launch(const void* x, const int8_t* w, const float* scale, void* out,
+           float* ws, int* counts, int M, int K, int N, int mt, int splits,
+           int k_per_split, cudaStream_t s) {
+  const bool vec = (N * BITS / 8) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vecx = sizeof(XT) == 2 && K % 8 == 0 && k_per_split % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+#define QMM_LAUNCH(V, VX)                                                   \
+  return launch_one<BITS, XT, BN, V, VX>(x, w, scale, out, ws, counts, M, K, \
+                                         N, mt, splits, k_per_split, s)
+  if (vec && vecx) QMM_LAUNCH(true, true);
+  if (vec) QMM_LAUNCH(true, false);
+  if (vecx) QMM_LAUNCH(false, true);
+  QMM_LAUNCH(false, false);
+#undef QMM_LAUNCH
+}
+
 template <int BITS, typename XT>
-int launch_mt(const void* x, const int8_t* w, const float* scale, void* out,
-              float* partial, int M, int K, int N, int mt, int splits,
-              int k_per_split, cudaStream_t s) {
-  switch (mt) {
-    case 1:
-      return launch<BITS, XT, 1>(x, w, scale, out, partial, M, K, N, splits,
-                                 k_per_split, s);
-    case 2:
-      return launch<BITS, XT, 2>(x, w, scale, out, partial, M, K, N, splits,
-                                 k_per_split, s);
-    case 4:
-      return launch<BITS, XT, 4>(x, w, scale, out, partial, M, K, N, splits,
-                                 k_per_split, s);
-    case 8:
-      return launch<BITS, XT, 8>(x, w, scale, out, partial, M, K, N, splits,
-                                 k_per_split, s);
-  }
+int launch_bn(const void* x, const int8_t* w, const float* scale, void* out,
+              float* ws, int* counts, int M, int K, int N, int mt, int bn,
+              int splits, int k_per_split, cudaStream_t s) {
+  if (bn == 128)
+    return launch<BITS, XT, 128>(x, w, scale, out, ws, counts, M, K, N, mt,
+                                 splits, k_per_split, s);
+  if (bn == 64)
+    return launch<BITS, XT, 64>(x, w, scale, out, ws, counts, M, K, N, mt,
+                                splits, k_per_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -293,28 +558,47 @@ int launch_mt(const void* x, const int8_t* w, const float* scale, void* out,
 
 // x (M, K) float32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w (K, N) int8 codes
 // (bits = 8) or (K, N / 2) packed int4 (bits = 4); scale (N,) float32;
-// out (M, N) of x's type.  mt in {1, 2, 4, 8} rows per block; K is split
-// into `splits` slices of k_per_split rows, and when splits > 1, partial
-// is (splits, M, N) float32 scratch.  Returns cudaGetLastError().
+// out (M, N) of x's type.  A block takes mt (1 to 8) rows of x and bn (64
+// or 128) columns; K is cut into `splits` slices of k_per_split rows (a
+// multiple of 16, no slice empty).  When splits > 1, ws is float32 scratch
+// of ceil(M / mt) * ceil(N / bn) * splits * 8 * bn values and counts holds
+// ceil(M / mt) * ceil(N / bn) ints, zero before the launch and zero after
+// it.  Returns cudaGetLastError() (or the error of raising the kernel's
+// shared-memory limit).
 extern "C" int repro_qmatmul(const void* x, int x_bf16, const int8_t* w,
                              int bits, const float* scale, void* out,
-                             float* partial, int M, int K, int N, int mt,
-                             int splits, int k_per_split, void* stream) {
+                             float* ws, int* counts, int M, int K, int N,
+                             int mt, int bn, int splits, int k_per_split,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || splits < 1 || k_per_split < 1 ||
-      (splits > 1 && partial == nullptr) || (bits == 4 && N % 2 != 0))
+  if (M <= 0 || N <= 0 || K <= 0 || mt < 1 || mt > MT8 || splits < 1 ||
+      k_per_split < 1 || k_per_split % 16 != 0 ||
+      static_cast<long long>(splits - 1) * k_per_split >= K ||
+      static_cast<long long>(splits) * k_per_split < K ||
+      (splits > 1 && (ws == nullptr || counts == nullptr)) ||
+      (bits == 4 && N % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bits == 8 && x_bf16 == 0)
-    return launch_mt<8, float>(x, w, scale, out, partial, M, K, N, mt, splits,
-                               k_per_split, s);
+    return launch_bn<8, float>(x, w, scale, out, ws, counts, M, K, N, mt, bn,
+                               splits, k_per_split, s);
   if (bits == 8 && x_bf16 == 1)
-    return launch_mt<8, __nv_bfloat16>(x, w, scale, out, partial, M, K, N, mt,
-                                       splits, k_per_split, s);
+    return launch_bn<8, __nv_bfloat16>(x, w, scale, out, ws, counts, M, K, N,
+                                       mt, bn, splits, k_per_split, s);
   if (bits == 4 && x_bf16 == 0)
-    return launch_mt<4, float>(x, w, scale, out, partial, M, K, N, mt, splits,
-                               k_per_split, s);
+    return launch_bn<4, float>(x, w, scale, out, ws, counts, M, K, N, mt, bn,
+                               splits, k_per_split, s);
   if (bits == 4 && x_bf16 == 1)
-    return launch_mt<4, __nv_bfloat16>(x, w, scale, out, partial, M, K, N, mt,
-                                       splits, k_per_split, s);
+    return launch_bn<4, __nv_bfloat16>(x, w, scale, out, ws, counts, M, K, N,
+                                       mt, bn, splits, k_per_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef QMM_CLOCK
+// Copies the phase sums to host[8] and zeroes them.
+extern "C" int repro_qmatmul_clock(unsigned long long* host) {
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_qmm_cycles, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_qmm_cycles, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+#endif

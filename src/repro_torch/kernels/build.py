@@ -44,6 +44,24 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+# Per-device tile counters of the split-K kernels (mvau_int, qmatmul): zeroed
+# once, and every launch leaves them zeroed (the last block of a tile resets
+# its counter); launches share them in stream order, on PyTorch's current
+# stream.
+_TILE_COUNTS: Dict[object, object] = {}
+
+
+def tile_counters(dev, tiles: int):
+    """An int32 tensor of at least ``tiles`` zeroed counters on ``dev``."""
+    import torch
+
+    counts = _TILE_COUNTS.get(dev)
+    if counts is None or counts.numel() < tiles:
+        counts = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+        _TILE_COUNTS[dev] = counts
+    return counts
+
+
 @dataclasses.dataclass
 class BuildInfo:
     path: Path
@@ -135,7 +153,7 @@ class KernelLibrary:
         self.gap = lib.repro_gap
         self.gap.argtypes = [p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
-        self.qmatmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, p]
+        self.qmatmul.argtypes = [p, i, p, i, p, p, p, p] + [i] * 7 + [p]
         for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_f32,
                    self.mvau_i8, self.gap, self.qmatmul):
             fn.restype = ctypes.c_int

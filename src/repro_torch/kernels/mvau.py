@@ -13,7 +13,7 @@ checks ``cudaGetLastError`` and counts the launch.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,12 +66,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# per-device tile counters of the split-K kernel: zeroed once, and every
-# launch leaves them zeroed (the last block of a tile resets its counter);
-# launches share them in stream order, on PyTorch's current stream
-_TILE_COUNTS: Dict[torch.device, torch.Tensor] = {}
-
-
 def _split_scratch(m: int, n: int, k: int, dev: torch.device,
                    splits: Optional[int]) -> Tuple[int, Optional[int],
                                                    Optional[int]]:
@@ -88,10 +82,7 @@ def _split_scratch(m: int, n: int, k: int, dev: torch.device,
         return 1, None, None
     tiles = -(-m // bm) * -(-n // bn)
     ws = torch.empty((tiles, splits, bm * bn), dtype=torch.int32, device=dev)
-    counts = _TILE_COUNTS.get(dev)
-    if counts is None or counts.numel() < tiles:
-        counts = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
-        _TILE_COUNTS[dev] = counts
+    counts = B.tile_counters(dev, tiles)
     # the caching allocator reuses ws only after this launch on the stream
     return splits, ws.data_ptr(), counts.data_ptr()
 

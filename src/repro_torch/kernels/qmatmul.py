@@ -10,13 +10,15 @@ the kernel or raises.  It allocates the output (and, when K is split, the
 float32 scratch of the splits' sums) with ``torch.empty``, launches on
 PyTorch's current stream, checks ``cudaGetLastError`` and counts the
 launch.  How the work is cut into blocks (:func:`split_plan`) is decided
-here, in Python, so the CPU tests reach it.
+here, in Python, so the CPU tests reach it.  When K is split, the kernel
+adds the splits itself (one launch per call): the wrapper hands it float32
+scratch from the caching allocator and the device's tile counters.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,10 +27,16 @@ from repro_torch.kernels import ref
 
 __all__ = ["qmatmul", "qmatmul_plain", "split_plan"]
 
-BN = 64                # output columns per block (csrc/qmatmul.cu)
-MIN_SPLIT_ROWS = 256   # one unrolled sweep of a block's 32 x 8 weight rows
-MAX_SPLITS = 64
+STAGE_BYTES = 16384    # codes per ring stage (csrc/qmatmul.cu)
+MAX_SPLITS = 16        # more never measured faster at the decode shapes
+RESIDENT_PER_SM = 2    # blocks of 256 threads an SM holds at once
+X_SMEM_MAX = 64 * 1024  # staged x of a block, bytes
 _X_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stage_rows(bits: int, bn: int) -> int:
+    """Rows of K in one ring stage of a ``bn``-column tile."""
+    return STAGE_BYTES // (bn * bits // 8)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -57,26 +65,49 @@ def _reject(x, w_codes, scale, bits) -> None:
     raise ValueError(f"scale must be ({n},), got {tuple(scale.shape)}")
 
 
-def split_plan(m: int, k: int, n: int, sms: int) -> Tuple[int, int, int]:
-    """(rows per block, K splits, K rows per split) for an (m, k) x (k, n)
-    product on a card with ``sms`` multiprocessors.
+def _rows_per_block(m: int) -> int:
+    return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+
+
+def _cut_k(k: int, splits: int, quantum: int) -> Tuple[int, int]:
+    """(splits, rows per split): ``splits`` slices of a multiple of
+    ``quantum`` rows, none empty."""
+    kps = -(-max(k, 1) // max(1, splits))
+    kps = -(-kps // quantum) * quantum
+    return -(-max(k, 1) // kps), kps
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, k: int, n: int, sms: int,
+               bits: int = 8) -> Tuple[int, int, int, int]:
+    """(rows per block, column-tile width, K splits, K rows per split) for
+    an (m, k) x (k, n) product on a card with ``sms`` multiprocessors.
 
     A block takes the smallest of 1, 2, 4 or 8 rows that holds all of a
-    decode batch (more rows come in further blocks).  K is split in two
-    until the blocks number at least one and a half per SM, while each
-    split keeps at least one sweep (256 rows) of K: decode's projections
-    with N = 256 or 2048 would otherwise stream their weights through a
-    fraction of the SMs.  (Measured on the H100 at the decode shapes: more
-    splits than that add more reduce traffic and block start-up than they
-    gain.)
+    decode batch (more rows come in further blocks) and 128 columns, or 64
+    where 128-column tiles would number under half the SMs.  K is split as
+    far as each split streams at least one ring stage (:func:`stage_rows`)
+    and the blocks still fit on the card at once: ``RESIDENT_PER_SM`` per
+    SM with 128-column tiles, one longer block per SM with 64 (fewer
+    blocks, each prologue and split handshake paid over more bytes), up
+    to ``MAX_SPLITS``; further while a block's staged x would exceed
+    ``X_SMEM_MAX``.  ``tools/sweep_qmatmul_splits.py`` on the H100: a
+    second wave of blocks, or splits shorter than a stage, cost more than
+    they bring (wk and wv, N = 256, are fastest with 16 to 32 blocks: their
+    time is the launch's fixed latency, not bandwidth).
     """
-    mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
-    tiles = -(-n // BN) * -(-m // mt)
-    splits = 1
-    while (2 * tiles * splits < 3 * sms and splits * 2 <= MAX_SPLITS
-           and k >= 2 * splits * MIN_SPLIT_ROWS):
-        splits *= 2
-    return mt, splits, max(1, -(-k // splits))
+    mt = _rows_per_block(m)
+    row_tiles = -(-max(m, 1) // mt)
+    bn = 128 if -(-n // 128) * row_tiles * 2 >= sms else 64
+    tiles = -(-n // bn) * row_tiles
+    ks = stage_rows(bits, bn)
+    resident = RESIDENT_PER_SM if bn == 128 else 1
+    want = min(MAX_SPLITS, resident * sms // tiles, k // ks)
+    splits, kps = _cut_k(k, max(1, want), 16)
+    while (splits < MAX_SPLITS and kps >= 2 * ks
+           and mt * (-(-kps // ks) * ks + 8) * 2 > X_SMEM_MAX):
+        splits, kps = _cut_k(k, splits + 1, 16)
+    return mt, bn, splits, kps
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,9 +127,14 @@ def qmatmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
 
 
 def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
-            bits: int = 8) -> torch.Tensor:
+            bits: int = 8, *, splits: Optional[int] = None,
+            bn: Optional[int] = None) -> torch.Tensor:
     """(M, K) float32/bf16 x (K, N) int8 codes (bits 8) or (K, N/2) packed
-    int4 (bits 4), per-channel (N,) float32 scale -> (M, N) of x's dtype."""
+    int4 (bits 4), per-channel (N,) float32 scale -> (M, N) of x's dtype.
+
+    ``splits`` and ``bn`` override the K splits and the column-tile width
+    of :func:`split_plan`, for measurement and tests; the result differs
+    from the plain version only in the order of the float32 sum."""
     if not x.is_cuda:
         return qmatmul_plain(x, w_codes, scale, bits)
     # one boolean test on the hot path (252 calls per decode step); the
@@ -117,14 +153,26 @@ def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    mt, splits, kps = split_plan(m, k, n, _sms(dev.index or 0))
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
-    lib = B.library()
-    rc = lib.qmatmul(x.data_ptr(), _X_BF16[x.dtype], w_codes.data_ptr(), bits,
-                     scale.data_ptr(), out.data_ptr(),
-                     None if partial is None else partial.data_ptr(),
-                     m, k, n, mt, splits, kps, _stream())
+    if k == 0:
+        return out.zero_()
+    mt, tbn, sp, kps = split_plan(m, k, n, _sms(dev.index or 0), bits)
+    if bn is not None:
+        _require(bn in (64, 128), f"bn must be 64 or 128, got {bn}")
+        tbn = bn
+    if splits is not None:
+        sp, kps = _cut_k(k, min(int(splits), MAX_SPLITS), 16)
+    ws = counts = None
+    if sp > 1:
+        tiles = -(-m // mt) * -(-n // tbn)
+        counts = B.tile_counters(dev, tiles)
+        # the caching allocator reuses ws only after this launch on the stream
+        ws = torch.empty(tiles * sp * 8 * tbn, dtype=torch.float32, device=dev)
+    rc = B.library().qmatmul(x.data_ptr(), _X_BF16[x.dtype],
+                             w_codes.data_ptr(), bits, scale.data_ptr(),
+                             out.data_ptr(),
+                             None if ws is None else ws.data_ptr(),
+                             None if counts is None else counts.data_ptr(),
+                             m, k, n, mt, tbn, sp, kps, _stream())
     B.check(rc, "qmatmul")
     B.launch_counts["qmatmul"] += 1
     return out

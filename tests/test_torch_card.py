@@ -251,6 +251,73 @@ def test_qmatmul_kernel_exact_on_integers(card, bits):
                            KQ.qmatmul_plain(x, w, s, bits))
 
 
+def _qmm_tolerance(x, codes, s, want):
+    """2e-5 of sum_k |bf16(x)| |code| scale, plus one bf16 rounding of the
+    output for bf16 x: the tolerance of test_qmatmul_kernel_equals_plain."""
+    tol = 2e-5 * (x.to(torch.bfloat16).float().abs() @ codes.float().abs()) * s
+    if x.dtype == torch.bfloat16:
+        tol = tol + want.float().abs() * 2.0 ** -7
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 5])
+def test_qmatmul_forced_splits_equal_plain(card, splits, bn, bits):
+    """Every forced K split (5 leaves a ragged last split of 416 rows of
+    2048) and both column-tile widths, within the unchanged tolerance."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, codes = _qmm_inputs(4, 2048, 320, bits, torch.bfloat16, card,
+                                 splits + bn)
+    got = KQ.qmatmul(x, w, s, bits, splits=splits, bn=bn)
+    want = KQ.qmatmul_plain(x, w, s, bits)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _qmm_tolerance(x, codes, s, want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_repeats_bit_for_bit_and_resets_counters(card, bits):
+    """Split K adds the splits in a fixed order inside the launch: two calls
+    give identical bits, and the last block of each tile leaves its counter
+    at zero."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m, k, n in ((4, 2048, 256), (4, 11008, 2048), (3, 1030, 264)):
+        x, w, s, _ = _qmm_inputs(m, k, n, bits, torch.bfloat16, card, k)
+        assert KQ.split_plan(m, k, n, sms, bits)[2] > 1
+        first = KQ.qmatmul(x, w, s, bits)
+        assert torch.equal(first, KQ.qmatmul(x, w, s, bits))
+        torch.cuda.synchronize()
+        assert int(B.tile_counters(x.device, 0).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_qmatmul_is_one_launch_per_call(card):
+    """One call adds exactly one to the launch count, and the profiler sees
+    one kernel and no separate reduce, at a split and at no split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, _ = _qmm_inputs(4, 2048, 256, 8, torch.bfloat16, card, 3)
+    for splits in (None, 1):
+        KQ.qmatmul(x, w, s, 8, splits=splits)
+        torch.cuda.synchronize()
+        before = B.launch_counts["qmatmul"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            KQ.qmatmul(x, w, s, 8, splits=splits)
+            torch.cuda.synchronize()
+        assert B.launch_counts["qmatmul"] == before + 1
+        names = [e.key for e in prof.key_averages() if "qmm" in e.key]
+        assert len(names) == 1 and "reduce" not in names[0], names
+        assert sum(e.count for e in prof.key_averages()
+                   if "qmm" in e.key) == 1
+
+
 @pytest.mark.cuda
 def test_full_width_decode_card_equals_cpu(card):
     """Qwen2.5-3B at full width, 2 layers, w8: teacher-forced decode logits

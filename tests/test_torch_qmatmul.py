@@ -180,18 +180,40 @@ def test_qmatmul_names_what_it_rejects(case, match):
                                    (1, 2048, 256), (32, 2048, 11008),
                                    (7, 100, 9), (0, 64, 64)])
 def test_split_plan_covers_k_and_fills_the_card(m, k, n):
-    mt, splits, kps = KQ.split_plan(m, k, n, 132)
-    assert mt in (1, 2, 4, 8) and mt >= min(max(m, 1), 8)
-    assert splits >= 1 and splits * kps >= k and (splits - 1) * kps < max(k, 1)
-    assert splits == 1 or kps >= KQ.MIN_SPLIT_ROWS
-    blocks = -(-n // KQ.BN) * -(-max(m, 1) // mt) * splits
-    can_split_more = (splits * 2 <= KQ.MAX_SPLITS
-                      and k >= 2 * splits * KQ.MIN_SPLIT_ROWS)
-    assert 2 * blocks >= 3 * 132 or not can_split_more
-    if (m, k, n) == (4, 2048, 256):      # wk / wv: K is split 8 ways
-        assert (mt, splits, kps) == (4, 8, 256)
-    if (m, k, n) == (4, 11008, 2048):    # w_down: 32 column tiles x 8
-        assert (mt, splits, kps) == (4, 8, 1376)
+    for bits in (8, 4):
+        mt, bn, splits, kps = KQ.split_plan(m, k, n, 132, bits)
+        assert mt in (1, 2, 4, 8) and mt >= min(max(m, 1), 8)
+        assert bn in (64, 128)
+        assert kps % 16 == 0 and splits <= KQ.MAX_SPLITS
+        assert splits >= 1 and splits * kps >= k and (splits - 1) * kps < k
+        ks = KQ.stage_rows(bits, bn)
+        assert splits == 1 or kps >= ks
+        tiles = -(-n // bn) * -(-max(m, 1) // mt)
+        blocks = tiles * splits
+        # a block per SM, or K cannot be cut further: another split would
+        # stream less than a ring stage, pass MAX_SPLITS, or leave blocks
+        # that no longer fit on the card at once
+        resident = KQ.RESIDENT_PER_SM if bn == 128 else 1
+        can_cut = (splits < KQ.MAX_SPLITS and kps >= 2 * ks
+                   and tiles * (splits + 1) <= resident * 132)
+        assert blocks >= 132 or not can_cut
+        assert mt * (-(-kps // ks) * ks + 8) * 2 <= KQ.X_SMEM_MAX
+        if (m, k, n) == (4, 2048, 256):      # wk / wv: one stage a split
+            assert (mt, bn, splits, kps) == ((4, 64, 8, 256) if bits == 8
+                                             else (4, 64, 4, 512))
+        if (m, k, n) == (4, 11008, 2048):    # w_down: 32 column tiles x 4
+            assert (mt, bn, splits, kps) == (4, 64, 4, 2752)
+
+
+@pytest.mark.parametrize("k,splits", [(2048, 5), (2048, 64), (11008, 9),
+                                      (100, 8), (37, 1), (515, 17)])
+def test_forced_splits_leave_no_empty_split(k, splits):
+    """A forced split count becomes slices of a multiple of 16 rows (the
+    kernel's k-step) that cover K with none empty, as the C entry point
+    requires; the count may fall where 16-row slices need fewer."""
+    sp, kps = KQ._cut_k(k, splits, 16)
+    assert kps % 16 == 0 and 1 <= sp <= splits
+    assert (sp - 1) * kps < k <= sp * kps
 
 
 # ---------------------------------------------------------------------------
