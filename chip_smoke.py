@@ -11,30 +11,40 @@ ends the run with a non-zero exit if it fails:
 
 1. card name and power limit, torch/CUDA versions; build every CUDA kernel
    of the port from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together); registers and spills
+   per kernel as ``ptxas`` reports them; a kernel that spills fails the
+   run.
 2. FSL kernels: each held against its plain PyTorch version on the card
-   (odd shapes, int8/int32 codes, packed int4, L from 15 to 65535, grid
-   and off-grid floats; the conv-form integer MVAU on every kernel /
-   stride / pad the im2col node takes, with forced K splits); then each
-   held against it again and timed at the FSL path's shapes at batch 64,
-   beside its bound and PyTorch library calls computing the same function
-   (``torch._int_mm`` + count on pre-built patches, and with the unfold
-   im2col a PyTorch user would write); the integer MVAU in conv form and
-   in GEMM form on pre-built patches.
+   (odd shapes, int8/int16/int32 codes, packed int4, L from 15 to 65535,
+   grid and off-grid floats; the conv forms on every kernel / stride / pad
+   the im2col node takes, with forced K splits: the int8 tensor-core
+   kernel, the float MVAU and the wide-code integer route on the CUDA-core
+   kernel); then each held against it again and timed at the FSL path's
+   shapes at batch 64, beside its bound and PyTorch library calls
+   computing the same function (``torch._int_mm`` + count, ``torch.matmul``
+   + count and ``torch.matmul`` alone on pre-built patches, and the unfold
+   im2col a PyTorch user would write); the MVAUs in conv form and in GEMM
+   form on pre-built patches; the int32-code route in conv form.
 3. FSL path at the paper's width 64 on 32x32 frames: ``compile(...,
-   datapath="int")`` and ``"f32"`` on the card, every im2col of the int
-   artifact folded into its conv-form MVAU; int == f32 == interpreter and
+   datapath="int")`` and ``"f32"`` on the card, every im2col of both
+   artifacts folded into its conv-form MVAU; int == f32 == interpreter and
    card == CPU, bit for bit; weight bytes; launches per forward; compile
    time, latency and throughput.
 4. few-shot requests: support shots registered into a PrototypeStore on
    the card and queries classified through the deployed int artifact;
    prototypes and similarities agree with a CPU store's run within a stated
    tolerance, predictions are equal.  Then, after every latency has been
-   taken, ``torch.profiler`` traces the int forwards: device time by
-   kernel, kernels per forward and an estimate of the device's busy share.
-   After the path's launch counts are read, the 8 conv-form launches are
-   timed again on the activations and weights one forward gives them.
-5. LM decode path, Qwen2.5-3B at full width and depth with random weights
+   taken, ``torch.profiler`` traces the int and f32 forwards: device time
+   by kernel, kernels per forward, an estimate of the device's busy share,
+   and no patch gather.  After the path's launch counts are read, the 8
+   conv-form launches are timed again on the activations and weights one
+   forward gives them.
+5. wide codes: ``grid_point(8, 8)`` and ``paper_w16a16()`` int artifacts
+   (and w6a4 beside them) compiled on the card at the widest width their
+   lowering admits, every MVAU on the CUDA-core kernel with its im2col
+   folded in; card == CPU bit for bit on the timed batch-64 forward;
+   batch-64 latency.
+6. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
    shapes, the 7 decode projections at batch 4, a prefill shape, forced K
    splits at both column-tile widths; w8 and w4; bit for bit on integer
@@ -47,18 +57,19 @@ ends the run with a non-zero exit if it fails:
    kernels per step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
    and greedy tokens are compared.
-6. a JSON line of every kernel with its launches on its path and its
+7. a JSON line of every kernel with its launches on its path and its
    numbers, the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are set to 0 just before each path (phases 3-4, and the
-``generate`` runs of phase 5) and read just after; launches made while
-comparing or timing kernels do not count.
+Launch counters are set to 0 just before each path (phases 3-4, the
+counted forwards of phase 5, and the ``generate`` runs of phase 6) and read
+just after; launches made while comparing or timing kernels do not count.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -73,6 +84,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_OPS = 67e12
+# int32 multiply-add outside the tensor cores: 64 INT32 lanes per SM against
+# 128 FP32 lanes (Hopper white paper), so half the float32 rate
+PEAK_INT32_OPS = PEAK_F32_OPS / 2
 
 WIDTH = 64
 IMG = 32
@@ -146,7 +160,7 @@ def layer_shapes(width: int, batch: int, img: int):
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_kernels(torch, Q, KM, KG):
+def check_kernels(torch, Q, KM, KG, ref):
     dev = "cuda"
     gen = torch.Generator().manual_seed(1234)
 
@@ -165,7 +179,8 @@ def check_kernels(torch, Q, KM, KG):
         t = torch.sort(ri(-500, 4000, (n, L)), dim=1).values
         want = KM.mvau_int_plain(x, w, t, -3)
         for xd, wd in ((torch.int8, torch.int8), (torch.int32, torch.int32),
-                       (torch.int8, torch.int32)):
+                       (torch.int8, torch.int32), (torch.int32, torch.int16),
+                       (torch.int32, torch.int8)):
             got = KM.mvau_int(x.to(xd).to(dev), w.to(wd).to(dev), t.to(dev), -3)
             torch.cuda.synchronize()
             d = (got.cpu() - want).abs().max().item() if want.numel() else 0
@@ -229,6 +244,17 @@ def check_kernels(torch, Q, KM, KG):
     log(f"kernel check mvau_int conv form: {n_conv} cases bit for bit "
         "(kernel/stride/pad 1/1/0, 3/1/1, 3/2/1, 3/2/0; C 3, 16, 24; N 8, 72; "
         "int8 and packed int4 weights; 15 and 255 levels; K split 1, 2, 3)")
+    n_grid, n_off, moved, outs = check_float_conv_kernel(torch, KM, ref, err)
+    log(f"kernel check mvau float conv form (CUDA cores): {n_grid} cases on "
+        f"the grid bit for bit, {n_off} off the grid with {moved} of {outs} "
+        "outputs one level apart, all within 1e-5 of a threshold "
+        "(kernel/stride/pad 1/1/0, 3/1/1, 3/2/1, 3/2/0; C 3, 16, 24; N 8, 72; "
+        "15 and 255 levels; K split 1, 2, 3)")
+    n_core = check_core_int_kernel(torch, Q, KM, gen, err)
+    log(f"kernel check mvau_int CUDA-core route: {n_core} cases bit for bit "
+        "(int32 codes up to 16 bits; int8, int16, int32 and packed int4 "
+        "weights; 15, 255 and 65535 levels; conv form on every kernel/stride/"
+        "pad with K split planned, 2 and 3, and the GEMM form)")
 
     for shape in ((2, 8, 8, 16), (64, 4, 4, 512), (3, 5, 7, 24)):
         for dt in (torch.int8, torch.int32):
@@ -284,6 +310,135 @@ def check_conv_kernel(torch, Q, KM, ri, err):
     return n_cases
 
 
+KSP = ((1, 1, 0), (3, 1, 1), (3, 2, 1), (3, 2, 0))
+
+
+def near_threshold(torch, ref, x, w, t, kernel, stride, pad):
+    """Outputs whose exact (float64) accumulator lies within 1e-5 of the
+    row's |x|·|w| of one of its thresholds: the only places where float32
+    sums in another order may count one level apart."""
+    p = ref.im2col(x, kernel, stride, pad).double()
+    p = p.reshape(-1, p.shape[-1])
+    acc = p @ w.double()
+    scale = p.abs() @ w.double().abs()
+    return ((acc[..., None] - t.double()[None]).abs()
+            <= 1e-5 * scale[..., None]).any(dim=-1)
+
+
+def check_float_conv_kernel(torch, KM, ref, err):
+    """The float conv form (CUDA-core kernel) against its plain version
+    (``ref.im2col`` + ``mvau_plain``) on the int8 conv form's odd cases, at
+    forced K splits 1, 2 and 3.  On the grid every partial sum is exact:
+    bit for bit.  Off the grid the kernel (FMA, K-tile order, splits) and
+    the plain version (library GEMM) round float32 sums differently: a
+    count may differ by one level, and only where the exact accumulator
+    lies within 1e-5 of the row's |x|·|w| of a threshold."""
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(77)
+    n_grid = n_off = moved = outs = 0
+    base, scale, bias = -2.0, 0.5, 0.25
+    for kernel, stride, pad in KSP:
+        for c in (3, 16, 24):
+            for n in (8, 72):
+                for batch, hw, levels in ((1, 7, 15), (3, 9, 255),
+                                          (3, 7, 15), (1, 9, 255)):
+                    k = kernel * kernel * c
+                    xg = (torch.randint(0, 16, (batch, hw, hw, c),
+                                        generator=gen) * 0.25).to(dev)
+                    wg = (torch.randint(-32, 32, (k, n), generator=gen)
+                          / 32).to(dev)
+                    tg = torch.sort(torch.randn((n, levels), generator=gen)
+                                    * 4, dim=1).values.to(dev)
+                    xo = (torch.rand((batch, hw, hw, c), generator=gen) * 4
+                          - 2).to(dev)
+                    wo = (torch.rand((k, n), generator=gen) * 4 - 2).to(dev)
+                    to = torch.sort(torch.randn((n, levels), generator=gen)
+                                    * 2, dim=1).values.to(dev)
+                    want_g = KM.mvau_conv_plain(xg, wg, tg, kernel, stride,
+                                                pad, base, scale, bias)
+                    want_o = KM.mvau_conv_plain(xo, wo, to, kernel, stride,
+                                                pad, base, scale, bias)
+                    near = near_threshold(torch, ref, xo, wo, to, kernel,
+                                          stride, pad)
+                    for splits in (1, 2, 3):
+                        got = KM.mvau_conv(xg, wg, tg, kernel, stride, pad,
+                                           base, scale, bias, splits=splits)
+                        torch.cuda.synchronize()
+                        d = (got - want_g).abs().max().item()
+                        err["mvau"] = max(err["mvau"], float(d))
+                        check(torch.equal(got, want_g),
+                              f"mvau_conv grid {batch}x{hw}x{hw}x{c} N={n} "
+                              f"k/s/p={kernel}/{stride}/{pad} L={levels} "
+                              f"splits={splits} differs by {d}")
+                        got = KM.mvau_conv(xo, wo, to, kernel, stride, pad,
+                                           base, scale, bias, splits=splits)
+                        lv = ((got - want_o) / scale).abs().reshape(near.shape)
+                        err["mvau"] = max(err["mvau"], float(
+                            (got - want_o).abs().max().item()))
+                        check(bool((lv[~near] == 0).all()) and
+                              bool((lv <= 1).all()),
+                              f"mvau_conv off-grid {batch}x{hw}x{hw}x{c} N={n} "
+                              f"k/s/p={kernel}/{stride}/{pad} splits={splits}"
+                              ": more than one level, or away from a "
+                              "threshold")
+                        moved += int((lv > 0).sum())
+                        outs += lv.numel()
+                        n_grid += 1
+                        n_off += 1
+    return n_grid, n_off, moved, outs
+
+
+def check_core_int_kernel(torch, Q, KM, gen, err):
+    """The integer instantiation of the CUDA-core kernel against its plain
+    version: int32 activation codes (up to 16-bit unsigned), int8, int16,
+    int32 and packed int4 weights, 15, 255 and 65535 levels (dense count
+    and binary search), conv form on every kernel/stride/pad with the
+    planned and forced K splits, and the GEMM form.  The weights are bounded
+    so that every partial sum stays inside int32, as the integer lowering
+    guarantees.  Bit for bit."""
+    dev = "cuda"
+    n_cases = 0
+    for wname, lim in (("int8", 128), ("int16", 32768), ("int32", 1 << 20),
+                       ("packed4", 8)):
+        for levels in (15, 255, 65535):
+            for kernel, stride, pad in KSP:
+                for c, n, xmax in ((3, 8, 65536), (16, 72, 256),
+                                   (24, 8, 4096)):
+                    k = kernel * kernel * c
+                    wlim = min(lim, 2**31 // (k * xmax))
+                    x = torch.randint(0, xmax, (2, 7, 7, c), generator=gen
+                                      ).to(torch.int32).to(dev)
+                    wi = torch.randint(-wlim, wlim, (k, n), generator=gen
+                                       ).to(torch.int32)
+                    packed = wname == "packed4"
+                    w = (Q.pack_int4(wi) if packed
+                         else wi.to(getattr(torch, wname))).to(dev)
+                    tmax = max(1, k * xmax * wlim // 8)
+                    t = torch.sort(torch.randint(-tmax, tmax, (n, levels),
+                                                 generator=gen), dim=1
+                                   ).values.to(torch.int32).to(dev)
+                    want = KM.mvau_int_conv_plain(x, w, t, kernel, stride,
+                                                  pad, -3, packed)
+                    for splits in (None, 2, 3):
+                        got = KM.mvau_int_conv(x, w, t, kernel, stride, pad,
+                                               -3, packed, splits=splits)
+                        torch.cuda.synchronize()
+                        d = (got - want).abs().max().item()
+                        err["mvau_int"] = max(err["mvau_int"], float(d))
+                        check(torch.equal(got, want),
+                              f"mvau_int CUDA-core {wname} L={levels} "
+                              f"C={c} N={n} k/s/p={kernel}/{stride}/{pad} "
+                              f"splits={splits} differs by {d}")
+                        n_cases += 1
+                    x2, w2 = x.reshape(-1, c).contiguous(), w[:c].contiguous()
+                    check(torch.equal(KM.mvau_int(x2, w2, t, 5, packed),
+                                      KM.mvau_int_plain(x2, w2, t, 5, packed)),
+                          f"mvau_int CUDA-core GEMM form {wname} L={levels} "
+                          f"C={c} differs")
+                    n_cases += 1
+    return n_cases
+
+
 def im2col_unfold(torch, x, kernel, stride, pad):
     """The patch rows as a PyTorch user would build them: pad, unfold,
     permute to patch order (kh, kw, c), copy."""
@@ -301,7 +456,9 @@ def time_kernels(torch, Q, KM, KG, ref, err):
     rows = []
     tot = {"mvau_int": [0.0, 0.0, 0.0, 0, 0], "mvau": [0.0, 0.0, 0.0, 0, 0]}
     conv = {"gemm_form_ms": 0.0, "gemm_form_bytes": 0, "library_im2col_ms": 0.0,
-            "int32_codes_cuda_core_ms": 0.0, "layer_ms": []}
+            "int32_codes_cuda_core_ms": 0.0, "int32_codes_plain_ms": 0.0,
+            "int32_codes_bound_ms": 0.0, "layer_ms": []}
+    flt = {"matmul_only_ms": 0.0, "gemm_form_ms": 0.0, "layers": []}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, hw, cin, n in layer_shapes(WIDTH, BATCH, IMG):
         L = 15
@@ -326,6 +483,21 @@ def time_kernels(torch, Q, KM, KG, ref, err):
             return ref.threshold_counts_fast(torch._int_mm(xp, wpad)[:, :n], t)
 
         x32 = x.to(torch.int32)       # int32 codes take the CUDA-core kernel
+        x4i = x4.to(torch.int32)
+        # int16 weight codes at 16-bit scale (up to 2**13 in magnitude: the
+        # sums stay inside int32 at K = 4608) through the same route
+        w16 = torch.randint(-8192, 8192, (k, n), generator=gen
+                            ).to(torch.int16).to(dev)
+        tr = 2 ** 16 * math.isqrt(k)      # about 1.5 sums' spreads
+        t16 = torch.sort(torch.randint(-tr, tr, (n, L), generator=gen),
+                         dim=1).values.to(torch.int32).to(dev)
+        want16 = KM.mvau_int_plain(x, w16, t16, 0)
+        for got in (KM.mvau_int(x32, w16, t16, 0),
+                    KM.mvau_int_conv(x4i, w16, t16, 3, 1, 1).reshape(m, n)):
+            d = (got - want16).abs().max().item()
+            err["mvau_int"] = max(err["mvau_int"], float(d))
+            check(torch.equal(got, want16), f"mvau_int {name} at the main "
+                  f"path's shape (int16 weights) differs by {d}")
         want = KM.mvau_int_plain(x, w, t, 0)
         for xx in (x, x32):
             got = KM.mvau_int(xx, w, t, 0)
@@ -333,16 +505,23 @@ def time_kernels(torch, Q, KM, KG, ref, err):
             err["mvau_int"] = max(err["mvau_int"], float(d))
             check(torch.equal(got, want), f"mvau_int {name} at the main "
                   f"path's shape ({xx.dtype}) differs by {d}")
-        got = KM.mvau_int_conv(x4, w, t, 3, 1, 1).reshape(m, n)
-        d = (got - want).abs().max().item()
-        err["mvau_int"] = max(err["mvau_int"], float(d))
-        check(torch.equal(got, want), f"mvau_int_conv {name} at the main "
-              f"path's shape differs by {d}")
+        for xx in (x4, x4i):
+            got = KM.mvau_int_conv(xx, w, t, 3, 1, 1).reshape(m, n)
+            d = (got - want).abs().max().item()
+            err["mvau_int"] = max(err["mvau_int"], float(d))
+            check(torch.equal(got, want), f"mvau_int_conv {name} at the main "
+                  f"path's shape ({xx.dtype}) differs by {d}")
         check(torch.equal(lib_im2col(), want), f"{name}: the im2col yardstick "
               "computes another function")
         ms = cuda_ms(torch, lambda: KM.mvau_int_conv(x4, w, t, 3, 1, 1))
         gemm_ms = cuda_ms(torch, lambda: KM.mvau_int(x, w, t, 0))
-        core_ms = cuda_ms(torch, lambda: KM.mvau_int(x32, w, t, 0))
+        # the int32-code route: the CUDA-core kernel in conv form
+        core_ms = cuda_ms(torch, lambda: KM.mvau_int_conv(x4i, w, t, 3, 1, 1))
+        core_plain = cuda_ms(torch, lambda: KM.mvau_int_conv_plain(
+            x4i, w, t, 3, 1, 1), reps=3)
+        core_bound = max((4 * x4i.numel() + w.numel() + 4 * t.numel()
+                          + 4 * m * n) / PEAK_BYTES_PER_S,
+                         2 * m * k * n / PEAK_INT32_OPS) * 1e3
         plain = cuda_ms(torch, lambda: KM.mvau_int_conv_plain(x4, w, t, 3, 1, 1),
                         reps=10)
         lib = cuda_ms(torch, lib_int)
@@ -356,27 +535,36 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         conv["layer_ms"].append(ms)
         for key, v in (("gemm_form_ms", gemm_ms), ("gemm_form_bytes", gemm_bytes),
                        ("library_im2col_ms", lib2),
-                       ("int32_codes_cuda_core_ms", core_ms)):
+                       ("int32_codes_cuda_core_ms", core_ms),
+                       ("int32_codes_plain_ms", core_plain),
+                       ("int32_codes_bound_ms", core_bound)):
             conv[key] += v
         rows.append(("mvau_int", name, m, k, n, ms, plain, lib,
                      max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3,
                      f" gemm_form_ms={gemm_ms:.4f} gemm_form_bound_ms="
                      f"{max(gemm_bytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3:.4f}"
                      f" library_im2col_ms={lib2:.4f} splits="
-                     f"{KM.tc_splits(m, n, k, sms)} int32_codes_cuda_core_ms="
-                     f"{core_ms:.4f}"))
+                     f"{KM.tc_splits(m, n, k, sms)}; int32 codes (CUDA cores, "
+                     f"conv form): kernel_ms={core_ms:.4f} plain_ms="
+                     f"{core_plain:.4f} bound_ms={core_bound:.4f} library_ms="
+                     "none"))
 
+        # float MVAU: the CUDA-core kernel in conv form on the float32 NHWC
+        # activation; the plain version and the library on patch rows
+        x4f = (x4.float() * 0.25).contiguous()
         xf = (x.float() * 0.25).contiguous()
         wf = (w.float() / 32).contiguous()
         tf = (t.float() / 128).contiguous()
 
         # on the grid: every partial sum exact -> bit for bit
-        got = KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0)
         want = KM.mvau_plain(xf, wf, tf, 0.0, 0.25, 0.0)
-        d = (got - want).abs().max().item()
-        err["mvau"] = max(err["mvau"], float(d))
-        check(torch.equal(got, want), f"mvau {name} at the main path's shape "
-              f"differs by {d}")
+        for got in (KM.mvau_conv(x4f, wf, tf, 3, 1, 1, 0.0, 0.25, 0.0
+                                 ).reshape(m, n),
+                    KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0)):
+            d = (got - want).abs().max().item()
+            err["mvau"] = max(err["mvau"], float(d))
+            check(torch.equal(got, want), f"mvau {name} at the main path's "
+                  f"shape differs by {d}")
 
         def lib_f32():
             return quant_count(torch.matmul(xf, wf), tf)
@@ -384,16 +572,28 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         def quant_count(acc, tt):
             return 0.25 * ref.threshold_counts_fast(acc, tt).to(torch.float32)
 
-        ms = cuda_ms(torch, lambda: KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0))
-        plain = cuda_ms(torch, lambda: KM.mvau_plain(xf, wf, tf, 0.0, 0.25,
-                                                     0.0), reps=10)
+        check(torch.equal(lib_f32(), want), f"{name}: the float yardstick "
+              "computes another function")
+        ms = cuda_ms(torch, lambda: KM.mvau_conv(x4f, wf, tf, 3, 1, 1, 0.0,
+                                                 0.25, 0.0))
+        gemm_f = cuda_ms(torch, lambda: KM.mvau(xf, wf, tf, 0.0, 0.25, 0.0))
+        plain = cuda_ms(torch, lambda: KM.mvau_conv_plain(x4f, wf, tf, 3, 1, 1,
+                                                          0.0, 0.25, 0.0),
+                        reps=10)
         lib = cuda_ms(torch, lib_f32)
-        nbytes = 4 * (xf.numel() + wf.numel() + tf.numel() + m * n)
+        mm = cuda_ms(torch, lambda: torch.matmul(xf, wf))
+        nbytes = 4 * (x4f.numel() + wf.numel() + tf.numel() + m * n)
+        bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS) * 1e3
         for i, v in enumerate((ms, plain, lib, nbytes, ops)):
             tot["mvau"][i] += v
-        rows.append(("mvau", name, m, k, n, ms, plain, lib,
-                     max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS) * 1e3,
-                     ""))
+        flt["matmul_only_ms"] += mm
+        flt["gemm_form_ms"] += gemm_f
+        flt["layers"].append({"layer": name, "ms": ms, "plain_ms": plain,
+                              "library_ms": lib, "matmul_only_ms": mm,
+                              "bound_ms": bound})
+        rows.append(("mvau", name, m, k, n, ms, plain, lib, bound,
+                     f" matmul_only_ms={mm:.4f} gemm_form_ms={gemm_f:.4f} "
+                     f"splits={KM.core_splits(m, n, k, sms)}"))
 
     for r in rows:
         log(f"kernel {r[0]:8s} {r[1]:4s} M={r[2]:6d} K={r[3]:5d} N={r[4]:4d}: "
@@ -408,9 +608,23 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         f" ms: {tot['mvau_int'][3]} bytes of int8 NHWC codes, weights, tables "
         f"and int32 codes; {i_ops} operations); GEMM form on pre-built patches "
         f"{conv['gemm_form_ms']:.4f} ms (bound {conv['gemm_form_bound_ms']:.4f} "
-        f"ms); int32-code CUDA-core path {conv['int32_codes_cuda_core_ms']:.4f}"
-        f" ms; torch._int_mm + count {tot['mvau_int'][2]:.4f} ms on pre-built "
+        f"ms); int32-code route (CUDA cores, conv form) "
+        f"{conv['int32_codes_cuda_core_ms']:.4f} ms (bound "
+        f"{conv['int32_codes_bound_ms']:.4f} ms at the int32 rate, plain "
+        f"{conv['int32_codes_plain_ms']:.4f} ms, no library call); "
+        f"torch._int_mm + count {tot['mvau_int'][2]:.4f} ms on pre-built "
         f"patches, {conv['library_im2col_ms']:.4f} ms with the unfold im2col")
+    f_ms, f_lib = tot["mvau"][0], tot["mvau"][2]
+    f_bound = max(tot["mvau"][3] / PEAK_BYTES_PER_S,
+                  tot["mvau"][4] / PEAK_F32_OPS) * 1e3
+    over = [r["layer"] for r in flt["layers"] if r["ms"] > r["library_ms"]]
+    log(f"kernel mvau (float, CUDA cores, conv form) sum over the 8 layers at "
+        f"batch {BATCH}: {f_ms:.4f} ms, {f_bound / f_ms:.1%} of the FFMA "
+        f"bound {f_bound:.4f} ms (goal <= 1.2 ms: "
+        f"{'met' if f_ms <= 1.2 else 'missed'}); GEMM form on pre-built "
+        f"patches {flt['gemm_form_ms']:.4f} ms; torch.matmul + count "
+        f"{f_lib:.4f} ms, torch.matmul alone {flt['matmul_only_ms']:.4f} ms; "
+        f"layers above their library_ms: {over or 'none'}")
 
     xg = torch.randint(0, 64, (BATCH, 4, 4, 8 * WIDTH),
                        generator=gen).to(torch.int32).to(dev)
@@ -451,9 +665,15 @@ def time_kernels(torch, Q, KM, KG, ref, err):
               gemm_form_bound_ms=conv["gemm_form_bound_ms"],
               library_im2col_ms=conv["library_im2col_ms"],
               int32_codes_cuda_core_ms=conv["int32_codes_cuda_core_ms"],
+              int32_codes_plain_ms=conv["int32_codes_plain_ms"],
+              int32_codes_bound_ms=conv["int32_codes_bound_ms"],
               layer_ms=conv["layer_ms"]),
         entry("mvau", "src/repro_torch/csrc/mvau.cu",
-              "src/repro/kernels/mvau.py:140", tot["mvau"], PEAK_F32_OPS),
+              "src/repro/kernels/mvau.py:140", tot["mvau"], PEAK_F32_OPS,
+              form="conv (implicit GEMM on float32 NHWC, register-tiled "
+                   "FFMA on the CUDA cores)",
+              layer_ms=flt["layers"], matmul_only_ms=flt["matmul_only_ms"],
+              gemm_form_ms=flt["gemm_form_ms"]),
         entry("gap", "src/repro_torch/csrc/gap.cu",
               "src/repro/kernels/gap.py:41",
               [g_ms, g_plain, g_lib, g_bytes, g_ops], PEAK_F32_OPS),
@@ -463,9 +683,9 @@ def time_kernels(torch, Q, KM, KG, ref, err):
 def profile_forward(torch, label: str, fn, reps: int = 5):
     """Device time by kernel over ``reps`` forwards at batch 64
     (torch.profiler, CUDA activity); returns the device-busy ms per
-    forward, or None when the profiler saw no device time.  The profiler's
-    own host cost stretches the traced run's wall time, so the busy share
-    printed here is a floor."""
+    forward (None when the profiler saw no device time) and the kernels'
+    profiler events.  The profiler's own host cost stretches the traced
+    run's wall time, so the busy share printed here is a floor."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -483,7 +703,7 @@ def profile_forward(torch, label: str, fn, reps: int = 5):
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
-        return None
+        return None, kern
     log(f"profile {label} (batch {BATCH}, {reps} forwards): traced wall "
         f"{wall_us / reps / 1e3:.3f} ms/forward, device busy "
         f"{busy_us / reps / 1e3:.3f} ms/forward ({busy_us / wall_us:.1%}), "
@@ -491,7 +711,7 @@ def profile_forward(torch, label: str, fn, reps: int = 5):
     for e in sorted(kern, key=lambda e: -e.device_time_total):
         log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/forward "
             f"{e.count / reps:5.1f}x  {e.key[:90]}")
-    return busy_us / reps / 1e3
+    return busy_us / reps / 1e3, kern
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +759,10 @@ def main_path(torch, np, B):
           f"int weight bytes {dm_int.weight_bytes()}")
     check(dm_f32.weight_bytes() == F32_WEIGHT_BYTES,
           f"f32 weight bytes {dm_f32.weight_bytes()}")
+    check(all(r["kernel"] == "cuda" for r in dm_f32.dispatch_table()
+              if r["op"] in ("mvau", "im2col"))
+          and len(dm_f32.apply.folded) == 8,
+          "an f32 mvau node is not on the kernel, or an im2col not folded")
     log(f"weight bytes: int {dm_int.weight_bytes()} f32 "
         f"{dm_f32.weight_bytes()}")
 
@@ -595,8 +819,9 @@ def main_path(torch, np, B):
         b64 = walls[label] = wall_ms(torch, lambda: fn(x))
         log(f"latency {label}: batch 1 {b1:.3f} ms, batch {BATCH} "
             f"{b64:.3f} ms ({BATCH / b64 * 1e3:.1f} images/s)")
-    b64_f32 = wall_ms(torch, lambda: dm_f32(x_q))
-    log(f"latency f32 artifact: batch {BATCH} {b64_f32:.3f} ms "
+    b64_f32 = walls["f32 artifact"] = wall_ms(torch, lambda: dm_f32(x_q))
+    log(f"latency f32 artifact (every im2col folded into the float conv "
+        f"form): batch {BATCH} {b64_f32:.3f} ms "
         f"({BATCH / b64_f32 * 1e3:.1f} images/s)")
 
     # -- few-shot requests ---------------------------------------------------
@@ -660,14 +885,106 @@ def main_path(torch, np, B):
         f"{worst:.3g} of it")
 
     # -- where the device time goes (traced last; see above) ------------------
-    for label, fn in (("int artifact", dm_int), ("int flip ensemble", feats)):
-        busy = profile_forward(torch, label, lambda: fn(x))
+    for label, fn, xx in (("int artifact", dm_int, x),
+                          ("int flip ensemble", feats, x),
+                          ("f32 artifact", dm_f32, x_q)):
+        busy, kern = profile_forward(torch, label, lambda: fn(xx))
+        # the folded forwards gather no patches: no indexing kernel runs
+        # (the flip ensemble's one flip of the frames aside)
+        gathers = [e.key for e in kern if "index" in e.key
+                   and "flip" not in e.key]
+        check(not gathers, f"{label}: a patch gather ran: {gathers}")
         if busy is not None:
             log(f"device busy share {label}, batch {BATCH}: estimate "
                 f"{busy / walls[label]:.1%} = busy {busy:.3f} ms/forward "
                 f"(traced run) / wall {walls[label]:.3f} ms/forward (untraced "
                 "run above)")
     return dm_int, x
+
+
+def wide_code_path(torch, np, B):
+    """The int artifacts whose codes do not fit int8 -- ``grid_point(8, 8)``
+    (8-bit unsigned activations) and the paper's 16-bit baseline
+    ``paper_w16a16()`` (16-bit weights stored as int16) -- compiled on the
+    card at the widest of widths 64, 32, 16, 8 that the integer lowering
+    admits (it refuses a layer whose reachable sums leave int32), every
+    MVAU on the CUDA-core kernel with its im2col folded in: card == CPU bit
+    for bit on a small batch, launches per forward, batch-64 latency beside
+    w6a4's.  Returns the launch counts of the counted forwards."""
+    import repro_torch
+    from repro_torch.core.graph import GraphBuildError
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.models import resnet9
+
+    data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
+    rng = np.random.default_rng(3)
+    x_np, _ = data.batch(rng.integers(0, 42, BATCH),
+                         rng.integers(0, 10_000, BATCH))
+    x = torch.from_numpy(x_np).cuda()
+    counts = {k: 0 for k in B.launch_counts}
+    lat = {}
+    for label, qcfg in (("grid_point(8, 8)", QuantConfig.grid_point(8, 8)),
+                        ("paper_w16a16()", QuantConfig.paper_w16a16()),
+                        ("paper_w6a4()", QuantConfig.paper_w6a4())):
+        for width in (64, 32, 16, 8):
+            params = resnet9.init_params(torch.Generator().manual_seed(0),
+                                         width, device="cuda")
+            t0 = time.perf_counter()
+            try:
+                dm = repro_torch.compile(params, qcfg, recipe="resnet9",
+                                         datapath="int", device="cuda")
+            except GraphBuildError as e:
+                log(f"{label}: width {width} refused by the integer lowering "
+                    f"({str(e)[:160]})")
+                continue
+            break
+        else:
+            raise SmokeFailure(f"{label}: no width compiles")
+        secs = time.perf_counter() - t0
+        layers = [(n.outputs[0].split("_")[0], r["kernel"],
+                   str(dm.graph.initializers[n.inputs[1]].dtype))
+                  for n, r in zip(dm.graph.nodes, dm.dispatch_table())
+                  if n.op == "mvau_int"]
+        want = "fused-cuda" if label == "paper_w6a4()" else "fused-cuda-core"
+        check(all(r["kernel"] == want for r in dm.dispatch_table()
+                  if r["op"] in ("mvau_int", "im2col"))
+              and len(dm.apply.folded) == 8,
+              f"{label}: {layers}, folded {dm.apply.folded}")
+        params_cpu = {k: {kk: v.cpu() for kk, v in blk.items()}
+                      for k, blk in params.items()}
+        dm_cpu = repro_torch.compile(params_cpu, qcfg, recipe="resnet9",
+                                     datapath="int", device="cpu")
+        check(dm.weight_bytes() == dm_cpu.weight_bytes(),
+              f"{label}: weight bytes differ between card and CPU")
+        B.reset_launch_counts()
+        f = dm(x[:2])
+        torch.cuda.synchronize()
+        run = dict(B.launch_counts)
+        check(run == {"mvau_int": 8, "mvau": 0, "gap": 1, "qmatmul": 0},
+              f"{label} forward launches {run}")
+        for k, v in run.items():
+            counts[k] += v
+        check(f.shape == (2, 8 * width) and bool(torch.isfinite(f).all()),
+              f"{label}: features {tuple(f.shape)}")
+        check(torch.equal(f.cpu(), dm_cpu(x_np[:2])),
+              f"{label}: card features != CPU features")
+        f = dm(x)
+        check(torch.equal(f.cpu(), dm_cpu(x_np)),
+              f"{label}: card features != CPU features at batch {BATCH}")
+        lat[label] = wall_ms(torch, lambda: dm(x), reps=5)
+        log(f"{label} int artifact at width {width} (compiled on the card in "
+            f"{secs:.2f} s, weight bytes {dm.weight_bytes()}): card == CPU "
+            f"bit for bit at batch 2 and {BATCH}; 8 mvau_int + 1 gap "
+            f"launches a forward; batch "
+            f"{BATCH} {lat[label]:.3f} ms ({BATCH / lat[label] * 1e3:.1f} "
+            f"images/s); layers (name, kernel, weight codes): {layers}")
+        del dm, dm_cpu, params, params_cpu
+    log(f"latency at batch {BATCH}: paper_w16a16() "
+        f"{lat['paper_w16a16()']:.3f} ms, grid_point(8, 8) "
+        f"{lat['grid_point(8, 8)']:.3f} ms, paper_w6a4() "
+        f"{lat['paper_w6a4()']:.3f} ms (same run, same frames)")
+    return counts
 
 
 def time_real_inputs(torch, KM, dm_int, x, random_ms):
@@ -1222,9 +1539,16 @@ def main() -> int:
             r"(\d+) bytes spill stores", section)})
         log(f"  ptxas {section.split()[0]}: registers per kernel {regs}, "
             f"spill stores {spills} bytes")
+        entries = section.split("Compiling entry function '")[1:]
+        check(len(entries) > 0, f"ptxas reported no kernel for "
+              f"{section.split()[0]}")
+        spilled = [e.split("'")[0] for e in entries if any(
+            int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                       e))]
+        check(not spilled, f"ptxas: {section.split()[0]} spills in {spilled}")
     B.library()
 
-    err = check_kernels(torch, Q, KM, KG)
+    err = check_kernels(torch, Q, KM, KG, ref)
     kernels = time_kernels(torch, Q, KM, KG, ref, err)
 
     B.reset_launch_counts()
@@ -1234,10 +1558,12 @@ def main() -> int:
     mv["real_inputs_ms"] = time_real_inputs(torch, KM, dm_int, x,
                                             mv.pop("layer_ms"))
     del dm_int, x
+    wide_counts = wide_code_path(torch, np, B)
     qmm, lm_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
     for k in kernels:
         by_path = {"fsl": fsl_counts[k["name"]],
+                   "fsl_wide_codes": wide_counts[k["name"]],
                    "lm_decode": lm_counts[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = by_path["lm_decode" if k["name"] == "qmatmul"

@@ -41,10 +41,12 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
     ``device`` once, and return a ``(*inputs) -> tuple(outputs)`` function.
 
     Each ``im2col`` that :func:`repro_torch.kernels.ops.conv_pairs` pairs
-    with its ``mvau_int`` is folded into one conv-form MVAU call on the
-    im2col node's input: the patch tensor never enters the environment.
-    The folded im2col outputs are listed in the function's ``folded``
-    attribute.  The graph itself is not changed.
+    with its ``mvau`` or ``mvau_int`` is folded into one conv-form MVAU
+    call on the im2col node's input: the patch tensor never enters the
+    environment.  The folded im2col outputs are listed in the function's
+    ``folded`` attribute.  The graph itself is not changed (the
+    interpreter, :func:`repro_torch.core.graph.execute`, keeps the explicit
+    ``im2col``).
     """
     import functools
 
@@ -67,10 +69,12 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
     for node in nodes:
         if node.outputs[0] in pairs:
             continue                              # runs inside its consumer
-        conv = convs.get(node.inputs[0]) if node.op == "mvau_int" else None
+        conv = (convs.get(node.inputs[0])
+                if node.op in ("mvau", "mvau_int") else None)
         if conv is not None:
-            steps.append((functools.partial(kops.conv_mvau_int_node, conv,
-                                            node),
+            run = (kops.conv_mvau_int_node if node.op == "mvau_int"
+                   else kops.conv_mvau_node)
+            steps.append((functools.partial(run, conv, node),
                           (conv.inputs[0],) + tuple(node.inputs[1:]),
                           node.outputs))
         else:
@@ -233,7 +237,7 @@ class DeployedModel:
         for n in self.graph.nodes:
             rows.append({"tensor": n.outputs[0], "op": n.op,
                          "kernel": kops.kernel_dispatch(
-                             n, emulated, n.outputs[0] in folded)})
+                             n, emulated, folded.get(n.outputs[0]))})
         return rows
 
     def qdq_counts(self) -> Dict[str, int]:

@@ -3,10 +3,10 @@
 //
 // Replaces, in the JAX package:
 //   src/repro/kernels/mvau.py  mvau_int_pallas (_mvau_int_kernel,
-//                              _unpack_int4_block)   integer datapath, here
-//                              in conv form too (the im2col node folded in)
+//                              _unpack_int4_block)   integer datapath
 //   src/repro/kernels/mvau.py  mvau_pallas (_mvau_kernel)   float datapath,
 //                              with its int8 x int8 -> int32 sub-path
+// Both in conv form: the im2col node before them folded in.
 //
 // What it computes, per output element (m, n):
 //   acc   = sum_k x[m, k] * w[k, n]          (int32, or float32 for floats)
@@ -15,39 +15,37 @@
 //   float datapath: out = out_scale * (out_base + count) + out_bias (float32)
 // In conv form x[m, :] is the patch row of output pixel m = (b, oh, ow),
 // read straight from the NHWC activation: the patch tensor never exists.
+// The GEMM form (M, K) is the 1 x 1 conv over an M x 1 image of K channels.
 // Only the narrow result is written; the accumulator never leaves registers
-// (or, under split K, int32 scratch that stays in the 50 MB L2).
+// (or, under split K, scratch that stays in the 50 MB L2).
 //
-// What bounds it on this card.  The conv-form integer MVAU must read the
-// activation once, the weights and tables once and write the int32 codes:
-// at the w6a4 ResNet-9's shapes at batch 64 that is about 154 MB per
-// forward (two thirds of it the int32 output), 0.046 ms at 3.35 TB/s,
-// against 48.5 G int8 operations, 0.025 ms at 1,979 TOP/s: bound by bytes,
-// chiefly the int32 codes written.  The float MVAU on the CUDA cores (67
-// TFLOP/s) is bound by operations.  chip_smoke.py computes both bounds from
-// each run's shapes.
-//
-// What this design does about it, and what it leaves for later:
-// * int8 activations x int8 (or packed int4) weights -- every layer of the
-//   w6a4 int artifact -- run one tensor-core kernel (mvau_conv_kernel
-//   below): implicit-GEMM A loads by cp.async with zero-fill halos, a
-//   4-stage shared-memory ring in the 64-byte swizzle, wgmma m64n64k32
-//   (s8.s8.s32) with both operands read from shared memory, and split K
-//   inside one launch where the output tiles are fewer than the SMs.  The
-//   GEMM form (M, K) is the 1 x 1 conv of the same loader, and the float
-//   MVAU's int8 x int8 sub-path is the same kernel with a float epilogue.
-// * everything else (int32 codes, float32, int32 weights) runs a CUDA-core
-//   kernel: 64 x 64 tile, 4 x 4 accumulators a thread, int32 multiply-add
-//   or float32 FMA (never TF32).
-// Measured on the H100 (PERF.md), the tensor-core kernel is bound by
-// instruction issue, not by bytes or the tensor cores: the dense threshold
-// count (2 instructions per level and output) issues about half of a
-// tile's instructions, the B transposes and the loop's barrier most of the
-// rest; removing the MMAs or all operand loads saves little.  Left: int8
-// codes out of the epilogue (a third of the bytes), the 2 x 2 maxpool and
-// the residual add fused into it, a 128 x 64 tile for N <= 64, persistent
-// blocks to hide each tile's prologue.
-// The epilogue counts short tables (L <= 64, every layer of the w6a4
+// Two kernels:
+// * mvau_conv_kernel -- int8 activation codes x int8 (or packed int4)
+//   weights on the tensor cores (every layer of the w6a4 int artifact):
+//   cp.async A loads with zero-fill halos, a 4-stage ring in the 64-byte
+//   swizzle, wgmma m64n64k32 (s8.s8.s32) from shared memory, split K in one
+//   launch.  The float MVAU's int8 x int8 sub-path is the same kernel with a
+//   float epilogue.  Bound by bytes on this card (about 116 MB at the w6a4
+//   ResNet-9's shapes at batch 64, 0.035 ms at 3.35 TB/s); measured on the
+//   H100 (PERF.md) it is held by instruction issue: the dense threshold
+//   count, the B transposes, each tile's prologue.
+// * mvau_core_kernel -- everything else on the CUDA cores: the float MVAU
+//   (float32 FMA, never TF32), and integer codes that do not fit int8
+//   (int32 activation codes x int8, int16, int32 or packed int4 weights,
+//   exact int32 multiply-add): the 8-bit unsigned activations of a8
+//   configs and the 9- to 16-bit weights of w16a16 and the like.  A 128 x
+//   128 (or 128 x 64) block tile of 8 x 8 register-tiled accumulators a
+//   thread, a 4-stage cp.async ring of 16-k stages, split K in one launch.
+//   Bound by operations (the float ResNet-9 at batch 64: 96.6 GFLOP, 0.72
+//   ms at 67 TFLOP/s).  Measured on the H100 (tools/probe_mvau_conv.py), it
+//   is held by shared memory as much as by the FMA pipes: an 8 x 8 tile
+//   loads 16 floats a thread per k for 64 FMA, which is exactly the ratio
+//   of the SM's shared-memory rate (128 B a clock) to its FP32 rate (128
+//   FMA a clock), and the two overlap poorly: removing 7 of every 8 FMAs
+//   leaves 60% of the time.  A 16 x 8 tile (one block an SM) measured
+//   slower.
+// chip_smoke.py computes each kernel's bound from each run's shapes.
+// The epilogues count short tables (L <= 64, every layer of the w6a4
 // artifact: L = 15) densely from shared memory.  Longer tables (8- to
 // 16-bit activations, L = 255 to 65535) are binary-searched per output in
 // global memory, where the block's rows stay in L1/L2: ceil(log2(L + 1))
@@ -61,16 +59,10 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // reduction depth per shared-memory tile
-constexpr int LC = 64;        // threshold levels staged per epilogue chunk
-constexpr int TM = 4;         // rows per thread: ty + 16 * i
-constexpr int TN = 4;         // columns per thread: tx + 16 * j
-constexpr int THREADS = 256;  // 16 x 16
 constexpr int DENSE_MAX_L = 64;  // longer sorted tables are binary-searched
 
 // #{ l : a >= row[l] } for a row sorted ascending: the index of its first
@@ -92,7 +84,7 @@ __device__ __forceinline__ int count_sorted(const ACC* __restrict__ row,
   return lo;
 }
 
-enum WKind { W_I8 = 0, W_I32 = 1, W_F32 = 2, W_PACKED4 = 3 };
+enum WKind { W_I8 = 0, W_I32 = 1, W_F32 = 2, W_PACKED4 = 3, W_I16 = 4 };
 
 template <typename ACC, int WK>
 __device__ __forceinline__ ACC load_w(const void* __restrict__ w, int k, int n,
@@ -106,6 +98,9 @@ __device__ __forceinline__ ACC load_w(const void* __restrict__ w, int k, int n,
   } else if constexpr (WK == W_I8) {
     return static_cast<ACC>(
         static_cast<const int8_t*>(w)[static_cast<size_t>(k) * N + n]);
+  } else if constexpr (WK == W_I16) {
+    return static_cast<ACC>(
+        static_cast<const int16_t*>(w)[static_cast<size_t>(k) * N + n]);
   } else if constexpr (WK == W_I32) {
     return static_cast<ACC>(
         static_cast<const int32_t*>(w)[static_cast<size_t>(k) * N + n]);
@@ -113,143 +108,6 @@ __device__ __forceinline__ ACC load_w(const void* __restrict__ w, int k, int n,
     return static_cast<ACC>(
         static_cast<const float*>(w)[static_cast<size_t>(k) * N + n]);
   }
-}
-
-template <typename XT, int WK, typename ACC, bool FLOAT_OUT>
-__global__ void __launch_bounds__(THREADS)
-mvau_tile_kernel(const XT* __restrict__ x, const void* __restrict__ w,
-                 const ACC* __restrict__ t, void* __restrict__ out, int M,
-                 int K, int N, int L, bool bsearch, int out_base_i,
-                 float out_base_f, float out_scale, float out_bias) {
-  __shared__ ACC As[BK][BM + 1];   // x tile, K-major; +1 avoids bank conflicts
-  __shared__ ACC Bs[BK][BN];       // w tile
-  __shared__ ACC Ts[BN][LC + 1];   // threshold chunk, one row per column
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  ACC acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = ACC(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BK;
-      const int c = e % BK;
-      const int gm = m0 + r;
-      const int gk = k0 + c;
-      As[c][r] = (gm < M && gk < K)
-                     ? static_cast<ACC>(x[static_cast<size_t>(gm) * K + gk])
-                     : ACC(0);
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BN;
-      const int c = e % BN;
-      const int gk = k0 + r;
-      const int gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? load_w<ACC, WK>(w, gk, gn, N) : ACC(0);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      ACC a[TM];
-      ACC b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-
-  int cnt[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) cnt[i][j] = 0;
-
-  if (bsearch) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) {
-        const ACC* row = t + static_cast<size_t>(gn) * L;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) cnt[i][j] = count_sorted(row, L, acc[i][j]);
-      }
-    }
-  }
-  for (int l0 = 0; !bsearch && l0 < L; l0 += LC) {
-    const int lc = min(LC, L - l0);
-    for (int e = tid; e < BN * LC; e += THREADS) {
-      const int r = e / LC;
-      const int c = e % LC;
-      const int gn = n0 + r;
-      if (gn < N && c < lc) Ts[r][c] = t[static_cast<size_t>(gn) * L + l0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = tx + 16 * j;
-      if (n0 + col < N) {
-        for (int l = 0; l < lc; ++l) {
-          const ACC tv = Ts[col][l];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) cnt[i][j] += (acc[i][j] >= tv) ? 1 : 0;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t o = static_cast<size_t>(gm) * N + gn;
-      if constexpr (FLOAT_OUT) {
-        // three separately rounded float32 operations, as the reference
-        // computes them: no contraction into an FMA
-        const float y = __fadd_rn(
-            __fmul_rn(out_scale,
-                      __fadd_rn(out_base_f, static_cast<float>(cnt[i][j]))),
-            out_bias);
-        static_cast<float*>(out)[o] = y;
-      } else {
-        static_cast<int32_t*>(out)[o] = out_base_i + cnt[i][j];
-      }
-    }
-  }
-}
-
-template <typename XT, int WK, typename ACC, bool FLOAT_OUT>
-int launch(const void* x, const void* w, const void* t, void* out, int M,
-           int K, int N, int L, bool bsearch, int out_base_i, float out_base_f,
-           float out_scale, float out_bias, cudaStream_t stream) {
-  if (M > 0 && N > 0) {
-    dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    mvau_tile_kernel<XT, WK, ACC, FLOAT_OUT><<<grid, THREADS, 0, stream>>>(
-        static_cast<const XT*>(x), w, static_cast<const ACC*>(t), out, M, K, N,
-        L, bsearch, out_base_i, out_base_f, out_scale, out_bias);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -881,44 +739,560 @@ ConvGeom gemm_geom(int M, int K) {
   return ConvGeom{M, 1, std::max(K, 1), 1, 1, 1, 0, M, 1};
 }
 
+// ---------------------------------------------------------------------------
+// Everything else on the CUDA cores: the conv-form (implicit-GEMM) MVAU in
+// float32 FMA (the float MVAU) or exact int32 multiply-add (integer codes
+// that do not fit int8: a8 activations, 9- to 16-bit weights).
+//
+// Block tile 128 rows x BN columns (BN = 128, or 64 where N <= 64), 256
+// threads.  Thread (ty, tx) = (4 (warp / 2) + lane / 8, 8 (warp % 2) + lane
+// % 8) owns rows ty + 16 i (i < CORE_TM = 8) and columns 4 tx + 64 g + c
+// (g < BN / 64, c < 4): 64 (or 32) accumulators in registers.
+// Shared memory holds a ring of CORE_STAGES stages, each an A tile (128
+// patch rows x 16 k, M-major as the activation stores them) and a B tile
+// (16 k x BN columns, as W stores them), then the block's patch-row table
+// (where each output pixel's window starts: the loaders keep no per-row
+// registers) and its threshold rows, level-major.  A's rows are padded to
+// CORE_AS = 20 words.
+// * A: 16-byte cp.async of 4 consecutive k of one patch row, with a
+//   zero-filling source size for the halo, the ragged K edge and rows past
+//   M, when C is a multiple of 4; 4-byte cp.async otherwise (C = 3).
+// * B: 16-byte cp.async for 32-bit weights (float32, int32); int8, int16
+//   and packed int4 codes are loaded into registers one stage ahead,
+//   widened to int32, and stored after the stage's math.
+// * Fragments: per 2 k, one 8-byte load from each of the thread's 8 rows; per k, one 16-byte load per 4 columns.  A warp spans
+//   4 rows x 8 column groups, so each fragment load reads at most 128
+//   distinct bytes: 4 adjacent rows (20 words apart: distinct banks), or 8
+//   contiguous 16-byte column groups.
+// * One __syncthreads per stage: the copies for stage i + 3 go out after
+//   it, into the buffer every thread finished with in stage i - 1.
+// * Split K: where the output tiles are fewer than the SMs, grid.z splits
+//   the K-tiles.  Each split writes its partial sums to scratch; the last
+//   block of a tile to arrive (a per-tile counter, reset by that block)
+//   adds all of them in split order, so every launch gives the same bits.
+// * Epilogue: tables of up to 64 levels are counted densely from shared
+//   memory, one column at a time; longer integer tables (sorted) are
+//   binary-searched; longer float tables (not sorted) are counted densely
+//   from global memory.  The accumulators are replaced in place by the
+//   output values and stored 16 bytes at a time.
+// ---------------------------------------------------------------------------
+constexpr int CORE_TM = 8;     // rows per thread
+constexpr int CORE_BM = 16 * CORE_TM;
+constexpr int CORE_BK = 16;
+constexpr int CORE_AS = CORE_BK + 4;    // A row stride in words
+constexpr int CORE_STAGES = 4;
+constexpr int CORE_THREADS = 256;
+
+template <int BN>
+struct CoreTile {
+  static constexpr int TN = BN / 16;           // columns per thread
+  static constexpr int G = BN / 64;            // 4-column groups per thread
+  static constexpr int A_WORDS = CORE_BM * CORE_AS;
+  static constexpr int B_WORDS = CORE_BK * BN;
+  static constexpr int STAGE = A_WORDS + B_WORDS;
+  static constexpr int RING = CORE_STAGES * STAGE;          // words
+  static constexpr int ROWS = 4 * CORE_BM;   // words of the patch-row table
+  static constexpr int B_CHUNKS = B_WORDS / 4 / CORE_THREADS;
+  static constexpr int SMEM_MAX = (RING + ROWS + BN * DENSE_MAX_L) * 4;
+};
+
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<int> { using type = int2; };
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  using type = float4;
+  static __device__ __forceinline__ float4 make(float a, float b, float c,
+                                                float d) {
+    return make_float4(a, b, c, d);
+  }
+};
+template <> struct Vec4<int> {
+  using type = int4;
+  static __device__ __forceinline__ int4 make(int a, int b, int c, int d) {
+    return make_int4(a, b, c, d);
+  }
+};
+
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fmaf(a, b, c);         // float32 FMA, never TF32
+}
+__device__ __forceinline__ int mad(int a, int b, int c) { return a * b + c; }
+
+__host__ __device__ constexpr bool narrow_w(int wk) {
+  return wk == W_I8 || wk == W_I16 || wk == W_PACKED4;
+}
+
+// columns n .. n+3 of row k of narrow weight codes, widened to int32 (0 past
+// N); vec: n + 3 < N and the row is aligned for one vector load
+template <int WK>
+__device__ __forceinline__ int4 load_w4(const void* __restrict__ w, int k,
+                                        int n, int N, bool vec) {
+  if (vec) {
+    if constexpr (WK == W_I8) {
+      const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
+          static_cast<const int8_t*>(w) + static_cast<size_t>(k) * N + n));
+      return make_int4(static_cast<int8_t>(v & 0xFF),
+                       static_cast<int8_t>((v >> 8) & 0xFF),
+                       static_cast<int8_t>((v >> 16) & 0xFF),
+                       static_cast<int8_t>(v >> 24));
+    } else if constexpr (WK == W_I16) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+          static_cast<const int16_t*>(w) + static_cast<size_t>(k) * N + n));
+      return make_int4(static_cast<int16_t>(v.x & 0xFFFF),
+                       static_cast<int16_t>(v.x >> 16),
+                       static_cast<int16_t>(v.y & 0xFFFF),
+                       static_cast<int16_t>(v.y >> 16));
+    } else {
+      // packed int4: 2 bytes, columns n, n+1 (byte 0 low, high), n+2, n+3
+      const uint32_t v = __ldg(reinterpret_cast<const unsigned short*>(
+          static_cast<const uint8_t*>(w) + static_cast<size_t>(k) * (N >> 1) +
+          (n >> 1)));
+      return make_int4(static_cast<int>((v & 0xF) ^ 8u) - 8,
+                       static_cast<int>(((v >> 4) & 0xF) ^ 8u) - 8,
+                       static_cast<int>(((v >> 8) & 0xF) ^ 8u) - 8,
+                       static_cast<int>(((v >> 12) & 0xF) ^ 8u) - 8);
+    }
+  }
+  int r[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    r[c] = n + c < N ? load_w<int, WK>(w, k, n + c, N) : 0;
+  return make_int4(r[0], r[1], r[2], r[3]);
+}
+
+template <typename ACC, int WK, int BN>
+__global__ void __launch_bounds__(CORE_THREADS, 2)
+mvau_core_kernel(const ACC* __restrict__ x, ConvGeom g, bool a_vec,
+                 const void* __restrict__ w, bool w_vec,
+                 const ACC* __restrict__ t, ACC* __restrict__ out,
+                 ACC* __restrict__ ws, int* __restrict__ tile_counts, int M,
+                 int K, int N, int L, bool bsearch, int kt_per_split,
+                 int out_base_i, float out_base_f, float out_scale,
+                 float out_bias) {
+  using Tile = CoreTile<BN>;
+  using V2 = typename Vec2<ACC>::type;
+  using V4 = typename Vec4<ACC>::type;
+  constexpr int TN = Tile::TN;
+  constexpr int G = Tile::G;
+  extern __shared__ __align__(16) uint8_t core_smem[];
+  __shared__ int s_last;
+  ACC* const ring = reinterpret_cast<ACC*>(core_smem);
+  int4* const rows = reinterpret_cast<int4*>(ring + Tile::RING);
+  ACC* const Ts = ring + Tile::RING + Tile::ROWS;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tx = ((tid >> 5) & 1) * 8 + (lane & 7);
+  const int ty = (tid >> 6) * 4 + (lane >> 3);
+  const int m0 = blockIdx.x * CORE_BM;
+  const int n0 = blockIdx.y * BN;
+  const int KT = (K + CORE_BK - 1) / CORE_BK;
+  const int kt_begin = blockIdx.z * kt_per_split;
+  const int nkt = min(KT, kt_begin + kt_per_split) - kt_begin;
+  // ---- patch rows: (b H, oh stride - pad, ow stride - pad) of each of the
+  // block's output pixels, in shared memory for the A loaders; a row past M
+  // lies outside every image
+  for (int r = tid; r < CORE_BM; r += CORE_THREADS) {
+    const int m = m0 + r;
+    int4 v = make_int4(0, -(1 << 28), 0, 0);
+    if (m < M) {
+      const int ohw = g.OH * g.OW;
+      const int b = m / ohw;
+      const int rem = m - b * ohw;
+      const int oh = rem / g.OW;
+      const int ow = rem - oh * g.OW;
+      v = make_int4(b * g.H, oh * g.stride - g.pad, ow * g.stride - g.pad, 0);
+    }
+    rows[r] = v;
+  }
+  __syncthreads();
+
+  // ---- A, 16-byte copies: rows tid / 4 + 64 p, k 4 (tid % 4) .. of each
+  // tile; the (kh, kw, c) of that k advance tile by tile
+  int a_k = kt_begin * CORE_BK;    // first k of the next tile to load
+  int a_kh, a_kw, a_c;
+  {
+    const int k = a_k + 4 * (tid & 3);
+    const int tap = k / g.C;
+    a_c = k - tap * g.C;
+    a_kh = tap / g.KW;
+    a_kw = tap - a_kh * g.KW;
+  }
+
+  auto load_a = [&](int stage) {
+    ACC* const As = ring + stage * Tile::STAGE;
+    if (a_vec) {
+      const int seg = 4 * (tid & 3);
+      const bool kin = a_k + seg < K;
+#pragma unroll
+      for (int p = 0; p < CORE_BM / 64; ++p) {
+        const int4 r = rows[(tid >> 2) + 64 * p];
+        const int ih = r.y + a_kh;
+        const int iw = r.z + a_kw;
+        const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                        static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+        const ACC* src =
+            ok ? x + (static_cast<int64_t>(r.x + ih) * g.W + iw) * g.C + a_c
+               : x;
+        cp_async16(smem_u32(As + ((tid >> 2) + 64 * p) * CORE_AS + seg), src,
+                   ok);
+      }
+      a_c += CORE_BK;
+      while (a_c >= g.C) {
+        a_c -= g.C;
+        if (++a_kw == g.KW) {
+          a_kw = 0;
+          ++a_kh;
+        }
+      }
+    } else {
+      // 4-byte copies: rows tid / 16 + 16 j, k tid % 16 of the tile
+      const int kc = tid & 15;
+      const int k = a_k + kc;
+      const bool kin = k < K;
+      int kh = 0, kw = 0, c = 0;
+      if (kin) {
+        const int tap = k / g.C;
+        c = k - tap * g.C;
+        kh = tap / g.KW;
+        kw = tap - kh * g.KW;
+      }
+#pragma unroll
+      for (int j = 0; j < CORE_TM; ++j) {
+        const int row = (tid >> 4) + 16 * j;
+        const int4 r = rows[row];
+        const int ih = r.y + kh;
+        const int iw = r.z + kw;
+        const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                        static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+        const ACC* src =
+            ok ? x + (static_cast<int64_t>(r.x + ih) * g.W + iw) * g.C + c : x;
+        cp_async4(smem_u32(As + row * CORE_AS + kc), src, ok);
+      }
+    }
+    a_k += CORE_BK;
+  };
+
+  // ---- B: chunk q of a thread is row ch / (BN / 4), columns 4 (ch % (BN /
+  // 4)) .. + 3 of the tile, ch = tid + 256 q
+  auto load_b = [&](int stage, int kt) {       // 32-bit weights: cp.async
+    ACC* const Bs = ring + stage * Tile::STAGE + Tile::A_WORDS;
+    const ACC* const wp = static_cast<const ACC*>(w);
+#pragma unroll
+    for (int q = 0; q < Tile::B_CHUNKS; ++q) {
+      const int ch = tid + CORE_THREADS * q;
+      const int kr = ch / (BN / 4);
+      const int nc = 4 * (ch % (BN / 4));
+      const int gk = kt * CORE_BK + kr;
+      const int gn = n0 + nc;
+      ACC* const dst = Bs + kr * BN + nc;
+      if (w_vec) {
+        const bool ok = gk < K && gn < N;
+        cp_async16(smem_u32(dst), ok ? wp + static_cast<size_t>(gk) * N + gn : wp,
+                   ok);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = gk < K && gn + c < N;
+          cp_async4(smem_u32(dst + c),
+                    ok ? wp + static_cast<size_t>(gk) * N + gn + c : wp, ok);
+        }
+      }
+    }
+  };
+  int4 bw[Tile::B_CHUNKS];                     // narrow codes, widened
+  auto fetch_b = [&](int kt) {
+#pragma unroll
+    for (int q = 0; q < Tile::B_CHUNKS; ++q) {
+      const int ch = tid + CORE_THREADS * q;
+      const int gk = kt * CORE_BK + ch / (BN / 4);
+      const int gn = n0 + 4 * (ch % (BN / 4));
+      bw[q] = gk < K && gn < N ? load_w4<WK>(w, gk, gn, N, w_vec)
+                               : make_int4(0, 0, 0, 0);
+    }
+  };
+  auto store_b = [&](int stage) {
+    ACC* const Bs = ring + stage * Tile::STAGE + Tile::A_WORDS;
+#pragma unroll
+    for (int q = 0; q < Tile::B_CHUNKS; ++q) {
+      const int ch = tid + CORE_THREADS * q;
+      *reinterpret_cast<int4*>(Bs + (ch / (BN / 4)) * BN + 4 * (ch % (BN / 4))) =
+          bw[q];
+    }
+  };
+
+  ACC acc[CORE_TM][TN];
+#pragma unroll
+  for (int i = 0; i < CORE_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = ACC(0);
+
+  auto compute = [&](int stage) {
+    const ACC* const As = ring + stage * Tile::STAGE + ty * CORE_AS;
+    const ACC* const Bs = ring + stage * Tile::STAGE + Tile::A_WORDS + 4 * tx;
+#pragma unroll
+    for (int k2 = 0; k2 < CORE_BK; k2 += 2) {
+      ACC a[CORE_TM][2];
+#pragma unroll
+      for (int i = 0; i < CORE_TM; ++i) {
+        const V2 v = *reinterpret_cast<const V2*>(As + 16 * i * CORE_AS + k2);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        ACC b[TN];
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+          const V4 v = *reinterpret_cast<const V4*>(Bs + (k2 + kk) * BN + 64 * gg);
+          b[4 * gg + 0] = v.x;
+          b[4 * gg + 1] = v.y;
+          b[4 * gg + 2] = v.z;
+          b[4 * gg + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < CORE_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = mad(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  };
+
+  // ---- mainloop: stages i+1 .. i+3 in flight while stage i is consumed;
+  // the threshold block goes out first, with stage 0
+  const bool staged = !bsearch && L <= DENSE_MAX_L;
+  if (staged) {
+    for (int e = tid; e < BN * L; e += CORE_THREADS) {
+      const int c = e / L;
+      const int l = e - c * L;
+      const bool ok = n0 + c < N;
+      cp_async4(smem_u32(Ts + l * BN + c),
+                ok ? t + static_cast<size_t>(n0 + c) * L + l : t, ok);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < CORE_STAGES - 1; ++s) {
+    if (s < nkt) {
+      load_a(s);
+      if constexpr (narrow_w(WK)) {
+        fetch_b(kt_begin + s);
+        store_b(s);
+      } else {
+        load_b(s, kt_begin + s);
+      }
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    cp_async_wait<CORE_STAGES - 2>();
+    __syncthreads();
+    const int nxt = i + CORE_STAGES - 1;
+    const bool more = nxt < nkt;
+    if (more) {
+      load_a(nxt % CORE_STAGES);
+      if constexpr (narrow_w(WK))
+        fetch_b(kt_begin + nxt);
+      else
+        load_b(nxt % CORE_STAGES, kt_begin + nxt);
+    }
+    cp_async_commit();
+    compute(i % CORE_STAGES);
+    if constexpr (narrow_w(WK)) {
+      if (more) store_b(nxt % CORE_STAGES);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- split K: the last block of a tile adds every split's sums --------
+  // Scratch holds, per tile and split, the block's accumulators in thread
+  // order (CORE_TM G 16-byte vectors a thread, a warp's stores contiguous).
+  if (gridDim.z > 1) {
+    constexpr int PART = CORE_BM * BN / 4;     // vectors per tile and split
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    V4* const part = reinterpret_cast<V4*>(ws) +
+                     static_cast<size_t>(tile) * gridDim.z * PART + tid;
+#pragma unroll
+    for (int i = 0; i < CORE_TM; ++i)
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg)
+        __stcg(part + blockIdx.z * PART + (G * i + gg) * CORE_THREADS,
+               Vec4<ACC>::make(acc[i][4 * gg], acc[i][4 * gg + 1],
+                               acc[i][4 * gg + 2], acc[i][4 * gg + 3]));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      s_last = atomicAdd(tile_counts + tile, 1) == static_cast<int>(gridDim.z) - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // in split order 0, 1, ...: the same bits whichever block is last
+#pragma unroll
+    for (int i = 0; i < CORE_TM; ++i)
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        V4 s = __ldcg(part + (G * i + gg) * CORE_THREADS);
+        for (int z = 1; z < static_cast<int>(gridDim.z); ++z) {
+          const V4 v = __ldcg(part + z * PART + (G * i + gg) * CORE_THREADS);
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+        acc[i][4 * gg] = s.x;
+        acc[i][4 * gg + 1] = s.y;
+        acc[i][4 * gg + 2] = s.z;
+        acc[i][4 * gg + 3] = s.w;
+      }
+    if (tid == 0) tile_counts[tile] = 0;
+  }
+
+  // ---- epilogue: counts, then the output values, in place -------------
+  // one column at a time, so the counters add 8 registers
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int col = 4 * tx + (j & 3) + 64 * (j >> 2);
+    int cnt[CORE_TM];
+#pragma unroll
+    for (int i = 0; i < CORE_TM; ++i) cnt[i] = 0;
+    if (staged) {
+      for (int l = 0; l < L; ++l) {
+        const ACC tv = Ts[l * BN + col];
+#pragma unroll
+        for (int i = 0; i < CORE_TM; ++i) cnt[i] += acc[i][j] >= tv;
+      }
+    } else if (n0 + col < N) {
+      const ACC* const row = t + static_cast<size_t>(n0 + col) * L;
+      if (bsearch) {
+#pragma unroll
+        for (int i = 0; i < CORE_TM; ++i) cnt[i] = count_sorted(row, L, acc[i][j]);
+      } else {
+        for (int l = 0; l < L; ++l) {
+          const ACC tv = __ldg(row + l);
+#pragma unroll
+          for (int i = 0; i < CORE_TM; ++i) cnt[i] += acc[i][j] >= tv;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CORE_TM; ++i) {
+      if constexpr (std::is_same<ACC, float>::value) {
+        // three separately rounded float32 operations, as the reference
+        // computes them: no contraction into an FMA
+        acc[i][j] = __fadd_rn(
+            __fmul_rn(out_scale, __fadd_rn(out_base_f, static_cast<float>(cnt[i]))),
+            out_bias);
+      } else {
+        acc[i][j] = out_base_i + cnt[i];
+      }
+    }
+  }
+
+  const bool vec_out = (N & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < CORE_TM; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      const int gn = n0 + 4 * tx + 64 * gg;
+      ACC* const dst = out + static_cast<size_t>(gm) * N + gn;
+      if (vec_out && gn < N) {
+        *reinterpret_cast<V4*>(dst) =
+            Vec4<ACC>::make(acc[i][4 * gg], acc[i][4 * gg + 1],
+                            acc[i][4 * gg + 2], acc[i][4 * gg + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (gn + c < N) dst[c] = acc[i][4 * gg + c];
+      }
+    }
+  }
+}
+
+template <typename ACC, int WK, int BN>
+int launch_core(const ACC* x, const ConvGeom& g, bool a_vec, const void* w,
+                bool w_vec, const ACC* t, ACC* out, ACC* ws, int* tile_counts,
+                int M, int K, int N, int L, bool bsearch, int splits,
+                int out_base_i, float out_base_f, float out_scale,
+                float out_bias, cudaStream_t stream) {
+  using Tile = CoreTile<BN>;
+  auto kern = mvau_core_kernel<ACC, WK, BN>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const int KT = std::max(1, (K + CORE_BK - 1) / CORE_BK);
+  splits = std::max(1, std::min(splits, KT));
+  const int per = (KT + splits - 1) / splits;
+  splits = (KT + per - 1) / per;          // no split left without a K-tile
+  if (splits > 1 && (ws == nullptr || tile_counts == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((M + CORE_BM - 1) / CORE_BM, (N + BN - 1) / BN, splits);
+  const int smem =
+      (Tile::RING + Tile::ROWS + (!bsearch && L <= DENSE_MAX_L ? BN * L : 0)) *
+      4;
+  kern<<<grid, CORE_THREADS, smem, stream>>>(
+      x, g, a_vec, w, w_vec, t, out, ws, tile_counts, M, K, N, L, bsearch, per,
+      out_base_i, out_base_f, out_scale, out_bias);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tile width N asks for, and the widest copies C, N and the operands'
+// alignment allow
+template <typename ACC, int WK>
+int launch_core_any(const void* x, const ConvGeom& g, const void* w,
+                    const void* t, void* out, void* ws, int* tile_counts,
+                    int M, int K, int N, int L, bool bsearch, int splits,
+                    int out_base_i, float out_base_f, float out_scale,
+                    float out_bias, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  const bool a_vec = g.C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int w_align = WK == W_I8 ? 4 : WK == W_I16 ? 8 : WK == W_PACKED4 ? 2 : 16;
+  const bool w_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % w_align == 0;
+  const ACC* xp = static_cast<const ACC*>(x);
+  const ACC* tp = static_cast<const ACC*>(t);
+  ACC* op = static_cast<ACC*>(out);
+  ACC* wsp = static_cast<ACC*>(ws);
+  if (N <= 64)
+    return launch_core<ACC, WK, 64>(xp, g, a_vec, w, w_vec, tp, op, wsp,
+                                    tile_counts, M, K, N, L, bsearch, splits,
+                                    out_base_i, out_base_f, out_scale,
+                                    out_bias, stream);
+  return launch_core<ACC, WK, 128>(xp, g, a_vec, w, w_vec, tp, op, wsp,
+                                   tile_counts, M, K, N, L, bsearch, splits,
+                                   out_base_i, out_base_f, out_scale, out_bias,
+                                   stream);
+}
+
 }  // namespace
 
-// Integer MVAU (mvau_int_pallas), GEMM form.  x_kind: 0 = int8, 1 = int32
-// codes.  w_kind: 0 = int8 codes (K, N), 1 = int32 codes (K, N), 3 = packed
-// int4 (K, N/2).  t: (N, L) int32, each row sorted ascending when L > 64.
-// out: (M, N) int32.  splits > 1 splits K on the tensor cores and needs
-// ws (output tiles x splits x 128 x 128 int32) and tile_counts (one zeroed
-// int per output tile, left zeroed).  Returns cudaGetLastError.
-extern "C" int repro_mvau_int(const void* x, int x_kind, const void* w,
-                              int w_kind, const int32_t* t, int32_t* out,
-                              int M, int K, int N, int L, int out_base,
-                              int splits, int32_t* ws, int* tile_counts,
-                              void* stream) {
+// Integer MVAU (mvau_int_pallas), GEMM form, on the int8 tensor cores.
+// x: (M, K) int8 codes.  w_kind: 0 = int8 codes (K, N), 3 = packed int4
+// (K, N/2).  t: (N, L) int32, each row sorted ascending when L > 64.
+// out: (M, N) int32.  splits > 1 splits K and needs ws (output tiles x
+// splits x 128 x 128 int32) and tile_counts (one zeroed int per output
+// tile, left zeroed).  Wider codes take repro_mvau_core_conv.  Returns
+// cudaGetLastError.
+extern "C" int repro_mvau_int(const void* x, const void* w, int w_kind,
+                              const int32_t* t, int32_t* out, int M, int K,
+                              int N, int L, int out_base, int splits,
+                              int32_t* ws, int* tile_counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bs = L > DENSE_MAX_L;
-  if (x_kind == 0) {
-    if (w_kind == W_I8)
-      return launch_conv_any<W_I8, false>(x, gemm_geom(M, K), w, t, out, ws,
-                                          tile_counts, M, K, N, L, bs, splits,
-                                          out_base, 0.f, 1.f, 0.f, s);
-    if (w_kind == W_I32)
-      return launch<int8_t, W_I32, int32_t, false>(
-          x, w, t, out, M, K, N, L, bs, out_base, 0.f, 1.f, 0.f, s);
-    if (w_kind == W_PACKED4)
-      return launch_conv_any<W_PACKED4, false>(
-          x, gemm_geom(M, K), w, t, out, ws, tile_counts, M, K, N, L, bs,
-          splits, out_base, 0.f, 1.f, 0.f, s);
-  } else if (x_kind == 1) {
-    if (w_kind == W_I8)
-      return launch<int32_t, W_I8, int32_t, false>(
-          x, w, t, out, M, K, N, L, bs, out_base, 0.f, 1.f, 0.f, s);
-    if (w_kind == W_I32)
-      return launch<int32_t, W_I32, int32_t, false>(
-          x, w, t, out, M, K, N, L, bs, out_base, 0.f, 1.f, 0.f, s);
-    if (w_kind == W_PACKED4)
-      return launch<int32_t, W_PACKED4, int32_t, false>(
-          x, w, t, out, M, K, N, L, bs, out_base, 0.f, 1.f, 0.f, s);
-  }
+  if (w_kind == W_I8)
+    return launch_conv_any<W_I8, false>(x, gemm_geom(M, K), w, t, out, ws,
+                                        tile_counts, M, K, N, L, bs, splits,
+                                        out_base, 0.f, 1.f, 0.f, s);
+  if (w_kind == W_PACKED4)
+    return launch_conv_any<W_PACKED4, false>(x, gemm_geom(M, K), w, t, out, ws,
+                                             tile_counts, M, K, N, L, bs,
+                                             splits, out_base, 0.f, 1.f, 0.f,
+                                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -954,15 +1328,62 @@ extern "C" int repro_mvau_int_conv(const void* x, const void* w, int w_kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Float MVAU (mvau_pallas).  x, w float32; t (N, L) float32; out float32.
-// Counts densely: its tables need not be sorted.
-extern "C" int repro_mvau_f32(const float* x, const float* w, const float* t,
-                              float* out, int M, int K, int N, int L,
-                              float out_base, float out_scale, float out_bias,
-                              void* stream) {
-  return launch<float, W_F32, float, true>(x, w, t, out, M, K, N, L, false, 0,
-                                           out_base, out_scale, out_bias,
-                                           static_cast<cudaStream_t>(stream));
+// The CUDA-core MVAU in conv form: the float MVAU (mvau_pallas), and the
+// integer MVAU (mvau_int_pallas) for codes that do not fit int8.  The GEMM
+// form (M, K) is B = 1, H = M, W = 1, C = K, kernel 1, stride 1, pad 0.
+// x: (B, H, W, C) NHWC, float32 (x_float = 1) or int32 codes.  w: (K, N)
+// in patch order (kh, kw, c): w_kind 2 = float32 (with float x), or 0 =
+// int8, 4 = int16, 1 = int32 codes, 3 = packed int4 (K, N/2).  t: (N, L),
+// float32 or int32 as x; an int32 table longer than 64 levels must have
+// each row sorted ascending (it is binary-searched).  out: (B, OH, OW, N),
+// float32 out_scale * (out_base_f + count) + out_bias, or int32 out_base_i
+// + count.  splits > 1 splits K and needs ws (output tiles x splits x 128 x
+// BN words, BN = 64 where N <= 64, else 128) and tile_counts (one zeroed
+// int per output tile, left zeroed).  Returns cudaGetLastError.
+extern "C" int repro_mvau_core_conv(const void* x, int x_float, const void* w,
+                                    int w_kind, const void* t, void* out,
+                                    int B, int H, int W, int C, int kernel,
+                                    int stride, int pad, int N, int L,
+                                    int out_base_i, float out_base_f,
+                                    float out_scale, float out_bias,
+                                    int splits, void* ws, int* tile_counts,
+                                    void* stream) {
+  if (B < 0 || H < 1 || W < 1 || C < 1 || kernel < 1 || stride < 1 ||
+      pad < 0 || H + 2 * pad < kernel || W + 2 * pad < kernel || L < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int OH = (H + 2 * pad - kernel) / stride + 1;
+  const int OW = (W + 2 * pad - kernel) / stride + 1;
+  const ConvGeom g{H, W, C, kernel, kernel, stride, pad, OH, OW};
+  const int M = B * OH * OW;
+  const int K = kernel * kernel * C;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_float) {
+    if (w_kind != W_F32) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_core_any<float, W_F32>(x, g, w, t, out, ws, tile_counts, M,
+                                         K, N, L, false, splits, 0, out_base_f,
+                                         out_scale, out_bias, s);
+  }
+  const bool bs = L > DENSE_MAX_L;
+  switch (w_kind) {
+    case W_I8:
+      return launch_core_any<int, W_I8>(x, g, w, t, out, ws, tile_counts, M,
+                                        K, N, L, bs, splits, out_base_i, 0.f,
+                                        1.f, 0.f, s);
+    case W_I16:
+      return launch_core_any<int, W_I16>(x, g, w, t, out, ws, tile_counts, M,
+                                         K, N, L, bs, splits, out_base_i, 0.f,
+                                         1.f, 0.f, s);
+    case W_I32:
+      return launch_core_any<int, W_I32>(x, g, w, t, out, ws, tile_counts, M,
+                                         K, N, L, bs, splits, out_base_i, 0.f,
+                                         1.f, 0.f, s);
+    case W_PACKED4:
+      return launch_core_any<int, W_PACKED4>(x, g, w, t, out, ws, tile_counts,
+                                             M, K, N, L, bs, splits,
+                                             out_base_i, 0.f, 1.f, 0.f, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // mvau_pallas's int8 x int8 sub-path: int32 accumulation against int32

@@ -44,10 +44,10 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-# Per-device tile counters of the split-K kernels (mvau_int, qmatmul): zeroed
-# once, and every launch leaves them zeroed (the last block of a tile resets
-# its counter); launches share them in stream order, on PyTorch's current
-# stream.
+# Per-device tile counters of the split-K kernels (mvau, mvau_int,
+# qmatmul): zeroed once, and every launch leaves them zeroed (the last block
+# of a tile resets its counter); launches share them in stream order, on
+# PyTorch's current stream.
 _TILE_COUNTS: Dict[object, object] = {}
 
 
@@ -143,18 +143,19 @@ class KernelLibrary:
         lib = ctypes.CDLL(str(info.path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.mvau_int = lib.repro_mvau_int
-        self.mvau_int.argtypes = [p, i, p, i, p, p, i, i, i, i, i, i, p, p, p]
+        self.mvau_int.argtypes = [p, p, i, p, p] + [i] * 6 + [p, p, p]
         self.mvau_int_conv = lib.repro_mvau_int_conv
         self.mvau_int_conv.argtypes = [p, p, i, p, p] + [i] * 11 + [p, p, p]
-        self.mvau_f32 = lib.repro_mvau_f32
-        self.mvau_f32.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
+        self.mvau_core_conv = lib.repro_mvau_core_conv
+        self.mvau_core_conv.argtypes = ([p, i, p, i, p, p] + [i] * 10
+                                        + [f, f, f, i, p, p, p])
         self.mvau_i8 = lib.repro_mvau_i8
         self.mvau_i8.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
         self.gap = lib.repro_gap
         self.gap.argtypes = [p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
         self.qmatmul.argtypes = [p, i, p, i, p, p, p, p] + [i] * 7 + [p]
-        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_f32,
+        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_core_conv,
                    self.mvau_i8, self.gap, self.qmatmul):
             fn.restype = ctypes.c_int
         self._lib = lib

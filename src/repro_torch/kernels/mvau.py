@@ -1,13 +1,23 @@
-"""MVAU on the card: wrappers around the hand-written CUDA kernel
+"""MVAU on the card: wrappers around the hand-written CUDA kernels
 (``csrc/mvau.cu``), each beside its plain PyTorch version.
 
 Counterpart of the JAX package's ``kernels/mvau.py`` (``mvau_int_pallas``,
-``mvau_pallas``); ``mvau_int_conv`` is ``mvau_int_pallas`` with the
-``im2col`` before it folded into the kernel's loads.  A wrapper takes the
-plain version only for tensors that lie on the CPU; for CUDA tensors it
-launches the kernel or raises.  It allocates the output (and any split-K
-scratch) with ``torch.empty``, launches on PyTorch's current stream,
-checks ``cudaGetLastError`` and counts the launch.
+``mvau_pallas``).  Two kernels serve every MVAU on the card:
+
+* int8 activation codes x int8 (or packed int4) weight codes run the
+  tensor-core kernel (``mvau_conv_kernel``, int8 ``wgmma``);
+* everything else -- the float MVAU, and integer codes that do not fit
+  int8 (8-bit unsigned activations, 9- to 16-bit weights) -- runs the
+  CUDA-core kernel (``mvau_core_kernel``: float32 FMA, or exact int32
+  multiply-add).
+
+Both read conv patch rows straight from the NHWC activation
+(:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col`` before them
+folded into their loads); the GEMM form (M, K) is their 1 x 1 case.  A
+wrapper takes the plain version only for tensors that lie on the CPU; for
+CUDA tensors it launches a kernel or raises.  It allocates the output (and
+any split-K scratch) with ``torch.empty``, launches on PyTorch's current
+stream, checks ``cudaGetLastError`` and counts the launch.
 """
 
 from __future__ import annotations
@@ -21,10 +31,13 @@ from repro_torch.core import quant
 from repro_torch.kernels import build as B
 from repro_torch.kernels import ref
 
-__all__ = ["mvau_int", "mvau_int_conv", "mvau", "mvau_int_plain",
-           "mvau_int_conv_plain", "mvau_plain", "tc_splits"]
+__all__ = ["mvau_int", "mvau_int_conv", "mvau", "mvau_conv", "mvau_int_plain",
+           "mvau_int_conv_plain", "mvau_plain", "mvau_conv_plain", "tc_splits",
+           "core_splits"]
 
-_X_KIND = {torch.int8: 0, torch.int32: 1}
+# weight kinds of csrc/mvau.cu
+_W_KIND = {torch.int8: 0, torch.int32: 1, torch.int16: 4}
+W_F32, W_PACKED4 = 2, 3
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -43,9 +56,23 @@ def _stream() -> int:
 
 
 # ---------------------------------------------------------------------------
-# Split K on the tensor-core kernel
+# Split K
 # ---------------------------------------------------------------------------
-TC_TILE = (128, 128, 64)      # csrc/mvau.cu: block tile M x N x K bytes
+TC_TILE = (128, 128, 64)      # csrc/mvau.cu tensor-core tile: M x N x K bytes
+CORE_TILE_M, CORE_TILE_K = 128, 16   # CUDA-core tile: 128 x core_tile_n x 16
+
+
+def core_tile_n(n: int) -> int:
+    """Output columns of a CUDA-core block: 64 where N <= 64, else 128."""
+    return 64 if n <= 64 else 128
+
+
+def _plan(tiles: int, k_tiles: int, sms: int) -> int:
+    # 1 where the output tiles cover the SMs, else up to two blocks per SM,
+    # each split keeping at least 16 K-tiles
+    if tiles >= sms:
+        return 1
+    return max(1, min(k_tiles // 16, (2 * sms) // tiles))
 
 
 def tc_splits(m: int, n: int, k: int, sms: int) -> int:
@@ -55,10 +82,16 @@ def tc_splits(m: int, n: int, k: int, sms: int) -> int:
     the extra blocks gain: ``tools/probe_mvau_conv.py``'s sweep on the
     H100).  The split changes no bit (integer sums)."""
     bm, bn, bk = TC_TILE
-    tiles = -(-m // bm) * -(-n // bn)
-    if tiles >= sms:
-        return 1
-    return max(1, min(-(-k // bk) // 16, (2 * sms) // tiles))
+    return _plan(-(-m // bm) * -(-n // bn), -(-k // bk), sms)
+
+
+def core_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K-splits of one CUDA-core launch, by the same rule on its 128 x BN x
+    16 tiles.  Integer sums and float sums on the fixed-point grid are
+    exact, so the split changes no bit there; off the grid it may move a
+    float sum by rounding, the same in every launch."""
+    tiles = -(-m // CORE_TILE_M) * -(-n // core_tile_n(n))
+    return _plan(tiles, -(-k // CORE_TILE_K), sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,14 +100,18 @@ def _sm_count(index: int) -> int:
 
 
 def _split_scratch(m: int, n: int, k: int, dev: torch.device,
-                   splits: Optional[int]) -> Tuple[int, Optional[int],
-                                                   Optional[int]]:
-    """(splits, scratch pointer, counters pointer) for one launch; the
-    scratch holds each output tile's and split's 128 x 128 int32 partial
-    sums."""
+                   splits: Optional[int], core: bool = False
+                   ) -> Tuple[int, Optional[int], Optional[int]]:
+    """(splits, scratch pointer, counters pointer) for one launch of the
+    tensor-core kernel, or of the CUDA-core one (``core``); the scratch
+    holds each output tile's and split's partial sums, 32 bits each."""
+    if core:
+        bm, bn, bk, planner = CORE_TILE_M, core_tile_n(n), CORE_TILE_K, \
+            core_splits
+    else:
+        (bm, bn, bk), planner = TC_TILE, tc_splits
     if splits is None:
-        splits = tc_splits(m, n, k, _sm_count(dev.index or 0))
-    bm, bn, bk = TC_TILE
+        splits = planner(m, n, k, _sm_count(dev.index or 0))
     kt = max(1, -(-k // bk))
     splits = max(1, min(int(splits), kt))
     splits = -(-kt // -(-kt // splits))   # as the launcher: no empty split
@@ -85,6 +122,33 @@ def _split_scratch(m: int, n: int, k: int, dev: torch.device,
     counts = B.tile_counters(dev, tiles)
     # the caching allocator reuses ws only after this launch on the stream
     return splits, ws.data_ptr(), counts.data_ptr()
+
+
+def _core(x: torch.Tensor, w: torch.Tensor, w_kind: int,
+          thresholds: torch.Tensor, geom: Tuple[int, ...], n: int,
+          out_base=0, out_scale: float = 1.0, out_bias: float = 0.0,
+          splits: Optional[int] = None, name: str = "mvau") -> torch.Tensor:
+    """One launch of the CUDA-core kernel on the NHWC activation ``x``
+    (float32, or int32 codes), ``geom`` = (B, H, W, C, kernel, stride, pad)
+    -> (B, OH, OW, N) of x's dtype."""
+    b, h, wd, c, kernel, stride, pad = geom
+    oh = (h + 2 * pad - kernel) // stride + 1
+    ow = (wd + 2 * pad - kernel) // stride + 1
+    floating = x.dtype == torch.float32
+    out = torch.empty((b, oh, ow, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    m, k = b * oh * ow, kernel * kernel * c
+    splits, ws, counts = _split_scratch(m, n, k, x.device, splits, core=True)
+    rc = B.library().mvau_core_conv(
+        x.data_ptr(), int(floating), w.data_ptr(), w_kind,
+        thresholds.data_ptr(), out.data_ptr(), b, h, wd, c, kernel, stride,
+        pad, n, thresholds.shape[1], 0 if floating else int(out_base),
+        float(out_base) if floating else 0.0, float(out_scale),
+        float(out_bias), splits, ws, counts, _stream())
+    B.check(rc, name)
+    B.launch_counts[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,54 +162,78 @@ def mvau_int_plain(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     return ref.mvau_int(x, w, thresholds, out_base=out_base)
 
 
+def _w_kind(w: torch.Tensor, w_packed: bool) -> Tuple[int, int]:
+    """(N, weight kind) of integer weight codes."""
+    if w_packed:
+        _require(w.dtype == torch.int8, "packed int4 weights must be int8")
+        return 2 * w.shape[1], W_PACKED4
+    _require(w.dtype in _W_KIND,
+             f"w must be int8, int16 or int32 codes, got {w.dtype}")
+    return w.shape[1], _W_KIND[w.dtype]
+
+
+def _on_tensor_cores(x: torch.Tensor, w_kind: int) -> bool:
+    return x.dtype == torch.int8 and w_kind in (_W_KIND[torch.int8],
+                                                W_PACKED4)
+
+
 def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
              out_base: int = 0, w_packed: bool = False) -> torch.Tensor:
-    """Fused integer MVAU: (M, K) int8/int32 codes × (K, N) int8/int32 codes
-    (or (K, N/2) packed int4 with ``w_packed``) against (N, L) int32
+    """Fused integer MVAU: (M, K) int8/int32 codes x (K, N) int8/int16/int32
+    codes (or (K, N/2) packed int4 with ``w_packed``) against (N, L) int32
     thresholds -> (M, N) int32 codes.  Each threshold row is sorted
     ascending, as the integer lowering leaves every ``mvau_int`` table: the
-    kernel binary-searches tables longer than 64 levels."""
+    kernels binary-search tables longer than 64 levels.  int8 x int8 (or
+    packed int4) runs on the tensor cores; other codes run the CUDA-core
+    kernel on int32 activation codes (int8 codes are widened first)."""
     if not x.is_cuda:
         return mvau_int_plain(x, w, thresholds, out_base, w_packed)
     dev = x.device
     for name, t in (("x", x), ("w", w), ("thresholds", thresholds)):
         _check_2d(name, t, dev)
-    _require(x.dtype in _X_KIND, f"x must be int8 or int32, got {x.dtype}")
+    _require(x.dtype in (torch.int8, torch.int32),
+             f"x must be int8 or int32, got {x.dtype}")
     m, k = x.shape
     _require(w.shape[0] == k, f"w rows {w.shape[0]} != x cols {k}")
-    if w_packed:
-        _require(w.dtype == torch.int8, "packed int4 weights must be int8")
-        n, w_kind = 2 * w.shape[1], 3
-    else:
-        _require(w.dtype in (torch.int8, torch.int32),
-                 f"w must be int8 or int32, got {w.dtype}")
-        n, w_kind = w.shape[1], 0 if w.dtype == torch.int8 else 1
+    n, w_kind = _w_kind(w, w_packed)
     _require(thresholds.dtype == torch.int32, "thresholds must be int32")
     _require(thresholds.shape[0] == n,
              f"thresholds rows {thresholds.shape[0]} != N {n}")
+    if not _on_tensor_cores(x, w_kind):
+        return _core(x.to(torch.int32), w, w_kind, thresholds,
+                     (1, m, 1, k, 1, 1, 0), n, out_base,
+                     name="mvau_int").reshape(m, n)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    lib = B.library()
-    splits, ws, counts = ((1, None, None) if x.dtype != torch.int8
-                          or w_kind == 1 else _split_scratch(m, n, k, dev,
-                                                             None))
-    rc = lib.mvau_int(x.data_ptr(), _X_KIND[x.dtype], w.data_ptr(), w_kind,
-                      thresholds.data_ptr(), out.data_ptr(), m, k, n,
-                      thresholds.shape[1], int(out_base), splits, ws, counts,
-                      _stream())
+    splits, ws, counts = _split_scratch(m, n, k, dev, None)
+    rc = B.library().mvau_int(x.data_ptr(), w.data_ptr(), w_kind,
+                              thresholds.data_ptr(), out.data_ptr(), m, k, n,
+                              thresholds.shape[1], int(out_base), splits, ws,
+                              counts, _stream())
     B.check(rc, "mvau_int")
     B.launch_counts["mvau_int"] += 1
     return out
 
 
 def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
-               kernel: int, stride: int, pad: int, w_packed: bool):
-    """Checks the conv form's operands, for the kernel and its plain version
-    alike; returns (B, H, W, C, OH, OW, N)."""
+               kernel: int, stride: int, pad: int, w_packed: bool = False,
+               floating: bool = False):
+    """Checks the conv form's operands, for the kernels and their plain
+    versions alike: integer codes (x int8/int32; w int8/int16/int32 or
+    packed int4; int32 thresholds) or, with ``floating``, float32 x, w and
+    thresholds.  Returns (B, H, W, C, OH, OW, N)."""
     _require(x.ndim == 4, f"x must be 4-D NHWC, got shape {tuple(x.shape)}")
-    _require(x.dtype in _X_KIND, f"x must be int8 or int32 codes, got "
-             f"{x.dtype}")
     _require(w.ndim == 2 and thresholds.ndim == 2,
              "w and thresholds must be 2-D")
+    if floating:
+        _require(x.dtype == w.dtype == thresholds.dtype == torch.float32,
+                 "the float MVAU takes float32 x, w and thresholds, got "
+                 f"{x.dtype}, {w.dtype}, {thresholds.dtype}")
+        n = w.shape[1]
+    else:
+        _require(x.dtype in (torch.int8, torch.int32),
+                 f"x must be int8 or int32 codes, got {x.dtype}")
+        _require(thresholds.dtype == torch.int32, "thresholds must be int32")
+        n, _ = _w_kind(w, w_packed)
     _require(kernel >= 1 and stride >= 1 and pad >= 0,
              f"bad kernel/stride/pad {kernel}/{stride}/{pad}")
     b, h, wd, c = x.shape
@@ -155,16 +243,15 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
              f"kernel {kernel} does not fit {h}x{wd} padded by {pad}")
     _require(w.shape[0] == kernel * kernel * c,
              f"w rows {w.shape[0]} != kernel²·C {kernel * kernel * c}")
-    if w_packed:
-        _require(w.dtype == torch.int8, "packed int4 weights must be int8")
-    else:
-        _require(w.dtype in (torch.int8, torch.int32),
-                 f"w must be int8 or int32, got {w.dtype}")
-    n = 2 * w.shape[1] if w_packed else w.shape[1]
-    _require(thresholds.dtype == torch.int32, "thresholds must be int32")
     _require(thresholds.shape[0] == n,
              f"thresholds rows {thresholds.shape[0]} != N {n}")
     return b, h, wd, c, oh, ow, n
+
+
+def _check_on(dev: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        _require(t.device == dev, f"{name} is on {t.device}, expected {dev}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
 def mvau_int_conv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -187,12 +274,13 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                   splits: Optional[int] = None) -> torch.Tensor:
     """Conv-form integer MVAU: the ``im2col`` node folded into the kernel.
 
-    (B, H, W, C) int8 NHWC codes × (K, N) int8 codes (or (K, N/2) packed
-    int4 with ``w_packed``), K = kernel² · C in patch order (kh, kw, c),
-    against (N, L) int32 thresholds sorted ascending -> (B, OH, OW, N) int32
-    codes: :func:`mvau_int` on the patch rows, which never exist.  The
-    kernel reads the activation itself, zero outside the image.  ``splits``
-    overrides the split-K planner (:func:`tc_splits`) for measurement."""
+    (B, H, W, C) int8/int32 NHWC codes x (K, N) int8/int16/int32 codes (or
+    (K, N/2) packed int4 with ``w_packed``), K = kernel² · C in patch order
+    (kh, kw, c), against (N, L) int32 thresholds sorted ascending -> (B,
+    OH, OW, N) int32 codes: :func:`mvau_int` on the patch rows, which never
+    exist.  The kernel reads the activation itself, zero outside the image.
+    ``splits`` overrides the split-K planner (:func:`tc_splits`,
+    :func:`core_splits`) for measurement."""
     if not x.is_cuda:
         return mvau_int_conv_plain(x, w, thresholds, kernel, stride, pad,
                                    out_base, w_packed)
@@ -200,20 +288,19 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     kernel, stride, pad = int(kernel), int(stride), int(pad)
     b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                         w_packed)
-    _require(x.dtype == torch.int8, "the conv-form kernel takes int8 codes "
-             f"(int32 codes take im2col + mvau_int), got {x.dtype}")
-    _require(w.dtype == torch.int8, f"w must be int8, got {w.dtype}")
-    for name, t in (("x", x), ("w", w), ("thresholds", thresholds)):
-        _require(t.device == dev, f"{name} is on {t.device}, expected {dev}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _check_on(dev, x=x, w=w, thresholds=thresholds)
+    _, w_kind = _w_kind(w, w_packed)
+    if not _on_tensor_cores(x, w_kind):
+        return _core(x.to(torch.int32), w, w_kind, thresholds,
+                     (b, h, wd, c, kernel, stride, pad), n, out_base,
+                     splits=splits, name="mvau_int")
     out = torch.empty((b, oh, ow, n), dtype=torch.int32, device=dev)
     splits, ws, counts = _split_scratch(b * oh * ow, n, kernel * kernel * c,
                                         dev, splits)
     rc = B.library().mvau_int_conv(
-        x.data_ptr(), w.data_ptr(), 3 if w_packed else 0,
-        thresholds.data_ptr(), out.data_ptr(), b, h, wd, c, kernel, stride,
-        pad, n, thresholds.shape[1], int(out_base), splits, ws, counts,
-        _stream())
+        x.data_ptr(), w.data_ptr(), w_kind, thresholds.data_ptr(),
+        out.data_ptr(), b, h, wd, c, kernel, stride, pad, n,
+        thresholds.shape[1], int(out_base), splits, ws, counts, _stream())
     B.check(rc, "mvau_int")
     B.launch_counts["mvau_int"] += 1
     return out
@@ -237,7 +324,8 @@ def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
          out_base: float = 0.0, out_scale: float = 1.0,
          out_bias: float = 0.0) -> torch.Tensor:
     """Fused float MVAU: (M, K) × (K, N) float32 against (N, L) float32
-    thresholds, or int8 × int8 against int32 thresholds -> (M, N) float32."""
+    thresholds (the CUDA-core kernel, float32 FMA), or int8 × int8 against
+    int32 thresholds (the tensor cores) -> (M, N) float32."""
     if not x.is_cuda:
         return mvau_plain(x, w, thresholds, out_base, out_scale, out_bias)
     dev = x.device
@@ -248,22 +336,55 @@ def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     n = w.shape[1]
     _require(thresholds.shape[0] == n,
              f"thresholds rows {thresholds.shape[0]} != N {n}")
-    int_path = x.dtype == torch.int8 and w.dtype == torch.int8
-    if int_path:
-        _require(thresholds.dtype == torch.int32,
-                 "int8 operands need int32 thresholds")
-    else:
-        _require(x.dtype == torch.float32 and w.dtype == torch.float32
-                 and thresholds.dtype == torch.float32,
+    if not (x.dtype == torch.int8 and w.dtype == torch.int8):
+        _require(x.dtype == w.dtype == thresholds.dtype == torch.float32,
                  "mvau takes float32 x, w and thresholds (or int8 x, w with "
                  f"int32 thresholds), got {x.dtype}, {w.dtype}, "
                  f"{thresholds.dtype}")
+        return _core(x, w, W_F32, thresholds, (1, m, 1, k, 1, 1, 0), n,
+                     out_base, out_scale, out_bias).reshape(m, n)
+    _require(thresholds.dtype == torch.int32,
+             "int8 operands need int32 thresholds")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = B.library()
-    fn = lib.mvau_i8 if int_path else lib.mvau_f32
-    rc = fn(x.data_ptr(), w.data_ptr(), thresholds.data_ptr(), out.data_ptr(),
-            m, k, n, thresholds.shape[1], float(out_base), float(out_scale),
-            float(out_bias), _stream())
+    rc = B.library().mvau_i8(x.data_ptr(), w.data_ptr(), thresholds.data_ptr(),
+                             out.data_ptr(), m, k, n, thresholds.shape[1],
+                             float(out_base), float(out_scale),
+                             float(out_bias), _stream())
     B.check(rc, "mvau")
     B.launch_counts["mvau"] += 1
     return out
+
+
+def mvau_conv_plain(x: torch.Tensor, w: torch.Tensor,
+                    thresholds: torch.Tensor, kernel: int, stride: int,
+                    pad: int, out_base: float = 0.0, out_scale: float = 1.0,
+                    out_bias: float = 0.0) -> torch.Tensor:
+    """Plain version of the float conv form: :func:`mvau_plain` on the
+    patch rows of ``ref.im2col`` -> (B, OH, OW, N) float32."""
+    b, _, _, _, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
+                                       floating=True)
+    patches = ref.im2col(x, kernel, stride, pad)
+    y = mvau_plain(patches.reshape(b * oh * ow, -1), w, thresholds, out_base,
+                   out_scale, out_bias)
+    return y.reshape(b, oh, ow, n)
+
+
+def mvau_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
+              kernel: int, stride: int, pad: int, out_base: float = 0.0,
+              out_scale: float = 1.0, out_bias: float = 0.0, *,
+              splits: Optional[int] = None) -> torch.Tensor:
+    """Conv-form float MVAU: the ``im2col`` node folded into the CUDA-core
+    kernel.  (B, H, W, C) float32 NHWC x (K, N) float32, K = kernel² · C in
+    patch order (kh, kw, c), against (N, L) float32 thresholds (any order)
+    -> (B, OH, OW, N) float32 ``out_scale·(out_base + count) + out_bias``:
+    :func:`mvau` on the patch rows, which never exist.  ``splits``
+    overrides the split-K planner (:func:`core_splits`)."""
+    if not x.is_cuda:
+        return mvau_conv_plain(x, w, thresholds, kernel, stride, pad,
+                               out_base, out_scale, out_bias)
+    kernel, stride, pad = int(kernel), int(stride), int(pad)
+    b, h, wd, c, _, _, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
+                                      floating=True)
+    _check_on(x.device, x=x, w=w, thresholds=thresholds)
+    return _core(x, w, W_F32, thresholds, (b, h, wd, c, kernel, stride, pad),
+                 n, out_base, out_scale, out_bias, splits)

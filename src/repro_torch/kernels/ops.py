@@ -18,9 +18,9 @@ from repro_torch.kernels import mvau as kmvau
 from repro_torch.kernels import qmatmul as kqmm
 from repro_torch.kernels import ref
 
-__all__ = ["mvau", "mvau_int", "mvau_int_conv", "qmatmul", "gap",
-           "conv_pairs", "conv_mvau_int_node", "graph_op_impls",
-           "kernel_dispatch", "mvau_int_node"]
+__all__ = ["mvau", "mvau_conv", "mvau_int", "mvau_int_conv", "qmatmul", "gap",
+           "conv_pairs", "conv_mvau_node", "conv_mvau_int_node",
+           "graph_op_impls", "kernel_dispatch", "mvau_node", "mvau_int_node"]
 
 
 def _as_2d(x: torch.Tensor):
@@ -46,6 +46,20 @@ def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                    out_base=float(out_base), out_scale=float(out_scale),
                    out_bias=float(out_bias))
     return y.reshape(*lead, w.shape[1])
+
+
+def mvau_conv(x_nhwc: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
+              kernel: int, stride: int, pad: int, out_base: float = 0.0,
+              out_scale: float = 1.0, out_bias: float = 0.0) -> torch.Tensor:
+    """Conv-form float MVAU: (B, H, W, C) NHWC in, (B, OH, OW, N) float32
+    out, the patch rows read by the kernel itself."""
+    t2 = _thresholds_2d(torch.as_tensor(thresholds, dtype=torch.float32,
+                                        device=x_nhwc.device), w.shape[1])
+    return kmvau.mvau_conv(x_nhwc.to(torch.float32).contiguous(),
+                           w.to(torch.float32).contiguous(), t2.contiguous(),
+                           kernel, stride, pad, out_base=float(out_base),
+                           out_scale=float(out_scale),
+                           out_bias=float(out_bias))
 
 
 def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -96,8 +110,8 @@ def gap(x: torch.Tensor) -> torch.Tensor:
 # Graph-node lowering (core.deploy dispatches HW ops onto these kernels)
 # ---------------------------------------------------------------------------
 def conv_pairs(nodes, outputs) -> dict:
-    """``{im2col output: the mvau_int node it feeds}`` for every ``im2col``
-    whose output is read by exactly one node, an ``int8_ok`` ``mvau_int``
+    """``{im2col output: the MVAU node it feeds}`` for every ``im2col``
+    whose output is read by exactly one node, an ``mvau`` or ``mvau_int``
     that takes it as its activation, and is not a graph output.  The
     lowering folds each such pair into one conv-form MVAU call, so the
     patch tensor never exists; other ``im2col`` nodes run as they are."""
@@ -110,14 +124,13 @@ def conv_pairs(nodes, outputs) -> dict:
         if n.op != "im2col" or n.outputs[0] in outputs:
             continue
         users = readers.get(n.outputs[0], [])
-        if (len(users) == 1 and users[0].op == "mvau_int"
-                and users[0].inputs[0] == n.outputs[0]
-                and users[0].attrs.get("int8_ok")):
+        if (len(users) == 1 and users[0].op in ("mvau", "mvau_int")
+                and users[0].inputs[0] == n.outputs[0]):
             pairs[n.outputs[0]] = users[0]
     return pairs
 
 
-def kernel_dispatch(node, emulated: bool, folded: bool = False) -> str:
+def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     """Which datapath a graph node executes on — the single decision point.
 
     ``emulated`` is True off the card (CPU tensors).  The deploy-time
@@ -127,15 +140,17 @@ def kernel_dispatch(node, emulated: bool, folded: bool = False) -> str:
     name the CUDA kernels where the reference names Pallas.  Every
     ``mvau_int`` node runs the fused kernel on the card, whatever its
     table length: the reference's L <= 512 gate is a TPU choice, and the
-    CUDA kernel binary-searches long tables.  ``folded`` marks an
-    ``im2col`` node that :func:`conv_pairs` folds into its MVAU.
+    CUDA kernels binary-search long tables.  ``folded`` is the MVAU node
+    an ``im2col`` node is folded into (see :func:`conv_pairs`), or None;
+    on the card a folded ``im2col`` carries its MVAU's label, since that
+    kernel's conv-form loader reads the patches.
 
     * ``fused-cuda`` — the fused integer MVAU on the int8 tensor cores
-      (``csrc/mvau.cu``), and on the card a folded ``im2col``: the
-      kernel's conv-form loader reads the patches;
-    * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores, for
-      codes that do not fit int8 (explicit ``im2col``);
-    * ``cuda``       — the float MVAU / GlobalAccPool kernels;
+      (``csrc/mvau.cu`` ``mvau_conv_kernel``);
+    * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores
+      (``mvau_core_kernel``), for codes that do not fit int8;
+    * ``cuda``       — the float MVAU (``mvau_core_kernel``) and
+      GlobalAccPool kernels;
     * ``f32-gemm``   — exact integer compute through the f32 GEMM
       (proof obligation ``acc_f32_exact`` discharged at lowering time);
     * ``ref-oracle`` — the plain exact version;
@@ -164,9 +179,27 @@ def kernel_dispatch(node, emulated: bool, folded: bool = False) -> str:
         return "int-shift"
     if op in ("mvau", "global_acc_pool"):
         return "ref-oracle" if emulated else "cuda"
-    if op == "im2col" and folded and not emulated:
-        return "fused-cuda"
+    if op == "im2col" and folded is not None and not emulated:
+        return kernel_dispatch(folded, emulated)
     return "xla"
+
+
+def mvau_node(node, x, w, t):
+    """Executor of an ``mvau`` node on (M, K) patch rows."""
+    return mvau(x, w, t, out_base=node.attrs.get("out_base", 0),
+                out_scale=node.attrs.get("out_scale", 1.0),
+                out_bias=node.attrs.get("out_bias", 0.0))
+
+
+def _kernel_codes(node, x, w):
+    """The codes an ``mvau_int`` node hands its kernel on the card: an
+    ``int8_ok`` node's narrowed to int8 for the tensor cores, others as
+    stored for the CUDA cores."""
+    if node.attrs.get("int8_ok"):
+        x = x.to(torch.int8)
+        if not node.attrs.get("w_packed"):
+            w = w.to(torch.int8)
+    return x, w
 
 
 def mvau_int_node(node, x, w, t):
@@ -175,10 +208,7 @@ def mvau_int_node(node, x, w, t):
     disp = kernel_dispatch(node, not x.is_cuda)
     packed = bool(node.attrs.get("w_packed"))
     if disp.startswith("fused-cuda"):
-        if node.attrs.get("int8_ok"):
-            x = x.to(torch.int8)
-            if not packed:
-                w = w.to(torch.int8)
+        x, w = _kernel_codes(node, x, w)
         return mvau_int(x, w, t, out_base=base, w_packed=packed)
     if packed:
         w = Q.unpack_int4(w)
@@ -188,19 +218,32 @@ def mvau_int_node(node, x, w, t):
 
 def conv_mvau_int_node(conv, node, x, w, t):
     """Executor of a folded ``im2col`` -> ``mvau_int`` pair (see
-    :func:`conv_pairs`) on the im2col node's input ``x``.  On the card the
-    activation is narrowed to int8 (one cast, a ninth of the patches') and
-    the conv-form kernel reads the patch rows itself.  Off the card the
-    node takes its own route, as labelled, on patches local to this
-    call."""
+    :func:`conv_pairs`) on the im2col node's input ``x``.  On the card an
+    ``int8_ok`` node's activation is narrowed to int8 (one cast, a ninth of
+    the patches') for the tensor-core kernel; other codes go to the
+    CUDA-core kernel as stored.  Either kernel reads the patch rows
+    itself.  Off the card the node takes its own route, as labelled, on
+    patches local to this call."""
     k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
-    if kernel_dispatch(node, not x.is_cuda) == "fused-cuda":
-        packed = bool(node.attrs.get("w_packed"))
-        return mvau_int_conv(x.to(torch.int8),
-                             w if packed else w.to(torch.int8), t, k, s, p,
-                             out_base=node.attrs.get("out_base", 0),
-                             w_packed=packed)
-    return mvau_int_node(node, ref.im2col(x, k, s, p), w, t)
+    if not x.is_cuda:
+        return mvau_int_node(node, ref.im2col(x, k, s, p), w, t)
+    x, w = _kernel_codes(node, x, w)
+    return mvau_int_conv(x, w, t, k, s, p,
+                         out_base=node.attrs.get("out_base", 0),
+                         w_packed=bool(node.attrs.get("w_packed")))
+
+
+def conv_mvau_node(conv, node, x, w, t):
+    """Executor of a folded ``im2col`` -> ``mvau`` pair on the im2col
+    node's input ``x``: on the card the CUDA-core kernel reads the patch
+    rows itself; off the card the plain version runs on patches local to
+    this call."""
+    k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
+    if not x.is_cuda:
+        return mvau_node(node, ref.im2col(x, k, s, p), w, t)
+    return mvau_conv(x, w, t, k, s, p, out_base=node.attrs.get("out_base", 0),
+                     out_scale=node.attrs.get("out_scale", 1.0),
+                     out_bias=node.attrs.get("out_bias", 0.0))
 
 
 def graph_op_impls():
@@ -214,11 +257,6 @@ def graph_op_impls():
     :func:`kernel_dispatch`.  Every route is bit-identical on the
     fixed-point grid.
     """
-
-    def _mvau_node(node, x, w, t):
-        return mvau(x, w, t, out_base=node.attrs.get("out_base", 0),
-                    out_scale=node.attrs.get("out_scale", 1.0),
-                    out_bias=node.attrs.get("out_bias", 0.0))
 
     def _matmul_int_node(node, x, w):
         disp = kernel_dispatch(node, not x.is_cuda)
@@ -244,7 +282,7 @@ def graph_op_impls():
             return torch.sum(x.to(torch.int32), dim=axes).to(torch.int32)
         return torch.sum(x, dim=axes)
 
-    return {"mvau": _mvau_node, "mvau_int": mvau_int_node,
+    return {"mvau": mvau_node, "mvau_int": mvau_int_node,
             "matmul_int": _matmul_int_node,
             "multithreshold_int": _multithreshold_int_node,
             "requantize": _requantize_node,

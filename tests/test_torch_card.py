@@ -91,18 +91,195 @@ def test_conv_mvau_kernel_equals_plain(card, kernel, stride, pad, c):
 
 @pytest.mark.cuda
 def test_conv_mvau_wrapper_raises_on_the_card(card):
-    """A CUDA tensor reaching the conv form launches the kernel or raises:
-    int32 codes (they take im2col + mvau_int), int32 weights, tensors on
-    two devices."""
+    """A CUDA tensor reaching the conv form launches a kernel or raises:
+    float or int64 codes, a weight kind the kernels do not take, tensors on
+    two devices, a non-contiguous activation.  int32 codes and int16/int32
+    weights launch the CUDA-core kernel."""
     x = torch.zeros((2, 5, 5, 4), dtype=torch.int8, device=card)
     w = torch.zeros((36, 6), dtype=torch.int8, device=card)
     t = torch.zeros((6, 15), dtype=torch.int32, device=card)
     before = B.launch_counts["mvau_int"]
-    for bad in ((x.to(torch.int32), w, t), (x, w.to(torch.int32), t),
-                (x, w.cpu(), t), (x, w, t.cpu())):
+    for bad in ((x.float(), w, t), (x, w.to(torch.int64), t),
+                (x, w.cpu(), t), (x, w, t.cpu()),
+                (x.to(torch.int32).transpose(1, 2), w, t)):
         with pytest.raises(ValueError):
             KM.mvau_int_conv(*bad, 3, 1, 1)
     assert B.launch_counts["mvau_int"] == before
+    for xx, ww in ((x.to(torch.int32), w), (x, w.to(torch.int16)),
+                   (x, w.to(torch.int32))):
+        assert torch.equal(KM.mvau_int_conv(xx, ww, t, 3, 1, 1),
+                           KM.mvau_int_conv_plain(xx, ww, t, 3, 1, 1))
+    assert B.launch_counts["mvau_int"] == before + 3
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core conv-form kernel: float MVAU and wide integer codes
+# ---------------------------------------------------------------------------
+def _float_conv_inputs(rng, batch, hw, c, kernel, n, levels, grid, dev):
+    k = kernel * kernel * c
+    if grid:      # every partial sum exact in float32
+        x = rng.integers(0, 16, size=(batch, hw, hw, c)) * 0.25
+        w = rng.integers(-32, 32, size=(k, n)) / 32
+        t = np.sort(rng.normal(size=(n, levels)) * 4, axis=1)
+    else:
+        x = rng.uniform(-2, 2, size=(batch, hw, hw, c))
+        w = rng.uniform(-2, 2, size=(k, n))
+        t = np.sort(rng.normal(size=(n, levels)) * 2, axis=1)
+    return tuple(_t(a.astype(np.float32), dev) for a in (x, w, t))
+
+
+def _off_grid_ok(got, want, x, w, t, kernel, stride, pad):
+    """At most one level apart, and only where the exact (float64)
+    accumulator lies within 1e-5 of the row's |x|·|w| of a threshold."""
+    from repro_torch.kernels import ref
+
+    p = ref.im2col(x, kernel, stride, pad).double()
+    p = p.reshape(-1, p.shape[-1])
+    acc = p @ w.double()
+    scale = p.abs() @ w.double().abs()
+    near = ((acc[..., None] - t.double()[None]).abs()
+            <= 1e-5 * scale[..., None]).any(-1)
+    diff = (got - want).reshape(near.shape).abs()
+    return bool((diff[~near] == 0).all()) and bool((diff <= 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride,pad", [(1, 1, 0), (3, 1, 1), (3, 2, 1),
+                                               (3, 2, 0)])
+@pytest.mark.parametrize("c", [3, 16, 24])
+def test_float_conv_kernel_equals_plain(card, kernel, stride, pad, c):
+    """The float conv form against its plain version (im2col + mvau_plain):
+    batch 1 and 3, 7x7 and 9x9, N 8 and 72, 15 and 255 levels, forced
+    K-splits 1, 2, 3.  On the grid bit for bit; off it at most one level,
+    within 1e-5 of a threshold."""
+    rng = np.random.default_rng(20 * kernel + c)
+    for n in (8, 72):
+        for batch, hw, levels in ((1, 7, 15), (3, 9, 255)):
+            for grid in (True, False):
+                x, w, t = _float_conv_inputs(rng, batch, hw, c, kernel, n,
+                                             levels, grid, card)
+                want = KM.mvau_conv_plain(x, w, t, kernel, stride, pad, -2.0,
+                                          0.5, 0.25)
+                for splits in (1, 2, 3):
+                    before = B.launch_counts["mvau"]
+                    got = KM.mvau_conv(x, w, t, kernel, stride, pad, -2.0, 0.5,
+                                       0.25, splits=splits)
+                    assert B.launch_counts["mvau"] == before + 1
+                    if grid:
+                        assert torch.equal(got, want)
+                    else:
+                        assert _off_grid_ok((got + 2.0 - 0.25) / 0.5,
+                                            (want + 2.0 - 0.25) / 0.5, x, w, t,
+                                            kernel, stride, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", ["int8", "int16", "int32", "packed4"])
+@pytest.mark.parametrize("levels", [15, 255, 65535])
+def test_core_int_kernel_equals_plain(card, wdt, levels):
+    """The integer instantiation of the CUDA-core kernel, conv and GEMM
+    form, on int32 activation codes (8-bit unsigned and 16-bit ranges) with
+    int8, int16, int32 and packed int4 weights, forced splits; bit for
+    bit."""
+    rng = np.random.default_rng(levels + len(wdt))
+    lim = {"int8": 128, "int16": 32768, "int32": 40000, "packed4": 8}[wdt]
+    for kernel, stride, pad in ((1, 1, 0), (3, 1, 1), (3, 2, 1), (3, 2, 0)):
+        for c, n, xmax in ((3, 8, 65536), (16, 72, 256), (24, 8, 4096)):
+            x = _t(rng.integers(0, xmax, size=(2, 7, 7, c)).astype(np.int32),
+                   card)
+            k = kernel * kernel * c
+            # every partial sum inside int32, as the integer lowering ensures
+            wlim = min(lim, 2**31 // (k * xmax))
+            wi = rng.integers(-wlim, wlim, size=(k, n)).astype(np.int32)
+            w = (Q.pack_int4(torch.from_numpy(wi)) if wdt == "packed4"
+                 else torch.from_numpy(wi.astype(getattr(np, wdt))))
+            w = w.to(card)
+            t = _t(np.sort(rng.integers(-2**30, 2**30, size=(n, levels)),
+                           axis=1).astype(np.int32), card)
+            packed = wdt == "packed4"
+            want = KM.mvau_int_conv_plain(x, w, t, kernel, stride, pad, -3,
+                                          packed)
+            for splits in (None, 2, 3):
+                assert torch.equal(KM.mvau_int_conv(
+                    x, w, t, kernel, stride, pad, -3, packed, splits=splits),
+                    want)
+            x2 = x.reshape(-1, c).contiguous()
+            w2 = w[:c].contiguous()
+            assert torch.equal(KM.mvau_int(x2, w2, t, 5, packed),
+                               KM.mvau_int_plain(x2, w2, t, 5, packed))
+
+
+@pytest.mark.cuda
+def test_core_kernel_repeats_bit_for_bit_and_resets_counters(card):
+    """Off the grid, at r2a's shape (K 4608 split 8 ways) and a ragged one:
+    two launches give identical bits (the last block adds the splits in
+    split order), and every tile counter is left at zero."""
+    rng = np.random.default_rng(4)
+    for b, hw, c, n in ((64, 4, 512, 512), (3, 9, 24, 72)):
+        x, w, t = _float_conv_inputs(rng, b, hw, c, 3, n, 15, False, card)
+        for splits in (None, 3):
+            first = KM.mvau_conv(x, w, t, 3, 1, 1, splits=splits)
+            assert torch.equal(first, KM.mvau_conv(x, w, t, 3, 1, 1,
+                                                   splits=splits))
+        torch.cuda.synchronize()
+        assert int(B.tile_counters(card, 0).abs().sum()) == 0
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert KM.core_splits(64 * 16, 512, 9 * 512, sms) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["paper_w16a16", "grid_point_8_8",
+                                    "table2_row_12_6_6"])
+def test_wide_code_artifacts_card_equal_cpu(card, config):
+    """Artifacts whose codes do not fit int8 (16- and 12-bit weights stored
+    as int16; 8-bit unsigned activations) run every MVAU on the CUDA-core
+    kernel with its im2col folded in, and equal the CPU run bit for bit."""
+    qcfg = {"paper_w16a16": lambda: Q.QuantConfig.paper_w16a16(),
+            "grid_point_8_8": lambda: Q.QuantConfig.grid_point(8, 8),
+            "table2_row_12_6_6": lambda: Q.QuantConfig.table2_row(12, 6, 6),
+            }[config]()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    cpu = {k: {kk: v.cpu() for kk, v in b.items()} for k, b in params.items()}
+    x = np.random.default_rng(1).random((2, 32, 32, 3)).astype(np.float32)
+    dm = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    dm_cpu = repro_torch.compile(cpu, qcfg, recipe="resnet9", datapath="int",
+                                 device="cpu")
+    labels = {(r["op"], r["kernel"]) for r in dm.dispatch_table()
+              if r["op"] in ("im2col", "mvau_int")}
+    assert labels == {("im2col", "fused-cuda-core"),
+                      ("mvau_int", "fused-cuda-core")}
+    assert len(dm.apply.folded) == 8
+    before = dict(B.launch_counts)
+    f = dm(x)
+    assert B.launch_counts["mvau_int"] - before["mvau_int"] == 8
+    assert torch.equal(f.cpu(), dm_cpu(x))
+    assert dm.weight_bytes() == dm_cpu.weight_bytes()
+
+
+@pytest.mark.cuda
+def test_f32_artifact_folds_every_im2col_on_the_card(card):
+    """The f32 artifact's 8 im2col nodes are folded into the float conv
+    form: its features equal the interpreter's (explicit im2col) and the
+    int artifact's, bit for bit, with 8 mvau launches."""
+    from repro_torch.core.graph import execute
+
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    x = Q.fake_quant(_t(np.random.default_rng(1).random((3, 32, 32, 3))
+                        .astype(np.float32), card), qcfg.act)
+    dm32 = repro_torch.compile(params, qcfg, recipe="resnet9")
+    assert len(dm32.apply.folded) == 8
+    assert {r["kernel"] for r in dm32.dispatch_table()
+            if r["op"] in ("im2col", "mvau")} == {"cuda"}
+    before = B.launch_counts["mvau"]
+    f = dm32(x)
+    assert B.launch_counts["mvau"] - before == 8
+    (interp,) = execute(dm32.graph, {"x": x})
+    assert torch.equal(f, interp)
+    dm = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    assert torch.equal(f, dm(x))
 
 
 @pytest.mark.cuda

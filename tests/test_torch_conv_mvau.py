@@ -153,7 +153,7 @@ def test_folded_artifact_equals_reference(arts):
 def test_no_patch_tensor_enters_the_environment(arts, monkeypatch):
     """Every im2col of the int artifact is folded: its executor never runs
     and its output is never named in the lowered function's environment;
-    the f32 artifact keeps its 8 explicit im2col nodes."""
+    the f32 artifact folds its 8 im2col nodes too."""
     _, dt, x = arts
     calls = []
     real = TG._EXECUTORS["im2col"]
@@ -170,7 +170,8 @@ def test_no_patch_tensor_enters_the_environment(arts, monkeypatch):
     f32 = repro_torch.compile(TR.init_params(torch.Generator().manual_seed(0),
                                              4, device="cpu"),
                               TCFG, recipe="resnet9", device="cpu")
-    assert f32.apply.folded == ()
+    f32_cols = [n.outputs[0] for n in f32.graph.nodes if n.op == "im2col"]
+    assert len(f32_cols) == 8 and sorted(f32.apply.folded) == sorted(f32_cols)
 
 
 def _conv_graph(extra_reader=False, col_is_output=False, int8_ok=True):
@@ -196,11 +197,12 @@ def _conv_graph(extra_reader=False, col_is_output=False, int8_ok=True):
 
 @pytest.mark.parametrize("case,paired", [
     ({}, True), ({"extra_reader": True}, False),
-    ({"col_is_output": True}, False), ({"int8_ok": False}, False)])
+    ({"col_is_output": True}, False), ({"int8_ok": False}, True)])
 def test_pairing_rules(case, paired):
-    """Only an im2col whose sole reader is an int8_ok mvau_int, and whose
-    output is not a graph output, is folded; the results equal the
-    interpreter's either way."""
+    """Only an im2col whose sole reader is an MVAU (an int8_ok mvau_int or
+    one with wider codes alike), and whose output is not a graph output, is
+    folded; the results equal the interpreter's either way, and on the
+    card the folded im2col carries its MVAU's label."""
     g = _conv_graph(**case)
     assert (tops.conv_pairs(g.nodes, g.outputs) == {"col": g.nodes[1]}) \
         is paired
@@ -211,7 +213,8 @@ def test_pairing_rules(case, paired):
     got, want = fn(x), TG.execute(g, {"x": x})
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    folded = "col" in tops.conv_pairs(g.nodes, g.outputs)
+    folded = tops.conv_pairs(g.nodes, g.outputs).get("col")
     assert tops.kernel_dispatch(g.nodes[0], True, folded) == "xla"
-    assert tops.kernel_dispatch(g.nodes[0], False, folded) == \
-        ("fused-cuda" if paired else "xla")
+    assert tops.kernel_dispatch(g.nodes[0], False, folded) == (
+        ("fused-cuda" if case.get("int8_ok", True) else "fused-cuda-core")
+        if paired else "xla")

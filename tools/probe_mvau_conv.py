@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
-"""Where the conv-form integer MVAU spends its time on the card.
+"""Where the conv-form MVAU kernels spend their time on the card.
 
-Builds ``src/repro_torch/csrc/mvau.cu`` as it stands and three variants of
-it side by side (one ``nvcc`` each, all started together), then times each
-on the 8 conv layers of the paper's w6a4 ResNet-9 at width 64, batch 64,
-32x32 frames (CUDA events, random codes):
+Builds ``src/repro_torch/csrc/mvau.cu`` as it stands and variants of it
+side by side (one ``nvcc`` each, all started together), then times each on
+the 8 conv layers of the paper's w6a4 ResNet-9 at width 64, batch 64,
+32x32 frames (CUDA events, random inputs).
+
+The int8 tensor-core kernel (``mvau_conv_kernel``, ``--only int8``):
 
 * ``kernel``      the source as committed;
 * ``no_mma``      the wgmma instructions removed;
 * ``no_loads``    the A copies and the B global loads removed;
 * ``phases``      the source with clock64 stamps: cycles per block in the
                   prologue, the mainloop (and per K-tile), the split-K
-                  reduction, the threshold count and the stores.
+                  reduction, the threshold count and the stores;
 
 and the committed kernel with L = 0 levels (no count), and on forced K
 splits (1, 2, 4, 6, 8) for the layers whose output tiles are fewer than the
-SMs.  The variants compute wrong values; only the committed kernel is held
-against the plain version.  Run on the machine with the card::
+SMs.
 
-    PYTHONPATH=src python3 tools/probe_mvau_conv.py
+The CUDA-core kernel as the float MVAU (``mvau_core_kernel``, ``--only
+core``), float32 activations on the fixed-point grid:
+
+* ``kernel``      the source as committed;
+* ``no_ffma``     7 of every 8 FMAs removed (each fragment value still
+                  feeds one);
+* ``no_loads``    the A and B copies into shared memory removed;
+
+and the committed kernel with L = 0 levels, on forced K splits, beside
+``torch.matmul`` + count on pre-built patches (the library yardstick) and
+``torch.matmul`` alone.  The variants compute wrong values; only the
+committed kernels are held against their plain versions.  Run on the
+machine with the card::
+
+    PYTHONPATH=src python3 tools/probe_mvau_conv.py [--only int8|core]
 
 The variants are text edits of the source: an edit that no longer applies
 stops the run, naming the text it looked for.
@@ -26,7 +41,9 @@ stops the run, naming the text it looked for.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -39,6 +56,7 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import build as B  # noqa: E402
 from repro_torch.kernels import mvau as KM  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import resnet9  # noqa: E402
 
 BATCH, WIDTH, IMG, LEVELS = 64, 64, 32, 15
@@ -104,7 +122,24 @@ def variants() -> dict:
             "phases": ph + DBG}
 
 
+def core_variants() -> dict:
+    """Ablations of the CUDA-core kernel."""
+    no_ffma = edit(SRC, "          for (int j = 0; j < TN; ++j) acc[i][j] = "
+                   "mad(a[i][kk], b[j], acc[i][j]);",
+                   "          for (int j = 0; j < TN; ++j)\n"
+                   "            if (i == j) acc[i][j] = mad(a[i][kk], b[j], "
+                   "acc[i][j]);")
+    no_loads = edit(edit(
+        SRC, """        cp_async16(smem_u32(As + ((tid >> 2) + 64 * p) * CORE_AS + seg), src,
+                   ok);""", ""),
+        """        cp_async16(smem_u32(dst), ok ? wp + static_cast<size_t>(gk) * N + gn : wp,
+                   ok);""", "")
+    return {"kernel": SRC, "no_ffma": no_ffma, "no_loads": no_loads}
+
+
 def build_all(srcs: dict) -> dict:
+    """{name: source} -> {name: (library, the conv-form integer entry, the
+    CUDA-core entry)}; prints each build's spills."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = B._nvcc()
     procs = {}
@@ -115,16 +150,22 @@ def build_all(srcs: dict) -> dict:
              str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, p in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
             raise SystemExit(f"nvcc failed on {name}:\n{out[-4000:]}")
+        spills = sorted({int(v) for v in re.findall(
+            r"(\d+) bytes spill stores", out)})
+        print(f"  {name}: spill stores {spills} bytes")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         fn = lib.repro_mvau_int_conv
-        P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, I, P, P] + [I] * 11 + [P, P, P]
         fn.restype = I
-        libs[name] = (lib, fn)
+        core = lib.repro_mvau_core_conv
+        core.argtypes = [P, I, P, I, P, P] + [I] * 10 + [F, F, F, I, P, P, P]
+        core.restype = I
+        libs[name] = (lib, fn, core)
     return libs
 
 
@@ -142,18 +183,7 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        sys.stderr.write("probe_mvau_conv: needs the card\n")
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"card: {smi}")
-    t0 = time.perf_counter()
-    libs = build_all(variants())
-    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+def probe_int8(libs: dict, sms: int) -> None:
     gen = torch.Generator().manual_seed(0)
     counts = torch.zeros(4096, dtype=torch.int32, device="cuda")
     layers, hw = [], IMG
@@ -190,7 +220,7 @@ def main() -> int:
 
     names = " ".join(f"{lay[0]:>7s}" for lay in layers)
     print(f"{'variant':14s} {'sum':>7s} {names}   (ms, batch {BATCH})")
-    for vname, (_, fn) in libs.items():
+    for vname, (_, fn, _) in libs.items():
         per = []
         for name, hw, cin, n, x, w, t in layers:
             go, out = launcher(fn, hw, cin, n, x, w, t, plan(hw, cin, n))
@@ -219,7 +249,7 @@ def main() -> int:
         print(f"  {name}: planned {plan(hw, cin, n)}; " +
               ", ".join(f"{s}: {v:.4f}" for s, v in row.items()))
 
-    lib, fn = libs["phases"]
+    lib, fn, _ = libs["phases"]
     buf = (ctypes.c_ulonglong * 8)()
     print("cycles per block (thread 0, clock64), phases variant:")
     for name, hw, cin, n, x, w, t in layers:
@@ -236,6 +266,112 @@ def main() -> int:
               f"mainloop {buf[1] / nb:.0f} ({buf[1] / max(1, buf[6]):.0f} per "
               f"K-tile), split-K {buf[2] / nb:.0f}, count {buf[3] / nb:.0f}, "
               f"stores {buf[4] / nb:.0f}")
+
+
+def probe_core(libs: dict, sms: int) -> None:
+    """The CUDA-core kernel as the float MVAU on the 8 layers."""
+    gen = torch.Generator().manual_seed(1)
+    counts = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    layers, hw = [], IMG
+    for blk in resnet9.plan(WIDTH):
+        cin, n = blk["cin"], blk["cout"]
+        x = (torch.randint(0, 16, (BATCH, hw, hw, cin), generator=gen)
+             * 0.25).cuda()
+        w = (torch.randint(-32, 32, (9 * cin, n), generator=gen) / 32).cuda()
+        t = torch.sort(torch.randn((n, LEVELS), generator=gen) * 4,
+                       dim=1).values.cuda()
+        layers.append((blk["name"], hw, cin, n, x, w, t))
+        if blk.get("pool"):
+            hw //= 2
+
+    def launcher(fn, hw, cin, n, x, w, t, splits):
+        m = BATCH * hw * hw
+        bn = KM.core_tile_n(n)
+        tiles = -(-m // KM.CORE_TILE_M) * -(-n // bn)
+        ws = (torch.empty(tiles * splits * KM.CORE_TILE_M * bn,
+                          dtype=torch.int32, device="cuda")
+              if splits > 1 else None)
+        out = torch.empty((BATCH, hw, hw, n), device="cuda")
+
+        def go():
+            rc = fn(x.data_ptr(), 1, w.data_ptr(), 2, t.data_ptr(),
+                    out.data_ptr(), BATCH, hw, hw, cin, 3, 1, 1, n,
+                    t.shape[1], 0, 0.0, 0.25, 0.0, splits,
+                    None if ws is None else ws.data_ptr(), counts.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+        return go, out
+
+    def plan(hw, cin, n):
+        return KM.core_splits(BATCH * hw * hw, n, 9 * cin, sms)
+
+    names = " ".join(f"{lay[0]:>7s}" for lay in layers)
+    print(f"float MVAU, CUDA-core kernel\n{'variant':14s} {'sum':>7s} {names}"
+          f"   (ms, batch {BATCH})")
+    for vname, (_, _, fn) in libs.items():
+        per = []
+        for name, hw, cin, n, x, w, t in layers:
+            go, out = launcher(fn, hw, cin, n, x, w, t, plan(hw, cin, n))
+            if vname == "kernel":
+                go()
+                torch.cuda.synchronize()
+                if not torch.equal(out, KM.mvau_conv_plain(x, w, t, 3, 1, 1,
+                                                           0.0, 0.25, 0.0)):
+                    raise SystemExit(f"{name}: the kernel differs from its "
+                                     "plain version")
+            per.append(cuda_ms(go))
+        print(f"{vname:14s} {sum(per):7.4f} " + " ".join(f"{v:7.4f}" for v in per))
+    rows = {"kernel, L=0": [], "matmul+count": [], "matmul only": [],
+            "bound": []}
+    for name, hw, cin, n, x, w, t in layers:
+        go, _ = launcher(libs["kernel"][2], hw, cin, n, x, w,
+                         t[:, :0].contiguous(), plan(hw, cin, n))
+        rows["kernel, L=0"].append(cuda_ms(go))
+        patches = ref.im2col(x, 3, 1, 1).reshape(-1, 9 * cin).contiguous()
+        rows["matmul+count"].append(cuda_ms(lambda: 0.25 * ref.threshold_counts_fast(
+            torch.matmul(patches, w), t).to(torch.float32)))
+        rows["matmul only"].append(cuda_ms(lambda: torch.matmul(patches, w)))
+        rows["bound"].append(2 * patches.shape[0] * patches.shape[1] * n
+                             / 67e12 * 1e3)
+    for label, per in rows.items():
+        print(f"{label:14s} {sum(per):7.4f} " + " ".join(f"{v:7.4f}" for v in per))
+    print("K splits (ms) where the output tiles are fewer than the SMs:")
+    for name, hw, cin, n, x, w, t in layers:
+        m = BATCH * hw * hw
+        if -(-m // 128) * -(-n // KM.core_tile_n(n)) >= sms:
+            continue
+        row = {s: cuda_ms(launcher(libs["kernel"][2], hw, cin, n, x, w, t, s)[0])
+               for s in (1, 2, 4, 6, 8, 12)}
+        print(f"  {name}: planned {plan(hw, cin, n)}; " +
+              ", ".join(f"{s}: {v:.4f}" for s, v in row.items()))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("int8", "core"), default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("probe_mvau_conv: needs the card\n")
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    srcs = {}
+    if args.only in (None, "int8"):
+        srcs.update({f"int8_{k}": v for k, v in variants().items()})
+    if args.only in (None, "core"):
+        srcs.update({f"core_{k}": v for k, v in core_variants().items()})
+    t0 = time.perf_counter()
+    libs = build_all(srcs)
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
+    for prefix, probe in (("int8_", probe_int8), ("core_", probe_core)):
+        sub = {k[len(prefix):]: v for k, v in libs.items()
+               if k.startswith(prefix)}
+        if sub:
+            probe(sub, sms)
     print(smi)
     return 0
 
