@@ -19,26 +19,34 @@ ends the run with a non-zero exit if it fails:
    grid and off-grid floats; the conv forms on every kernel / stride / pad
    the im2col node takes, with forced K splits: the int8 tensor-core
    kernel, the float MVAU and the wide-code integer route on the CUDA-core
-   kernel); then each held against it again and timed at the FSL path's
+   kernel; the int8 kernel with its GlobalAccPool epilogue at r2b's shape
+   at batch 1 and 64, forced splits 1/2/8, repeated launches and a skip
+   that wraps the int32 sums; the GAP kernel with and without a residual
+   operand); then each held against it again and timed at the FSL path's
    shapes at batch 64, beside its bound and PyTorch library calls
    computing the same function (``torch._int_mm`` + count, ``torch.matmul``
-   + count and ``torch.matmul`` alone on pre-built patches, and the unfold
-   im2col a PyTorch user would write); the MVAUs in conv form and in GEMM
-   form on pre-built patches; the int32-code route in conv form.
+   + count and ``torch.matmul`` alone on pre-built patches, the unfold
+   im2col a PyTorch user would write, ``torch.add`` + ``torch.sum``); the
+   MVAUs in conv form and in GEMM form on pre-built patches; the int32-code
+   route in conv form; r2b's tail fused, unfused (conv, add, GAP) and the
+   conv alone.
 3. FSL path at the paper's width 64 on 32x32 frames: ``compile(...,
    datapath="int")`` and ``"f32"`` on the card, every im2col of both
-   artifacts folded into its conv-form MVAU; int == f32 == interpreter and
-   card == CPU, bit for bit; weight bytes; launches per forward; compile
-   time, latency and throughput.
+   artifacts folded into its conv-form MVAU, the int artifact's last
+   residual add and GAP into r2b's epilogue, the f32 artifact's add into
+   the GAP kernel; int == f32 == interpreter and card == CPU, bit for bit;
+   weight bytes; launches per forward; compile time, latency and
+   throughput, beside the int artifact lowered with its tail unfused.
 4. few-shot requests: support shots registered into a PrototypeStore on
    the card and queries classified through the deployed int artifact;
    prototypes and similarities agree with a CPU store's run within a stated
    tolerance, predictions are equal.  Then, after every latency has been
-   taken, ``torch.profiler`` traces the int and f32 forwards: device time
-   by kernel, kernels per forward, an estimate of the device's busy share,
-   and no patch gather.  After the path's launch counts are read, the 8
+   taken, ``torch.profiler`` traces the int (unfused tail too) and f32
+   forwards: device time by kernel, kernels per forward (27 int, 14 f32,
+   one add kernel each), an estimate of the device's busy share, and no
+   patch gather.  After the path's launch counts are read, the 8
    conv-form launches are timed again on the activations and weights one
-   forward gives them.
+   forward gives them, and r2b's again with its GAP epilogue.
 5. wide codes: ``grid_point(8, 8)`` and ``paper_w16a16()`` int artifacts
    (and w6a4 beside them) compiled on the card at the widest width their
    lowering admits, every MVAU on the CUDA-core kernel with its im2col
@@ -168,7 +176,7 @@ def check_kernels(torch, Q, KM, KG, ref):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64
                              ).to(torch.int32)
 
-    err = {"mvau_int": 0.0, "mvau": 0.0, "gap": 0.0}
+    err = {"mvau_int": 0.0, "mvau_int_gap": 0.0, "mvau": 0.0, "gap": 0.0}
     # L > 64 takes the kernels' binary-search epilogue (sorted tables)
     cases = [(7, 36, 8, 15), (16, 130, 129, 15), (5, 64, 32, 255),
              (130, 200, 96, 512), (1000, 27, 64, 15), (300, 4608, 512, 15),
@@ -256,23 +264,91 @@ def check_kernels(torch, Q, KM, KG, ref):
         "weights; 15, 255 and 65535 levels; conv form on every kernel/stride/"
         "pad with K split planned, 2 and 3, and the GEMM form)")
 
+    n_fused = check_fused_gap(torch, Q, KM, ri, err)
+    log(f"kernel check mvau_int with the GAP epilogue: {n_fused} cases bit "
+        "for bit (r2b's 4x4x512 -> 512 at batch 1 and 64, K 4608, K split "
+        "planned, 1, 2 and 8, each launched twice, a skip near 2^31 that "
+        "wraps the int32 sums; OH·OW 1, 4 and 16, C 8 and 24, N 24 and 72, "
+        "batch 3 and 37, int8 and packed int4 weights)")
+
     for shape in ((2, 8, 8, 16), (64, 4, 4, 512), (3, 5, 7, 24)):
         for dt in (torch.int8, torch.int32):
             xi = ri(-100, 100, shape).to(dt).to(dev)
             g, p = KG.gap(xi), KG.gap_plain(xi)
             check(g.dtype == torch.int32 and torch.equal(g, p),
                   f"gap {dt} {shape} differs")
+            # the residual add folded in: int8 sums wrap in int8
+            si = ri(0, 100, shape).to(dt).to(dev)
+            g, p = KG.gap(xi, si), KG.gap_plain(xi, si)
+            check(g.dtype == torch.int32 and torch.equal(g, p),
+                  f"gap with skip {dt} {shape} differs")
         xg = (ri(0, 64, shape).float() * 0.25).to(dev)     # on the grid
+        sg = (ri(0, 64, shape).float() * 0.25).to(dev)
         check(torch.equal(KG.gap(xg), KG.gap_plain(xg)), f"gap f32 grid {shape}")
+        check(torch.equal(KG.gap(xg, sg), KG.gap_plain(xg, sg)),
+              f"gap with skip f32 grid {shape}")
         xr = torch.randn(shape, generator=gen).to(dev)      # off the grid
-        d = (KG.gap(xr) - KG.gap_plain(xr)).abs().max().item()
-        err["gap"] = max(err["gap"], float(d))
+        sr = torch.randn(shape, generator=gen).to(dev)
         # tolerance: float32 sums in another order, as the reference tests
-        check(torch.allclose(KG.gap(xr), KG.gap_plain(xr), rtol=1e-5,
-                             atol=1e-5), f"gap f32 {shape} off by {d}")
+        for got, want in ((KG.gap(xr), KG.gap_plain(xr)),
+                          (KG.gap(xr, sr), KG.gap_plain(xr, sr))):
+            d = (got - want).abs().max().item()
+            err["gap"] = max(err["gap"], float(d))
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  f"gap f32 {shape} off by {d}")
     log(f"kernel check: all kernels equal their plain versions "
         f"(max abs err {err})")
     return err
+
+
+def check_fused_gap(torch, Q, KM, ri, err):
+    """The int8 conv MVAU with its GlobalAccPool epilogue against its plain
+    version (``mvau_int_conv_plain`` + skip -> ``gap_plain``): at r2b's
+    shape at batch 1 and 64 with the planned and forced K splits, each
+    launched twice, once with a skip near 2^31 that makes the int32 sums
+    wrap; and on small odd shapes.  Bit for bit."""
+    dev = "cuda"
+    n_cases = 0
+
+    def inputs(batch, side, c, n, packed=False, wrap=False):
+        x = ri(0, 16, (batch, side, side, c)).to(torch.int8).to(dev)
+        w = ri(-8, 8, (9 * c, n)) if packed else ri(-32, 32, (9 * c, n))
+        w = (Q.pack_int4(w) if packed else w.to(torch.int8)).to(dev)
+        t = torch.sort(ri(-2000, 2000, (n, 15)), dim=1).values.to(dev)
+        lo, hi = (2**31 - 40, 2**31 - 1) if wrap else (0, 16)
+        skip = ri(lo, hi, (batch, side, side, n)).to(dev)
+        return x, w, t, skip
+
+    def one(args, base, packed, splits, label):
+        x, w, t, skip = args
+        want = KM.mvau_int_conv_gap_plain(x, w, t, skip, 3, 1, 1, base, packed)
+        got = KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1, base, packed,
+                                   splits=splits)
+        again = KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1, base, packed,
+                                     splits=splits)
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item()
+        err["mvau_int_gap"] = max(err["mvau_int_gap"], float(d))
+        check(torch.equal(got, want), f"mvau_int_conv_gap {label} splits="
+              f"{splits} differs by {d}")
+        check(torch.equal(got, again), f"mvau_int_conv_gap {label} splits="
+              f"{splits}: two launches differ")
+
+    for batch in (1, BATCH):
+        for wrap in (False, True):
+            args = inputs(batch, 4, 8 * WIDTH, 8 * WIDTH, wrap=wrap)
+            for splits in (None, 1, 2, 8):
+                one(args, 0, False, splits, f"r2b batch {batch} wrap={wrap}")
+                n_cases += 1
+    for side in (1, 2, 4):
+        for c, n, batch in ((8, 24, 3), (24, 72, 37)):
+            for packed in (False, True):
+                args = inputs(batch, side, c, n, packed)
+                for splits in (None, 2, 3):
+                    one(args, -3, packed, splits, f"{batch}x{side}x{side}x{c}"
+                        f" N={n} packed={packed}")
+                    n_cases += 1
+    return n_cases
 
 
 def check_conv_kernel(torch, Q, KM, ri, err):
@@ -626,26 +702,37 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         f"{f_lib:.4f} ms, torch.matmul alone {flt['matmul_only_ms']:.4f} ms; "
         f"layers above their library_ms: {over or 'none'}")
 
+    # GlobalAccPool with the residual add folded in, as the f32 artifact
+    # and the wide-code route run it: two (64, 4, 4, 512) operands
     xg = torch.randint(0, 64, (BATCH, 4, 4, 8 * WIDTH),
                        generator=gen).to(torch.int32).to(dev)
-    xgf = (xg.float() * 0.25).contiguous()            # on the grid
-    for xx in (xg, xgf):
-        got, want = KG.gap(xx), KG.gap_plain(xx)
-        d = (got - want).abs().max().item()
-        err["gap"] = max(err["gap"], float(d))
-        check(got.dtype == want.dtype and torch.equal(got, want),
-              f"gap {xx.dtype} at the main path's shape differs by {d}")
-    g_ms = cuda_ms(torch, lambda: KG.gap(xg), reps=100)
-    g_plain = cuda_ms(torch, lambda: KG.gap_plain(xg), reps=100)
-    g_lib = cuda_ms(torch, lambda: torch.sum(xg, dim=(1, 2),
+    sg = torch.randint(0, 64, (BATCH, 4, 4, 8 * WIDTH),
+                       generator=gen).to(torch.int32).to(dev)
+    xgf, sgf = ((v.float() * 0.25).contiguous() for v in (xg, sg))  # grid
+    for xx, ss in ((xg, sg), (xgf, sgf)):
+        for got, want in ((KG.gap(xx, ss), KG.gap_plain(xx, ss)),
+                          (KG.gap(xx), KG.gap_plain(xx))):
+            d = (got - want).abs().max().item()
+            err["gap"] = max(err["gap"], float(d))
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"gap {xx.dtype} at the main path's shape differs by {d}")
+    g_ms = cuda_ms(torch, lambda: KG.gap(xg, sg), reps=100)
+    g_plain = cuda_ms(torch, lambda: KG.gap_plain(xg, sg), reps=100)
+    g_lib = cuda_ms(torch, lambda: torch.sum(torch.add(xg, sg), dim=(1, 2),
                                              dtype=torch.int32), reps=100)
-    g_bytes = 4 * xg.numel() + 4 * BATCH * 8 * WIDTH
-    g_ops = xg.numel()
-    gf_ms = cuda_ms(torch, lambda: KG.gap(xgf), reps=100)
-    log(f"kernel gap      (64,4,4,512) int32: kernel_ms={g_ms:.4f} "
-        f"plain_ms={g_plain:.4f} library_ms={g_lib:.4f} "
-        f"bound_ms={g_bytes / PEAK_BYTES_PER_S * 1e3:.5f}; float32 input: "
-        f"kernel_ms={gf_ms:.4f}")
+    g_bytes = 8 * xg.numel() + 4 * BATCH * 8 * WIDTH
+    g_ops = 2 * xg.numel()
+    gf_ms = cuda_ms(torch, lambda: KG.gap(xgf, sgf), reps=100)
+    g1_ms = cuda_ms(torch, lambda: KG.gap(xg), reps=100)
+    g1_lib = cuda_ms(torch, lambda: torch.sum(xg, dim=(1, 2),
+                                              dtype=torch.int32), reps=100)
+    log(f"kernel gap      (64,4,4,512) int32 + skip: kernel_ms={g_ms:.4f} "
+        f"plain_ms={g_plain:.4f} library_ms={g_lib:.4f} (torch.add + "
+        f"torch.sum) bound_ms={g_bytes / PEAK_BYTES_PER_S * 1e3:.5f}; float32 "
+        f"operands: kernel_ms={gf_ms:.4f}; one int32 operand (no skip): "
+        f"kernel_ms={g1_ms:.4f} library_ms={g1_lib:.4f} (torch.sum) bound_ms="
+        f"{(4 * xg.numel() + 4 * BATCH * 8 * WIDTH) / PEAK_BYTES_PER_S * 1e3:.5f}")
+    fused = time_fused_gap(torch, KM, KG, ref, gen, err)
 
     def entry(name, source, replaces, t, ops_peak, **extra):
         ms, plain, lib, nbytes, ops = t
@@ -676,8 +763,93 @@ def time_kernels(torch, Q, KM, KG, ref, err):
               gemm_form_ms=flt["gemm_form_ms"]),
         entry("gap", "src/repro_torch/csrc/gap.cu",
               "src/repro/kernels/gap.py:41",
-              [g_ms, g_plain, g_lib, g_bytes, g_ops], PEAK_F32_OPS),
+              [g_ms, g_plain, g_lib, g_bytes, g_ops], PEAK_INT32_OPS,
+              form="residual add folded in: (64, 4, 4, 512) int32 + skip",
+              float32_ms=gf_ms, no_skip_ms=g1_ms, no_skip_library_ms=g1_lib),
+        entry("mvau_int_gap", "src/repro_torch/csrc/mvau.cu",
+              "src/repro/kernels/gap.py:41", fused.pop("t"), PEAK_INT8_OPS,
+              **fused),
     ]
+
+
+def time_fused_gap(torch, KM, KG, ref, gen, err):
+    """r2b's tail at batch 64 (int8 4x4x512 codes, K 4608, N 512, plus an
+    int32 skip): the conv MVAU with the GAP epilogue, the same conv alone,
+    and the unfused chain (conv, torch add, GAP kernel), in one interleaved
+    series.  The entry is the whole fused function: its bound counts the
+    conv's operands read once, the skip read once and the (64, 512) sums
+    written once, against its int8 operations; its plain version is
+    ``mvau_int_conv_gap_plain`` and its library yardstick ``torch._int_mm``
+    on unfolded patches, the threshold count, ``torch.add`` and
+    ``torch.sum``."""
+    dev = "cuda"
+    c = n = 8 * WIDTH
+    x = torch.randint(0, 16, (BATCH, 4, 4, c), generator=gen
+                      ).to(torch.int8).to(dev)
+    w = torch.randint(-32, 32, (9 * c, n), generator=gen).to(torch.int8).to(dev)
+    t = torch.sort(torch.randint(-2000, 2000, (n, 15), generator=gen),
+                   dim=1).values.to(torch.int32).to(dev)
+    skip = torch.randint(0, 16, (BATCH, 4, 4, n), generator=gen
+                         ).to(torch.int32).to(dev)
+    y = KM.mvau_int_conv(x, w, t, 3, 1, 1)
+    got = KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1)
+    want = KG.gap_plain(y, skip)
+    d = (got - want).abs().max().item()
+    err["mvau_int_gap"] = max(err["mvau_int_gap"], float(d))
+    check(torch.equal(got, want), f"fused r2b tail at batch {BATCH} differs "
+          f"by {d}")
+
+    def lib():
+        acc = torch._int_mm(im2col_unfold(torch, x, 3, 1, 1), w)
+        codes = ref.threshold_counts_fast(acc, t).reshape(y.shape)
+        return torch.sum(torch.add(codes, skip), dim=(1, 2),
+                         dtype=torch.int32)
+
+    check(torch.equal(lib(), want), "the fused tail's yardstick computes "
+          "another function")
+    runs = {"fused": lambda: KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1),
+            "conv": lambda: KM.mvau_int_conv(x, w, t, 3, 1, 1),
+            "chain": lambda: KG.gap(KM.mvau_int_conv(x, w, t, 3, 1, 1) + skip)}
+    # a sleep long enough that a slow host enqueues every launch of the
+    # chain (3 a call) and of the library (about 35) before the first runs
+    sleep = 8 * SLEEP_CYCLES
+    each = {k: [] for k in runs}
+    for order in (("conv", "fused", "chain"), ("chain", "fused", "conv")):
+        for k in order:
+            each[k].append(cuda_ms(torch, runs[k], reps=100,
+                                   sleep_cycles=sleep))
+    ms = {k: sum(v) / len(v) for k, v in each.items()}
+    plain = cuda_ms(torch, lambda: KM.mvau_int_conv_gap_plain(
+        x, w, t, skip, 3, 1, 1), reps=3)
+    lib_ms = cuda_ms(torch, lib, reps=20, sleep_cycles=sleep)
+    nbytes = (x.numel() + w.numel() + 4 * t.numel() + 4 * skip.numel()
+              + 4 * BATCH * n)
+    ops = 2 * BATCH * 16 * 9 * c * n
+    log(f"kernel mvau_int_gap r2b M={BATCH * 16} K={9 * c} N={n} (conv MVAU "
+        f"with the residual add and GAP in its epilogue): kernel_ms="
+        f"{ms['fused']:.4f} plain_ms={plain:.4f} library_ms={lib_ms:.4f} "
+        f"(torch._int_mm + count + torch.add + torch.sum) bound_ms="
+        f"{max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3:.5f} "
+        f"({nbytes} bytes, {ops} int8 ops); before, the conv alone "
+        f"{ms['conv']:.4f} and the unfused chain {ms['chain']:.4f} (conv + "
+        f"torch add + gap kernel); the two runs of each: "
+        + ", ".join(f"{k} {' / '.join(f'{v:.4f}' for v in vs)}"
+                    for k, vs in each.items()))
+    return {"t": [ms["fused"], plain, lib_ms, nbytes, ops],
+            "form": "GAP epilogue of mvau_conv_kernel (r2b, batch 64): the "
+                    "conv MVAU, the residual add and the spatial sum",
+            "conv_alone_ms": ms["conv"], "unfused_chain_ms": ms["chain"]}
+
+
+def traced_steps():
+    """``torch.profiler.profile`` arguments for a traced run in two steps:
+    a warm-up step whose events are dropped, then the step that is read.
+    Started cold, the tracer has lost the first kernels of a run (a f32
+    forward once read 9 kernels of its 14)."""
+    from torch.profiler import ProfilerActivity, schedule
+
+    return {"activities": [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            "schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
 
 
 def profile_forward(torch, label: str, fn, reps: int = 5):
@@ -687,19 +859,23 @@ def profile_forward(torch, label: str, fn, reps: int = 5):
     profiler events.  The profiler's own host cost stretches the traced
     run's wall time, so the busy share printed here is a floor."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(**traced_steps()) as prof:
+        fn()                          # warm-up step: its events are dropped
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]   # the step's span
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
@@ -752,17 +928,23 @@ def main_path(torch, np, B):
     check(ops.get("mvau_int") == 8 and ops.get("global_acc_pool") == 1,
           f"int artifact ops {ops}")
     check(all(r["kernel"] == "fused-cuda" for r in dm_int.dispatch_table()
-              if r["op"] in ("mvau_int", "im2col")),
-          "an mvau_int node is not on the kernel, or an im2col not folded")
-    check(len(dm_int.apply.folded) == 8, f"folded im2col {dm_int.apply.folded}")
+              if r["op"] in ("mvau_int", "im2col", "global_acc_pool")
+              or r["tensor"] == "r2b_res"),
+          "an mvau_int node is not on the kernel, an im2col not folded, or "
+          "the GAP tail not fused")
+    check(len(dm_int.apply.folded) == 10
+          and {"r2b_mt_nchw_nhwc_0", "r2b_res"} <= set(dm_int.apply.folded),
+          f"folded {dm_int.apply.folded}")
     check(dm_int.weight_bytes() == INT_WEIGHT_BYTES,
           f"int weight bytes {dm_int.weight_bytes()}")
     check(dm_f32.weight_bytes() == F32_WEIGHT_BYTES,
           f"f32 weight bytes {dm_f32.weight_bytes()}")
     check(all(r["kernel"] == "cuda" for r in dm_f32.dispatch_table()
-              if r["op"] in ("mvau", "im2col"))
-          and len(dm_f32.apply.folded) == 8,
-          "an f32 mvau node is not on the kernel, or an im2col not folded")
+              if r["op"] in ("mvau", "im2col", "global_acc_pool")
+              or r["tensor"] == "r2b_res")
+          and len(dm_f32.apply.folded) == 9 and "r2b_res" in dm_f32.apply.folded,
+          "an f32 mvau node is not on the kernel, an im2col not folded, or "
+          "the residual add not folded into the GAP")
     log(f"weight bytes: int {dm_int.weight_bytes()} f32 "
         f"{dm_f32.weight_bytes()}")
 
@@ -773,11 +955,11 @@ def main_path(torch, np, B):
         return out, {k: B.launch_counts[k] - before[k] for k in before}
 
     f_int, d = delta(lambda: dm_int(x))
-    check(d == {"mvau_int": 8, "mvau": 0, "gap": 1, "qmatmul": 0},
-          f"int forward launches {d}")
+    check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau": 0, "gap": 0,
+                "qmatmul": 0}, f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
-    check(d == {"mvau_int": 0, "mvau": 8, "gap": 1, "qmatmul": 0},
-          f"f32 forward launches {d}")
+    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 8, "gap": 1,
+                "qmatmul": 0}, f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
@@ -794,31 +976,57 @@ def main_path(torch, np, B):
     check(torch.equal(f_int.cpu(), f_cpu), "card features != CPU features")
     log("main path: int == f32 == interpreter on the card, card == CPU, "
         "bit for bit")
+    # the int artifact lowered without either GAP fold (the add and the GAP
+    # as launches of their own, as before the fused tail): the "before" of
+    # this run's latency and profile; its launches are not the path's
+    saved = dict(B.launch_counts)
+    unfused = unfused_lowering(dm_int)
+    f_unf, d = delta(lambda: unfused(x))
+    check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau": 0, "gap": 1,
+                "qmatmul": 0} and torch.equal(f_unf, f_int),
+          f"unfused int forward: launches {d}, or features differ")
+    B.launch_counts.update(saved)
 
     pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
-    check(d == {"mvau_int": 16, "mvau": 0, "gap": 2,
-              "qmatmul": 0}, f"flip ensemble {d}")
+    check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau": 0, "gap": 0,
+                "qmatmul": 0}, f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
-    check(d == {"mvau_int": 0, "mvau": 16, "gap": 2,
-              "qmatmul": 0}, f"f32 flip ensemble {d}")
+    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 16, "gap": 2,
+                "qmatmul": 0}, f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
           "deployed flip features != QAT forward")
-    log("launches per forward: int 8 mvau_int + 1 gap, flip ensemble 16 + 2; "
-        "f32 8 mvau + 1 gap, flip ensemble 16 + 2")
+    log("launches per forward: int 8 mvau_int (1 with the GAP epilogue) + 0 "
+        "gap, flip ensemble 16 (2) + 0; f32 8 mvau + 1 gap (residual add "
+        "folded in), flip ensemble 16 + 2")
 
     # every latency is taken before the first traced run: once the profiler
-    # has traced the card, later eager launches in the process run slower
+    # has traced the card, later eager launches in the process run slower.
+    # The unfused tail and the fused one alternate, twice.
     x1 = x[:1].contiguous()
     walls = {}
-    for label, fn in (("int artifact", dm_int), ("int flip ensemble", feats)):
-        b1 = wall_ms(torch, lambda: fn(x1))
-        b64 = walls[label] = wall_ms(torch, lambda: fn(x))
+    saved = dict(B.launch_counts)
+    for label, fn in (("int artifact, unfused tail (before)", unfused),
+                      ("int artifact", dm_int), ("int flip ensemble", feats),
+                      ("int artifact, unfused tail (before), again", unfused),
+                      ("int artifact, again", dm_int)):
+        b1 = wall_ms(torch, lambda: fn(x1), reps=50)
+        b64 = walls[label] = wall_ms(torch, lambda: fn(x), reps=20)
         log(f"latency {label}: batch 1 {b1:.3f} ms, batch {BATCH} "
             f"{b64:.3f} ms ({BATCH / b64 * 1e3:.1f} images/s)")
+        if "flip" not in label:
+            # the device's own time: forwards queued behind a sleep, so
+            # that no host gap falls inside
+            dev = cuda_ms(torch, lambda: fn(x), reps=10,
+                          sleep_cycles=QMM_SLEEP_CYCLES)
+            log(f"device time {label}, batch {BATCH}, no host gaps (CUDA "
+                f"events): {dev:.4f} ms/forward")
+        if "unfused" in label:
+            B.launch_counts.update(saved)     # not the path's launches
+        saved = dict(B.launch_counts)
     b64_f32 = walls["f32 artifact"] = wall_ms(torch, lambda: dm_f32(x_q))
     log(f"latency f32 artifact (every im2col folded into the float conv "
         f"form): batch {BATCH} {b64_f32:.3f} ms "
@@ -885,21 +1093,51 @@ def main_path(torch, np, B):
         f"{worst:.3g} of it")
 
     # -- where the device time goes (traced last; see above) ------------------
-    for label, fn, xx in (("int artifact", dm_int, x),
+    # kernels a forward: the int artifact's tail is one launch (27, where
+    # the unfused tail takes 29), the f32 artifact's add + GAP one (14)
+    per_fwd = {"int artifact": 27, "f32 artifact": 14}
+    saved = dict(B.launch_counts)
+    for label, fn, xx in (("int artifact, unfused tail (before)", unfused, x),
+                          ("int artifact", dm_int, x),
                           ("int flip ensemble", feats, x),
                           ("f32 artifact", dm_f32, x_q)):
         busy, kern = profile_forward(torch, label, lambda: fn(xx))
+        if "unfused" in label:
+            B.launch_counts.update(saved)     # not the path's launches
         # the folded forwards gather no patches: no indexing kernel runs
         # (the flip ensemble's one flip of the frames aside)
         gathers = [e.key for e in kern if "index" in e.key
                    and "flip" not in e.key]
         check(not gathers, f"{label}: a patch gather ran: {gathers}")
+        n_kern = sum(e.count for e in kern) / 5
+        adds = sum(e.count for e in kern if "add" in e.key.lower()) / 5
+        log(f"profile {label}: {n_kern:.0f} kernels/forward, {adds:.0f} of "
+            "them add kernels")
+        if label in per_fwd:
+            # one add kernel is left: r1b's residual add, before c2
+            check(n_kern == per_fwd[label] and adds == 1,
+                  f"{label}: {n_kern} kernels/forward, {adds} add kernels; "
+                  f"expected {per_fwd[label]} and 1 (r1b's residual add)")
         if busy is not None:
             log(f"device busy share {label}, batch {BATCH}: estimate "
                 f"{busy / walls[label]:.1%} = busy {busy:.3f} ms/forward "
                 f"(traced run) / wall {walls[label]:.3f} ms/forward (untraced "
                 "run above)")
     return dm_int, x
+
+
+def unfused_lowering(dm):
+    """The artifact with its graph lowered with neither GlobalAccPool fold:
+    the residual add and the GAP run as launches of their own, as the
+    lowering did before the fused tail (the "before" of the latency and
+    profile comparison).  Every im2col stays folded."""
+    import dataclasses
+
+    from repro_torch.core.deploy import lower_graph
+
+    return dataclasses.replace(
+        dm, apply=lower_graph(dm.graph, "cuda", fold_pools=False),
+        _shapes=set())
 
 
 def wide_code_path(torch, np, B):
@@ -946,10 +1184,14 @@ def wide_code_path(torch, np, B):
                    str(dm.graph.initializers[n.inputs[1]].dtype))
                   for n, r in zip(dm.graph.nodes, dm.dispatch_table())
                   if n.op == "mvau_int"]
-        want = "fused-cuda" if label == "paper_w6a4()" else "fused-cuda-core"
+        int8 = label == "paper_w6a4()"
+        want = "fused-cuda" if int8 else "fused-cuda-core"
+        # the int8 route folds r2b's add and GAP into its MVAU, the
+        # CUDA-core route the add into the GAP kernel
         check(all(r["kernel"] == want for r in dm.dispatch_table()
                   if r["op"] in ("mvau_int", "im2col"))
-              and len(dm.apply.folded) == 8,
+              and len(dm.apply.folded) == (10 if int8 else 9)
+              and "r2b_res" in dm.apply.folded,
               f"{label}: {layers}, folded {dm.apply.folded}")
         params_cpu = {k: {kk: v.cpu() for kk, v in blk.items()}
                       for k, blk in params.items()}
@@ -961,7 +1203,8 @@ def wide_code_path(torch, np, B):
         f = dm(x[:2])
         torch.cuda.synchronize()
         run = dict(B.launch_counts)
-        check(run == {"mvau_int": 8, "mvau": 0, "gap": 1, "qmatmul": 0},
+        check(run == {"mvau_int": 8, "mvau_int_gap": int(int8), "mvau": 0,
+                      "gap": 1 - int(int8), "qmatmul": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
             counts[k] += v
@@ -975,7 +1218,8 @@ def wide_code_path(torch, np, B):
         lat[label] = wall_ms(torch, lambda: dm(x), reps=5)
         log(f"{label} int artifact at width {width} (compiled on the card in "
             f"{secs:.2f} s, weight bytes {dm.weight_bytes()}): card == CPU "
-            f"bit for bit at batch 2 and {BATCH}; 8 mvau_int + 1 gap "
+            f"bit for bit at batch 2 and {BATCH}; 8 mvau_int "
+            f"({int(int8)} with the GAP epilogue) + {1 - int(int8)} gap "
             f"launches a forward; batch "
             f"{BATCH} {lat[label]:.3f} ms ({BATCH / lat[label] * 1e3:.1f} "
             f"images/s); layers (name, kernel, weight codes): {layers}")
@@ -991,39 +1235,55 @@ def time_real_inputs(torch, KM, dm_int, x, random_ms):
     """The 8 conv-form launches of one int forward at batch 64 timed on the
     activations and weights that forward gives them (captured by lowering
     the artifact's graph once more with a recording executor), beside the
-    same shapes on random codes; returns the sum."""
+    same shapes on random codes.  r2b is timed as the conv alone, like the
+    other seven, and with its GAP epilogue on the skip the forward gives
+    it; returns the sum of the 8 convs and the fused r2b's time."""
     from repro_torch.core.deploy import lower_graph
     from repro_torch.kernels import ops as kops
 
     captured = []
-    run_pair = kops.conv_mvau_int_node
+    run_pair, run_tail = kops.conv_mvau_int_node, kops.conv_mvau_int_gap_node
 
     def record(conv, node, xx, w, t):
-        captured.append((node.outputs[0], conv.attrs, node.attrs, xx, w, t))
+        captured.append((node.outputs[0], conv.attrs, node.attrs, xx, w, t,
+                         None))
         return run_pair(conv, node, xx, w, t)
 
+    def record_tail(conv, node, pool, xx, w, t, skip):
+        captured.append((node.outputs[0], conv.attrs, node.attrs, xx, w, t,
+                         skip))
+        return run_tail(conv, node, pool, xx, w, t, skip)
+
     kops.conv_mvau_int_node = record
+    kops.conv_mvau_int_gap_node = record_tail
     try:
         fn = lower_graph(dm_int.graph, "cuda")
     finally:
         kops.conv_mvau_int_node = run_pair
+        kops.conv_mvau_int_gap_node = run_tail
     (f_rec,) = fn(x)
-    check(torch.equal(f_rec, dm_int(x)) and len(captured) == 8,
+    check(torch.equal(f_rec, dm_int(x)) and len(captured) == 8
+          and captured[-1][-1] is not None,
           f"recorded forward: {len(captured)} conv-form calls")
-    total = 0.0
-    for (name, conv, attrs, xx, w, t), r_ms in zip(captured, random_ms):
+    total = fused = 0.0
+    for (name, conv, attrs, xx, w, t, skip), r_ms in zip(captured, random_ms):
         k, st, pd = conv["kernel"], conv["stride"], conv["pad"]
         x8 = xx.to(torch.int8)
-        ms = cuda_ms(torch, lambda: KM.mvau_int_conv(
-            x8, w, t, k, st, pd, attrs.get("out_base", 0),
-            bool(attrs.get("w_packed"))))
+        args = (k, st, pd, attrs.get("out_base", 0),
+                bool(attrs.get("w_packed")))
+        ms = cuda_ms(torch, lambda: KM.mvau_int_conv(x8, w, t, *args))
         total += ms
-        log(f"kernel mvau_int {name.split('_')[0]:4s} on the width-64 artifact's own "
-            f"inputs {tuple(x8.shape)}: {ms:.4f} ms (random codes {r_ms:.4f} "
-            "ms)")
+        log(f"kernel mvau_int {name.split('_')[0]:4s} on the width-64 "
+            f"artifact's own inputs {tuple(x8.shape)}: {ms:.4f} ms (random "
+            f"codes {r_ms:.4f} ms)")
+        if skip is not None:          # r2b, with the GAP epilogue
+            fused = cuda_ms(torch, lambda: KM.mvau_int_conv_gap(
+                x8, w, t, skip, *args))
+            log(f"kernel mvau_int_gap {name.split('_')[0]} on the artifact's "
+                f"own inputs and skip: {fused:.4f} ms")
     log(f"kernel mvau_int sum over the 8 layers on the artifact's own inputs: "
         f"{total:.4f} ms (random codes {sum(random_ms):.4f} ms)")
-    return total
+    return total, fused
 
 
 
@@ -1248,22 +1508,26 @@ def profile_decode(torch, label, step_fn, reps):
     one run.  The profiler's host cost stretches the traced run, so the
     share is a floor for the untraced loop."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     step_fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(**traced_steps()) as prof:
+        step_fn()                     # warm-up step: its events are dropped
+        torch.cuda.synchronize()
+        prof.step()
         start.record()
         for _ in range(reps):
             step_fn()
         end.record()
         end.synchronize()
+        prof.step()
     elapsed = start.elapsed_time(end) / reps
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]   # the step's span
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
@@ -1346,8 +1610,8 @@ def lm_path(torch, np, B, Q, KQ):
     check(per_step == QMM_LAUNCHES_PER_STEP,
           f"qmatmul launches per decode step {per_step}, expected "
           f"{QMM_LAUNCHES_PER_STEP}")
-    check(counts["mvau_int"] == counts["mvau"] == counts["gap"] == 0,
-          f"LM path launched FSL kernels: {counts}")
+    check(counts["mvau_int"] == counts["mvau_int_gap"] == counts["mvau"]
+          == counts["gap"] == 0, f"LM path launched FSL kernels: {counts}")
     for bits in (8, 4):
         w = min(walls[bits])
         log(f"lm generate w{bits}: batch {LM_BATCH}, prompt {LM_PROMPT}, "
@@ -1555,8 +1819,10 @@ def main() -> int:
     dm_int, x = main_path(torch, np, B)
     fsl_counts = dict(B.launch_counts)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
-    mv["real_inputs_ms"] = time_real_inputs(torch, KM, dm_int, x,
-                                            mv.pop("layer_ms"))
+    mv["real_inputs_ms"], fused_real_ms = time_real_inputs(
+        torch, KM, dm_int, x, mv.pop("layer_ms"))
+    next(k for k in kernels
+         if k["name"] == "mvau_int_gap")["real_inputs_ms"] = fused_real_ms
     del dm_int, x
     wide_counts = wide_code_path(torch, np, B)
     qmm, lm_counts = lm_path(torch, np, B, Q, KQ)

@@ -36,17 +36,30 @@ __all__ = ["DeployedModel", "bucket_for", "compile", "lower_graph",
            "normalize_buckets", "pow2_buckets"]
 
 
-def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
+def lower_graph(graph: Graph, device: DeviceLike = None,
+                fold_pools: bool = True) -> Callable:
     """Close a (streamlined) graph over its initializers, moved to
     ``device`` once, and return a ``(*inputs) -> tuple(outputs)`` function.
 
-    Each ``im2col`` that :func:`repro_torch.kernels.ops.conv_pairs` pairs
-    with its ``mvau`` or ``mvau_int`` is folded into one conv-form MVAU
-    call on the im2col node's input: the patch tensor never enters the
-    environment.  The folded im2col outputs are listed in the function's
+    Nodes are folded into one step where the shapes of the graph allow,
+    and their outputs never enter the environment:
+
+    * each ``im2col`` that :func:`repro_torch.kernels.ops.conv_pairs` pairs
+      with its ``mvau`` or ``mvau_int``: one conv-form MVAU call on the
+      im2col node's input, so the patch tensor never exists;
+    * each tail ``im2col -> mvau_int -> add -> global_acc_pool`` that
+      :func:`repro_torch.kernels.ops.gap_tails` matches: one call of the
+      int8 conv MVAU with the residual add and the pool in its epilogue,
+      run where the pool stands (every operand of the chain exists there);
+    * each other ``add -> global_acc_pool`` pair
+      (:func:`repro_torch.kernels.ops.residual_gaps`): one GAP call on both
+      operands of the add.
+
+    ``fold_pools=False`` folds only the ``im2col`` nodes, so each ``add``
+    and ``global_acc_pool`` runs as a step of its own: the lowering the
+    GAP folds are measured against.  The folded intermediates are listed, in node order, in the function's
     ``folded`` attribute.  The graph itself is not changed (the
-    interpreter, :func:`repro_torch.core.graph.execute`, keeps the explicit
-    ``im2col``).
+    interpreter, :func:`repro_torch.core.graph.execute`, keeps every node).
     """
     import functools
 
@@ -64,14 +77,32 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
     input_names = tuple(graph.inputs)
     output_names = tuple(graph.outputs)
     pairs = kops.conv_pairs(nodes, output_names)
+    tails = kops.gap_tails(nodes, output_names) if fold_pools else {}
+    residuals = (kops.residual_gaps(nodes, output_names, tails)
+                 if fold_pools else {})
     convs = {n.outputs[0]: n for n in nodes if n.outputs[0] in pairs}
+    folded = set(pairs)
+    for mv, add in tails.values():
+        folded |= {mv.outputs[0], add.outputs[0]}
+    folded |= {add.outputs[0] for add in residuals.values()}
     steps = []                                    # (fn, input names, outputs)
     for node in nodes:
-        if node.outputs[0] in pairs:
-            continue                              # runs inside its consumer
+        out = node.outputs[0]
+        if out in folded:
+            continue                              # runs inside another step
         conv = (convs.get(node.inputs[0])
                 if node.op in ("mvau", "mvau_int") else None)
-        if conv is not None:
+        if out in tails:
+            mv, add = tails[out]
+            skip = next(i for i in add.inputs if i != mv.outputs[0])
+            steps.append((functools.partial(kops.conv_mvau_int_gap_node,
+                                            convs[mv.inputs[0]], mv, node),
+                          (convs[mv.inputs[0]].inputs[0],)
+                          + tuple(mv.inputs[1:]) + (skip,), node.outputs))
+        elif out in residuals:
+            steps.append((functools.partial(impls[node.op], node),
+                          tuple(residuals[out].inputs), node.outputs))
+        elif conv is not None:
             run = (kops.conv_mvau_int_node if node.op == "mvau_int"
                    else kops.conv_mvau_node)
             steps.append((functools.partial(run, conv, node),
@@ -95,7 +126,8 @@ def lower_graph(graph: Graph, device: DeviceLike = None) -> Callable:
                     env[name] = val
         return tuple(env[o] for o in output_names)
 
-    apply_fn.folded = tuple(pairs)
+    apply_fn.folded = tuple(n.outputs[0] for n in nodes
+                            if n.outputs[0] in folded)
     return apply_fn
 
 
@@ -232,7 +264,7 @@ class DeployedModel:
         from repro_torch.kernels import ops as kops
 
         emulated = self.device.type != "cuda"
-        folded = kops.conv_pairs(self.graph.nodes, self.graph.outputs)
+        folded = kops.folded_into(self.graph.nodes, self.graph.outputs)
         rows = []
         for n in self.graph.nodes:
             rows.append({"tensor": n.outputs[0], "op": n.op,

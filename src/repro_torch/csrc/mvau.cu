@@ -6,7 +6,9 @@
 //                              _unpack_int4_block)   integer datapath
 //   src/repro/kernels/mvau.py  mvau_pallas (_mvau_kernel)   float datapath,
 //                              with its int8 x int8 -> int32 sub-path
-// Both in conv form: the im2col node before them folded in.
+//   src/repro/kernels/gap.py   gap_pallas (_gap_kernel), where it follows a
+//                              residual add of the int8 route's last conv
+// All in conv form: the im2col node before them folded in.
 //
 // What it computes, per output element (m, n):
 //   acc   = sum_k x[m, k] * w[k, n]          (int32, or float32 for floats)
@@ -17,7 +19,12 @@
 // read straight from the NHWC activation: the patch tensor never exists.
 // The GEMM form (M, K) is the 1 x 1 conv over an M x 1 image of K channels.
 // Only the narrow result is written; the accumulator never leaves registers
-// (or, under split K, scratch that stays in the 50 MB L2).
+// (or, under split K, scratch that stays in the 50 MB L2).  The int8
+// kernel's GlobalAccPool epilogue (pool > 0) goes further:
+//   out[b, n] = sum_{oh, ow} (out_base + count[b, oh, ow, n]
+//                             + skip[b, oh, ow, n])          (int32, wraps)
+// so the residual add and the spatial sum after the last conv run in its
+// registers, and the (B, OH, OW, N) codes are never written.
 //
 // Two kernels:
 // * mvau_conv_kernel -- int8 activation codes x int8 (or packed int4)
@@ -151,6 +158,8 @@ constexpr int TC_RING = TC_STAGES * (TC_BM + TC_BN) * TC_BK;   // 65,536 B
 // + the block's threshold rows, staged at the start (up to 64 levels):
 // row stride ts_stride(L) words
 constexpr int TC_SMEM_MAX = TC_RING + TC_BN * 65 * 4;          // 98,816 B
+static_assert(TC_BM * TC_BN * 4 <= TC_RING,
+              "the GAP epilogue stages a 128 x 128 int32 tile in the ring");
 constexpr int TC_MI = 2;   // 64-row wgmma blocks a thread's accumulators span
 constexpr int TC_NJ = 8;   // 8-column accumulator tiles of a warpgroup
 
@@ -262,15 +271,86 @@ __device__ __forceinline__ void unpack_int4x8(uint32_t v, uint32_t& lo,
   hi = __byte_perm(l, h, 0x7362);
 }
 
-template <int VEC, int WK, bool FLOAT_OUT>
+// Word of (row, col) in the staged 128 x 128 int32 skip tile: rows of 512
+// bytes, 8-word column groups XOR-permuted by bits 0-1 of the row, so the
+// 8 rows a warp reads at once (4 distinct row & 3) fill the banks twice,
+// the least for 256 bytes.  Column pairs (2c, 2c + 1) stay adjacent.
+__device__ __forceinline__ int skip_word(int row, int col) {
+  return row * TC_BN + (col ^ ((row & 3) << 3));
+}
+
+// cp.async of the skip operand's rows m0 .. m0 + 127, columns n0 .. n0 +
+// 127 into a 128 x 128 int32 tile (skip_word order) at smem; zero past M
+// and N.  16-byte copies where N and the pointer allow, else 4-byte ones.
+__device__ __forceinline__ void stage_skip(uint8_t* smem,
+                                           const int32_t* __restrict__ skip,
+                                           int m0, int n0, int M, int N,
+                                           int tid) {
+  int32_t* const Ss = reinterpret_cast<int32_t*>(smem);
+  const bool vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(skip) & 15) == 0;
+  for (int e = tid; e < TC_BM * (TC_BN / 4); e += TC_THREADS) {
+    const int row = e / (TC_BN / 4);
+    const int col = 4 * (e % (TC_BN / 4));
+    const int gm = m0 + row;
+    const int gn = n0 + col;
+    const int32_t* src = skip + static_cast<size_t>(gm) * N + gn;
+    int32_t* const dst = Ss + skip_word(row, col);
+    if (vec) {
+      const bool ok = gm < M && gn < N;
+      cp_async16(smem_u32(dst), ok ? src : skip, ok);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool ok = gm < M && gn + c < N;
+        cp_async4(smem_u32(dst + c), ok ? src + c : skip, ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// One step of a reduce-scatter across lanes HALF apart: the lane whose
+// HALF bit is set keeps w[HALF .. 2 HALF - 1] and sends w[0 .. HALF - 1],
+// its partner the other way round; w[0 .. HALF - 1] then holds the pair's
+// sums of the half this lane keeps.
+template <int HALF>
+__device__ __forceinline__ void reduce_scatter(uint32_t (&w)[32], int lane) {
+  const bool upper = (lane & HALF) != 0;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const uint32_t send = upper ? w[k] : w[k + HALF];
+    const uint32_t keep = upper ? w[k + HALF] : w[k];
+    w[k] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+  }
+}
+
+// What the tensor-core kernel's epilogue writes from each output's
+// threshold count.  The integer build serves both of its epilogues: the
+// fused GlobalAccPool is chosen at run time (pool > 0), so r2b's launch
+// runs the same code as the layers before it, warm in the instruction
+// caches, rather than a build of its own that is cold at every forward.
+enum EpiKind {
+  EPI_INT = 0,     // pool == 0: int32 codes out_base + count, (M, N);
+                   // pool > 0: int32 sums over each image's pool rows of
+                   // out_base + count + skip, (M / pool, N)
+  EPI_FLOAT = 1,   // float32 out_scale * (out_base + count) + out_bias, (M, N)
+};
+
+struct Epilogue {
+  int out_base_i;
+  float out_base_f, out_scale, out_bias;
+  const int32_t* skip;   // pool > 0: the (M, N) int32 residual operand
+  int pool;              // output rows per image (OH * OW, dividing 16), or 0
+};
+
+template <int VEC, int WK, int EPI>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
                  const void* __restrict__ w, bool w_vec,
                  const int32_t* __restrict__ t, void* __restrict__ out,
                  int32_t* __restrict__ ws, int* __restrict__ tile_counts,
                  int M, int K, int N, int L, bool bsearch, int kt_per_split,
-                 int out_base_i, float out_base_f, float out_scale,
-                 float out_bias) {
+                 Epilogue e) {
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ int s_last;
   uint8_t* const As = smem;
@@ -543,10 +623,10 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
   // Scratch holds, per tile and split, the block's accumulators in thread
   // order (16 int4 a thread, a warp's stores contiguous): no bounds, no
   // index arithmetic, and the last block reads them back the same way.
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  int4* const part = reinterpret_cast<int4*>(ws) +
+      (static_cast<size_t>(tile) * gridDim.z) * (TC_BM * TC_BN / 4);
   if (gridDim.z > 1) {
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    int4* const part = reinterpret_cast<int4*>(ws) +
-        (static_cast<size_t>(tile) * gridDim.z) * (TC_BM * TC_BN / 4);
 #pragma unroll
     for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
@@ -561,6 +641,13 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
       s_last = atomicAdd(tile_counts + tile, 1) == static_cast<int>(gridDim.z) - 1;
     __syncthreads();
     if (!s_last) return;
+  }
+  // GAP epilogue: the block's 128 x 128 tile of the skip operand goes into
+  // the ring, idle since the mainloop, by cp.async now, and lands while the
+  // other splits' sums are added and the thresholds counted
+  const bool gap = EPI == EPI_INT && e.pool > 0;
+  if (gap) stage_skip(smem, e.skip, m0, n0, M, N, tid);
+  if (gridDim.z > 1) {
     __threadfence();
     for (int z = 0; z < static_cast<int>(gridDim.z); ++z) {
       if (z == static_cast<int>(blockIdx.z)) continue;
@@ -634,6 +721,120 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
     }
 
   const bool pairs = (N & 1) == 0;
+  if (gap) {
+    // ---- GlobalAccPool epilogue: v = out_base + count + skip[gm, gn] in
+    // uint32 (wrapping as the reference's int32 sum does), summed over the
+    // rows of each image; only the (image, column) sums are written.  A
+    // warp's 16 rows of a 64-row block start at a multiple of 16, so with
+    // pool | 16 each image lies inside one warp: its rows gq + 8 h differ
+    // in the low log2(min(pool, 8)) bits of gq (and, for pool = 16, in h),
+    // and are summed by xor shuffles across those lanes (and in the
+    // thread).  Rows past M and columns past N add 0.  The skip comes from
+    // the staged tile, in 8-byte reads: a warp's 8 rows x 32 bytes take 2
+    // wavefronts (see skip_word).
+    cp_async_wait<0>();
+    __syncthreads();
+    const int32_t* const Ss = reinterpret_cast<const int32_t*>(smem);
+#pragma unroll
+    for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = wm + 64 * i + gq + 8 * rr;
+        const int gm = m0 + row;
+#pragma unroll
+        for (int j = 0; j < TC_NJ; ++j) {
+          const int col = wn + 8 * j + 2 * q;
+          const int gn = n0 + col;
+          const int2 sv =
+              *reinterpret_cast<const int2*>(Ss + skip_word(row, col));
+          const uint32_t s0 = static_cast<uint32_t>(sv.x);
+          const uint32_t s1 = static_cast<uint32_t>(sv.y);
+          const uint32_t base = static_cast<uint32_t>(e.out_base_i);
+          int& v0 = acc[i][j][2 * rr];
+          int& v1 = acc[i][j][2 * rr + 1];
+          v0 = gm < M && gn < N
+                   ? static_cast<int>(base + static_cast<uint32_t>(v0) + s0)
+                   : 0;
+          v1 = gm < M && gn + 1 < N
+                   ? static_cast<int>(base + static_cast<uint32_t>(v1) + s1)
+                   : 0;
+        }
+      }
+    int32_t* const pooled = static_cast<int32_t*>(out);
+    constexpr unsigned FULL = 0xffffffffu;
+    if (e.pool == 16) {
+      // One image per warp and 64-row block: add the thread's two row
+      // halves, then reduce-scatter the 32 sums across the 8 lanes of a
+      // column quad (xor 16, 8, 4: each step keeps half and sends half,
+      // 28 shuffles in all).  Lane gq ends with the sums of flat index
+      // 4 gq .. 4 gq + 3 of (i, j, c): i = gq / 4, j = 2 (gq % 4) + k / 2.
+      uint32_t w[TC_MI * TC_NJ * 2];
+#pragma unroll
+      for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+        for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            w[(i * TC_NJ + j) * 2 + c] = static_cast<uint32_t>(acc[i][j][c]) +
+                                         static_cast<uint32_t>(acc[i][j][2 + c]);
+      reduce_scatter<16>(w, lane);
+      reduce_scatter<8>(w, lane);
+      reduce_scatter<4>(w, lane);
+      const int gm = m0 + wm + 64 * (gq >> 2);   // the image's first row
+      if (gm >= M) return;
+      int32_t* const row = pooled + static_cast<size_t>(gm / 16) * N;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int gn = n0 + wn + 8 * (2 * (gq & 3) + kk) + 2 * q;
+        const int c0 = static_cast<int>(w[2 * kk]);
+        const int c1 = static_cast<int>(w[2 * kk + 1]);
+        if (pairs && gn + 1 < N) {
+          *reinterpret_cast<int2*>(row + gn) = make_int2(c0, c1);
+        } else {
+          if (gn < N) row[gn] = c0;
+          if (gn + 1 < N) row[gn + 1] = c1;
+        }
+      }
+      return;
+    }
+    // Smaller images: each lies inside one row half; xor shuffles over the
+    // gq bits that differ inside it, then the lanes whose gq is a multiple
+    // of span hold its sums.
+    const int span = e.pool < 8 ? e.pool : 8;
+    for (int off = 4; off < 4 * span; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+        for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[i][j][r] = static_cast<int>(
+                static_cast<uint32_t>(acc[i][j][r]) +
+                static_cast<uint32_t>(
+                    __shfl_xor_sync(FULL, acc[i][j][r], off)));
+    if ((gq & (span - 1)) != 0) return;
+#pragma unroll
+    for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int gm = m0 + wm + 64 * i + gq + 8 * rr;
+        if (gm >= M) continue;
+        int32_t* const row = pooled + static_cast<size_t>(gm / e.pool) * N;
+#pragma unroll
+        for (int j = 0; j < TC_NJ; ++j) {
+          const int gn = n0 + wn + 8 * j + 2 * q;
+          const int c0 = acc[i][j][2 * rr];
+          const int c1 = acc[i][j][2 * rr + 1];
+          if (pairs && gn + 1 < N) {
+            *reinterpret_cast<int2*>(row + gn) = make_int2(c0, c1);
+          } else {
+            if (gn < N) row[gn] = c0;
+            if (gn + 1 < N) row[gn + 1] = c1;
+          }
+        }
+      }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
@@ -646,15 +847,17 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
         const size_t o = static_cast<size_t>(gm) * N + gn;
         const int c0 = acc[i][j][2 * rr];
         const int c1 = acc[i][j][2 * rr + 1];
-        if constexpr (FLOAT_OUT) {
+        if constexpr (EPI == EPI_FLOAT) {
           // three separately rounded float32 operations, as the reference
           // computes them: no contraction into an FMA
           const float y0 = __fadd_rn(
-              __fmul_rn(out_scale, __fadd_rn(out_base_f, static_cast<float>(c0))),
-              out_bias);
+              __fmul_rn(e.out_scale,
+                        __fadd_rn(e.out_base_f, static_cast<float>(c0))),
+              e.out_bias);
           const float y1 = __fadd_rn(
-              __fmul_rn(out_scale, __fadd_rn(out_base_f, static_cast<float>(c1))),
-              out_bias);
+              __fmul_rn(e.out_scale,
+                        __fadd_rn(e.out_base_f, static_cast<float>(c1))),
+              e.out_bias);
           float* const dst = static_cast<float*>(out) + o;
           if (pairs && gn + 1 < N) {
             *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
@@ -666,28 +869,27 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
           int32_t* const dst = static_cast<int32_t*>(out) + o;
           if (pairs && gn + 1 < N) {
             *reinterpret_cast<int2*>(dst) =
-                make_int2(out_base_i + c0, out_base_i + c1);
+                make_int2(e.out_base_i + c0, e.out_base_i + c1);
           } else {
-            if (gn < N) dst[0] = out_base_i + c0;
-            if (gn + 1 < N) dst[1] = out_base_i + c1;
+            if (gn < N) dst[0] = e.out_base_i + c0;
+            if (gn + 1 < N) dst[1] = e.out_base_i + c1;
           }
         }
       }
     }
 }
 
-template <int VEC, int WK, bool FLOAT_OUT>
+template <int VEC, int WK, int EPI>
 int launch_conv(const int8_t* x, const ConvGeom& g, const void* w,
                 const int32_t* t, void* out, int32_t* ws, int* tile_counts,
                 int M, int K, int N, int L, bool bsearch, int splits,
-                int out_base_i, float out_base_f, float out_scale,
-                float out_bias, cudaStream_t stream) {
-  auto kern = mvau_conv_kernel<VEC, WK, FLOAT_OUT>;
+                const Epilogue& e, cudaStream_t stream) {
+  auto kern = mvau_conv_kernel<VEC, WK, EPI>;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
   const int KT = std::max(1, (K + TC_BK - 1) / TC_BK);
@@ -701,37 +903,36 @@ int launch_conv(const int8_t* x, const ConvGeom& g, const void* w,
   dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN, splits);
   const int smem = TC_RING + (!bsearch && L <= DENSE_MAX_L
                                   ? TC_BN * ts_stride(L) * 4 : 0);
-  kern<<<grid, TC_THREADS, smem, stream>>>(
-      x, g, w, w_vec, t, out, ws, tile_counts, M, K, N, L, bsearch, per,
-      out_base_i, out_base_f, out_scale, out_bias);
+  kern<<<grid, TC_THREADS, smem, stream>>>(x, g, w, w_vec, t, out, ws,
+                                           tile_counts, M, K, N, L, bsearch,
+                                           per, e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the widest A copy that C and the activation's alignment allow
-template <int WK, bool FLOAT_OUT>
+template <int WK, int EPI>
 int launch_conv_any(const void* x, const ConvGeom& g, const void* w,
                     const int32_t* t, void* out, int32_t* ws,
                     int* tile_counts, int M, int K, int N, int L,
-                    bool bsearch, int splits, int out_base_i,
-                    float out_base_f, float out_scale, float out_bias,
+                    bool bsearch, int splits, const Epilogue& e,
                     cudaStream_t stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   const int8_t* xp = static_cast<const int8_t*>(x);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   if (g.C % 16 == 0 && xa % 16 == 0)
-    return launch_conv<16, WK, FLOAT_OUT>(xp, g, w, t, out, ws, tile_counts,
-                                          M, K, N, L, bsearch, splits,
-                                          out_base_i, out_base_f, out_scale,
-                                          out_bias, stream);
+    return launch_conv<16, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K,
+                                    N, L, bsearch, splits, e, stream);
   if (g.C % 4 == 0 && xa % 4 == 0)
-    return launch_conv<4, WK, FLOAT_OUT>(xp, g, w, t, out, ws, tile_counts, M,
-                                         K, N, L, bsearch, splits, out_base_i,
-                                         out_base_f, out_scale, out_bias,
-                                         stream);
-  return launch_conv<1, WK, FLOAT_OUT>(xp, g, w, t, out, ws, tile_counts, M,
-                                       K, N, L, bsearch, splits, out_base_i,
-                                       out_base_f, out_scale, out_bias,
-                                       stream);
+    return launch_conv<4, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K,
+                                   N, L, bsearch, splits, e, stream);
+  return launch_conv<1, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K, N,
+                                 L, bsearch, splits, e, stream);
+}
+
+// the integer MVAU's epilogues: codes, or codes + skip summed per image
+Epilogue int_epilogue(int out_base, const int32_t* skip = nullptr,
+                      int pool = 0) {
+  return Epilogue{out_base, 0.f, 1.f, 0.f, skip, pool};
 }
 
 // the GEMM form (M, K) as a 1 x 1 conv over an M x 1 image of K channels
@@ -1284,17 +1485,50 @@ extern "C" int repro_mvau_int(const void* x, const void* w, int w_kind,
                               int32_t* ws, int* tile_counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bs = L > DENSE_MAX_L;
+  const Epilogue e = int_epilogue(out_base);
   if (w_kind == W_I8)
-    return launch_conv_any<W_I8, false>(x, gemm_geom(M, K), w, t, out, ws,
-                                        tile_counts, M, K, N, L, bs, splits,
-                                        out_base, 0.f, 1.f, 0.f, s);
+    return launch_conv_any<W_I8, EPI_INT>(x, gemm_geom(M, K), w, t, out, ws,
+                                          tile_counts, M, K, N, L, bs, splits,
+                                          e, s);
   if (w_kind == W_PACKED4)
-    return launch_conv_any<W_PACKED4, false>(x, gemm_geom(M, K), w, t, out, ws,
-                                             tile_counts, M, K, N, L, bs,
-                                             splits, out_base, 0.f, 1.f, 0.f,
-                                             s);
+    return launch_conv_any<W_PACKED4, EPI_INT>(x, gemm_geom(M, K), w, t, out,
+                                               ws, tile_counts, M, K, N, L, bs,
+                                               splits, e, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+namespace {
+
+// the conv form's geometry, or false where the window does not fit
+bool conv_geom(int B, int H, int W, int C, int kernel, int stride, int pad,
+               ConvGeom* g) {
+  if (B < 0 || H < 1 || W < 1 || C < 1 || kernel < 1 || stride < 1 ||
+      pad < 0 || H + 2 * pad < kernel || W + 2 * pad < kernel)
+    return false;
+  *g = ConvGeom{H, W, C, kernel, kernel, stride, pad,
+                (H + 2 * pad - kernel) / stride + 1,
+                (W + 2 * pad - kernel) / stride + 1};
+  return true;
+}
+
+int launch_int_conv(const void* x, const void* w, int w_kind,
+                    const int32_t* t, void* out, int B, const ConvGeom& g,
+                    int N, int L, int splits, int32_t* ws, int* tile_counts,
+                    const Epilogue& e, cudaStream_t s) {
+  const int M = B * g.OH * g.OW;
+  const int K = g.KH * g.KW * g.C;
+  const bool bs = L > DENSE_MAX_L;
+  if (w_kind == W_I8)
+    return launch_conv_any<W_I8, EPI_INT>(x, g, w, t, out, ws, tile_counts, M,
+                                          K, N, L, bs, splits, e, s);
+  if (w_kind == W_PACKED4)
+    return launch_conv_any<W_PACKED4, EPI_INT>(x, g, w, t, out, ws,
+                                               tile_counts, M, K, N, L, bs,
+                                               splits, e, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 // Integer MVAU in conv form: the im2col node folded into the kernel.
 // x: (B, H, W, C) int8 NHWC codes.  w_kind: 0 = int8 (K, N), 3 = packed
@@ -1307,25 +1541,36 @@ extern "C" int repro_mvau_int_conv(const void* x, const void* w, int w_kind,
                                    int stride, int pad, int N, int L,
                                    int out_base, int splits, int32_t* ws,
                                    int* tile_counts, void* stream) {
-  if (B < 0 || H < 1 || W < 1 || C < 1 || kernel < 1 || stride < 1 ||
-      pad < 0 || H + 2 * pad < kernel || W + 2 * pad < kernel)
+  ConvGeom g;
+  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int OH = (H + 2 * pad - kernel) / stride + 1;
-  const int OW = (W + 2 * pad - kernel) / stride + 1;
-  const ConvGeom g{H, W, C, kernel, kernel, stride, pad, OH, OW};
-  const int M = B * OH * OW;
-  const int K = kernel * kernel * C;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bs = L > DENSE_MAX_L;
-  if (w_kind == W_I8)
-    return launch_conv_any<W_I8, false>(x, g, w, t, out, ws, tile_counts, M,
-                                        K, N, L, bs, splits, out_base, 0.f,
-                                        1.f, 0.f, s);
-  if (w_kind == W_PACKED4)
-    return launch_conv_any<W_PACKED4, false>(x, g, w, t, out, ws, tile_counts,
-                                             M, K, N, L, bs, splits, out_base,
-                                             0.f, 1.f, 0.f, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_int_conv(x, w, w_kind, t, out, B, g, N, L, splits, ws,
+                         tile_counts, int_epilogue(out_base),
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The same conv-form MVAU with the residual add and GlobalAccPool that
+// follow it folded into its epilogue:
+//   out[b, n] = sum_{oh, ow} (out_base + count[b, oh, ow, n]
+//                             + skip[b, oh, ow, n])
+// in int32 arithmetic that wraps.  skip: (B, OH, OW, N) int32.  out: (B, N)
+// int32; the (B, OH, OW, N) codes are never written.  OH * OW must divide
+// 16 (an image's rows then lie inside one warp's 16).  Other operands as
+// for repro_mvau_int_conv.
+extern "C" int repro_mvau_int_conv_gap(const void* x, const void* w,
+                                       int w_kind, const int32_t* t,
+                                       const int32_t* skip, int32_t* out,
+                                       int B, int H, int W, int C, int kernel,
+                                       int stride, int pad, int N, int L,
+                                       int out_base, int splits, int32_t* ws,
+                                       int* tile_counts, void* stream) {
+  ConvGeom g;
+  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g) || skip == nullptr ||
+      16 % (g.OH * g.OW) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_int_conv(x, w, w_kind, t, out, B, g, N, L, splits, ws,
+                         tile_counts, int_epilogue(out_base, skip, g.OH * g.OW),
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The CUDA-core MVAU in conv form: the float MVAU (mvau_pallas), and the
@@ -1348,13 +1593,10 @@ extern "C" int repro_mvau_core_conv(const void* x, int x_float, const void* w,
                                     float out_scale, float out_bias,
                                     int splits, void* ws, int* tile_counts,
                                     void* stream) {
-  if (B < 0 || H < 1 || W < 1 || C < 1 || kernel < 1 || stride < 1 ||
-      pad < 0 || H + 2 * pad < kernel || W + 2 * pad < kernel || L < 0)
+  ConvGeom g;
+  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g) || L < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int OH = (H + 2 * pad - kernel) / stride + 1;
-  const int OW = (W + 2 * pad - kernel) / stride + 1;
-  const ConvGeom g{H, W, C, kernel, kernel, stride, pad, OH, OW};
-  const int M = B * OH * OW;
+  const int M = B * g.OH * g.OW;
   const int K = kernel * kernel * C;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_float) {
@@ -1392,8 +1634,9 @@ extern "C" int repro_mvau_i8(const int8_t* x, const int8_t* w,
                              const int32_t* t, float* out, int M, int K, int N,
                              int L, float out_base, float out_scale,
                              float out_bias, void* stream) {
-  return launch_conv_any<W_I8, true>(x, gemm_geom(M, K), w, t, out, nullptr,
-                                     nullptr, M, K, N, L, false, 1, 0,
-                                     out_base, out_scale, out_bias,
-                                     static_cast<cudaStream_t>(stream));
+  const Epilogue e{0, out_base, out_scale, out_bias, nullptr, 0};
+  return launch_conv_any<W_I8, EPI_FLOAT>(x, gemm_geom(M, K), w, t, out,
+                                          nullptr, nullptr, M, K, N, L, false,
+                                          1, e,
+                                          static_cast<cudaStream_t>(stream));
 }

@@ -34,9 +34,11 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each kernel in this process: every wrapper adds one where it
 # launches its kernel and nowhere else (chip_smoke.py reads these to show
-# the main path went through the kernels).
-launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau": 0, "gap": 0,
-                                  "qmatmul": 0}
+# the main path went through the kernels).  ``mvau_int_gap`` counts the
+# launches of the integer conv MVAU that carry the GlobalAccPool epilogue
+# (``mvau.mvau_int_conv_gap``); each of them is an ``mvau_int`` launch too.
+launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 0,
+                                  "gap": 0, "qmatmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -146,17 +148,20 @@ class KernelLibrary:
         self.mvau_int.argtypes = [p, p, i, p, p] + [i] * 6 + [p, p, p]
         self.mvau_int_conv = lib.repro_mvau_int_conv
         self.mvau_int_conv.argtypes = [p, p, i, p, p] + [i] * 11 + [p, p, p]
+        self.mvau_int_conv_gap = lib.repro_mvau_int_conv_gap
+        self.mvau_int_conv_gap.argtypes = ([p, p, i, p, p, p] + [i] * 11
+                                           + [p, p, p])
         self.mvau_core_conv = lib.repro_mvau_core_conv
         self.mvau_core_conv.argtypes = ([p, i, p, i, p, p] + [i] * 10
                                         + [f, f, f, i, p, p, p])
         self.mvau_i8 = lib.repro_mvau_i8
         self.mvau_i8.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]
         self.gap = lib.repro_gap
-        self.gap.argtypes = [p, i, p, i, i, i, p]
+        self.gap.argtypes = [p, p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
         self.qmatmul.argtypes = [p, i, p, i, p, p, p, p] + [i] * 7 + [p]
-        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_core_conv,
-                   self.mvau_i8, self.gap, self.qmatmul):
+        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_int_conv_gap,
+                   self.mvau_core_conv, self.mvau_i8, self.gap, self.qmatmul):
             fn.restype = ctypes.c_int
         self._lib = lib
 

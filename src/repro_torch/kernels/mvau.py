@@ -13,7 +13,9 @@ Counterpart of the JAX package's ``kernels/mvau.py`` (``mvau_int_pallas``,
 
 Both read conv patch rows straight from the NHWC activation
 (:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col`` before them
-folded into their loads); the GEMM form (M, K) is their 1 x 1 case.  A
+folded into their loads); the GEMM form (M, K) is their 1 x 1 case.  The
+tensor-core kernel also folds a residual ``add`` and the GlobalAccPool
+after it into its epilogue (:func:`mvau_int_conv_gap`).  A
 wrapper takes the plain version only for tensors that lie on the CPU; for
 CUDA tensors it launches a kernel or raises.  It allocates the output (and
 any split-K scratch) with ``torch.empty``, launches on PyTorch's current
@@ -29,11 +31,12 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import build as B
+from repro_torch.kernels import gap as kgap
 from repro_torch.kernels import ref
 
-__all__ = ["mvau_int", "mvau_int_conv", "mvau", "mvau_conv", "mvau_int_plain",
-           "mvau_int_conv_plain", "mvau_plain", "mvau_conv_plain", "tc_splits",
-           "core_splits"]
+__all__ = ["mvau_int", "mvau_int_conv", "mvau_int_conv_gap", "mvau", "mvau_conv",
+           "mvau_int_plain", "mvau_int_conv_plain", "mvau_int_conv_gap_plain",
+           "mvau_plain", "mvau_conv_plain", "tc_splits", "core_splits"]
 
 # weight kinds of csrc/mvau.cu
 _W_KIND = {torch.int8: 0, torch.int32: 1, torch.int16: 4}
@@ -303,6 +306,65 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
         thresholds.shape[1], int(out_base), splits, ws, counts, _stream())
     B.check(rc, "mvau_int")
     B.launch_counts["mvau_int"] += 1
+    return out
+
+
+def mvau_int_conv_gap_plain(x: torch.Tensor, w: torch.Tensor,
+                            thresholds: torch.Tensor, skip: torch.Tensor,
+                            kernel: int, stride: int, pad: int,
+                            out_base: int = 0,
+                            w_packed: bool = False) -> torch.Tensor:
+    """Plain version of the fused tail: :func:`mvau_int_conv_plain`, plus
+    ``skip``, then the spatial sum (``gap_plain``) -> (B, N) int32."""
+    y = mvau_int_conv_plain(x, w, thresholds, kernel, stride, pad, out_base,
+                            w_packed)
+    return kgap.gap_plain(y, skip)
+
+
+def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
+                      thresholds: torch.Tensor, skip: torch.Tensor,
+                      kernel: int, stride: int, pad: int, out_base: int = 0,
+                      w_packed: bool = False, *,
+                      splits: Optional[int] = None) -> torch.Tensor:
+    """The int8 conv-form MVAU with the residual add and GlobalAccPool after
+    it folded into its epilogue: ``Σ_{oh, ow} (mvau_int_conv(x, ...) +
+    skip)`` -> (B, N) int32, wrapping like the reference's int32 sums.
+
+    Operands as for :func:`mvau_int_conv`, on the tensor cores only (int8
+    codes, int8 or packed int4 weights); ``skip`` is an integer tensor of
+    the conv output's shape (B, OH, OW, N), added as int32.  OH·OW must
+    divide 16: each image's rows then lie inside one warp's 16 accumulator
+    rows, summed in registers and by shuffles, and the (B, OH, OW, N) codes
+    are never written.  Counts one ``mvau_int`` launch (and one
+    ``mvau_int_gap``)."""
+    if not x.is_cuda:
+        return mvau_int_conv_gap_plain(x, w, thresholds, skip, kernel, stride,
+                                       pad, out_base, w_packed)
+    dev = x.device
+    kernel, stride, pad = int(kernel), int(stride), int(pad)
+    b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
+                                        w_packed)
+    _check_on(dev, x=x, w=w, thresholds=thresholds, skip=skip)
+    _, w_kind = _w_kind(w, w_packed)
+    _require(_on_tensor_cores(x, w_kind), "the fused GAP epilogue runs on the "
+             "int8 tensor cores: x must be int8 codes, w int8 or packed int4")
+    _require(16 % (oh * ow) == 0, f"the fused GAP epilogue needs OH·OW to "
+             f"divide 16, got {oh}x{ow}")
+    _require(tuple(skip.shape) == (b, oh, ow, n),
+             f"skip {tuple(skip.shape)} != conv output {(b, oh, ow, n)}")
+    _require(skip.dtype in (torch.int8, torch.uint8, torch.int16, torch.int32),
+             f"skip must be integer codes of at most 32 bits, got {skip.dtype}")
+    skip = skip.to(torch.int32)
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    splits, ws, counts = _split_scratch(b * oh * ow, n, kernel * kernel * c,
+                                        dev, splits)
+    rc = B.library().mvau_int_conv_gap(
+        x.data_ptr(), w.data_ptr(), w_kind, thresholds.data_ptr(),
+        skip.data_ptr(), out.data_ptr(), b, h, wd, c, kernel, stride, pad, n,
+        thresholds.shape[1], int(out_base), splits, ws, counts, _stream())
+    B.check(rc, "mvau_int_gap")
+    B.launch_counts["mvau_int"] += 1
+    B.launch_counts["mvau_int_gap"] += 1
     return out
 
 

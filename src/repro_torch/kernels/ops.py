@@ -10,6 +10,8 @@ versions in :mod:`repro_torch.kernels.ref`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import quant as Q
@@ -18,8 +20,10 @@ from repro_torch.kernels import mvau as kmvau
 from repro_torch.kernels import qmatmul as kqmm
 from repro_torch.kernels import ref
 
-__all__ = ["mvau", "mvau_conv", "mvau_int", "mvau_int_conv", "qmatmul", "gap",
-           "conv_pairs", "conv_mvau_node", "conv_mvau_int_node",
+__all__ = ["mvau", "mvau_conv", "mvau_int", "mvau_int_conv",
+           "mvau_int_conv_gap", "qmatmul", "gap", "conv_pairs", "gap_tails",
+           "residual_gaps", "folded_into", "conv_mvau_node",
+           "conv_mvau_int_node", "conv_mvau_int_gap_node", "tail_fits",
            "graph_op_impls", "kernel_dispatch", "mvau_node", "mvau_int_node"]
 
 
@@ -91,6 +95,21 @@ def mvau_int_conv(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
                                out_base=int(out_base), w_packed=w_packed)
 
 
+def mvau_int_conv_gap(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
+                      thresholds_int: torch.Tensor, skip: torch.Tensor,
+                      kernel: int, stride: int, pad: int, out_base: int = 0,
+                      w_packed: bool = False) -> torch.Tensor:
+    """Conv-form int8 MVAU, plus ``skip``, summed over each image: (B, N)
+    int32, the (B, OH, OW, N) codes never written."""
+    n = w_codes.shape[1] * (2 if w_packed else 1)
+    t2 = _thresholds_2d(torch.as_tensor(thresholds_int, dtype=torch.int32,
+                                        device=x_nhwc.device), n)
+    return kmvau.mvau_int_conv_gap(x_nhwc.contiguous(), w_codes.contiguous(),
+                                   t2.contiguous(), skip.contiguous(), kernel,
+                                   stride, pad, out_base=int(out_base),
+                                   w_packed=w_packed)
+
+
 def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
             bits: int = 8) -> torch.Tensor:
     """Weight-only quantized matmul (w8a16 / w4a16 serving path)."""
@@ -101,24 +120,31 @@ def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
     return y.reshape(*lead, n)
 
 
-def gap(x: torch.Tensor) -> torch.Tensor:
-    """GlobalAccPool spatial sum (N, H, W, C) -> (N, C)."""
-    return kgap.gap(x.contiguous())
+def gap(x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GlobalAccPool spatial sum (N, H, W, C) -> (N, C), of ``x + skip``
+    where a residual add is folded in."""
+    return kgap.gap(x.contiguous(),
+                    None if skip is None else skip.contiguous())
 
 
 # ---------------------------------------------------------------------------
 # Graph-node lowering (core.deploy dispatches HW ops onto these kernels)
 # ---------------------------------------------------------------------------
+def _readers(nodes) -> dict:
+    readers: dict = {}
+    for n in nodes:
+        for name in n.inputs:
+            readers.setdefault(name, []).append(n)
+    return readers
+
+
 def conv_pairs(nodes, outputs) -> dict:
     """``{im2col output: the MVAU node it feeds}`` for every ``im2col``
     whose output is read by exactly one node, an ``mvau`` or ``mvau_int``
     that takes it as its activation, and is not a graph output.  The
     lowering folds each such pair into one conv-form MVAU call, so the
     patch tensor never exists; other ``im2col`` nodes run as they are."""
-    readers: dict = {}
-    for n in nodes:
-        for name in n.inputs:
-            readers.setdefault(name, []).append(n)
+    readers = _readers(nodes)
     pairs = {}
     for n in nodes:
         if n.op != "im2col" or n.outputs[0] in outputs:
@@ -128,6 +154,94 @@ def conv_pairs(nodes, outputs) -> dict:
                 and users[0].inputs[0] == n.outputs[0]):
             pairs[n.outputs[0]] = users[0]
     return pairs
+
+
+def _sole_reader(readers, outputs, tensor, op):
+    """The one node reading ``tensor`` if it is an ``op`` node and
+    ``tensor`` is not a graph output, else None."""
+    users = readers.get(tensor, [])
+    if tensor in outputs or len(users) != 1 or users[0].op != op:
+        return None
+    return users[0]
+
+
+def _pool_reader(readers, outputs, tensor):
+    pool = _sole_reader(readers, outputs, tensor, "global_acc_pool")
+    if pool is None or tuple(pool.attrs.get("axes", ())) != (1, 2):
+        return None
+    return pool
+
+
+def gap_tails(nodes, outputs) -> dict:
+    """``{global_acc_pool output: (mvau_int node, add node)}`` for every
+    tail ``im2col -> mvau_int -> add -> global_acc_pool`` that the lowering
+    runs as one launch of the int8 conv kernel with its GlobalAccPool
+    epilogue (:func:`conv_mvau_int_gap_node`).  It matches where
+
+    * the ``mvau_int`` is ``int8_ok`` and its ``im2col`` is folded into it
+      (:func:`conv_pairs`);
+    * its output's only reader is an ``add`` of two tensors, the other of
+      which is the skip operand;
+    * the ``add`` output's only reader is a ``global_acc_pool`` over axes
+      (1, 2) whose ``spatial_size`` (OH·OW) divides 16;
+    * neither intermediate is a graph output.
+
+    The graph gives no tensor shapes, so the skip's shape and dtype are
+    checked where they exist, on each call of the step
+    (:func:`tail_fits`): a skip that broadcasts or is float runs the MVAU,
+    the add and the GAP kernel in turn.  The integer lowering and the
+    exporters only build adds of codes of one shape, where the dispatch
+    table's labels hold.  Every other tail keeps its own steps (see
+    :func:`residual_gaps`)."""
+    readers = _readers(nodes)
+    pairs = conv_pairs(nodes, outputs)
+    tails = {}
+    for n in nodes:
+        if (n.op != "mvau_int" or not n.attrs.get("int8_ok")
+                or n.inputs[0] not in pairs):
+            continue
+        y = n.outputs[0]
+        add = _sole_reader(readers, outputs, y, "add")
+        if add is None or len(add.inputs) != 2 or add.inputs.count(y) != 1:
+            continue
+        pool = _pool_reader(readers, outputs, add.outputs[0])
+        size = int(pool.attrs.get("spatial_size", 0)) if pool else 0
+        if size >= 1 and 16 % size == 0:
+            tails[pool.outputs[0]] = (n, add)
+    return tails
+
+
+def residual_gaps(nodes, outputs, tails=None) -> dict:
+    """``{global_acc_pool output: add node}`` for every ``add`` of two
+    tensors whose output's only reader is a ``global_acc_pool`` over axes
+    (1, 2) and is not a graph output, outside the fused ``tails``
+    (:func:`gap_tails`): the lowering hands both operands to the GAP
+    kernel, which adds them as it sums."""
+    readers = _readers(nodes)
+    tails = gap_tails(nodes, outputs) if tails is None else tails
+    out = {}
+    for n in nodes:
+        if n.op != "add" or len(n.inputs) != 2:
+            continue
+        pool = _pool_reader(readers, outputs, n.outputs[0])
+        if pool is not None and pool.outputs[0] not in tails:
+            out[pool.outputs[0]] = n
+    return out
+
+
+def folded_into(nodes, outputs) -> dict:
+    """``{tensor: the node whose step computes it}`` for every node the
+    lowering folds into another's step: an ``im2col`` into its MVAU; a fused
+    tail's ``add`` and ``global_acc_pool`` into its ``mvau_int``; a residual
+    ``add`` into its ``global_acc_pool``."""
+    into = dict(conv_pairs(nodes, outputs))
+    tails = gap_tails(nodes, outputs)
+    for pooled, (mv, add) in tails.items():
+        into[add.outputs[0]] = into[pooled] = mv
+    by_output = {n.outputs[0]: n for n in nodes}
+    for pooled, add in residual_gaps(nodes, outputs, tails).items():
+        into[add.outputs[0]] = by_output[pooled]
+    return into
 
 
 def kernel_dispatch(node, emulated: bool, folded=None) -> str:
@@ -140,17 +254,21 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     name the CUDA kernels where the reference names Pallas.  Every
     ``mvau_int`` node runs the fused kernel on the card, whatever its
     table length: the reference's L <= 512 gate is a TPU choice, and the
-    CUDA kernels binary-search long tables.  ``folded`` is the MVAU node
-    an ``im2col`` node is folded into (see :func:`conv_pairs`), or None;
-    on the card a folded ``im2col`` carries its MVAU's label, since that
-    kernel's conv-form loader reads the patches.
+    CUDA kernels binary-search long tables.  ``folded`` is the node this
+    one is folded into (see :func:`folded_into`), or None; on the card a
+    folded node carries that node's label, since its kernel does the
+    work: a folded ``im2col`` its MVAU's (the
+    conv-form loader reads the patches), a fused tail's ``add`` and
+    ``global_acc_pool`` their ``mvau_int``'s (the GAP epilogue), a residual
+    ``add`` its GAP's.
 
     * ``fused-cuda`` — the fused integer MVAU on the int8 tensor cores
       (``csrc/mvau.cu`` ``mvau_conv_kernel``);
     * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores
       (``mvau_core_kernel``), for codes that do not fit int8;
     * ``cuda``       — the float MVAU (``mvau_core_kernel``) and
-      GlobalAccPool kernels;
+      GlobalAccPool (``gap_kernel``, with a residual add folded in or not)
+      kernels;
     * ``f32-gemm``   — exact integer compute through the f32 GEMM
       (proof obligation ``acc_f32_exact`` discharged at lowering time);
     * ``ref-oracle`` — the plain exact version;
@@ -159,6 +277,8 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
       in the reference so the two tables compare.
     """
     op = node.op
+    if folded is not None and not emulated:
+        return kernel_dispatch(folded, emulated)
     if op == "mvau_int":
         if not emulated:
             return ("fused-cuda" if node.attrs.get("int8_ok")
@@ -179,8 +299,6 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
         return "int-shift"
     if op in ("mvau", "global_acc_pool"):
         return "ref-oracle" if emulated else "cuda"
-    if op == "im2col" and folded is not None and not emulated:
-        return kernel_dispatch(folded, emulated)
     return "xla"
 
 
@@ -233,6 +351,58 @@ def conv_mvau_int_node(conv, node, x, w, t):
                          w_packed=bool(node.attrs.get("w_packed")))
 
 
+def tail_fits(conv, node, x, w, skip) -> bool:
+    """Whether a matched tail's operands take the GAP epilogue: ``skip``
+    holds integer codes of at most 32 bits in the MVAU output's own shape
+    (B, OH, OW, N), and OH·OW divides 16.  The graph leaves shapes to run
+    time, so the tail's step asks this on every call."""
+    k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
+    b, h, wd = x.shape[:3]
+    oh, ow = (h + 2 * p - k) // s + 1, (wd + 2 * p - k) // s + 1
+    n = w.shape[1] * (2 if node.attrs.get("w_packed") else 1)
+    return (tuple(skip.shape) == (b, oh, ow, n) and 16 % (oh * ow) == 0
+            and skip.dtype in (torch.int8, torch.uint8, torch.int16,
+                               torch.int32))
+
+
+def conv_mvau_int_gap_node(conv, node, pool, x, w, t, skip):
+    """Executor of a fused tail ``im2col -> mvau_int -> add ->
+    global_acc_pool`` (see :func:`gap_tails`) on the im2col node's input
+    ``x``, the MVAU's weights and thresholds and the add's other operand
+    ``skip``.  On the card, where the operands fit (:func:`tail_fits`), one
+    launch of the int8 conv kernel with its GAP epilogue.  Off the card, or
+    for a skip that broadcasts or is float, the MVAU takes its own route,
+    as labelled, and the sum of its output and ``skip`` is pooled as
+    :func:`_gap_node` pools it (on the card, the GAP kernel)."""
+    if not x.is_cuda or not tail_fits(conv, node, x, w, skip):
+        y = conv_mvau_int_node(conv, node, x, w, t)
+        return _gap_node(pool, y, skip)
+    k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
+    x, w = _kernel_codes(node, x, w)
+    return mvau_int_conv_gap(x, w, t, skip, k, s, p,
+                             out_base=node.attrs.get("out_base", 0),
+                             w_packed=bool(node.attrs.get("w_packed")))
+
+
+def _gap_node(node, x, skip=None):
+    """Executor of a ``global_acc_pool`` node, with the residual ``add``
+    before it folded in where ``skip`` is given (see
+    :func:`residual_gaps`).  An operand that broadcasts is added first, as
+    the ``add`` node would; then the GAP kernel pools axes (1, 2) of a 4-D
+    tensor (with ``skip`` folded in where it still stands), and a plain sum
+    any other axes."""
+    axes = tuple(node.attrs["axes"])
+    if skip is not None and skip.shape != x.shape:
+        x, skip = x + skip, None
+    if x.ndim == 4 and axes == (1, 2):
+        return gap(x, skip)
+    if skip is not None:
+        x = x + skip
+    if not x.dtype.is_floating_point:
+        return torch.sum(x.to(torch.int32), dim=axes).to(torch.int32)
+    return torch.sum(x, dim=axes)
+
+
 def conv_mvau_node(conv, node, x, w, t):
     """Executor of a folded ``im2col`` -> ``mvau`` pair on the im2col
     node's input ``x``: on the card the CUDA-core kernel reads the patch
@@ -273,14 +443,6 @@ def graph_op_impls():
         return ref.requantize(q, node.attrs["shift"], node.attrs["bits"],
                               node.attrs["frac_bits"],
                               node.attrs.get("signed", True))
-
-    def _gap_node(node, x):
-        axes = tuple(node.attrs["axes"])
-        if x.ndim == 4 and axes == (1, 2):
-            return gap(x)
-        if not x.dtype.is_floating_point:
-            return torch.sum(x.to(torch.int32), dim=axes).to(torch.int32)
-        return torch.sum(x, dim=axes)
 
     return {"mvau": mvau_node, "mvau_int": mvau_int_node,
             "matmul_int": _matmul_int_node,

@@ -249,10 +249,12 @@ def test_wide_code_artifacts_card_equal_cpu(card, config):
               if r["op"] in ("im2col", "mvau_int")}
     assert labels == {("im2col", "fused-cuda-core"),
                       ("mvau_int", "fused-cuda-core")}
-    assert len(dm.apply.folded) == 8
+    assert len(dm.apply.folded) == 9 and "r2b_res" in dm.apply.folded
     before = dict(B.launch_counts)
     f = dm(x)
     assert B.launch_counts["mvau_int"] - before["mvau_int"] == 8
+    assert B.launch_counts["gap"] - before["gap"] == 1
+    assert B.launch_counts["mvau_int_gap"] == before["mvau_int_gap"]
     assert torch.equal(f.cpu(), dm_cpu(x))
     assert dm.weight_bytes() == dm_cpu.weight_bytes()
 
@@ -260,8 +262,9 @@ def test_wide_code_artifacts_card_equal_cpu(card, config):
 @pytest.mark.cuda
 def test_f32_artifact_folds_every_im2col_on_the_card(card):
     """The f32 artifact's 8 im2col nodes are folded into the float conv
-    form: its features equal the interpreter's (explicit im2col) and the
-    int artifact's, bit for bit, with 8 mvau launches."""
+    form and its residual add into the GAP kernel: its features equal the
+    interpreter's (explicit im2col) and the int artifact's, bit for bit,
+    with 8 mvau launches and 1 gap launch."""
     from repro_torch.core.graph import execute
 
     qcfg = repro_torch.QuantConfig.paper_w6a4()
@@ -270,12 +273,14 @@ def test_f32_artifact_folds_every_im2col_on_the_card(card):
     x = Q.fake_quant(_t(np.random.default_rng(1).random((3, 32, 32, 3))
                         .astype(np.float32), card), qcfg.act)
     dm32 = repro_torch.compile(params, qcfg, recipe="resnet9")
-    assert len(dm32.apply.folded) == 8
+    assert len(dm32.apply.folded) == 9 and "r2b_res" in dm32.apply.folded
     assert {r["kernel"] for r in dm32.dispatch_table()
-            if r["op"] in ("im2col", "mvau")} == {"cuda"}
-    before = B.launch_counts["mvau"]
+            if r["op"] in ("im2col", "mvau", "global_acc_pool")
+            or r["tensor"] == "r2b_res"} == {"cuda"}
+    before = dict(B.launch_counts)
     f = dm32(x)
-    assert B.launch_counts["mvau"] - before == 8
+    assert B.launch_counts["mvau"] - before["mvau"] == 8
+    assert B.launch_counts["gap"] - before["gap"] == 1
     (interp,) = execute(dm32.graph, {"x": x})
     assert torch.equal(f, interp)
     dm = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
@@ -300,6 +305,169 @@ def test_gap_kernel_and_wrapper_checks(card):
                     _t(np.zeros((2, 15), np.int32), card))   # N mismatch
 
 
+def _tail_inputs(rng, batch, side, c, n, dev, packed=False, wrap=False):
+    x = _t(rng.integers(0, 16, size=(batch, side, side, c)).astype(np.int8),
+           dev)
+    lim = 8 if packed else 32
+    w = torch.from_numpy(rng.integers(-lim, lim, size=(9 * c, n)
+                                      ).astype(np.int32))
+    w = (Q.pack_int4(w) if packed else w.to(torch.int8)).to(dev)
+    t = _t(np.sort(rng.integers(-2000, 2000, size=(n, 15)), axis=1
+                   ).astype(np.int32), dev)
+    lo, hi = (2**31 - 40, 2**31) if wrap else (0, 16)
+    skip = _t(rng.integers(lo, hi, size=(batch, side, side, n)
+                           ).astype(np.int32), dev)
+    return x, w, t, skip
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 64])
+def test_fused_gap_kernel_equals_plain_at_r2b(card, batch):
+    """The conv MVAU with its GAP epilogue at the main path's r2b shape (4 x
+    4 x 512 in, N 512, K 4608), planned and forced K splits 1, 2, 8, a skip
+    near 2^31 that makes the int32 sums wrap: bit for bit against the plain
+    chain, the same bits on a repeated launch, one mvau_int launch each,
+    tile counters left at zero."""
+    rng = np.random.default_rng(batch)
+    for wrap in (False, True):
+        x, w, t, skip = _tail_inputs(rng, batch, 4, 512, 512, card, wrap=wrap)
+        want = KM.mvau_int_conv_gap_plain(x, w, t, skip, 3, 1, 1, -3)
+        for splits in (None, 1, 2, 8):
+            before = dict(B.launch_counts)
+            got = KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1, -3,
+                                       splits=splits)
+            assert B.launch_counts["mvau_int"] == before["mvau_int"] + 1
+            assert B.launch_counts["mvau_int_gap"] == \
+                before["mvau_int_gap"] + 1
+            assert B.launch_counts["gap"] == before["gap"]
+            assert got.shape == (batch, 512) and torch.equal(got, want)
+            assert torch.equal(got, KM.mvau_int_conv_gap(
+                x, w, t, skip, 3, 1, 1, -3, splits=splits))
+        torch.cuda.synchronize()
+        assert int(B.tile_counters(card, 0).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [1, 2, 4])
+def test_fused_gap_kernel_equals_plain_small(card, side):
+    """OH·OW 1, 4 and 16; C 8 and 24 (4- and 1-byte loads); N 24 and 72
+    (ragged column tiles); batch 3 and 37 (a ragged row tile); int8 and
+    packed int4 weights; forced splits: bit for bit."""
+    rng = np.random.default_rng(side)
+    for c, n, batch in ((8, 24, 3), (24, 72, 37)):
+        for packed in (False, True):
+            x, w, t, skip = _tail_inputs(rng, batch, side, c, n, card, packed)
+            want = KM.mvau_int_conv_gap_plain(x, w, t, skip, 3, 1, 1, 2,
+                                              packed)
+            for splits in (None, 2, 3):
+                assert torch.equal(KM.mvau_int_conv_gap(
+                    x, w, t, skip, 3, 1, 1, 2, packed, splits=splits), want)
+
+
+@pytest.mark.cuda
+def test_fused_gap_wrapper_raises_on_the_card(card):
+    """OH·OW = 64 (an 8 x 8 map), int32 codes (not the tensor cores), a skip
+    of another shape or a float skip: ValueError, no launch."""
+    rng = np.random.default_rng(9)
+    x, w, t, skip = _tail_inputs(rng, 2, 8, 8, 24, card)
+    x4, _, _, skip4 = _tail_inputs(rng, 2, 4, 8, 24, card)
+    before = dict(B.launch_counts)
+    for bad in ((x, w, t, skip), (x4.to(torch.int32), w, t, skip4),
+                (x4, w, t, skip4[:, :2]), (x4, w, t, skip4.float())):
+        with pytest.raises(ValueError):
+            KM.mvau_int_conv_gap(*bad, 3, 1, 1)
+    assert B.launch_counts == before
+
+
+@pytest.mark.cuda
+def test_residual_gap_kernel_equals_plain(card):
+    """The GAP kernel with the residual add folded in: int8 (the add wraps
+    in int8) and int32 bit for bit; float32 on the grid bit for bit, off it
+    within rtol/atol 1e-5 (float32 sums in another order)."""
+    rng = np.random.default_rng(5)
+    for shape in ((64, 4, 4, 512), (3, 5, 7, 24)):
+        for dt in (np.int8, np.int32):
+            info = np.iinfo(dt)
+            a = _t(rng.integers(info.max - 60, info.max, size=shape
+                                ).astype(dt), card)
+            b = _t(rng.integers(0, 60, size=shape).astype(dt), card)
+            before = B.launch_counts["gap"]
+            got = KG.gap(a, b)
+            assert B.launch_counts["gap"] == before + 1
+            assert got.dtype == torch.int32
+            assert torch.equal(got, KG.gap_plain(a, b))
+        a, b = (_t(rng.integers(0, 64, size=shape) * 0.25, card).float()
+                for _ in range(2))
+        assert torch.equal(KG.gap(a, b), KG.gap_plain(a, b))
+        a, b = (_t(rng.uniform(-2, 2, size=shape).astype(np.float32), card)
+                for _ in range(2))
+        assert torch.allclose(KG.gap(a, b), KG.gap_plain(a, b), rtol=1e-5,
+                              atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_ok", [True, False])
+@pytest.mark.parametrize("skip", [((2, 4, 4, 5), np.int32),
+                                  ((2, 1, 1, 5), np.int32),
+                                  ((1, 4, 4, 5), np.int8), ((5,), np.int32),
+                                  ((2, 4, 4, 5), np.float32)])
+def test_skip_that_broadcasts_or_is_float_on_the_card(card, int8_ok, skip):
+    """A hand-built ``im2col -> mvau_int -> add -> global_acc_pool`` tail
+    lowered on the card: only an integer skip of the MVAU output's shape
+    takes the GAP epilogue (``int8_ok``) or the GAP kernel's residual
+    operand; a skip that broadcasts or is float is added first and pooled
+    by the GAP kernel.  One MVAU launch and one pooling launch each, and
+    card == CPU bit for bit."""
+    from repro_torch.core import graph as G
+    from repro_torch.core.deploy import lower_graph
+
+    shape, dtype = skip
+    rng = np.random.default_rng(6)
+    nodes = [G.Node("im2col", ["x"], ["col"],
+                    {"kernel": 3, "stride": 1, "pad": 1}),
+             G.Node("mvau_int", ["col", "w", "t"], ["y"],
+                    {"out_base": 0, "int8_ok": int8_ok, "w_packed": False,
+                     "acc_f32_exact": True}),
+             G.Node("add", ["y", "s"], ["r"]),
+             G.Node("global_acc_pool", ["r"], ["f"],
+                    {"axes": [1, 2], "spatial_size": 16})]
+    init = {"w": rng.integers(-8, 8, size=(36, 5)).astype(np.int8),
+            "t": np.sort(rng.integers(-100, 100, size=(5, 15)),
+                         axis=1).astype(np.int32)}
+    g = G.Graph(nodes, ["x", "s"], ["f"], init, name="tail")
+    x = rng.integers(0, 16, size=(2, 4, 4, 4)).astype(np.int32)
+    s = rng.integers(-9, 9, size=shape).astype(dtype)
+    fused = int8_ok and shape == (2, 4, 4, 5) and dtype != np.float32
+    before = dict(B.launch_counts)
+    (got,) = lower_graph(g, card)(_t(x, card), _t(s, card))
+    delta = {k: B.launch_counts[k] - before[k] for k in before}
+    assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused), "mvau": 0,
+                     "gap": 1 - int(fused), "qmatmul": 0}
+    (want,) = lower_graph(g, "cpu")(_t(x, "cpu"), _t(s, "cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_w6a4_width64_fuses_the_tail_on_the_card(card):
+    """The w6a4 int artifact at the paper's width 64: 8 mvau_int launches a
+    forward, one of them with the GAP epilogue, and no gap launch; card ==
+    CPU bit for bit."""
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 64,
+                                 device=card)
+    cpu = {k: {kk: v.cpu() for kk, v in b.items()} for k, b in params.items()}
+    x = np.random.default_rng(1).random((8, 32, 32, 3)).astype(np.float32)
+    dm = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    dm_cpu = repro_torch.compile(cpu, qcfg, recipe="resnet9", datapath="int",
+                                 device="cpu")
+    before = dict(B.launch_counts)
+    f = dm(x)
+    delta = {k: B.launch_counts[k] - before[k] for k in before}
+    assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau": 0, "gap": 0,
+                     "qmatmul": 0}
+    assert torch.equal(f.cpu(), dm_cpu(x))
+
+
 @pytest.mark.cuda
 def test_main_path_card_equals_cpu(card):
     qcfg = repro_torch.QuantConfig.paper_w6a4()
@@ -314,14 +482,17 @@ def test_main_path_card_equals_cpu(card):
     before = dict(B.launch_counts)
     f = dm(x)
     assert B.launch_counts["mvau_int"] - before["mvau_int"] == 8
-    assert B.launch_counts["gap"] - before["gap"] == 1
+    assert B.launch_counts["mvau_int_gap"] - before["mvau_int_gap"] == 1
+    assert B.launch_counts["gap"] - before["gap"] == 0
     assert torch.equal(f.cpu(), dm_cpu(x))
     assert torch.equal(f, dm32(Q.fake_quant(_t(x, card), qcfg.act)))
-    # every im2col is folded into the conv-form kernel on the card
+    # every im2col is folded into the conv-form kernel on the card, and the
+    # last residual add and the GAP into r2b's epilogue
     labels = {(r["op"], r["kernel"]) for r in dm.dispatch_table()
-              if r["op"] in ("im2col", "mvau_int")}
-    assert labels == {("im2col", "fused-cuda"), ("mvau_int", "fused-cuda")}
-    assert len(dm.apply.folded) == 8
+              if r["op"] in ("im2col", "mvau_int", "global_acc_pool")}
+    assert labels == {("im2col", "fused-cuda"), ("mvau_int", "fused-cuda"),
+                      ("global_acc_pool", "fused-cuda")}
+    assert len(dm.apply.folded) == 10
 
 
 @pytest.mark.cuda

@@ -153,7 +153,9 @@ def test_folded_artifact_equals_reference(arts):
 def test_no_patch_tensor_enters_the_environment(arts, monkeypatch):
     """Every im2col of the int artifact is folded: its executor never runs
     and its output is never named in the lowered function's environment;
-    the f32 artifact folds its 8 im2col nodes too."""
+    the f32 artifact folds its 8 im2col nodes too.  Beside them, the int
+    artifact folds its r2b MVAU output and residual sum into the fused GAP
+    tail, and the f32 artifact its residual sum into the GAP."""
     _, dt, x = arts
     calls = []
     real = TG._EXECUTORS["im2col"]
@@ -161,7 +163,8 @@ def test_no_patch_tensor_enters_the_environment(arts, monkeypatch):
                         lambda node, xx: calls.append(node) or real(node, xx))
     folded_fn = lower_graph(dt.graph, "cpu")
     cols = [n.outputs[0] for n in dt.graph.nodes if n.op == "im2col"]
-    assert len(cols) == 8 and sorted(folded_fn.folded) == sorted(cols)
+    assert len(cols) == 8 and sorted(folded_fn.folded) == sorted(
+        cols + ["r2b_mt_nchw_nhwc_0", "r2b_res"])
     (f,) = folded_fn(torch.from_numpy(x))
     assert calls == []
     assert torch.equal(f, dt(x))
@@ -171,7 +174,8 @@ def test_no_patch_tensor_enters_the_environment(arts, monkeypatch):
                                              4, device="cpu"),
                               TCFG, recipe="resnet9", device="cpu")
     f32_cols = [n.outputs[0] for n in f32.graph.nodes if n.op == "im2col"]
-    assert len(f32_cols) == 8 and sorted(f32.apply.folded) == sorted(f32_cols)
+    assert len(f32_cols) == 8 and sorted(f32.apply.folded) == sorted(
+        f32_cols + ["r2b_res"])
 
 
 def _conv_graph(extra_reader=False, col_is_output=False, int8_ok=True):

@@ -195,9 +195,10 @@ def test_conv_pairs_fold_float_and_wide_mvaus(case, paired):
 
 
 def test_folded_f32_artifact_has_no_patch_tensor(params, monkeypatch):
-    """The f32 artifact's 8 im2col nodes are folded: the im2col executor
-    never runs, and its features equal the interpreter's (which keeps the
-    explicit im2col) and the JAX artifact's, bit for bit."""
+    """The f32 artifact's 8 im2col nodes are folded, and so is the residual
+    add before its GlobalAccPool: the im2col executor never runs, and its
+    features equal the interpreter's (which keeps the explicit im2col) and
+    the JAX artifact's, bit for bit."""
     pj, pt = params
     qj, qt = JQ.QuantConfig.paper_w6a4(), TQ.QuantConfig.paper_w6a4()
     dt = repro_torch.compile(pt, qt, recipe="resnet9", device="cpu")
@@ -210,7 +211,7 @@ def test_folded_f32_artifact_has_no_patch_tensor(params, monkeypatch):
                         lambda node, xx: calls.append(node) or real(node, xx))
     fn = lower_graph(dt.graph, "cpu")
     cols = [n.outputs[0] for n in dt.graph.nodes if n.op == "im2col"]
-    assert len(cols) == 8 and sorted(fn.folded) == sorted(cols)
+    assert len(cols) == 8 and sorted(fn.folded) == sorted(cols + ["r2b_res"])
     (f,) = fn(torch.from_numpy(x))
     assert calls == []
     (interp,) = TG.execute(dt.graph, {"x": torch.from_numpy(x)})
