@@ -30,6 +30,13 @@ ends the run with a non-zero exit if it fails:
    MVAUs in conv form and in GEMM form on pre-built patches; the int32-code
    route in conv form; r2b's tail fused, unfused (conv, add, GAP) and the
    conv alone.
+2b. CUDA graphs on the FSL path: the width-64 int and f32 artifacts and
+   their flip ensembles warmed at every bucket 1-64, each bucket captured
+   as one CUDA graph; every replay equals the eager run of the same
+   function bit for bit, int == f32 == interpreter through the replays,
+   no capture after warmup; latency at batch 1 and 64, replayed and eager
+   (profiled after phase 4: device busy beside each, and the replayed
+   batch-64 int forward's kernels, 27 with 8 ``mvau_conv_kernel``).
 3. FSL path at the paper's width 64 on 32x32 frames: ``compile(...,
    datapath="int")`` and ``"f32"`` on the card, every im2col of both
    artifacts folded into its conv-form MVAU, the int artifact's last
@@ -47,6 +54,16 @@ ends the run with a non-zero exit if it fails:
    patch gather.  After the path's launch counts are read, the 8
    conv-form launches are timed again on the activations and weights one
    forward gives them, and r2b's again with its GAP epilogue.
+4b. the serving engine on the card: ``ServeEngine`` over an
+   ``ArtifactRegistry`` of the width-64 int and f32 artifacts (flip
+   ensembles), warmed at max_batch 64; 5-way 5-shot registers, then at
+   least 1,000 classify requests of 1-4 frames from 4 closed-loop client
+   threads, the default hot-swapped to f32 halfway and a third artifact
+   captured while they run: no capture after warmup, nothing rejected or
+   failed, prototypes bit for bit and predictions equal to an offline
+   recompute, every kernel launch a graph replay; requests/s, p50/p99
+   latency and mean batch, closed loop and saturated (open loop), and the
+   device's busy share in a traced window of each.
 5. wide codes: ``grid_point(8, 8)`` and ``paper_w16a16()`` int artifacts
    (and w6a4 beside them) compiled on the card at the widest width their
    lowering admits, every MVAU on the CUDA-core kernel with its im2col
@@ -59,10 +76,13 @@ ends the run with a non-zero exit if it fails:
    inputs; two launches bit for bit), then timed over one decode step's
    252 launches beside its bound and cuBLAS on pre-cast codes, with GB/s
    of codes per projection and the w4/w8 ratio; ``generate`` at w8 and w4
-   (batch 4, prompt 8, 16 new tokens, twice each: identical tokens),
-   launches per step, per-step latency, w8 against bf16 top-1 agreement,
-   a traced step's device time by kernel and busy share (252 qmatmul
-   kernels per step, none a separate split-K reduce); then a 2-layer
+   (batch 4, prompt 8, 16 new tokens, twice each: identical tokens) with
+   the eager step, then with the decode step captured as one CUDA graph
+   (its pool's bytes; the same tokens; logits of every step bit for bit
+   against the eager step), launches per step, per-step latency eager and
+   replayed, w8 against bf16 top-1 agreement, a traced step's device time
+   by kernel and busy share, eager and replayed (252 qmatmul kernels per
+   step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
    and greedy tokens are compared.
 7. a JSON line of every kernel with its launches on its path and its
@@ -70,8 +90,12 @@ ends the run with a non-zero exit if it fails:
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are set to 0 just before each path (phases 3-4, the
-counted forwards of phase 5, and the ``generate`` runs of phase 6) and read
-just after; launches made while comparing or timing kernels do not count.
+engine's traffic, the counted forwards of phase 5, and the eager and the
+captured ``generate`` runs of phase 6) and read just after; launches made
+while comparing or timing kernels do not count.  A graph's launches are
+recorded when it is captured and counted at each replay: the paths
+``fsl_serve`` and ``lm_decode_graph`` are counted from replays only (the
+script checks that every launch there was one).
 """
 
 from __future__ import annotations
@@ -852,7 +876,8 @@ def traced_steps():
             "schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
 
 
-def profile_forward(torch, label: str, fn, reps: int = 5):
+def profile_forward(torch, label: str, fn, reps: int = 5,
+                    batch: int = BATCH):
     """Device time by kernel over ``reps`` forwards at batch 64
     (torch.profiler, CUDA activity); returns the device-busy ms per
     forward (None when the profiler saw no device time) and the kernels'
@@ -880,7 +905,7 @@ def profile_forward(torch, label: str, fn, reps: int = 5):
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
         return None, kern
-    log(f"profile {label} (batch {BATCH}, {reps} forwards): traced wall "
+    log(f"profile {label} (batch {batch}, {reps} forwards): traced wall "
         f"{wall_us / reps / 1e3:.3f} ms/forward, device busy "
         f"{busy_us / reps / 1e3:.3f} ms/forward ({busy_us / wall_us:.1%}), "
         f"{sum(e.count for e in kern) / reps:.0f} kernels/forward")
@@ -1136,8 +1161,452 @@ def unfused_lowering(dm):
     from repro_torch.core.deploy import lower_graph
 
     return dataclasses.replace(
-        dm, apply=lower_graph(dm.graph, "cuda", fold_pools=False),
-        _shapes=set())
+        dm, apply=lower_graph(dm.graph, "cuda", fold_pools=False))
+
+
+# ---------------------------------------------------------------------------
+# Phases 2b and 4b: CUDA graphs on the FSL path, and the serving engine
+# ---------------------------------------------------------------------------
+GRAPH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+ENGINE_REQUESTS = 1000          # classify requests of 1-4 frames, at least
+ENGINE_THREADS = 4
+
+
+def fsl_setup(torch, np, seed: int = 0):
+    """w6a4 params at width 64 (``torch.Generator`` seed ``seed``, on the
+    card) and main_path's batch-64 frames, raw and on the activation grid."""
+    from repro_torch.core.quant import QuantConfig, fake_quant
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.models import resnet9
+
+    qcfg = QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(seed), WIDTH,
+                                 device="cuda")
+    data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
+    rng = np.random.default_rng(0)
+    x_np, _ = data.batch(rng.integers(0, 42, BATCH),
+                         rng.integers(0, 10_000, BATCH))
+    x = torch.from_numpy(x_np).cuda()
+    return qcfg, params, data, x, fake_quant(x, qcfg.act)
+
+
+def graph_of(table, x):
+    """The captured graph a table replays for input ``x``."""
+    return table.graphs[table.key((x,))]
+
+
+def sync_ms(torch, fn, reps: int = 50) -> float:
+    """Mean host wall-clock of ``fn`` with the device synchronized after
+    EVERY call: what one request waits for its result."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def fsl_graph_path(torch, np, B):
+    """Every warmed bucket (1 to 64) of the width-64 int and f32 artifacts
+    and of both flip ensembles, each captured as one CUDA graph: the replay
+    equals the eager run of the same function bit for bit; int == f32 ==
+    interpreter through the replays; then latency at batch 1 and 64,
+    replayed and eager.  No profiler runs here (main_path's note: a traced
+    card slows later eager launches); returns what ``profile_fsl_graphs``
+    traces.  The launches here are no path's: the counts are restored."""
+    import repro_torch
+    from repro_torch.core.graph import execute
+    from repro_torch.fsl.pipeline import FSLPipeline
+
+    saved = dict(B.launch_counts)
+    qcfg, params, _, x, x_q = fsl_setup(torch, np)
+    dms = {dp: repro_torch.compile(params, qcfg, recipe="resnet9",
+                                   datapath=dp, device="cuda")
+           for dp in ("int", "f32")}
+    pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
+    ens = {dp: pipe.deploy(params, datapath=dp) for dp in ("int", "f32")}
+    feeds = {"int": x, "f32": x_q}
+    secs = {}
+    for dp in ("int", "f32"):
+        t0 = time.perf_counter()
+        dms[dp].warmup(GRAPH_BUCKETS, x[:1])
+        t1 = time.perf_counter()
+        ens[dp].warmup(GRAPH_BUCKETS, img=IMG)
+        secs[dp] = (t1 - t0, time.perf_counter() - t1)
+        check(dms[dp].trace_count == len(GRAPH_BUCKETS)
+              and ens[dp].trace_count() == len(GRAPH_BUCKETS),
+              f"{dp}: {dms[dp].trace_count} / {ens[dp].trace_count()} "
+              "captures after warmup")
+    traces = {dp: (dms[dp].trace_count, ens[dp].trace_count())
+              for dp in dms}
+    for b in GRAPH_BUCKETS:
+        got = {}
+        for dp in ("int", "f32"):
+            xb = feeds[dp][:b]
+            got[dp] = dms[dp].batched(xb)
+            (want,) = dms[dp].apply(xb)
+            check(torch.equal(got[dp], want),
+                  f"{dp} artifact, bucket {b}: replay != eager")
+            fe = ens[dp](x[:b])
+            check(torch.equal(fe, ens[dp]._exec.fn(x[:b])),
+                  f"{dp} flip ensemble, bucket {b}: replay != eager")
+            got[dp, "flip"] = fe
+        check(torch.equal(got["int"], got["f32"])
+              and torch.equal(got["int", "flip"], got["f32", "flip"]),
+              f"bucket {b}: replayed int != replayed f32")
+    (interp,) = execute(dms["f32"].graph, {"x": x_q})
+    check(torch.equal(dms["int"].batched(x), interp),
+          "replayed int != interpreter")
+    check(traces == {dp: (dms[dp].trace_count, ens[dp].trace_count())
+                     for dp in dms}, "a capture after warmup")
+    want = {"int": {"mvau_int": 8, "mvau_int_gap": 1},
+            "f32": {"mvau": 8, "gap": 1}}
+    for dp in ("int", "f32"):
+        g, ge = graph_of(dms[dp]._exec, x), graph_of(ens[dp]._exec, x)
+        check(g.launches == want[dp]
+              and ge.launches == {k: 2 * v for k, v in want[dp].items()},
+              f"{dp}: graph launches {g.launches}, ensemble {ge.launches}")
+        pool = sum(gg.pool_bytes for gg in dms[dp]._exec.graphs.values())
+        pool_e = sum(gg.pool_bytes for gg in ens[dp]._exec.graphs.values())
+        log(f"graphs {dp}: {len(GRAPH_BUCKETS)} buckets captured in "
+            f"{secs[dp][0]:.3f} s (artifact) and {secs[dp][1]:.3f} s (flip "
+            f"ensemble), 3 eager warm-up runs each; graph pools reserved "
+            f"{pool} and {pool_e} bytes; batch-{BATCH} graph launches "
+            f"{g.launches}, ensemble {ge.launches}")
+    log(f"graphs: every bucket {GRAPH_BUCKETS} of the int and f32 artifacts "
+        "and flip ensembles replays the eager result bit for bit; int == f32 "
+        "== interpreter through the replays; no capture after warmup")
+    # latency: eager, replay, eager, replay, at batch 1 and 64
+    runs = (("int artifact", dms["int"].batched, dms["int"].apply, x,
+             dms["int"]._exec),
+            ("f32 artifact", dms["f32"].batched, dms["f32"].apply, x_q,
+             dms["f32"]._exec),
+            ("int flip ensemble", ens["int"], ens["int"]._exec.fn, x,
+             ens["int"]._exec))
+    lat = {}
+    for label, replay, eager, xx, table in runs:
+        for b in (1, BATCH):
+            xb = xx[:b].contiguous()
+            for mode, fn in (("eager", eager), ("replay", replay)) * 2:
+                lat.setdefault((label, b, mode), []).append(
+                    (wall_ms(torch, lambda: fn(xb), reps=50),
+                     sync_ms(torch, lambda: fn(xb), reps=50)))
+        dev = cuda_ms(torch, graph_of(table, xx).replay, reps=10,
+                      sleep_cycles=QMM_SLEEP_CYCLES)
+        lat[label, "graph_device_ms"] = dev
+        log(f"device time {label} graph, batch {BATCH}, replays queued "
+            f"behind a sleep (CUDA events): {dev:.4f} ms/replay")
+    for (label, *rest), v in sorted(lat.items(), key=str):
+        if len(rest) == 2:
+            b, mode = rest
+            log(f"latency {label} batch {b} {mode}: back to back "
+                f"{', '.join(f'{w:.3f}' for w, _ in v)} ms/call; synchronized "
+                f"per call {', '.join(f'{s:.3f}' for _, s in v)} ms")
+    B.launch_counts.update(saved)
+    return {"dms": dms, "ens": ens, "x": x, "x_q": x_q, "lat": lat,
+            "runs": runs}
+
+
+def profile_fsl_graphs(torch, B, state):
+    """The batch-64 int graph replayed under ``torch.profiler``: the same 27
+    kernels as the eager forward, 8 of them ``mvau_conv_kernel``; then
+    device busy per call beside the latency of ``fsl_graph_path``, replayed
+    and eager, at batch 1 and 64.  The launches are no path's."""
+    saved = dict(B.launch_counts)
+    g = graph_of(state["dms"]["int"]._exec, state["x"])
+    busy, kern = profile_forward(torch, "int artifact graph replay", g.replay)
+    if busy is not None:
+        n_kern = sum(e.count for e in kern) / 5
+        n_conv = sum(e.count for e in kern if "mvau_conv_kernel" in e.key) / 5
+        check(n_kern == 27 and n_conv == 8,
+              f"replayed int forward: {n_kern} kernels, {n_conv} "
+              "mvau_conv_kernel; expected 27 and 8 (the eager forward's)")
+        log(f"profile int graph replay: {n_kern:.0f} kernels/replay, "
+            f"{n_conv:.0f} mvau_conv_kernel, as the eager forward")
+    lat = state["lat"]
+    for label, replay, eager, xx, _ in state["runs"]:
+        for b in (1, BATCH):
+            xb = xx[:b].contiguous()
+            for mode, fn in (("eager", eager), ("replay", replay)):
+                busy, _ = profile_forward(torch, f"{label} {mode}",
+                                          lambda: fn(xb), batch=b)
+                walls = [w for w, _ in lat[label, b, mode]]
+                syncs = [s for _, s in lat[label, b, mode]]
+                log(f"fsl {label} batch {b} {mode}: back to back "
+                    f"{min(walls):.3f} ms/call, synchronized "
+                    f"{min(syncs):.3f} ms/call (best of 2), device busy "
+                    + ("not measured" if busy is None else
+                       f"{busy:.4f} ms/call ({busy / min(walls):.1%} of the "
+                       "back-to-back call)"))
+    B.launch_counts.update(saved)
+
+
+def engine_phase(torch, np, B):
+    """The port's ServeEngine on the card: the w6a4 int and f32 artifacts
+    at width 64 in an ArtifactRegistry, warmed with max_batch 64 (7 CUDA
+    graphs each); 5-way 5-shot registers on both, then classify requests of
+    1-4 frames from 4 submitter threads: half of them, the registry default
+    hot-swapped to the f32 artifact, more while a third artifact (other
+    weights) is captured beside the worker's replays, then the other half.
+    Checks: no capture after warmup, nothing rejected or failed, mean batch
+    > 1, prototypes bit for bit and predictions equal to an offline
+    recompute through the same feats, and every kernel launch of the
+    traffic a graph replay (the third artifact's eager warm-up runs
+    aside).  Then a traced window of the same traffic for the device's busy
+    share.  Returns the replays' launch counts (path ``fsl_serve``)."""
+    import threading
+
+    from repro_torch.core.cudagraph import WARM_RUNS
+    from repro_torch.fsl import ncm
+    from repro_torch.fsl.pipeline import FSLPipeline
+    from repro_torch.serve import (ArtifactRegistry, PrototypeStore,
+                                   ServeEngine, pad_to_bucket)
+
+    qcfg, params, data, _, _ = fsl_setup(torch, np)
+    pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
+    reg = ArtifactRegistry()
+    reg.register("w6a4-int", pipe.deploy(params, datapath="int"),
+                 default=True)
+    reg.register("f32", pipe.deploy(params, datapath="f32"))
+    rng = np.random.default_rng(7)
+    ep = data.episode(rng, 5, 5, 120)
+    shots = {w: ep["support_x"][ep["support_y"] == w] for w in range(5)}
+    pool = ep["query_x"]
+
+    def request():
+        n = int(rng.integers(1, 5))
+        return pool[rng.integers(0, len(pool), n)]
+
+    plan = [request() for _ in range(ENGINE_REQUESTS)]
+    fillers = [request() for _ in range(ENGINE_REQUESTS)]
+    eng = ServeEngine(reg, max_batch=64, max_queue=512, batch_wait_ms=2.0)
+    try:
+        t0 = time.perf_counter()
+        base = eng.warmup(img=IMG)
+        warm_s = time.perf_counter() - t0
+        check(base == {"w6a4-int": 7, "f32": 7},
+              f"captures after engine warmup {base}")
+        for name in ("w6a4-int", "f32"):
+            for w, x in shots.items():
+                eng.submit_register(w, x, artifact=name).result(120)
+        tables = {n: reg.get(n).feats._exec for n in reg.names()}
+        start = {id(g): g.replays for t in tables.values()
+                 for g in t.graphs.values()}
+        B.reset_launch_counts()
+        eng.metrics.reset_clock()
+        results = {}              # request index -> (frames, result)
+        errors = []
+        half = threading.Barrier(ENGINE_THREADS + 1)
+        warmed = threading.Event()
+
+        def ask(i, x):
+            results[i] = (x, eng.submit_classify(x, timeout=60).result(120))
+
+        def client(tid):
+            # closed loop: one request in flight per client
+            try:
+                for i in range(tid, ENGINE_REQUESTS // 2, ENGINE_THREADS):
+                    ask(i, plan[i])
+                half.wait()
+                j = tid
+                while not warmed.is_set() and j < len(fillers):
+                    ask(ENGINE_REQUESTS + j, fillers[j])
+                    j += ENGINE_THREADS
+                for i in range(ENGINE_REQUESTS // 2 + tid, ENGINE_REQUESTS,
+                               ENGINE_THREADS):
+                    ask(i, plan[i])
+            except Exception as e:                    # noqa: BLE001
+                errors.append(repr(e))
+                half.abort()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(ENGINE_THREADS)]
+        for t in threads:
+            t.start()
+        half.wait()
+        reg.set_default("f32")                       # hot swap
+        feats3 = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda").deploy(
+            fsl_setup(torch, np, seed=1)[1], datapath="int")
+        reg.register("w6a4-int-v2", feats3)
+        t3 = time.perf_counter()
+        reg.get("w6a4-int-v2").warmup(eng.buckets, img=IMG,
+                                      metrics=eng.metrics)
+        warm3_s = time.perf_counter() - t3
+        served_while = len(results)
+        warmed.set()
+        for t in threads:
+            t.join()
+        check(not errors, f"engine clients failed: {errors[:3]}")
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        for w, x in shots.items():
+            eng.submit_register(w, x, artifact="w6a4-int-v2").result(120)
+        v2 = [eng.submit_classify(plan[i], artifact="w6a4-int-v2")
+              for i in range(32)]
+        v2 = [(plan[i], f.result(120)) for i, f in enumerate(v2)]
+        counts = dict(B.launch_counts)
+        tables["w6a4-int-v2"] = feats3._exec
+        traces = eng.trace_counts()
+    finally:
+        eng.stop()
+    check(traces == {**base, "w6a4-int-v2": 7},
+          f"captures after warmup: {traces}, expected {base} + 7")
+    n_req = len(results)
+    check(snap["completed"] == n_req and snap["rejected"] == 0
+          and snap["failed"] == 0,
+          f"engine: {snap['completed']} of {n_req} served, "
+          f"{snap['rejected']} rejected, {snap['failed']} failed")
+    check(snap["mean_batch"] > 1, f"mean batch {snap['mean_batch']}")
+    by_art = {}
+    for _, r in results.values():
+        by_art[r.artifact] = by_art.get(r.artifact, 0) + 1
+    check(set(by_art) == {"w6a4-int", "f32"},
+          f"requests by artifact {by_art}: the hot swap did not land")
+    # every launch of the traffic was a replay, but the eager warm-up runs
+    # of the third artifact's captures
+    replayed = {k: 0 for k in counts}
+    for t in tables.values():
+        for g in t.graphs.values():
+            for k, v in g.launches.items():
+                replayed[k] += v * (g.replays - start.get(id(g), 0))
+    warm3 = {k: 0 for k in counts}
+    for g in feats3._exec.graphs.values():
+        for k, v in g.launches.items():
+            warm3[k] += WARM_RUNS * v
+    check(counts == {k: replayed[k] + warm3[k] for k in counts},
+          f"engine launches {counts} != replays {replayed} + the third "
+          f"artifact's warm-up runs {warm3}")
+
+    # offline recompute through the same feats, padded to its bucket as
+    # the engine pads (a replay: no capture)
+    def offline(name, x):
+        padded, n, _ = pad_to_bucket(x, eng.buckets)
+        return reg.get(name).feats(padded)[:n]
+
+    worst = 0.0
+    for name, items in (("w6a4-int", list(results.values())),
+                        ("w6a4-int-v2", v2)):
+        sup = torch.cat([offline(name, shots[w]) for w in range(5)])
+        labs = torch.as_tensor(np.repeat(np.arange(5), 5))
+        means = ncm.class_means(sup, labs, 5)
+        arts = ("w6a4-int", "f32") if name == "w6a4-int" else (name,)
+        for art in arts:
+            got, ids = reg.get(art).store.prototypes()
+            check(ids == (0, 1, 2, 3, 4) and np.array_equal(
+                got, means.cpu().numpy()),
+                f"{art}: served prototypes != offline recompute")
+        store = PrototypeStore(device="cuda")
+        for w in range(5):
+            store.register(w, sup[5 * w:5 * w + 5])
+        for x, r in items:
+            ids, sims = store.classify(offline(name, x))
+            check(r.class_ids == ids, f"{name}: served predictions != "
+                  "offline recompute")
+            worst = max(worst, float(np.abs(r.sims - sims).max()))
+            check(np.allclose(r.sims, sims, rtol=1e-5, atol=1e-6),
+                  f"{name}: served similarities != offline beyond 1e-5")
+    log(f"engine: warmup {warm_s:.3f} s ({sum(base.values())} captures); "
+        f"{n_req} classify requests of 1-4 frames from {ENGINE_THREADS} "
+        f"closed-loop clients in {wall:.3f} s, default hot-swapped to f32 "
+        "halfway "
+        f"(served: {by_art}); a third artifact captured in {warm3_s:.3f} s "
+        f"while serving ({served_while} requests done by then), then 32 "
+        f"requests on it; no capture after warmup {traces}; 0 rejected, 0 "
+        f"failed; prototypes bit for bit and predictions equal to the "
+        f"offline recompute (similarities within {worst:.3g}); every "
+        f"launch a replay: {replayed}")
+    log(f"engine metrics, {ENGINE_THREADS} closed-loop clients: "
+        f"{snap['throughput_rps']:.1f} requests/s, p50 "
+        f"{snap['p50_ms']:.3f} ms, p95 {snap['p95_ms']:.3f} ms, p99 "
+        f"{snap['p99_ms']:.3f} ms, mean batch {snap['mean_batch']:.2f} "
+        f"(padding {snap['padded_frac']:.1%}), batches {snap['batches']:.0f}, "
+        f"queue <= {snap['max_queue_depth']:.0f}")
+    reg.set_default("w6a4-int")      # the paper's artifact for the loads
+    for closed in (True, False):
+        engine_load(torch, reg, plan, closed, traced=False, base=traces)
+        engine_load(torch, reg, plan[:400], closed, traced=True, base=traces)
+    return replayed
+
+
+def engine_load(torch, reg, reqs, closed: bool, traced: bool, base):
+    """The engine phase's classify traffic again on a fresh engine over the
+    same (warmed) registry, from 4 threads: closed loop (one request in
+    flight per client) or open loop (each thread submits all its requests,
+    then waits: the queue stays full, the engine saturated).  Checks no
+    capture and no failure; logs requests/s, latency and mean batch, and,
+    ``traced``, the device's busy share of the window
+    (``torch.profiler``'s device time of every kernel and copy over the
+    window's wall time; the profiler's host cost stretches the window, so
+    the share is a floor)."""
+    import contextlib
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(reg, max_batch=64, max_queue=512, batch_wait_ms=2.0)
+    errors = []
+
+    def client(tid):
+        try:
+            mine = range(tid, len(reqs), ENGINE_THREADS)
+            if closed:
+                for i in mine:
+                    eng.submit_classify(reqs[i], timeout=60).result(120)
+            else:
+                fs = [eng.submit_classify(reqs[i], timeout=60) for i in mine]
+                for f in fs:
+                    f.result(120)
+        except Exception as e:                        # noqa: BLE001
+            errors.append(repr(e))
+
+    try:
+        check(eng.warmup(img=IMG) == base, "a capture at a second warmup")
+        prof = profile(**traced_steps()) if traced else contextlib.nullcontext()
+        with prof:
+            eng.submit_classify(reqs[0]).result(120)   # warm-up step
+            if traced:
+                prof.step()
+            eng.metrics.reset_clock()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(ENGINE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if traced:
+                prof.step()
+        snap = eng.metrics.snapshot()
+        traces = eng.trace_counts()
+    finally:
+        eng.stop()
+    check(not errors and snap["failed"] == 0 and snap["rejected"] == 0
+          and traces == base, f"engine load: errors {errors[:3]}, {snap}, "
+          f"captures {traces}")
+    mode = (f"{ENGINE_THREADS} closed-loop clients" if closed
+            else f"{ENGINE_THREADS} open-loop submitters (saturated)")
+    msg = (f"engine {'traced window' if traced else 'load'}, {mode}: "
+           f"{len(reqs)} requests in {wall * 1e3:.3f} ms, "
+           f"{snap['throughput_rps']:.1f} requests/s, p50 "
+           f"{snap['p50_ms']:.3f} ms, p99 {snap['p99_ms']:.3f} ms, mean "
+           f"batch {snap['mean_batch']:.2f}")
+    if traced:
+        busy_us = sum(e.device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("ProfilerStep"))
+        msg += (", device busy " + ("not measured (no CUDA events)"
+                                    if busy_us <= 0 else
+                                    f"{busy_us / 1e3:.3f} ms = "
+                                    f"{busy_us / (wall * 1e6):.1%} of the "
+                                    "window"))
+    log(msg)
 
 
 def wide_code_path(torch, np, B):
@@ -1549,8 +2018,8 @@ def lm_path(torch, np, B, Q, KQ):
     and the path's launch counts."""
     import dataclasses
 
-    from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import (make_decode_step,
+    from repro_torch.launch.serve import generate, graphed_step
+    from repro_torch.launch.steps import (greedy, make_decode_step,
                                           quantize_tree_for_serving)
     from repro_torch.models import lm
     from repro_torch.models.common import get_config
@@ -1587,7 +2056,7 @@ def lm_path(torch, np, B, Q, KQ):
     prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
     steps = LM_PROMPT + LM_TOKENS
 
-    # -- the path: counted ---------------------------------------------------
+    # -- the path: counted, the eager step ------------------------------------
     B.reset_launch_counts()
     gens, walls = {}, {}
     for bits in (8, 4):
@@ -1595,7 +2064,7 @@ def lm_path(torch, np, B, Q, KQ):
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            runs.append(generate(q[bits], cfg, prompt, LM_TOKENS))
+            runs.append(generate(q[bits], cfg, prompt, LM_TOKENS, graph=False))
             torch.cuda.synchronize()
             walls.setdefault(bits, []).append(time.perf_counter() - t0)
         check(tuple(runs[0].shape) == (LM_BATCH, LM_TOKENS),
@@ -1614,12 +2083,83 @@ def lm_path(torch, np, B, Q, KQ):
           == counts["gap"] == 0, f"LM path launched FSL kernels: {counts}")
     for bits in (8, 4):
         w = min(walls[bits])
-        log(f"lm generate w{bits}: batch {LM_BATCH}, prompt {LM_PROMPT}, "
-            f"{LM_TOKENS} new tokens, {steps} decode steps in {w * 1e3:.1f} "
-            f"ms ({LM_BATCH * LM_TOKENS / w:.1f} tok/s, best of 2); two runs "
-            f"gave identical tokens; sample {gens[bits][0][:8].tolist()}")
-    log(f"lm launches: qmatmul {counts['qmatmul']} over 4 generate runs of "
-        f"{steps} steps = {per_step:.0f} per decode step")
+        log(f"lm generate w{bits} eager step: batch {LM_BATCH}, prompt "
+            f"{LM_PROMPT}, {LM_TOKENS} new tokens, {steps} decode steps in "
+            f"{w * 1e3:.1f} ms ({LM_BATCH * LM_TOKENS / w:.1f} tok/s, best of "
+            f"2); two runs gave identical tokens; sample "
+            f"{gens[bits][0][:8].tolist()}")
+    log(f"lm launches, eager: qmatmul {counts['qmatmul']} over 4 generate "
+        f"runs of {steps} steps = {per_step:.0f} per decode step")
+
+    # -- the path: counted, the captured step ----------------------------------
+    # captured first (its eager warm-up steps are no replay), then counted
+    graphs = {}
+    for bits in (8, 4):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        graphs[bits] = graphed_step(q[bits], cfg, LM_BATCH, steps + 1,
+                                    torch.device("cuda"))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = torch.cuda.memory_stats()
+        g = graphs[bits].graph
+        check(g.launches == {"qmatmul": QMM_LAUNCHES_PER_STEP},
+              f"w{bits} decode graph launches {g.launches}")
+        log(f"lm decode graph w{bits}: captured in {secs:.3f} s (3 eager "
+            f"warm-up steps first), {g.launches['qmatmul']} qmatmul launches "
+            f"recorded; graph pool reserved {g.pool_bytes} bytes; "
+            "memory_stats across warm-up and capture: reserved "
+            f"{after['reserved_bytes.all.current'] - before['reserved_bytes.all.current']}"
+            f" bytes, allocated "
+            f"{after['allocated_bytes.all.current'] - before['allocated_bytes.all.current']}"
+            f" bytes (w{bits} weights {_dense_bytes(q[bits])[0] + _dense_bytes(q[bits])[1]} "
+            "bytes)")
+    B.reset_launch_counts()
+    replays0 = {bits: graphs[bits].graph.replays for bits in graphs}
+    gwalls = {}
+    for bits in (8, 4):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(q[bits], cfg, prompt, LM_TOKENS)
+            torch.cuda.synchronize()
+            gwalls.setdefault(bits, []).append(time.perf_counter() - t0)
+            check(torch.equal(out, gens[bits]),
+                  f"w{bits}: the captured step's tokens != the eager step's")
+    graph_counts = dict(B.launch_counts)
+    replays = sum(graphs[b].graph.replays - replays0[b] for b in graphs)
+    check(replays == 4 * steps and graph_counts == {
+        **{k: 0 for k in graph_counts},
+        "qmatmul": replays * QMM_LAUNCHES_PER_STEP},
+        f"captured-step launches {graph_counts} over {replays} replays")
+    for bits in (8, 4):
+        w = min(gwalls[bits])
+        log(f"lm generate w{bits} captured step: {steps} replays in "
+            f"{w * 1e3:.1f} ms ({LM_BATCH * LM_TOKENS / w:.1f} tok/s, best of "
+            f"2; eager {min(walls[bits]) * 1e3:.1f} ms); tokens equal the "
+            "eager step's")
+    log(f"lm launches, captured: qmatmul {graph_counts['qmatmul']} from "
+        f"{replays} replays x {QMM_LAUNCHES_PER_STEP}, all replays")
+
+    # -- captured step against eager step: logits bit for bit ---------------
+    for bits in (8, 4):
+        st = graphs[bits]
+        st.reset()
+        cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
+        tok = None
+        for t in range(steps):
+            feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                                    device="cuda") if t < LM_PROMPT else tok)
+            logits, cache = lm.decode_step(q[bits], feed, cache, cfg)
+            tok = greedy(logits, cfg)[:, None]
+            st.step(feed)
+            check(torch.equal(st.logits, logits)
+                  and torch.equal(st.tokens, tok),
+                  f"w{bits} step {t}: the captured step's logits or tokens "
+                  "!= the eager step's")
+        log(f"lm decode graph w{bits}: logits and greedy tokens of all "
+            f"{steps} steps equal the eager step's bit for bit")
 
     # -- per-step decode latency, untraced ----------------------------------
     decode = make_decode_step(cfg)
@@ -1656,6 +2196,30 @@ def lm_path(torch, np, B, Q, KQ):
             f"(untraced, {n_timed} steps): {step_ms[bits]:.3f} ms/step "
             f"between CUDA events, host {host:.3f} ms/step, "
             f"{LM_BATCH / step_ms[bits] * 1e3:.1f} tok/s; logits finite")
+
+    graph_ms = {}
+    for bits in (8, 4):
+        st = graphs[bits]
+        st.reset()
+        for t in range(LM_PROMPT):
+            st.step(torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                                    device="cuda"))
+        torch.cuda.synchronize()
+        n_timed = LM_TOKENS // 2
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start_ev.record()
+        for _ in range(n_timed):
+            st.step()
+        end_ev.record()
+        end_ev.synchronize()
+        host = (time.perf_counter() - h0) * 1e3 / n_timed
+        graph_ms[bits] = start_ev.elapsed_time(end_ev) / n_timed
+        log(f"lm decode step w{bits} captured (untraced, {n_timed} replays): "
+            f"{graph_ms[bits]:.3f} ms/step between CUDA events, host "
+            f"{host:.3f} ms/step, {LM_BATCH / graph_ms[bits] * 1e3:.1f} tok/s "
+            f"(eager {step_ms[bits]:.3f} ms/step)")
 
     # -- w8 against bf16: top-1 agreement (printed, not asserted) ------------
     seq = torch.cat([torch.as_tensor(prompt, dtype=torch.int32,
@@ -1696,6 +2260,24 @@ def lm_path(torch, np, B, Q, KQ):
         log(f"device busy share w8 decode step: {busy / traced:.1%} in the "
             f"traced run; busy {busy:.3f} ms over the untraced step's "
             f"{step_ms[8]:.3f} ms estimates {busy / step_ms[8]:.1%}")
+
+    for bits in (8, 4):
+        st = graphs[bits]
+        st.reset()
+        gbusy, _, gkern = profile_decode(
+            torch, f"w{bits} decode graph replay", st.step, reps)
+        if gbusy is None:
+            continue
+        qmm = [e for e in gkern if "qmm_" in e.key]
+        n_qmm = sum(e.count for e in qmm) / reps
+        check(n_qmm == QMM_LAUNCHES_PER_STEP,
+              f"{n_qmm} qmatmul kernels per replayed w{bits} decode step, "
+              f"expected {QMM_LAUNCHES_PER_STEP}")
+        log(f"profile w{bits} decode graph: qmatmul {n_qmm:.0f} kernels/step,"
+            f" {sum(e.device_time_total for e in qmm) / reps / 1e3:.4f} "
+            f"ms/step of device time; device busy {gbusy:.3f} ms over the "
+            f"untraced replay's {graph_ms[bits]:.3f} ms estimates "
+            f"{gbusy / graph_ms[bits]:.1%}")
 
     # -- card against CPU: 2 layers at full width, w8 ------------------------
     small = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
@@ -1751,7 +2333,7 @@ def lm_path(torch, np, B, Q, KQ):
                     f"({QMM_LAUNCHES_PER_STEP} launches)",
              "w4": {k: w4[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
-    return entry, counts
+    return entry, counts, graph_counts
 
 
 def tree_map(fn, tree):
@@ -1815,9 +2397,13 @@ def main() -> int:
     err = check_kernels(torch, Q, KM, KG, ref)
     kernels = time_kernels(torch, Q, KM, KG, ref, err)
 
+    graph_state = fsl_graph_path(torch, np, B)
     B.reset_launch_counts()
     dm_int, x = main_path(torch, np, B)
     fsl_counts = dict(B.launch_counts)
+    profile_fsl_graphs(torch, B, graph_state)
+    del graph_state
+    serve_counts = engine_phase(torch, np, B)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
     mv["real_inputs_ms"], fused_real_ms = time_real_inputs(
         torch, KM, dm_int, x, mv.pop("layer_ms"))
@@ -1825,16 +2411,22 @@ def main() -> int:
          if k["name"] == "mvau_int_gap")["real_inputs_ms"] = fused_real_ms
     del dm_int, x
     wide_counts = wide_code_path(torch, np, B)
-    qmm, lm_counts = lm_path(torch, np, B, Q, KQ)
+    qmm, lm_counts, lm_graph_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
     for k in kernels:
         by_path = {"fsl": fsl_counts[k["name"]],
                    "fsl_wide_codes": wide_counts[k["name"]],
-                   "lm_decode": lm_counts[k["name"]]}
+                   "fsl_serve": serve_counts[k["name"]],
+                   "lm_decode": lm_counts[k["name"]],
+                   "lm_decode_graph": lm_graph_counts[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = by_path["lm_decode" if k["name"] == "qmatmul"
                                 else "fsl"]
         check(k["launches"] > 0, f"kernel {k['name']} never ran on its path")
+        # the replayed paths: counted from graph replays only
+        check(by_path["fsl_serve" if k["name"] != "qmatmul"
+                      else "lm_decode_graph"] > 0,
+              f"kernel {k['name']} never ran in a replayed graph")
     log("kernels " + " ".join(f"{k['name']}={k['launches_by_path']}"
                               for k in kernels))
     log(json.dumps({"kernels": kernels}))

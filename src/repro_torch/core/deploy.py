@@ -12,22 +12,28 @@ then lower the HW-mapped graph to one callable:
   GlobalAccPool kernels on the card, their plain versions on the CPU) or
   the interpreter executors for pure data-movement ops.
 
-PyTorch runs eagerly, so there is no trace to compile: ``warmup`` runs each
-batch bucket once and ``trace_count`` counts first runs of a new input
-shape, the eager analogue of the reference's retrace counter.  Capturing
-each bucket as a CUDA graph is later work.
+Where the reference AOT-compiles one executable per padded batch bucket,
+``warmup`` on the card captures each bucket as one CUDA graph (the whole
+network's launches over a static input buffer;
+:class:`repro_torch.core.cudagraph.GraphTable`), and ``batched`` /
+``__call__`` on a warmed shape replay it: one ``cudaGraphLaunch`` instead of
+a Python dispatch per node.  ``trace_count`` counts captures plus the
+distinct shapes run eagerly, and stays flat after ``warmup`` as the
+reference's retrace counter does.  On the CPU ``warmup`` runs each bucket
+once eagerly: that is the port's CPU path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Set, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import recipes as R
+from repro_torch.core.cudagraph import GraphTable
 from repro_torch.core.graph import _EXECUTORS, Graph, GraphBuildError, as_tensor
 from repro_torch.core.passes import PassManager, PassTrace
 from repro_torch.device import DeviceLike, resolve_device
@@ -171,10 +177,13 @@ class DeployedModel:
     """A compiled, executable deployment artifact on one device.
 
     ``__call__`` runs the lowered graph (a single tensor when the graph has
-    a single output).  ``warmup(buckets, example)`` runs one padded batch
-    per bucket and ``batched(x)`` pads any batch up to its bucket and slices
-    the result back, so steady-state serving sees a fixed set of shapes
-    (``trace_count`` stays flat after warmup).
+    a single output).  ``warmup(buckets, example)`` makes each padded batch
+    bucket a warmed shape (on the card: one CUDA graph each) and
+    ``batched(x)`` pads any batch up to its bucket and slices the result
+    back, so steady-state serving only replays (``trace_count`` stays flat
+    after warmup).  A replay returns a copy of the graph's static outputs:
+    the next replay never overwrites a caller's result, and callers on
+    several threads are served one at a time (the artifact's lock).
     """
 
     graph: Graph
@@ -187,13 +196,26 @@ class DeployedModel:
     datapath: str = "f32"
     pass_names: Tuple[str, ...] = ()
     _buckets: Optional[Tuple[int, ...]] = None
-    _shapes: Set[Tuple] = dataclasses.field(default_factory=set)
+    # the executable table: one CUDA graph per warmed input signature on the
+    # card (the reference's AOT executables by (shape, dtype))
+    _exec: GraphTable = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self._exec = GraphTable(self.apply, self.device)
 
     @property
     def trace_count(self) -> int:
-        """How many distinct input shapes have run: flat after ``warmup``
-        == the serving loop only ever sees warmed buckets."""
-        return len(self._shapes)
+        """CUDA-graph captures plus the distinct input shapes run eagerly:
+        flat after ``warmup`` == the serving loop only replays warmed
+        buckets."""
+        return self._exec.trace_count
+
+    @property
+    def compile_log(self) -> list:
+        """Per warmed bucket: ``{"bucket", "seconds", "cached", "key"}``
+        (seconds of warm-up runs and capture on the card, of the eager run
+        on the CPU; never cached: the port has no compile cache yet)."""
+        return self._exec.compile_log
 
     @property
     def buckets(self) -> Optional[Tuple[int, ...]]:
@@ -203,13 +225,29 @@ class DeployedModel:
         return tuple(as_tensor(a, self.device) for a in args)
 
     def _run(self, *xs: torch.Tensor):
-        self._shapes.add(tuple((tuple(x.shape), x.dtype) for x in xs))
-        return self.apply(*xs)
+        return self._exec(*xs)
 
     def warmup(self, buckets: Sequence[int],
-               example: Union[torch.Tensor, np.ndarray]) -> Tuple[int, ...]:
-        """Run one zero batch per bucket.  ``example`` is a BATCHED input of
-        any batch size; its trailing dims/dtype define the sample shape."""
+               example: Union[torch.Tensor, np.ndarray], *,
+               cache: Optional[Any] = None,
+               metrics: Optional[Any] = None,
+               label: Optional[str] = None) -> Tuple[int, ...]:
+        """Warm one zero batch per bucket: on the card, capture it as a CUDA
+        graph; on the CPU, run it once.  ``example`` is a BATCHED input of
+        any batch size; its trailing dims/dtype define the sample shape.  A
+        bucket already warmed is skipped.  Per-bucket seconds land in
+        :attr:`compile_log` and, with ``metrics`` (a ``ServeMetrics``), in
+        its compile counters under ``label`` (default: the graph's name).
+        ``cache`` (the reference's persistent compile cache) is not ported
+        and raises."""
+        from repro_torch.models.layers import not_ported
+
+        if cache is not None:
+            raise not_ported("the persistent compile cache (warmup(cache=))",
+                             "checkpoints and compile cache")
+        if len(self.input_names) != 1:
+            raise not_ported("warmup of a multi-input graph",
+                             "compiled LM decode (lm-tiny)")
         ex = as_tensor(example, self.device)
         if ex.ndim < 1:
             raise ValueError("example must be batched (leading batch axis)")
@@ -217,8 +255,8 @@ class DeployedModel:
         for b in bs:
             x = torch.zeros((b,) + tuple(ex.shape[1:]), dtype=ex.dtype,
                             device=self.device)
-            if ((tuple(x.shape), x.dtype),) not in self._shapes:
-                self._run(x)
+            self._exec.warm((x,), name=label or self.graph.name,
+                             metrics=metrics)
         self._buckets = bs
         return bs
 

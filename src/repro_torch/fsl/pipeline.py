@@ -82,16 +82,22 @@ class FSLPipeline:
         codes + ``mvau_int`` on the CUDA kernel).  The int graph opens with
         its own ``quantize`` node and ``quantize(fake_quant(x)) ==
         quantize(x)`` on any grid, so only the f32 emulation keeps the input
-        ``fake_quant``.  Repeated calls with the SAME params object and
-        datapath return the SAME function.
+        ``fake_quant``.  The whole flip ensemble (the input ``fake_quant``,
+        the flip, both forwards and the sum) is one function, which
+        ``warmup`` captures as ONE CUDA graph per bucket on the card, as the
+        reference traces it into one program per bucket.  Repeated calls
+        with the SAME params object and datapath return the SAME function.
 
         The returned function carries ``.deployed_model``, ``.params``,
-        ``.trace_count()`` (distinct input shapes run) and
-        ``.warmup(buckets, img=...)``.
+        ``.device``, ``.trace_count()`` (captures plus distinct shapes run
+        eagerly: flat after warmup), ``._exec`` (its executable table) and
+        ``.warmup(buckets, img=..., cache=None, metrics=None, label=None)``.
         """
+        from repro_torch.core.cudagraph import GraphTable
         from repro_torch.core.deploy import compile as compile_graph
         from repro_torch.core.deploy import normalize_buckets
         from repro_torch.core.quant import fake_quant
+        from repro_torch.models.layers import not_ported
 
         if self.qcfg is None:
             raise ValueError("deploy() needs a QuantConfig: the compiled "
@@ -106,29 +112,42 @@ class FSLPipeline:
         act = self.qcfg.act
         flip = self.easy_augment
         quant_in = datapath != "int"
-        shapes = set()
 
-        def feats(x) -> torch.Tensor:
-            x = as_tensor(x, dm.device)
-            shapes.add((tuple(x.shape), x.dtype))
-            f = dm(fake_quant(x, act) if quant_in else x)
+        def ensemble(x: torch.Tensor) -> torch.Tensor:
+            f = dm.apply(fake_quant(x, act) if quant_in else x)[0]
             if flip:
                 xf = _flip_w(x)
-                f = f + dm(fake_quant(xf, act) if quant_in else xf)
+                f = f + dm.apply(fake_quant(xf, act) if quant_in else xf)[0]
             return f
 
-        def warmup(buckets, img: int = 32) -> tuple:
-            """Run one zero batch per bucket of (b, img, img, 3) frames."""
+        table = GraphTable(ensemble, dm.device)
+
+        def feats(x) -> torch.Tensor:
+            return table(as_tensor(x, dm.device))[0]
+
+        def warmup(buckets, img: int = 32, cache=None, metrics=None,
+                   label: Optional[str] = None) -> tuple:
+            """Warm one zero batch of (b, img, img, 3) frames per bucket: a
+            CUDA graph of the whole ensemble on the card, one eager run on
+            the CPU.  ``cache`` is not ported and raises."""
+            if cache is not None:
+                raise not_ported("the persistent compile cache "
+                                 "(warmup(cache=))",
+                                 "checkpoints and compile cache")
             bs = normalize_buckets(buckets)
             for b in bs:
-                feats(torch.zeros((b, img, img, 3), dtype=torch.float32,
-                                  device=dm.device))
+                table.warm((torch.zeros((b, img, img, 3), dtype=torch.float32,
+                                        device=dm.device),),
+                           name=label or f"fused-{dm.graph.name}",
+                           metrics=metrics)
             return bs
 
         feats.deployed_model = dm
         feats.params = params
-        feats.trace_count = lambda: len(shapes)
+        feats.device = dm.device
+        feats.trace_count = lambda: table.trace_count
         feats.warmup = warmup
+        feats._exec = table
         self._deploy_cache[key] = feats
         while len(self._deploy_cache) > max(self.deploy_cache_size, 1):
             self._deploy_cache.popitem(last=False)

@@ -14,6 +14,7 @@ every module of the port on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -37,24 +38,104 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the main path went through the kernels).  ``mvau_int_gap`` counts the
 # launches of the integer conv MVAU that carry the GlobalAccPool epilogue
 # (``mvau.mvau_int_conv_gap``); each of them is an ``mvau_int`` launch too.
+# A launch made while a CUDA graph captures is recorded in that graph
+# instead (:class:`GraphState`), and every replay of the graph adds its
+# record here: the counts stay "kernels that ran".
 launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 0,
                                   "gap": 0, "qmatmul": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _COUNT_LOCK:
+        for k in launch_counts:
+            launch_counts[k] = 0
 
 
-# Per-device tile counters of the split-K kernels (mvau, mvau_int,
-# qmatmul): zeroed once, and every launch leaves them zeroed (the last block
-# of a tile resets its counter); launches share them in stream order, on
-# PyTorch's current stream.
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (a captured graph's record) to :data:`launch_counts`."""
+    with _COUNT_LOCK:
+        for k, v in counts.items():
+            launch_counts[k] += v
+
+
+def count_launch(*names: str) -> None:
+    """One launch of each kernel in ``names``: into the record of the graph
+    this thread is capturing, else into :data:`launch_counts`."""
+    state = getattr(_LOCAL, "graph", None)
+    if state is not None and state.capturing:
+        for name in names:
+            state.launches[name] = state.launches.get(name, 0) + 1
+        return
+    with _COUNT_LOCK:
+        for name in names:
+            launch_counts[name] += 1
+
+
+# Tile counters of the split-K kernels (mvau, mvau_int, qmatmul): zeroed
+# once, and every launch leaves them zeroed (the last block of a tile resets
+# its counter), so launches in stream order may share one buffer.  Eager
+# launches share one buffer per device, on PyTorch's current stream.  A
+# graph being captured, and the eager runs that warm it, use a buffer of
+# their own (:class:`GraphState`): two graphs replayed at once, or a replay
+# beside an eager launch on another stream, never touch the same counters.
 _TILE_COUNTS: Dict[object, object] = {}
+_LOCAL = threading.local()
+
+
+class GraphState:
+    """What one CUDA graph owns of the kernels' shared state: its split-K
+    tile counters, and the launches recorded while it was captured.
+
+    Inside :meth:`warming` (the eager runs before the capture) the counters
+    grow to the largest launch; inside :meth:`capture` they are fixed (a
+    capture cannot allocate them) and launches go to :attr:`launches`."""
+
+    def __init__(self):
+        self.counters = None
+        self.capturing = False
+        self.launches: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def _scope(self, capturing: bool):
+        prev = getattr(_LOCAL, "graph", None)
+        _LOCAL.graph, self.capturing = self, capturing
+        try:
+            yield self
+        finally:
+            _LOCAL.graph, self.capturing = prev, False
+
+    def warming(self):
+        """This thread's launches use the graph's counters (grown as needed)
+        and count as launches."""
+        return self._scope(False)
+
+    def capture(self):
+        """This thread's launches use the graph's counters (fixed) and are
+        recorded in :attr:`launches`."""
+        return self._scope(True)
+
+    def tile_counters(self, dev, tiles: int):
+        import torch
+
+        if self.counters is None or self.counters.numel() < tiles:
+            if self.capturing:
+                raise RuntimeError(
+                    f"a launch inside a CUDA graph capture needs {tiles} "
+                    "split-K tile counters, more than the eager warm-up "
+                    "runs sized the graph's buffer for")
+            self.counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                                        device=dev)
+        return self.counters
 
 
 def tile_counters(dev, tiles: int):
-    """An int32 tensor of at least ``tiles`` zeroed counters on ``dev``."""
+    """An int32 tensor of at least ``tiles`` zeroed counters on ``dev``:
+    the graph's own while this thread warms or captures one, else the
+    device's."""
+    state = getattr(_LOCAL, "graph", None)
+    if state is not None:
+        return state.tile_counters(dev, tiles)
     import torch
 
     counts = _TILE_COUNTS.get(dev)

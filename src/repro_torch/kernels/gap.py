@@ -58,5 +58,5 @@ def gap(x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
                          _X_KIND[x.dtype], out.data_ptr(), n, h * w, c,
                          torch.cuda.current_stream().cuda_stream)
     B.check(rc, "gap")
-    B.launch_counts["gap"] += 1
+    B.count_launch("gap")
     return out

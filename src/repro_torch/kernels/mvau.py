@@ -19,7 +19,12 @@ after it into its epilogue (:func:`mvau_int_conv_gap`).  A
 wrapper takes the plain version only for tensors that lie on the CPU; for
 CUDA tensors it launches a kernel or raises.  It allocates the output (and
 any split-K scratch) with ``torch.empty``, launches on PyTorch's current
-stream, checks ``cudaGetLastError`` and counts the launch.
+stream, checks ``cudaGetLastError`` and counts the launch.  Called while a
+CUDA graph captures (a warmed bucket of ``core.deploy.DeployedModel``), the
+same code is captured: the output and the split-K scratch then come from
+``torch.empty`` in the graph's private memory pool, which is what a replay
+reuses; the tile counters are the graph's own (``build.GraphState``); and
+the launch is recorded in the graph and counted at each replay.
 """
 
 from __future__ import annotations
@@ -150,7 +155,7 @@ def _core(x: torch.Tensor, w: torch.Tensor, w_kind: int,
         float(out_base) if floating else 0.0, float(out_scale),
         float(out_bias), splits, ws, counts, _stream())
     B.check(rc, name)
-    B.launch_counts[name] += 1
+    B.count_launch(name)
     return out
 
 
@@ -213,7 +218,7 @@ def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                               thresholds.shape[1], int(out_base), splits, ws,
                               counts, _stream())
     B.check(rc, "mvau_int")
-    B.launch_counts["mvau_int"] += 1
+    B.count_launch("mvau_int")
     return out
 
 
@@ -305,7 +310,7 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
         out.data_ptr(), b, h, wd, c, kernel, stride, pad, n,
         thresholds.shape[1], int(out_base), splits, ws, counts, _stream())
     B.check(rc, "mvau_int")
-    B.launch_counts["mvau_int"] += 1
+    B.count_launch("mvau_int")
     return out
 
 
@@ -363,8 +368,7 @@ def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
         skip.data_ptr(), out.data_ptr(), b, h, wd, c, kernel, stride, pad, n,
         thresholds.shape[1], int(out_base), splits, ws, counts, _stream())
     B.check(rc, "mvau_int_gap")
-    B.launch_counts["mvau_int"] += 1
-    B.launch_counts["mvau_int_gap"] += 1
+    B.count_launch("mvau_int", "mvau_int_gap")
     return out
 
 
@@ -413,7 +417,7 @@ def mvau(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                              float(out_base), float(out_scale),
                              float(out_bias), _stream())
     B.check(rc, "mvau")
-    B.launch_counts["mvau"] += 1
+    B.count_launch("mvau")
     return out
 
 

@@ -13,6 +13,13 @@ launch.  How the work is cut into blocks (:func:`split_plan`) is decided
 here, in Python, so the CPU tests reach it.  When K is split, the kernel
 adds the splits itself (one launch per call): the wrapper hands it float32
 scratch from the caching allocator and the device's tile counters.
+
+Called while a CUDA graph captures (the decode step of
+``launch.steps.GraphedDecodeStep``), the same code is captured: the output
+and the scratch come from ``torch.empty`` in the graph's private memory
+pool, which is what a replay reuses; the tile counters are the graph's own
+(``build.GraphState``); and the launch is recorded in the graph and counted
+at each replay.
 """
 
 from __future__ import annotations
@@ -174,5 +181,5 @@ def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
                              None if counts is None else counts.data_ptr(),
                              m, k, n, mt, tbn, sp, kps, _stream())
     B.check(rc, "qmatmul")
-    B.launch_counts["qmatmul"] += 1
+    B.count_launch("qmatmul")
     return out

@@ -10,7 +10,10 @@ The port's counterpart of the JAX package's eager serving loop
         --device cpu
 
 At ``--bits 8`` or ``4`` every projection of every layer runs the qmatmul
-kernel on the card (7 launches per layer and step).
+kernel on the card (7 launches per layer and step).  On the card each step
+is one replay of the decode step captured as a CUDA graph
+(:class:`repro_torch.launch.steps.GraphedDecodeStep`, captured once per
+batch and cache length); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import (
+    GraphedDecodeStep,
     make_decode_step,
     model_module,
     quantize_tree_for_serving,
@@ -31,25 +37,59 @@ from repro_torch.launch.steps import (
 from repro_torch.models.common import get_config
 
 
+# captured decode steps by (params, batch, cache length), most recent last;
+# each holds its graph's memory pool and its KV cache
+_GRAPHED: "OrderedDict" = OrderedDict()
+GRAPHED_CACHE_SIZE = 4
+
+
+def graphed_step(params, cfg, batch: int, max_len: int,
+                 device) -> GraphedDecodeStep:
+    """The memoised :class:`GraphedDecodeStep` for this params tree, batch
+    and cache length (captured on first use)."""
+    key = (id(params), cfg.name, batch, max_len, str(device))
+    hit = _GRAPHED.get(key)
+    if hit is not None and hit[0] is params:
+        _GRAPHED.move_to_end(key)
+        return hit[1]
+    step = GraphedDecodeStep(model_module(cfg).with_head_copy(params, cfg),
+                             cfg, batch, max_len, device=device)
+    _GRAPHED[key] = (params, step)
+    while len(_GRAPHED) > GRAPHED_CACHE_SIZE:
+        _GRAPHED.popitem(last=False)
+    return step
+
+
 def generate(params, cfg, prompt, tokens: int, *,
-             device: DeviceLike = None) -> torch.Tensor:
+             device: DeviceLike = None,
+             graph: Optional[bool] = None) -> torch.Tensor:
     """Greedy generation: (B, P) prompt ids -> (B, tokens) int32 ids.
 
     The prompt is stepped through the cache one token at a time (the
     small-model path of the reference loop); the token chosen at the last
     prompt position is fed back, and the ``tokens`` tokens that follow it
     are returned, as the reference returns them.  ``params`` must already
-    lie on ``device`` (default: the card).
+    lie on ``device`` (default: the card).  ``graph`` (default: on the
+    card) replays the captured decode step; ``graph=False`` runs the eager
+    step.  The two give the same tokens.
     """
     dev = resolve_device(device)
     mod = model_module(cfg)
     on = params["embed"].device
     if on.type != dev.type or (dev.index is not None and on.index != dev.index):
         raise ValueError(f"params are on {on}, expected {dev}")
-    params = mod.with_head_copy(params, cfg)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32,
                              device=dev)
     B, P = prompt.shape
+    if graph is None:
+        graph = dev.type == "cuda"
+    if graph:
+        step = graphed_step(params, cfg, B, P + tokens + 1, dev)
+        step.reset()
+        for t in range(P):
+            step.step(prompt[:, t:t + 1])
+        return torch.cat([step.step().clone() for _ in range(tokens)], dim=1)
+    params = mod.with_head_copy(params, cfg)
     cache = mod.init_cache(cfg, B, P + tokens + 1,
                            dtype=mod.compute_dtype(cfg), device=dev)
     decode = make_decode_step(cfg)

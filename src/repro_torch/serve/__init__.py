@@ -1,2 +1,40 @@
-"""Serving: the online prototype store (register support shots, classify
-queries).  The threaded engine is a later slice of the port."""
+"""repro_torch.serve — real-time few-shot serving on the card.
+
+The port's counterpart of the JAX package's ``repro.serve``::
+
+    from repro_torch.serve import ArtifactRegistry, ServeEngine
+
+    reg = ArtifactRegistry()
+    reg.register("w6a4-int", pipe.deploy(params, datapath="int"),
+                 default=True)
+    with ServeEngine(reg, max_batch=64) as eng:
+        eng.warmup(img=32)                        # one CUDA graph per bucket
+        eng.submit_register("pelican", shots).result()   # novel class, live
+        print(eng.submit_classify(frame).result().class_ids)
+        print(eng.metrics.report())
+
+``ServeEngine`` coalesces register/classify traffic into bucket-padded
+batches (after warmup every batch replays a captured graph: no capture and
+no eager run under load), ``PrototypeStore`` keeps online class means
+bit-for-bit equal to offline NCM, and ``ArtifactRegistry`` serves several
+bit-width artifacts side by side with atomic default hot-swap.  On the CPU
+(``FSLPipeline(..., device="cpu")``) the same engine runs the plain
+versions eagerly.
+"""
+
+from repro_torch.serve.bucketing import bucket_for, pad_to_bucket, pow2_buckets
+from repro_torch.serve.engine import (
+    ClassifyResult,
+    ServeEngine,
+    ServeOverload,
+    TenantOverQuota,
+)
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.registry import ArtifactRegistry, ServedArtifact
+from repro_torch.serve.store import PrototypeStore
+from repro_torch.serve.workload import ArtifactAdapter, FSLAdapter, RequestKind
+
+__all__ = ["ArtifactAdapter", "ArtifactRegistry", "ClassifyResult",
+           "FSLAdapter", "PrototypeStore", "RequestKind", "ServeEngine",
+           "ServeMetrics", "ServeOverload", "ServedArtifact",
+           "TenantOverQuota", "bucket_for", "pad_to_bucket", "pow2_buckets"]

@@ -709,3 +709,250 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: warmed buckets, the flip ensemble, the decode step, the engine
+# ---------------------------------------------------------------------------
+def _artifacts(card, width=8):
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), width,
+                                 device=card)
+    return qcfg, params, {
+        dp: repro_torch.compile(params, qcfg, recipe="resnet9", datapath=dp)
+        for dp in ("int", "f32")}
+
+
+def _frames(card, n, seed=1):
+    return _t(np.random.default_rng(seed).random((n, 32, 32, 3))
+              .astype(np.float32), card)
+
+
+@pytest.mark.cuda
+def test_replayed_buckets_equal_eager(card):
+    """Every warmed bucket of the int and f32 artifacts at width 8: the
+    replay equals the eager run of the same lowered function bit for bit,
+    adds the graph's captured launches (8 MVAU kernels) to the counts, and
+    nothing is captured after warmup."""
+    qcfg, _, dms = _artifacts(card)
+    for dp, dm in dms.items():
+        assert dm.warmup([1, 2, 4, 8], _frames(card, 1)) == (1, 2, 4, 8)
+        assert dm.trace_count == 4 and len(dm.compile_log) == 4
+        for n in (1, 3, 4, 8):
+            x = _frames(card, n, seed=n)
+            if dp == "f32":
+                x = Q.fake_quant(x, qcfg.act)
+            before = dict(B.launch_counts)
+            got = dm.batched(x)
+            torch.cuda.synchronize()
+            kern = "mvau_int" if dp == "int" else "mvau"
+            assert B.launch_counts[kern] - before[kern] == 8
+            b = 1 << (n - 1).bit_length()
+            pad = torch.cat([x, x.new_zeros((b - n,) + x.shape[1:])])
+            (want,) = dm.apply(pad)
+            assert torch.equal(got, want[:n]), (dp, n)
+        assert dm.trace_count == 4
+
+
+@pytest.mark.cuda
+def test_flip_ensemble_replay_equals_eager(card):
+    from repro_torch.fsl.pipeline import FSLPipeline
+
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    pipe = FSLPipeline(width=8, qcfg=qcfg)
+    for dp in ("int", "f32"):
+        feats = pipe.deploy(params, datapath=dp)
+        feats.warmup([1, 4])
+        n = feats.trace_count()
+        assert n == 2
+        for b in (1, 4):
+            x = _frames(card, b, seed=b)
+            got = feats(x)
+            assert torch.equal(got, feats._exec.fn(x))
+            assert torch.equal(got, pipe.features(params, x))
+        assert feats.trace_count() == n
+
+
+@pytest.mark.cuda
+def test_replay_results_do_not_alias(card):
+    _, _, dms = _artifacts(card)
+    dm = dms["int"]
+    dm.warmup([2], _frames(card, 1))
+    a = dm.batched(_frames(card, 2, seed=5))
+    keep = a.clone()
+    b = dm.batched(_frames(card, 2, seed=6))
+    torch.cuda.synchronize()
+    assert torch.equal(a, keep) and not torch.equal(a, b)
+    assert a.data_ptr() != b.data_ptr()
+
+
+@pytest.mark.cuda
+def test_two_threads_on_one_artifact_equal_serial(card):
+    import threading
+
+    _, _, dms = _artifacts(card)
+    dm = dms["int"]
+    dm.warmup([1, 2, 4], _frames(card, 1))
+    xs = [_frames(card, 1 + i % 4, seed=i) for i in range(16)]
+    serial = [dm.batched(x) for x in xs]
+    got = [None] * len(xs)
+
+    def work(lo):
+        for i in range(lo, len(xs), 2):
+            for _ in range(5):
+                got[i] = dm.batched(xs[i])
+
+    threads = [threading.Thread(target=work, args=(lo,)) for lo in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, s) for g, s in zip(got, serial))
+
+
+@pytest.mark.cuda
+def test_two_graphs_on_two_streams_keep_their_split_counters(card):
+    """Two graphs of a split-K launch (8 forced K splits) replayed at once
+    on two streams give their serial results: each graph owns its tile
+    counters, neither is the device's eager buffer, and all are left zero."""
+    import threading
+
+    from repro_torch.core.cudagraph import CapturedGraph
+
+    rng = np.random.default_rng(9)
+    graphs, want = [], []
+    for i in range(2):
+        x = _t(rng.integers(-8, 8, size=(16, 4, 4, 512)).astype(np.int8), card)
+        w = _t(rng.integers(-8, 8, size=(4608, 512)).astype(np.int8), card)
+        t = _t(np.sort(rng.integers(-900, 900, size=(512, 15)), axis=1)
+               .astype(np.int32), card)
+
+        def fn(x, w=w, t=t):
+            return KM.mvau_int_conv(x, w, t, 3, 1, 1, 0, splits=8)
+
+        want.append(KM.mvau_int_conv_plain(x, w, t, 3, 1, 1, 0))
+        graphs.append(CapturedGraph(fn, (x,), pool=None,
+                                    stream=torch.cuda.Stream(card)))
+    shared = B.tile_counters(card, 0).data_ptr()
+    ptrs = {g.counters.data_ptr() for g in graphs}
+    assert len(ptrs) == 2 and shared not in ptrs
+    assert all(g.launches == {"mvau_int": 1} for g in graphs)
+    streams = [torch.cuda.Stream(card) for _ in graphs]
+    errors = []
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            for _ in range(50):
+                graphs[i].replay()
+                if not torch.equal(graphs[i].outputs[0], want[i]):
+                    errors.append(i)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors
+    assert all(int(g.counters.abs().sum()) == 0 for g in graphs)
+
+
+@pytest.mark.cuda
+def test_decode_graph_equals_eager_two_layers(card):
+    """Qwen2.5-3B at full width, 2 layers, w8 and w4: the captured decode
+    step gives the eager step's logits and greedy tokens bit for bit over a
+    prompt and generated tokens; ``generate`` gives the same tokens both
+    ways; the graph records 14 qmatmul launches a step."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import (GraphedDecodeStep,
+                                          make_decode_step,
+                                          quantize_tree_for_serving)
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    params = lm.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (2, 4))
+    for bits in (8, 4):
+        q = lm.with_head_copy(quantize_tree_for_serving(params, bits), cfg)
+        step = GraphedDecodeStep(q, cfg, 2, 12)
+        assert step.graph.launches == {"qmatmul": 14}
+        eager = make_decode_step(cfg)
+        cache = lm.init_cache(cfg, 2, 12)
+        tok = torch.as_tensor(prompt[:, :1], dtype=torch.int32, device=card)
+        for t in range(9):
+            feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                                    device=card) if t < 4 else tok)
+            logits, _ = lm.decode_step(q, feed, cache, cfg)
+            nxt, cache = eager(q, {"tokens": feed}, cache)
+            step.step(feed)
+            assert torch.equal(step.logits, logits), (bits, t)
+            assert torch.equal(step.tokens[:, 0], nxt), (bits, t)
+            tok = nxt[:, None]
+        assert torch.equal(generate(q, cfg, prompt, 5),
+                           generate(q, cfg, prompt, 5, graph=False))
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_no_capture_after_warmup(card):
+    """The engine on the card: warmup captures every bucket of both
+    artifacts, mixed traffic from two threads captures nothing more, the
+    served prototypes equal an offline recompute through the same feats bit
+    for bit, and a third artifact warmed while the engine serves captures
+    beside the worker's replays."""
+    import threading
+
+    from repro_torch.fsl.pipeline import FSLPipeline
+    from repro_torch.serve import ArtifactRegistry, ServeEngine
+
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    pipe = FSLPipeline(width=8, qcfg=qcfg)
+    reg = ArtifactRegistry()
+    reg.register("int", pipe.deploy(params, "int"), default=True)
+    reg.register("f32", pipe.deploy(params, "f32"))
+    rng = np.random.default_rng(4)
+    shots = {c: rng.random((3, 32, 32, 3)).astype(np.float32)
+             for c in range(3)}
+    queries = [rng.random((1 + i % 3, 32, 32, 3)).astype(np.float32)
+               for i in range(60)]
+    with ServeEngine(reg, max_batch=8, batch_wait_ms=1.0) as eng:
+        base = eng.warmup(img=32)
+        assert base == {"int": 4, "f32": 4}
+        for c, x in shots.items():
+            eng.submit_register(c, x).result(60)
+        results = [None] * len(queries)
+
+        def submit(lo):
+            for i in range(lo, len(queries), 2):
+                results[i] = eng.submit_classify(queries[i]).result(60)
+
+        threads = [threading.Thread(target=submit, args=(lo,))
+                   for lo in (0, 1)]
+        for t in threads:
+            t.start()
+        feats3 = FSLPipeline(width=8, qcfg=qcfg).deploy(params, "int")
+        reg.register("int-2", feats3)
+        reg.get("int-2").warmup(eng.buckets, img=32)
+        for t in threads:
+            t.join()
+        assert eng.trace_counts() == {**base, "int-2": 4}
+        snap = eng.metrics.snapshot()
+        assert snap["failed"] == 0 and snap["rejected"] == 0
+    feats = reg.get("int").feats
+    means, ids = reg.get("int").store.prototypes()
+    from repro_torch.fsl import ncm
+    sup = torch.cat([feats(x) for x in shots.values()])
+    labs = torch.as_tensor(np.repeat(np.arange(3), 3))
+    offline = ncm.class_means(sup, labs, 3)
+    assert ids == (0, 1, 2)
+    np.testing.assert_array_equal(means, offline.cpu().numpy())
+    for q, r in zip(queries, results):
+        want = ncm.ncm_classify(feats(q), offline)
+        assert r.class_ids == want.tolist()

@@ -139,7 +139,7 @@ def main() -> int:
     dm = repro_torch.compile(params, QuantConfig.paper_w6a4(),
                              recipe="resnet9", datapath="int")
     unfused = dataclasses.replace(
-        dm, apply=lower_graph(dm.graph, dev, fold_pools=False), _shapes=set())
+        dm, apply=lower_graph(dm.graph, dev, fold_pools=False))
     frames = torch.rand((b, 32, 32, 3), generator=gen).to(dev)
     assert torch.equal(dm(frames), unfused(frames))
     fwd = {}
