@@ -85,14 +85,39 @@ ends the run with a non-zero exit if it fails:
    step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
    and greedy tokens are compared.
-7. a JSON line of every kernel with its launches on its path and its
-   numbers, the card's name and power limit, and a last line
+7. training (path ``fsl_train``): ``pretrain_backbone`` at width 64 with
+   ``paper_w6a4()`` on the card (24 base classes, batch 64, 150 steps),
+   twice from one seed: finite losses that fall, both runs bit for bit
+   equal in losses and params, TF32 still off; ms per step and steps/s,
+   one step's device time by kernel and busy share (profiler), the
+   smallest BN scale.  The trained weights deployed: int and f32
+   artifacts equal the QAT features (rtol 1e-5, atol 1e-6) on every frame
+   where no pre-activation lies on a grid midpoint
+   (``resnet9.midpoint_ties``; at most 2 of 64 frames tie, each within a
+   code of QAT), int == f32 bit for bit, card == CPU
+   at batch 2, deployed accuracy over 20 episodes within 0.01 of QAT
+   accuracy.  Then the paper's Table II rows
+   (``benchmarks/table2_accuracy.py``'s four configs) at width 64, 120
+   steps: QAT and deployed-int accuracy with their CIs and seconds,
+   printed, not gated.
+8. design-space exploration (path ``dse``): ``SweepFarm`` over
+   ``DEFAULT_GRID`` at width 64, 120 steps, 10 episodes, on the card:
+   every point's int artifact == its f32 artifact; a restarted farm
+   recomputes nothing and returns equal records; a serial ``sweep`` of two
+   points equals the farm on ``DETERMINISTIC_KEYS``; ``publish_frontier``
+   registers the frontier and a ``ServeEngine`` serves the knee, its
+   features bit for bit the record's probe features and its
+   classification the offline NCM's.
+9. a JSON line of every kernel with its launches on its paths (the integer
+   MVAU's also by route: int8 ``wgmma`` and CUDA cores) and its numbers,
+   the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are set to 0 just before each path (phases 3-4, the
-engine's traffic, the counted forwards of phase 5, and the eager and the
-captured ``generate`` runs of phase 6) and read just after; launches made
-while comparing or timing kernels do not count.  A graph's launches are
+engine's traffic, the counted forwards of phase 5, the eager and the
+captured ``generate`` runs of phase 6, and phases 7 and 8 as a whole) and
+read just after; launches made while comparing or timing kernels do not
+count.  A graph's launches are
 recorded when it is captured and counted at each replay: the paths
 ``fsl_serve`` and ``lm_decode_graph`` are counted from replays only (the
 script checks that every launch there was one).
@@ -865,6 +890,9 @@ def time_fused_gap(torch, KM, KG, ref, gen, err):
             "conv_alone_ms": ms["conv"], "unfused_chain_ms": ms["chain"]}
 
 
+PROFILE_READS = 3
+
+
 def traced_steps():
     """``torch.profiler.profile`` arguments for a traced run in two steps:
     a warm-up step whose events are dropped, then the step that is read.
@@ -877,40 +905,55 @@ def traced_steps():
 
 
 def profile_forward(torch, label: str, fn, reps: int = 5,
-                    batch: int = BATCH):
-    """Device time by kernel over ``reps`` forwards at batch 64
-    (torch.profiler, CUDA activity); returns the device-busy ms per
-    forward (None when the profiler saw no device time) and the kernels'
-    profiler events.  The profiler's own host cost stretches the traced
-    run's wall time, so the busy share printed here is a floor."""
+                    batch: int = BATCH, unit: str = "forward", top: int = 0):
+    """Device time by kernel over ``reps`` calls of ``fn`` (a forward at
+    batch 64, or a training step; torch.profiler, CUDA activity), the
+    ``top`` largest kernels printed (all with 0); returns the device-busy
+    ms per call (None when the profiler saw no device time) and the
+    kernels' profiler events.  The profiler's own host cost stretches the
+    traced run's wall time, so the busy share printed here is a floor.
+
+    Every call of ``fn`` launches the same kernels, so each kernel's count
+    is a multiple of ``reps``; a read where one is not has lost events in
+    the tracer (a replayed int forward once read 22.4 kernels of its 27)
+    and is traced again, at most PROFILE_READS times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(**traced_steps()) as prof:
-        fn()                          # warm-up step: its events are dropped
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]   # the step's span
+    for read in range(1, PROFILE_READS + 1):
+        with profile(**traced_steps()) as prof:
+            fn()                      # warm-up step: its events are dropped
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]   # the step's span
+        torn = [e.key[:60] for e in kern if e.count % reps]
+        if not torn:
+            break
+        log(f"profile {label}: read {read} lost events in the tracer "
+            f"({len(torn)} kernels with counts not a multiple of {reps}, "
+            f"e.g. {torn[0]})" + (", traced again" if read < PROFILE_READS
+                                  else ""))
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
         return None, kern
-    log(f"profile {label} (batch {batch}, {reps} forwards): traced wall "
-        f"{wall_us / reps / 1e3:.3f} ms/forward, device busy "
-        f"{busy_us / reps / 1e3:.3f} ms/forward ({busy_us / wall_us:.1%}), "
-        f"{sum(e.count for e in kern) / reps:.0f} kernels/forward")
-    for e in sorted(kern, key=lambda e: -e.device_time_total):
-        log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/forward "
+    log(f"profile {label} (batch {batch}, {reps} {unit}s): traced wall "
+        f"{wall_us / reps / 1e3:.3f} ms/{unit}, device busy "
+        f"{busy_us / reps / 1e3:.3f} ms/{unit} ({busy_us / wall_us:.1%}), "
+        f"{sum(e.count for e in kern) / reps:.0f} kernels/{unit}")
+    ranked = sorted(kern, key=lambda e: -e.device_time_total)
+    for e in ranked[:top] if top else ranked:
+        log(f"  {e.device_time_total / reps / 1e3:8.4f} ms/{unit} "
             f"{e.count / reps:5.1f}x  {e.key[:90]}")
     return busy_us / reps / 1e3, kern
 
@@ -980,11 +1023,13 @@ def main_path(torch, np, B):
         return out, {k: B.launch_counts[k] - before[k] for k in before}
 
     f_int, d = delta(lambda: dm_int(x))
-    check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau": 0, "gap": 0,
-                "qmatmul": 0}, f"int forward launches {d}")
+    check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
+                "mvau": 0, "gap": 0, "qmatmul": 0},
+          f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
-    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 8, "gap": 1,
-                "qmatmul": 0}, f"f32 forward launches {d}")
+    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
+                "mvau": 8, "gap": 1, "qmatmul": 0},
+          f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
@@ -1007,20 +1052,22 @@ def main_path(torch, np, B):
     saved = dict(B.launch_counts)
     unfused = unfused_lowering(dm_int)
     f_unf, d = delta(lambda: unfused(x))
-    check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau": 0, "gap": 1,
-                "qmatmul": 0} and torch.equal(f_unf, f_int),
+    check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau_int_wide": 0,
+                "mvau": 0, "gap": 1, "qmatmul": 0}
+          and torch.equal(f_unf, f_int),
           f"unfused int forward: launches {d}, or features differ")
     B.launch_counts.update(saved)
 
     pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
-    check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau": 0, "gap": 0,
-                "qmatmul": 0}, f"flip ensemble {d}")
+    check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau_int_wide": 0,
+                "mvau": 0, "gap": 0, "qmatmul": 0}, f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
-    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 16, "gap": 2,
-                "qmatmul": 0}, f"f32 flip ensemble {d}")
+    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
+                "mvau": 16, "gap": 2, "qmatmul": 0},
+          f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
           "deployed flip features != QAT forward")
@@ -1672,7 +1719,8 @@ def wide_code_path(torch, np, B):
         f = dm(x[:2])
         torch.cuda.synchronize()
         run = dict(B.launch_counts)
-        check(run == {"mvau_int": 8, "mvau_int_gap": int(int8), "mvau": 0,
+        check(run == {"mvau_int": 8, "mvau_int_gap": int(int8),
+                      "mvau_int_wide": 8 * (1 - int(int8)), "mvau": 0,
                       "gap": 1 - int(int8), "qmatmul": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
@@ -2023,6 +2071,7 @@ def lm_path(torch, np, B, Q, KQ):
                                           quantize_tree_for_serving)
     from repro_torch.models import lm
     from repro_torch.models.common import get_config
+    from repro_torch.tree import tree_flatten, tree_map
 
     cfg = get_config(LM_ARCH)
     err = check_qmatmul(torch, Q, KQ, cfg)
@@ -2036,7 +2085,7 @@ def lm_path(torch, np, B, Q, KQ):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     p0 = lm.with_head_copy(params, cfg)
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     log(f"lm: {LM_ARCH} full size ({cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab} padded {cfg.vocab_padded}), {n_params} float32 "
@@ -2287,7 +2336,7 @@ def lm_path(torch, np, B, Q, KQ):
     q_dev = lm.with_head_copy(quantize_tree_for_serving(two, 8), small)
     q_cpu = lm.with_head_copy(quantize_tree_for_serving(
         tree_map(lambda t: t.cpu(), two), 8), small)
-    for (a, b) in zip(tree_leaves(q_dev), tree_leaves(q_cpu)):
+    for (a, b) in zip(tree_flatten(q_dev)[0], tree_flatten(q_cpu)[0]):
         check(torch.equal(a.cpu(), b), "w8 codes or scales differ between "
               "card and CPU")
     caches = {"cuda": lm.init_cache(small, LM_BATCH, CPU_CHECK_STEPS + 1),
@@ -2336,18 +2385,289 @@ def lm_path(torch, np, B, Q, KQ):
     return entry, counts, graph_counts
 
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+# ---------------------------------------------------------------------------
+# Phase 7: training (fsl_train)
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 150
+TRAIN_BATCH = 64
+TRAIN_EPISODES = 20
+# benchmarks/table2_accuracy.py's rows: (label, conv bits.frac, act bits.frac)
+TABLE2_ROWS = (("w3.2a2.1 (collapse row)", (3, 2), (2, 1)),
+               ("w6.5a4.2 (paper choice)", (6, 5), (4, 2)),
+               ("w8.4a8.4", (8, 4), (8, 4)),
+               ("w16.8a16.8 (conventional)", (16, 8), (16, 8)))
+TABLE2_STEPS = 120
+# frames of the BATCH-frame probe whose pre-activations may tie a grid
+# midpoint (each may differ from QAT by one code)
+TIED_FRAMES = 2
+TABLE2_BATCH = 32
 
 
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from tree_leaves(tree[k])
-    else:
-        yield tree
+def ieee_flags(torch) -> bool:
+    return (not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest")
+
+
+def train_path(torch, np, B):
+    """QAT pretraining at the paper's width 64 on the card, then the trained
+    weights deployed through both datapaths, then the paper's Table II rows.
+    Returns the path's launch counts (set to 0 at the start)."""
+    import repro_torch
+    from repro_torch.core.quant import FixedPointSpec, QuantConfig
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.fsl.pipeline import (FSLPipeline, evaluate_episodes,
+                                          pretrain_backbone, pretrain_init,
+                                          pretrain_step)
+    from repro_torch.models import resnet9
+    from repro_torch.optim import adamw_init, cosine_warmup
+    from repro_torch.tree import tree_flatten, tree_map
+
+    B.reset_launch_counts()
+    t_phase = time.perf_counter()
+    qcfg = QuantConfig.paper_w6a4()
+    data = SyntheticImages(n_base=24, n_novel=8, seed=0, img=IMG)
+    pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
+    runs, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(pretrain_backbone(data, pipe, steps=TRAIN_STEPS,
+                                      batch=TRAIN_BATCH, seed=0))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(ieee_flags(torch), "TF32 is on after training")
+    losses = runs[0]["losses"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"pretraining losses {losses[:3]} ... {losses[-3:]}")
+    check(runs[0]["losses"] == runs[1]["losses"],
+          "two same-seed pretraining runs give different losses")
+    check(all(torch.equal(u, v) for u, v in zip(
+        tree_flatten(runs[0]["params"])[0],
+        tree_flatten(runs[1]["params"])[0])),
+          "two same-seed pretraining runs give different params")
+    params = runs[0]["params"]
+    min_gamma = min(float(blk["gamma"].min()) for blk in params.values())
+    check(min_gamma > 0, f"BN scale {min_gamma} <= 0: no threshold folding")
+    ms = [s / TRAIN_STEPS * 1e3 for s in secs]
+    log(f"fsl_train: pretrain_backbone at width {WIDTH}, paper_w6a4(), "
+        f"batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, twice from seed 0: "
+        f"{secs[0]:.2f} s and {secs[1]:.2f} s ({ms[0]:.3f} and {ms[1]:.3f} "
+        f"ms/step, {1e3 / ms[0]:.1f} and {1e3 / ms[1]:.1f} steps/s, batch "
+        f"images included); losses and params bit for bit equal; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; smallest gamma "
+        f"{min_gamma:.6f}")
+
+    # one step alone: untraced wall, then the profiler's device busy
+    p0 = pretrain_init(data, pipe, seed=1)
+    st = {"p": p0, "o": adamw_init(p0)}
+    sched = cosine_warmup(2e-3, warmup=max(TRAIN_STEPS // 20, 1),
+                          total=TRAIN_STEPS)
+    xb, yb = data.base_batch(np.random.default_rng(1), TRAIN_BATCH)
+    xb = torch.from_numpy(xb).cuda()
+    yb = torch.from_numpy(yb).cuda().long()
+
+    def step():
+        st["p"], st["o"], _ = pretrain_step(pipe, st["p"], st["o"], sched,
+                                            xb, yb)
+
+    step_ms = wall_ms(torch, step, reps=10)
+    busy, kern = profile_forward(torch, "training step", step, reps=5,
+                                 batch=TRAIN_BATCH, unit="step", top=12)
+    log(f"fsl_train step on resident data: {step_ms:.3f} ms wall "
+        f"({1e3 / step_ms:.1f} steps/s), device busy "
+        + (f"{busy:.3f} ms ({busy / step_ms:.1%} of the untraced step), "
+           if busy is not None else "not measured, ")
+        + f"{sum(e.count for e in kern) / 5:.0f} kernels a step")
+
+    # the trained weights deployed: int == f32 == QAT, card == CPU
+    feats_int = pipe.deploy(params, datapath="int")
+    feats_f32 = pipe.deploy(params, datapath="f32")
+    ep = data.episode(np.random.default_rng(5), 5, 5, 15)
+    x = torch.from_numpy(ep["query_x"][:BATCH]).cuda()
+    want = pipe.features(params, x)
+    f_int, f_f32 = feats_int(x), feats_f32(x)
+    # a frame where a pre-activation lies within float32 roundings of a grid
+    # midpoint (the export's (T - beta)/gamma against QAT's gamma*y + beta)
+    # may differ from QAT by a code, in the reference as in the port; the
+    # test reads the grid and the BN parameters, not the exported
+    # thresholds.  Every other frame must give the QAT features, and at
+    # most TIED_FRAMES frames may tie
+    ties = (resnet9.midpoint_ties(params, x, qcfg, WIDTH)
+            + resnet9.midpoint_ties(params, torch.flip(x, dims=[2]), qcfg,
+                                    WIDTH)) > 0
+    check(int(ties.sum()) <= TIED_FRAMES,
+          f"{int(ties.sum())} of {BATCH} frames tie a grid midpoint")
+    code = qcfg.layer(resnet9.plan(WIDTH)[-1]["name"]).act.scale
+    n_bad = {}
+    for name, f in (("int", f_int), ("f32", f_f32)):
+        bad = ~torch.isclose(f, want, rtol=1e-5, atol=1e-6).all(dim=1)
+        d = (f - want).abs()
+        n_bad[name] = int(bad.sum())
+        check(not bool((bad & ~ties).any()),
+              f"trained {name} artifact != QAT features on a frame without "
+              f"a midpoint tie (max diff {d.max().item()})")
+        check(bool((d[ties] <= code).all()),
+              f"trained {name} artifact differs from QAT by more than a "
+              f"code on a tied frame")
+    check(torch.equal(f_int, f_f32), "trained int artifact != f32 artifact")
+    dm_cpu = repro_torch.compile(tree_map(lambda t: t.cpu(), params), qcfg,
+                                 recipe="resnet9", datapath="int",
+                                 device="cpu")
+    check(torch.equal(feats_int.deployed_model(x[:2]).cpu(),
+                      dm_cpu(x[:2].cpu())),
+          "trained int artifact: card != CPU at batch 2")
+    t0 = time.perf_counter()
+    acc_q, ci_q = evaluate_episodes(params, data, pipe,
+                                    n_episodes=TRAIN_EPISODES)
+    acc_d, ci_d = evaluate_episodes(params, data, pipe,
+                                    n_episodes=TRAIN_EPISODES,
+                                    feats_fn=feats_int)
+    check(abs(acc_d - acc_q) < 0.01,
+          f"deployed accuracy {acc_d} vs QAT accuracy {acc_q}")
+    log(f"fsl_train: trained int and f32 artifacts == QAT features (rtol "
+        f"1e-5, atol 1e-6) at batch {BATCH} on every frame without a "
+        f"midpoint tie ({int(ties.sum())} of {BATCH} frames tie, at most "
+        f"{TIED_FRAMES}; differ from QAT: int {n_bad['int']}, f32 "
+        f"{n_bad['f32']}), int == f32 bit for bit, card == "
+        f"CPU at batch 2; 5-way 5-shot over {TRAIN_EPISODES} episodes: QAT "
+        f"{acc_q * 100:.2f} ± {ci_q * 100:.2f}%, deployed int "
+        f"{acc_d * 100:.2f} ± {ci_d * 100:.2f}% "
+        f"({time.perf_counter() - t0:.2f} s)")
+    del feats_int, feats_f32, dm_cpu, runs, params, st
+
+    # the paper's Table II rows at width 64
+    t2 = SyntheticImages(n_base=24, n_novel=8, seed=0, img=IMG, signal=0.7,
+                         noise=0.2)
+    for label, (wb, wf), (ab, af) in TABLE2_ROWS:
+        cfg = QuantConfig(weight=FixedPointSpec(wb, wf),
+                          act=FixedPointSpec(ab, af, signed=False))
+        p = FSLPipeline(width=WIDTH, qcfg=cfg, device="cuda")
+        t0 = time.perf_counter()
+        pre = pretrain_backbone(t2, p, steps=TABLE2_STEPS,
+                                batch=TABLE2_BATCH)
+        t_train = time.perf_counter() - t0
+        acc, ci = evaluate_episodes(pre["params"], t2, p,
+                                    n_episodes=TRAIN_EPISODES)
+        feats = p.deploy(pre["params"], datapath="int")
+        acc_i, ci_i = evaluate_episodes(pre["params"], t2, p,
+                                        n_episodes=TRAIN_EPISODES,
+                                        feats_fn=feats)
+        kernels = sorted({r["kernel"] for r in
+                          feats.deployed_model.dispatch_table()
+                          if r["op"] == "mvau_int"})
+        gmin = min(float(blk["gamma"].min())
+                   for blk in pre["params"].values())
+        log(f"table2,{label},qat={acc * 100:.2f}±{ci * 100:.2f},"
+            f"deployed_int={acc_i * 100:.2f}±{ci_i * 100:.2f},"
+            f"loss={pre['losses'][0]:.4f}->{pre['losses'][-1]:.4f},"
+            f"min_gamma={gmin:.6f},"
+            f"train_s={t_train:.2f},total_s={time.perf_counter() - t0:.2f},"
+            f"mvau_int={'/'.join(kernels)}")
+        del feats, pre, p
+    counts = dict(B.launch_counts)
+    log(f"fsl_train: phase {time.perf_counter() - t_phase:.2f} s; launches "
+        f"{counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: design-space exploration (dse)
+# ---------------------------------------------------------------------------
+DSE_STEPS = 120
+DSE_EPISODES = 10
+
+
+def dse_path(torch, np, B):
+    """``SweepFarm`` over the default grid at width 64 on the card; a
+    restart is all cache hits; a serial ``sweep`` of two points equals the
+    farm on the deterministic keys; the knee published into a registry and
+    served through ``ServeEngine``, bit for bit against its sweep-time
+    probe.  Returns the path's launch counts (set to 0 at the start)."""
+    import hashlib
+    import tempfile
+
+    from repro_torch.explore import (DEFAULT_GRID, DETERMINISTIC_KEYS,
+                                     SweepFarm, probe_batch,
+                                     publish_frontier, select_knee, sweep)
+    from repro_torch.serve import (ArtifactRegistry, PrototypeStore,
+                                   ServeEngine)
+
+    B.reset_launch_counts()
+    t_phase = time.perf_counter()
+    kw = dict(width=WIDTH, steps=DSE_STEPS, episodes=DSE_EPISODES,
+              device="cuda")
+    with tempfile.TemporaryDirectory(prefix="dse-cache-") as cache:
+        t0 = time.perf_counter()
+        farm = SweepFarm(cache, verbose=False, **kw)
+        res = farm.run(DEFAULT_GRID)
+        farm_s = time.perf_counter() - t0
+        check(res.failed == [], f"DSE points failed: {res.errors}")
+        check(all(p["bitexact_int_vs_f32"] for p in res.points),
+              "a DSE point's int artifact != its f32 artifact")
+        for p, wall, key in zip(res.points, res.wall_s, res.keys):
+            gmin = min(float(blk["gamma"].min()) for blk in
+                       farm.restore_point(key).params.values())
+            log(f"dse,{p['label']},acc={p['acc_mean'] * 100:.2f}±"
+                f"{p['acc_ci95'] * 100:.2f},bytes_int={p['weight_bytes_int']},"
+                f"bytes_f32={p['weight_bytes_f32']},int_ms_b8="
+                f"{p['int_ms_per_batch']:.3f},f32_ms_b8="
+                f"{p['f32_ms_per_batch']:.3f},modeled_ms="
+                f"{p['modeled_ms']:.5f},top={p['cost_top']['op']}:"
+                f"{p['cost_top']['kernel']},loss={p['final_pretrain_loss']:.4f},"
+                f"min_gamma={gmin:.6f},bitexact="
+                f"{int(p['bitexact_int_vs_f32'])},wall_s={wall:.2f}")
+        t0 = time.perf_counter()
+        again = SweepFarm(cache, verbose=False, **kw).run(DEFAULT_GRID)
+        check(again.cached == [True] * len(DEFAULT_GRID)
+              and again.points == res.points,
+              f"restarted farm: cached {again.cached}, or records differ")
+        restart_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serial = sweep(DEFAULT_GRID[:2], verbose=False, **kw)
+        serial_s = time.perf_counter() - t0
+        for a, b in zip(serial["points"], res.points):
+            diff = [k for k in DETERMINISTIC_KEYS if a[k] != b[k]]
+            check(not diff, f"serial sweep != farm on {a['label']}: {diff}")
+
+        registry = ArtifactRegistry()
+        names = publish_frontier(res, registry, device="cuda")
+        knee = select_knee(res.points, res.frontier)
+        rec = res.points[knee]
+        cached = farm.restore_point(res.keys[knee])
+        probe = probe_batch(rec["point_seed"], res.config["bench_batch"], IMG)
+        with ServeEngine(registry, max_batch=res.config["bench_batch"],
+                         batch_wait_ms=1.0) as eng:
+            eng.warmup(img=IMG)
+            default = registry.get(None)
+            served = default.feats(probe).cpu().numpy()
+            check(np.array_equal(served, cached.probe_feats)
+                  and hashlib.sha256(served.tobytes()).hexdigest()
+                  == rec["probe_digest"],
+                  "served knee != its sweep-time probe features")
+            offline = PrototypeStore("cuda")
+            offline.register("a", cached.probe_feats[:1])
+            offline.register("b", cached.probe_feats[1:2])
+            want_ids, want_sims = offline.classify(cached.probe_feats)
+            eng.submit_register("a", probe[:1]).result(timeout=120)
+            eng.submit_register("b", probe[1:2]).result(timeout=120)
+            got = eng.submit_classify(probe).result(timeout=120)
+        check(got.artifact == default.name and got.class_ids == want_ids
+              and np.array_equal(got.sims, want_sims),
+              "engine classification of the knee != offline NCM")
+    counts = dict(B.launch_counts)
+    log(f"dse: SweepFarm over {len(DEFAULT_GRID)} points at width {WIDTH}, "
+        f"{DSE_STEPS} steps, {DSE_EPISODES} episodes in {farm_s:.2f} s, every "
+        f"point int == f32 bit for bit; restart all cache hits in "
+        f"{restart_s:.3f} s; serial sweep of 2 points == farm on "
+        f"{len(DETERMINISTIC_KEYS)} keys ({serial_s:.2f} s); frontier "
+        f"{[res.points[i]['label'] for i in res.frontier]} published as "
+        f"{names}, knee {rec['label']} served through ServeEngine bit for bit "
+        f"(probe digest {rec['probe_digest'][:12]}), classification == "
+        f"offline NCM; phase {time.perf_counter() - t_phase:.2f} s; "
+        f"launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -2413,12 +2733,14 @@ def main() -> int:
     wide_counts = wide_code_path(torch, np, B)
     qmm, lm_counts, lm_graph_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
+    train_counts = train_path(torch, np, B)
+    dse_counts = dse_path(torch, np, B)
+    paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
+             "fsl_serve": serve_counts, "lm_decode": lm_counts,
+             "lm_decode_graph": lm_graph_counts, "fsl_train": train_counts,
+             "dse": dse_counts}
     for k in kernels:
-        by_path = {"fsl": fsl_counts[k["name"]],
-                   "fsl_wide_codes": wide_counts[k["name"]],
-                   "fsl_serve": serve_counts[k["name"]],
-                   "lm_decode": lm_counts[k["name"]],
-                   "lm_decode_graph": lm_graph_counts[k["name"]]}
+        by_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches_by_path"] = by_path
         k["launches"] = by_path["lm_decode" if k["name"] == "qmatmul"
                                 else "fsl"]
@@ -2427,6 +2749,21 @@ def main() -> int:
         check(by_path["fsl_serve" if k["name"] != "qmatmul"
                       else "lm_decode_graph"] > 0,
               f"kernel {k['name']} never ran in a replayed graph")
+        if k["name"] != "qmatmul":
+            check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
+                  f"kernel {k['name']} never ran on the training or the "
+                  f"DSE path: {by_path}")
+    # the integer MVAU's two routes: int8 wgmma, and the CUDA cores for
+    # wider codes (grid_point(8, 8), the 16-bit Table II row)
+    mv = next(k for k in kernels if k["name"] == "mvau_int")
+    mv["launches_by_route"] = {
+        "int8_wgmma": {p: c["mvau_int"] - c["mvau_int_wide"]
+                       for p, c in paths.items()},
+        "cuda_core": {p: c["mvau_int_wide"] for p, c in paths.items()}}
+    for route, by_path in mv["launches_by_route"].items():
+        check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
+              f"mvau_int's {route} route never ran on the training or the "
+              f"DSE path: {by_path}")
     log("kernels " + " ".join(f"{k['name']}={k['launches_by_path']}"
                               for k in kernels))
     log(json.dumps({"kernels": kernels}))

@@ -199,9 +199,26 @@ class DeployedModel:
     # the executable table: one CUDA graph per warmed input signature on the
     # card (the reference's AOT executables by (shape, dtype))
     _exec: GraphTable = dataclasses.field(init=False, repr=False)
+    _fingerprint: Optional[str] = dataclasses.field(default=None, init=False,
+                                                    repr=False)
 
     def __post_init__(self):
         self._exec = GraphTable(self.apply, self.device)
+
+    def fingerprint(self) -> str:
+        """Content digest of (graph structure + initializer bytes, datapath,
+        build pass set), the reference's string for the same graph: two
+        artifacts built differently never share a key."""
+        if self._fingerprint is None:
+            import hashlib
+
+            from repro_torch.ckpt.compile_cache import graph_fingerprint
+
+            pd = hashlib.sha256(
+                "|".join(self.pass_names).encode()).hexdigest()[:8]
+            self._fingerprint = (f"{graph_fingerprint(self.graph)}-"
+                                 f"{self.datapath}-{pd}")
+        return self._fingerprint
 
     @property
     def trace_count(self) -> int:
@@ -309,6 +326,16 @@ class DeployedModel:
                          "kernel": kops.kernel_dispatch(
                              n, emulated, folded.get(n.outputs[0]))})
         return rows
+
+    def profile(self, example, *, xla: bool = True,
+                backend: Optional[str] = None) -> Dict[str, Any]:
+        """Per-node FLOPs/bytes/estimated-ms attribution for one batch
+        shape (:func:`repro_torch.obs.costmodel.profile_deployed`); the
+        sweep records ``totals.est_ms`` as ``modeled_ms``.  The XLA
+        cross-check (``xla=True``) has no counterpart here and raises."""
+        from repro_torch.obs.costmodel import profile_deployed
+
+        return profile_deployed(self, example, xla=xla, backend=backend)
 
     def qdq_counts(self) -> Dict[str, int]:
         """Surviving quantize/dequantize nodes and interior round-trip

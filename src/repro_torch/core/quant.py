@@ -283,19 +283,20 @@ def dequantize(q: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
 
 
 def fake_quant(x: torch.Tensor, spec: Optional[FixedPointSpec]) -> torch.Tensor:
-    """Quantize-dequantize: the QAT operator's forward.
+    """Quantize-dequantize with a straight-through gradient estimator.
 
-    The value is the reference's ``ste + stop_gradient(qdq - ste)`` with the
-    same saturation mask, computed op for op so the bits agree.  The
-    straight-through backward waits for the training slice; this forward
-    runs under ``torch.no_grad`` semantics (no graph is recorded for it).
+    The QAT operator: the forward runs on the exact deployment grid, the
+    backward passes the gradient through unchanged inside the representable
+    range and zero where the forward clipped (``g · 1[min ≤ x ≤ max]``).
+    The value is the reference's ``ste + stop_gradient(qdq - ste)``,
+    computed op for op so the bits agree; ``detach`` is the stop-gradient.
     """
     if spec is None:
         return x
     qdq = dequantize(quantize(x, spec), spec).to(x.dtype)
     inside = torch.logical_and(x >= spec.min_value, x <= spec.max_value)
     ste = x * inside.to(x.dtype)
-    return ste + (qdq - ste)
+    return ste + (qdq - ste).detach()
 
 
 # --------------------------------------------------------------------------

@@ -1,19 +1,19 @@
-"""End-to-end few-shot pipeline (paper Fig. 1): frozen-backbone feature
-extraction over support sets, then NCM inference over queries.
+"""End-to-end few-shot pipeline (paper Fig. 1): (1) backbone pretraining on
+base classes, (2) frozen-backbone feature extraction over support sets,
+(3) NCM inference over queries.
 
-Counterpart of the JAX package's ``fsl/pipeline.py`` (its serving half:
-``FSLPipeline`` with ``for_point``/``features``/``deploy`` and
-``evaluate_episodes``; backbone pretraining is a later slice of the port).
-The backbone runs at an arbitrary fixed-point bit-width (QuantConfig), and
-the SAME QuantConfig drives the QAT forward and the deployed graph, so the
-accuracy measured through ``deploy`` is the deployed accuracy.
+Counterpart of the JAX package's ``fsl/pipeline.py``.  The backbone runs at
+an arbitrary fixed-point bit-width (QuantConfig), and the SAME QuantConfig
+drives training, the QAT forward and the deployed graph, so the accuracy
+measured through ``deploy`` is the deployed accuracy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,8 @@ from repro_torch.core.recipes import recipe
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fsl import ncm
+from repro_torch.optim.adamw import adamw_init, adamw_update, cosine_warmup
+from repro_torch.tree import tree_flatten
 
 
 def _flip_w(x: torch.Tensor) -> torch.Tensor:
@@ -152,6 +154,72 @@ class FSLPipeline:
         while len(self._deploy_cache) > max(self.deploy_cache_size, 1):
             self._deploy_cache.popitem(last=False)
         return feats
+
+
+def pretrain_init(data: SyntheticImages, pipe: FSLPipeline,
+                  seed: int = 0) -> Dict:
+    """The pretraining tree ``{"backbone", "head": {"w"}}`` on the
+    pipeline's device, drawn from a CPU ``torch.Generator`` seeded with
+    ``seed`` (the same weights on any device)."""
+    hooks = pipe._hooks()
+    gen = torch.Generator().manual_seed(seed)
+    head = torch.randn((hooks.feature_dim(pipe.width), data.n_base),
+                       generator=gen, dtype=torch.float32) * 0.02
+    return {"backbone": hooks.init_params(gen, pipe.width, pipe.device),
+            "head": {"w": head.to(pipe.device)}}
+
+
+def pretrain_step(pipe: FSLPipeline, params: Dict, opt, sched, x, y):
+    """One eager step: the reference's ``logsumexp − gold`` loss through
+    ``hooks.forward`` itself (not :meth:`FSLPipeline.features`, which
+    records no graph), its gradient with respect to every leaf, and an
+    AdamW update with the reference's weight decay of 1e-4.  ``x`` (B, H,
+    W, 3) float32 and ``y`` (B,) int on the pipeline's device.  Returns
+    ``(params, opt, loss)``."""
+    hooks = pipe._hooks()
+    leaves, unflatten = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    p = unflatten(leaves)
+    f = hooks.forward(p["backbone"], x, pipe.qcfg, pipe.width)
+    logits = f @ p["head"]["w"]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, y[:, None])[:, 0]
+    loss = (lse - gold).mean()
+    grads = torch.autograd.grad(loss, leaves)
+    params, opt = adamw_update(unflatten([q.detach() for q in leaves]),
+                               unflatten(list(grads)), opt, sched,
+                               weight_decay=1e-4)
+    return params, opt, loss.detach()
+
+
+def pretrain_backbone(data: SyntheticImages, pipe: FSLPipeline,
+                      steps: int = 150, batch: int = 64, lr: float = 2e-3,
+                      seed: int = 0, log_every: int = 0) -> Dict:
+    """Base-class pretraining: backbone + linear head, CE loss, AdamW,
+    eagerly on the pipeline's device.
+
+    Weights from :func:`pretrain_init`, batches from
+    ``np.random.default_rng(seed)`` (the reference's batches, image for
+    image), one :func:`pretrain_step` each.  Returns ``{"params": backbone
+    tree, "losses": [float, ...]}``.
+    """
+    dev = pipe.device
+    params = pretrain_init(data, pipe, seed)
+    opt = adamw_init(params)
+    sched = cosine_warmup(lr, warmup=max(steps // 20, 1), total=steps)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for i in range(steps):
+        x, y = data.base_batch(rng, batch)
+        params, opt, loss = pretrain_step(
+            pipe, params, opt, sched, torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).to(dev, torch.int64))
+        losses.append(loss)
+        if log_every and i % log_every == 0:
+            sys.stdout.write(f"  pretrain step {i:4d} loss "
+                             f"{float(loss):.4f}\n")
+    losses = torch.stack(losses).cpu().tolist() if losses else []
+    return {"params": params["backbone"], "losses": losses}
 
 
 def evaluate_episodes(backbone_params, data: SyntheticImages,

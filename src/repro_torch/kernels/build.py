@@ -37,12 +37,14 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # launches its kernel and nowhere else (chip_smoke.py reads these to show
 # the main path went through the kernels).  ``mvau_int_gap`` counts the
 # launches of the integer conv MVAU that carry the GlobalAccPool epilogue
-# (``mvau.mvau_int_conv_gap``); each of them is an ``mvau_int`` launch too.
-# A launch made while a CUDA graph captures is recorded in that graph
+# (``mvau.mvau_int_conv_gap``) and ``mvau_int_wide`` those that run on the
+# CUDA-core route (integer codes wider than int8); each of them is an
+# ``mvau_int`` launch too.  A launch made while a CUDA graph captures is recorded in that graph
 # instead (:class:`GraphState`), and every replay of the graph adds its
 # record here: the counts stay "kernels that ran".
-launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0, "mvau": 0,
-                                  "gap": 0, "qmatmul": 0}
+launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0,
+                                  "mvau_int_wide": 0, "mvau": 0, "gap": 0,
+                                  "qmatmul": 0}
 _COUNT_LOCK = threading.Lock()
 
 

@@ -155,7 +155,10 @@ def _core(x: torch.Tensor, w: torch.Tensor, w_kind: int,
         float(out_base) if floating else 0.0, float(out_scale),
         float(out_bias), splits, ws, counts, _stream())
     B.check(rc, name)
-    B.count_launch(name)
+    if name == "mvau_int":
+        B.count_launch(name, "mvau_int_wide")
+    else:
+        B.count_launch(name)
     return out
 
 

@@ -8,7 +8,9 @@ identical by construction:
 
 1. **QAT model** (``forward``): im2col+matmul convolutions with
    fake-quantized weights, per-channel BN affine, ReLU, activation
-   fake-quant (the forward only; training is a later slice of the port).
+   fake-quant — trainable end-to-end on the exact deployment grid, with the
+   straight-through gradient of ``fake_quant`` and a backward free of
+   atomics, so training on the card is deterministic.
 2. **Exported dataflow graph** (``export_graph``): MatMul nodes with
    quantized weight initializers, BN+ReLU+act-quant folded into per-channel
    **MultiThreshold** nodes, the stray NHWC→NCHW transposes an NCHW export
@@ -110,20 +112,26 @@ def init_params(gen: torch.Generator, width: int = 64,
 # ---------------------------------------------------------------------------
 def _im2col(x: torch.Tensor, k: int = 3, stride: int = 1,
             pad: int = 1) -> torch.Tensor:
+    """(N, H, W, C) -> (N, OH, OW, k·k·C) patches in (kh, kw, c) order.
+
+    The k·k shifted (strided) slices of the padded input, concatenated
+    along channels: the same values as the reference's advanced-index
+    gather, and a backward of plain slice adds.  A gather's backward is an
+    accumulate-scatter, which runs on atomics on CUDA and sums in a
+    different order from run to run."""
     n, h, w, c = x.shape
     xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
     oh = (h + 2 * pad - k) // stride + 1
     ow = (w + 2 * pad - k) // stride + 1
-    ar_k = torch.arange(k, device=x.device)
-    idx_h = (torch.arange(oh, device=x.device) * stride)[:, None] + ar_k[None, :]
-    idx_w = (torch.arange(ow, device=x.device) * stride)[:, None] + ar_k[None, :]
-    rows = xp[:, idx_h]
-    patches = rows[:, :, :, idx_w]
-    patches = patches.permute(0, 1, 3, 2, 4, 5)
-    return patches.reshape(n, oh, ow, k * k * c)
+    cols = [xp[:, i:i + (oh - 1) * stride + 1:stride,
+               j:j + (ow - 1) * stride + 1:stride]
+            for i in range(k) for j in range(k)]
+    return torch.cat(cols, dim=-1)
 
 
 def _maxpool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """k×k max pool.  ``amax`` splits the gradient evenly between tied
+    maxima, as JAX's reduce-max does (``max_pool2d`` routes it to one)."""
     n, h, w, c = x.shape
     return torch.amax(x.reshape(n, h // k, k, w // k, k, c), dim=(2, 4))
 
@@ -134,7 +142,8 @@ def forward(params: Params, x: torch.Tensor,
     """x: (B, H, W, 3) NHWC in [0,1]-ish. Returns (B, 8·width) features.
 
     Each block resolves its own specs through ``qcfg.layer(name)``; the
-    graph input rides the TOP-LEVEL activation grid.
+    graph input rides the TOP-LEVEL activation grid.  Differentiable in
+    every leaf of ``params`` (``w``, ``gamma``, ``beta``).
     """
     if x.is_cuda:
         ieee_f32()
@@ -160,6 +169,59 @@ def forward(params: Params, x: torch.Tensor,
             skip = None
         x = y
     return torch.mean(x, dim=(1, 2))                      # -> GAP in export
+
+
+# float32 roundings of slack on each side of a grid midpoint: the export's
+# quotient, and QAT's product and sum, round once each
+TIE_ULPS = 4
+
+
+def midpoint_ties(params: Params, x: torch.Tensor, qcfg: QuantConfig,
+                  width: int = 64) -> torch.Tensor:
+    """Per frame of ``x``, how many pre-activations ``γ·y + β`` of the QAT
+    forward lie within ``TIE_ULPS`` float32 roundings of an activation-grid
+    midpoint ``(k + ½)·scale``.
+
+    The export folds BN + ReLU + act-quant into ``y ≥ (T − β)/γ`` with the
+    quotient rounded to float32; the QAT forward rounds ``γ·y + β`` to
+    float32 and then to the grid.  Both are exact up to those roundings,
+    so they can code a pre-activation differently only inside this band
+    (trained BN parameters reach it; γ = 1, β = 0 never do).  The test
+    reads the grid and the BN parameters, never the exported thresholds,
+    so a wrong threshold export shows as a mismatch on an untied frame.
+    The band is ``TIE_ULPS · 2⁻²⁴ · (|γ·y| + |β| + |mid|)``, in float64
+    from the float32 product ``y``, which is exact while the codes'
+    products sum within 24 bits (``paper_w6a4()`` at width 64 does).  Returns (B,)
+    int64 counts; runs the QAT forward, without gradients.
+    """
+    counts = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    with torch.no_grad():
+        h = fake_quant(x, qcfg.act)
+        skip = None
+        for blk in plan(width):
+            p = params[blk["name"]]
+            act = qcfg.layer(blk["name"]).act
+            w_q = fake_quant(p["w"], qcfg.layer(blk["name"]).weight)
+            y = torch.matmul(_im2col(h), w_q.reshape(-1, blk["cout"]))
+            gy = y.double() * p["gamma"].double()
+            z = gy + p["beta"].double()
+            k = torch.floor(z / act.scale)
+            mid = (k + 0.5) * act.scale
+            band = TIE_ULPS * 2.0 ** -24 * (gy.abs() + p["beta"].double().abs()
+                                        + mid.abs())
+            tie = (((z - mid).abs() <= band) & (k >= max(act.qmin, 0))
+                   & (k < act.qmax))
+            counts += tie.reshape(x.shape[0], -1).sum(dim=1)
+            a = fake_quant(torch.relu(y * p["gamma"] + p["beta"]), act)
+            if blk.get("pool"):
+                a = _maxpool(a)
+            if blk.get("res_open"):
+                skip = h
+            if blk.get("res_close"):
+                a = a + skip
+                skip = None
+            h = a
+    return counts
 
 
 # ---------------------------------------------------------------------------

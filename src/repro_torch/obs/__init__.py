@@ -10,8 +10,12 @@ The port's copies of the JAX package's ``obs/{tracer,metrics,export}.py``
   lock, rendered as Prometheus text exposition (``ServeMetrics`` is built
   on it).
 
-The reference's cost model, HLO analysis and trace summarizer read XLA
-artifacts and are not part of the port.  A process-global default tracer
+* :mod:`repro_torch.obs.costmodel` — per-node FLOPs/bytes/estimated-ms
+  attribution behind ``DeployedModel.profile()``, recorded into sweep
+  points.
+
+The reference's HLO analysis and trace summarizer read XLA artifacts and
+are not part of the port.  A process-global default tracer
 (disabled until :func:`configure` attaches an exporter) lets components
 instrument unconditionally at near-zero cost when nobody is looking.
 """

@@ -441,7 +441,8 @@ def test_skip_that_broadcasts_or_is_float_on_the_card(card, int8_ok, skip):
     before = dict(B.launch_counts)
     (got,) = lower_graph(g, card)(_t(x, card), _t(s, card))
     delta = {k: B.launch_counts[k] - before[k] for k in before}
-    assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused), "mvau": 0,
+    assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused),
+                     "mvau_int_wide": int(not int8_ok), "mvau": 0,
                      "gap": 1 - int(fused), "qmatmul": 0}
     (want,) = lower_graph(g, "cpu")(_t(x, "cpu"), _t(s, "cpu"))
     assert torch.equal(got.cpu(), want)
@@ -463,8 +464,8 @@ def test_w6a4_width64_fuses_the_tail_on_the_card(card):
     before = dict(B.launch_counts)
     f = dm(x)
     delta = {k: B.launch_counts[k] - before[k] for k in before}
-    assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau": 0, "gap": 0,
-                     "qmatmul": 0}
+    assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
+                     "mvau": 0, "gap": 0, "qmatmul": 0}
     assert torch.equal(f.cpu(), dm_cpu(x))
 
 
@@ -956,3 +957,77 @@ def test_engine_on_the_card_no_capture_after_warmup(card):
     for q, r in zip(queries, results):
         want = ncm.ncm_classify(feats(q), offline)
         assert r.class_ids == want.tolist()
+
+
+def _train_setup(dev, width: int = 8):
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.fsl.pipeline import FSLPipeline
+
+    data = SyntheticImages(n_base=6, n_novel=5, seed=2)
+    return data, FSLPipeline(width=width, qcfg=Q.QuantConfig.paper_w6a4(),
+                             device=dev)
+
+
+@pytest.mark.cuda
+def test_training_steps_on_the_card_match_the_cpu(card):
+    """A few pretraining steps on the card and on the CPU from the same
+    seed: losses within rtol 1e-5, params within rtol 1e-4, atol 1e-6."""
+    from repro_torch.fsl.pipeline import pretrain_backbone
+
+    data, pipe_cpu = _train_setup("cpu")
+    _, pipe_card = _train_setup(card)
+    a = pretrain_backbone(data, pipe_cpu, steps=3, batch=8, seed=4)
+    b = pretrain_backbone(data, pipe_card, steps=3, batch=8, seed=4)
+    np.testing.assert_allclose(b["losses"], a["losses"], rtol=1e-5)
+    for name, blk in a["params"].items():
+        for leaf, want in blk.items():
+            got = b["params"][name][leaf]
+            assert got.device.type == "cuda"
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_is_deterministic(card):
+    """Two same-seed runs on the card: losses and params bit for bit (the
+    backward has no atomics: im2col is shifted slices, not a gather)."""
+    from repro_torch.fsl.pipeline import pretrain_backbone
+
+    data, pipe = _train_setup(card)
+    a = pretrain_backbone(data, pipe, steps=5, batch=16, seed=1)
+    b = pretrain_backbone(data, pipe, steps=5, batch=16, seed=1)
+    assert a["losses"] == b["losses"]
+    for name, blk in a["params"].items():
+        for leaf, v in blk.items():
+            assert torch.equal(v, b["params"][name][leaf]), (name, leaf)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.cuda
+def test_trained_int_artifact_card_equals_cpu(card):
+    from repro_torch.fsl.pipeline import pretrain_backbone
+
+    data, pipe = _train_setup(card)
+    out = pretrain_backbone(data, pipe, steps=5, batch=16, seed=3)
+    _, pipe_cpu = _train_setup("cpu")
+    cpu = {k: {kk: v.cpu() for kk, v in b.items()}
+           for k, b in out["params"].items()}
+    x = np.random.default_rng(2).random((4, 32, 32, 3)).astype(np.float32)
+    for datapath in ("int", "f32"):
+        got = pipe.deploy(out["params"], datapath=datapath)(x)
+        want = pipe_cpu.deploy(cpu, datapath=datapath)(x)
+        assert torch.equal(got.cpu(), want), datapath
+    # QAT features on every frame where no pre-activation lies on a grid
+    # midpoint (resnet9.midpoint_ties); at most one tied frame of 4, within
+    # one code of the last block's grid
+    xt = torch.from_numpy(x).to(card)
+    ties = sum(resnet9.midpoint_ties(out["params"], v, pipe.qcfg, 8)
+               for v in (xt, torch.flip(xt, dims=[2]))) > 0
+    got = pipe.deploy(out["params"], "int")(x)
+    want = pipe.features(out["params"], x)
+    bad = ~torch.isclose(got, want, rtol=1e-5, atol=1e-6).all(dim=1)
+    assert not (bad & ~ties).any(), (bad, ties)
+    assert int(ties.sum()) <= 1, ties
+    code = pipe.qcfg.layer(resnet9.plan(8)[-1]["name"]).act.scale
+    assert ((got - want).abs()[ties] <= code).all()
