@@ -85,6 +85,26 @@ ends the run with a non-zero exit if it fails:
    step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
    and greedy tokens are compared.
+6b. compiled LM decode (paths ``lm_tiny_decode``, ``lm_tiny_serve``):
+   the int8 MVAU in GEMM form at lm-tiny's ``w_down`` (M 1, 3 and 8, K 96,
+   N 64, 255 levels; a table shared by every column and one per column)
+   against its plain version, timed at M 1 and 8 beside ``torch._int_mm``
+   + count and its bound; lm-tiny at full size (seed 0, drawn on the card)
+   through ``build_decode_artifact`` to int and f32 artifacts (golden-IO
+   checked bit for bit); eager steps through ``DecodeArtifact`` before
+   warmup (2 ``mvau_int`` launches per int step, tokens == eager
+   ``decode_step_ref``); one CUDA graph per bucket (1, 2, 4, 8) x capacity
+   (32, 64): int replay == int eager == f32 == interpreter ==
+   ``decode_step_ref``, bit for bit, at every pair, and each row of a
+   bucket-8 step == that row at bucket 1; card against CPU on the same
+   params (logits within 0.0625, greedy tokens equal where the CPU's top-2
+   margin exceeds 0.125); step latency replayed and eager at batch 1 and
+   8, the replayed int step profiled (2 ``mvau_conv_kernel`` a step);
+   ``ServeEngine`` serving both artifacts through ``DecodeAdapter``: 16
+   sequences from 4 threads through ``greedy_generate`` (20-40 new tokens,
+   most crossing capacity 32), tokens == eager ``decode_step_ref`` and int
+   == f32, no capture after warmup, every launch a replay; tokens/s,
+   latency, and the device's busy share in a traced window.
 7. training (path ``fsl_train``): ``pretrain_backbone`` at width 64 with
    ``paper_w6a4()`` on the card (24 base classes, batch 64, 150 steps),
    twice from one seed: finite losses that fall, both runs bit for bit
@@ -115,11 +135,13 @@ ends the run with a non-zero exit if it fails:
 
 Launch counters are set to 0 just before each path (phases 3-4, the
 engine's traffic, the counted forwards of phase 5, the eager and the
-captured ``generate`` runs of phase 6, and phases 7 and 8 as a whole) and
+captured ``generate`` runs of phase 6, the eager steps and the engine's
+traffic of phase 6b, and phases 7 and 8 as a whole) and
 read just after; launches made while comparing or timing kernels do not
 count.  A graph's launches are
 recorded when it is captured and counted at each replay: the paths
-``fsl_serve`` and ``lm_decode_graph`` are counted from replays only (the
+``fsl_serve``, ``lm_decode_graph`` and ``lm_tiny_serve`` are counted from
+replays only (the
 script checks that every launch there was one).
 """
 
@@ -2386,6 +2408,398 @@ def lm_path(torch, np, B, Q, KQ):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: compiled LM decode (lm-tiny) through the lm-decode recipe
+# ---------------------------------------------------------------------------
+LM_TINY_BUCKETS = (1, 2, 4, 8)
+LM_TINY_CAPS = (32, 64)
+LM_TINY_THREADS = 4
+LM_TINY_SEQS_PER_THREAD = 4
+# card against CPU: logits within this absolute bound, greedy tokens equal
+# wherever the CPU's top-2 margin exceeds twice it (the Qwen rule, PERF.md
+# section 2)
+LM_TINY_CPU_TOL = 0.0625
+LM_TINY_CPU_STEPS = 40
+LM_TINY_LEVELS = 255
+
+
+def time_mvau_int_lm_shape(torch, KM, ref, err):
+    """The int8 ``wgmma`` kernel in GEMM form at lm-tiny's ``w_down``: M =
+    the batch bucket (1 and 8, and 3 for the odd case), K 96, N 64, 255
+    levels (the binary-search branch), one table shared by every column as
+    the lowering expands it, and a random sorted one per column.  Each held
+    against the plain version; timed at M = 1 and 8 beside the plain
+    version, ``torch._int_mm`` + count (M padded to 32: ``_int_mm`` refuses
+    M <= 16 on the card) and the bound."""
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for m in (1, 3, 8):
+        x = torch.randint(-128, 128, (m, 96), generator=gen).to(torch.int8)
+        w = torch.randint(-128, 128, (96, 64), generator=gen).to(torch.int8)
+        row = torch.sort(torch.randint(-60000, 60000, (LM_TINY_LEVELS,),
+                                       generator=gen)).values
+        tables = {"shared": row[None].expand(64, LM_TINY_LEVELS),
+                  "per_column": torch.sort(torch.randint(
+                      -60000, 60000, (64, LM_TINY_LEVELS), generator=gen),
+                      dim=1).values}
+        x, w = x.cuda(), w.cuda()
+        for kind, t in tables.items():
+            t = t.to(torch.int32).contiguous().cuda()
+            got, want = KM.mvau_int(x, w, t, -128), KM.mvau_int_plain(
+                x, w, t, -128)
+            d = (got - want).abs().max().item()
+            err["mvau_int"] = max(err["mvau_int"], float(d))
+            check(torch.equal(got, want), f"mvau_int at lm-tiny's shape "
+                  f"(M {m}, {kind} table) differs from plain by {d}")
+        if m == 3:
+            continue
+        t = tables["shared"].to(torch.int32).contiguous().cuda()
+        # beside it, what the epilogue costs: a 15-level table (staged in
+        # shared memory, counted densely) and 128 rows at 255 levels
+        t15 = torch.sort(t[:, ::17], dim=1).values.contiguous()
+        x128 = x.repeat(-(-128 // m), 1)[:128].contiguous()
+        xpad = torch.nn.functional.pad(x, (0, 0, 0, 32 - m))
+
+        def lib():
+            acc = torch._int_mm(xpad, w)[:m]
+            return -128 + ref.threshold_counts_fast(acc, t, True)
+
+        check(torch.equal(lib().to(torch.int32), KM.mvau_int_plain(
+            x, w, t, -128)), "the _int_mm yardstick computes another function")
+        nbytes = x.numel() + w.numel() + 4 * t.numel() + 4 * m * 64
+        ops = 2 * m * 96 * 64
+        b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+        out[f"M{m}"] = {
+            "ms": cuda_ms(torch, lambda: KM.mvau_int(x, w, t, -128)),
+            "plain_ms": cuda_ms(torch, lambda: KM.mvau_int_plain(
+                x, w, t, -128)),
+            "library_ms": cuda_ms(torch, lib),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "ms_15_levels": cuda_ms(torch, lambda: KM.mvau_int(
+                x, w, t15, -128)),
+            "ms_m128": cuda_ms(torch, lambda: KM.mvau_int(x128, w, t, -128))}
+        r = out[f"M{m}"]
+        log(f"kernel mvau_int GEMM form at lm-tiny's w_down M={m} K=96 N=64 "
+            f"L={LM_TINY_LEVELS}: kernel_ms={r['ms']:.5f} plain_ms="
+            f"{r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
+            f"(torch._int_mm on M padded to 32 + count) bound_ms="
+            f"{r['bound_ms']:.7f} ({r['bound_by']}: {nbytes} bytes, {ops} "
+            f"operations); the same launch with 15 levels "
+            f"{r['ms_15_levels']:.5f} ms, with 128 rows {r['ms_m128']:.5f} ms")
+    return out
+
+
+def lm_tiny_path(torch, np, B, KM, ref, err):
+    """lm-tiny at its full size through ``build_decode_artifact`` (the
+    ``lm-decode`` recipe) to int and f32 artifacts on the card, served by
+    ``ServeEngine`` through ``DecodeAdapter``.  Returns the mvau_int numbers
+    at the LM's shape and the launch counts of the eager steps (path
+    ``lm_tiny_decode``) and of the engine's replays (``lm_tiny_serve``)."""
+    import threading
+
+    from repro_torch.core import graph as G
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+    from repro_torch.serve import (ArtifactRegistry, DecodeAdapter,
+                                   ServeEngine, build_decode_artifact,
+                                   greedy_generate)
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config("lm-tiny")
+    mv_lm = time_mvau_int_lm_shape(torch, KM, ref, err)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    arts, build_s = {}, {}
+    for dp in ("int", "f32"):
+        t0 = time.perf_counter()
+        arts[dp] = build_decode_artifact(params, cfg, datapath=dp,
+                                         capacities=LM_TINY_CAPS)
+        torch.cuda.synchronize()
+        build_s[dp] = time.perf_counter() - t0
+        check(all(r.verified for r in arts[dp].dm.trace.records),
+              f"lm-tiny {dp}: a pass failed its golden-IO check")
+    gi = arts["int"].dm.graph
+    ops = {}
+    for n in gi.nodes:
+        ops[n.op] = ops.get(n.op, 0) + 1
+    check(ops.get("mvau_int") == 2 and len(gi.nodes) == 50,
+          f"lm-tiny int graph ops {ops}")
+    labels = {r["kernel"] for r in arts["int"].dm.dispatch_table()
+              if r["op"] == "mvau_int"}
+    check(labels == {"fused-cuda"}, f"lm-tiny mvau_int dispatch {labels}")
+    log(f"lm_tiny: lm-tiny full size ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} padded {cfg.vocab_padded}, w8a8), params drawn on the "
+        f"card; compile with golden-IO checks bit for bit: int "
+        f"{build_s['int']:.3f} s ({arts['int'].weight_bytes()} weight "
+        f"bytes, {len(gi.nodes)} nodes {ops}), f32 {build_s['f32']:.3f} s "
+        f"({arts['f32'].weight_bytes()} bytes)")
+
+    def eager_greedy(prompt, n_new, cap):
+        caches = [torch.zeros((1, cap, cfg.d_model), device="cuda")
+                  for _ in range(2 * cfg.n_layers)]
+        toks, out = list(prompt), []
+        for i in range(len(prompt) + n_new - 1):
+            t = toks[i] if i < len(prompt) else out[-1]
+            logits, caches = lm.decode_step_ref(
+                params, torch.tensor([t], dtype=torch.int32, device="cuda"),
+                torch.tensor([i], dtype=torch.int32, device="cuda"), caches,
+                cfg)
+            if i >= len(prompt) - 1:
+                out.append(int(np.argmax(logits[0, :cfg.vocab].cpu().numpy())))
+        return out
+
+    # -- the eager path: steps through DecodeArtifact before warmup ---------
+    rng = np.random.default_rng(5)
+    eager_prompts = [rng.integers(0, cfg.vocab, int(rng.integers(1, 7))
+                                  ).tolist() for _ in range(8)]
+    art = arts["int"]
+    B.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, launches = {}, 0
+    for i, p in enumerate(eager_prompts):
+        got[i] = [art.start_sequence(f"e{i}", p)[0]]
+        launches += len(p)
+    for _ in range(9):
+        res, stats = art.step_sequences([(f"e{i}", None) for i in got])
+        launches += len(stats)
+        for i, (_, tok, _, _) in zip(got, res):
+            got[i].append(tok)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    decode_counts = dict(B.launch_counts)
+    for i in got:
+        art.release(f"e{i}")
+    check(decode_counts["mvau_int"] == 2 * launches
+          and decode_counts["mvau_int_wide"] == 0,
+          f"lm_tiny eager: {decode_counts['mvau_int']} mvau_int launches "
+          f"for {launches} int steps")
+    for i, p in enumerate(eager_prompts):
+        check(got[i] == eager_greedy(p, 10, LM_TINY_CAPS[0]),
+              f"lm_tiny eager sequence {i}: tokens != decode_step_ref")
+    log(f"lm_tiny eager steps: {len(eager_prompts)} sequences, {launches} "
+        f"launches of the int decode model in {eager_s:.3f} s (no graph), "
+        f"mvau_int {decode_counts['mvau_int']} = 2 per step; tokens == "
+        "eager decode_step_ref greedy")
+
+    # -- one CUDA graph per (bucket x capacity) ------------------------------
+    warm_s = {}
+    for dp, a in arts.items():
+        t0 = time.perf_counter()
+        a.warmup(LM_TINY_BUCKETS)
+        warm_s[dp] = time.perf_counter() - t0
+        check(len(a.dm._exec.graphs) == len(LM_TINY_BUCKETS)
+              * len(LM_TINY_CAPS), f"lm_tiny {dp}: "
+              f"{len(a.dm._exec.graphs)} graphs captured")
+    pool = {dp: sum(g.pool_bytes for g in a.dm._exec.graphs.values())
+            for dp, a in arts.items()}
+    names = arts["int"].dm.input_names
+    for cap in LM_TINY_CAPS:
+        for b in LM_TINY_BUCKETS:
+            feeds = lm.example_decode_feeds(cfg, batch=b, capacity=cap,
+                                            seed=b * 100 + cap)
+            xs = [torch.as_tensor(feeds[k], device="cuda") for k in names]
+            want = lm.decode_step_ref(params, xs[0], xs[1], xs[2:], cfg)
+            want = [want[0]] + want[1]
+            outs = {"interpreter": G.execute(arts["int"].dm.graph,
+                                             dict(zip(names, xs)))}
+            for dp, a in arts.items():
+                outs[f"{dp} replay"] = a.dm(*xs)
+                outs[f"{dp} eager"] = a.dm.apply(*xs)
+            for label, o in outs.items():
+                check(len(o) == len(want) and all(
+                    torch.equal(u, v) for u, v in zip(o, want)),
+                    f"lm_tiny (bucket {b}, capacity {cap}): {label} != "
+                    "decode_step_ref")
+    feeds = lm.example_decode_feeds(cfg, batch=8, capacity=64, seed=77)
+    xs = [torch.as_tensor(feeds[k], device="cuda") for k in names]
+    full = arts["int"].dm(*xs)
+    for r in range(8):
+        one = arts["int"].dm(*[x[r:r + 1] for x in xs])
+        check(all(torch.equal(u[r:r + 1], v) for u, v in zip(full, one)),
+              f"lm_tiny: row {r} differs between bucket 8 and bucket 1")
+    log(f"lm_tiny graphs: {len(LM_TINY_BUCKETS)} buckets x "
+        f"{len(LM_TINY_CAPS)} capacities captured per artifact (int "
+        f"{warm_s['int']:.3f} s, f32 {warm_s['f32']:.3f} s; pool bytes int "
+        f"{pool['int']}, f32 {pool['f32']}); at every (bucket, capacity) "
+        "int replay == int eager == f32 replay == f32 eager == interpreter "
+        "== decode_step_ref on the card, logits and caches bit for bit; "
+        "each of 8 rows of a bucket-8 step == the same row at bucket 1")
+
+    # -- card against CPU -----------------------------------------------------
+    cpu_art = build_decode_artifact(tree_map(lambda t: t.cpu(), params), cfg,
+                                    datapath="int", capacities=LM_TINY_CAPS,
+                                    device="cpu")
+    prompts = [rng.integers(0, cfg.vocab, 3).tolist() for _ in range(8)]
+    worst, exact, compared, skipped = 0.0, 0, 0, 0
+    toks = []
+    for i, p in enumerate(prompts):
+        toks.append(cpu_art.start_sequence(f"c{i}", p)[0])
+        arts["int"].start_sequence(f"c{i}", p)
+    seqs = [f"c{i}" for i in range(len(prompts))]
+    for _ in range(LM_TINY_CPU_STEPS):
+        feed = [(s, t) for s, t in zip(seqs, toks)]
+        rc, _ = cpu_art.step_sequences(feed)
+        rg, _ = arts["int"].step_sequences(feed)
+        lc = np.stack([r[3] for r in rc])
+        lg = np.stack([r[3] for r in rg])
+        check(bool(np.isfinite(lg).all()), "lm_tiny card logits not finite")
+        worst = max(worst, float(np.abs(lg - lc).max()))
+        exact += int((lg == lc).all(axis=1).sum())
+        top2 = -np.sort(-lc, axis=1)[:, :2]
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_TINY_CPU_TOL
+        check(np.array_equal(lg.argmax(1)[sure], lc.argmax(1)[sure]),
+              "lm_tiny: greedy tokens differ between card and CPU at a "
+              "top-2 margin above twice the tolerance")
+        compared += int(sure.sum())
+        skipped += int((~sure).sum())
+        toks = [int(r[1]) for r in rc]          # teacher-forced by the CPU
+    for s in seqs:
+        arts["int"].release(s)
+        cpu_art.release(s)
+    n_rows = LM_TINY_CPU_STEPS * len(seqs)
+    check(worst <= LM_TINY_CPU_TOL,
+          f"lm_tiny card and CPU logits differ by {worst}")
+    log(f"lm_tiny card vs CPU (int artifacts, {len(seqs)} sequences x "
+        f"{LM_TINY_CPU_STEPS} steps teacher-forced by the CPU, crossing "
+        f"capacity {LM_TINY_CAPS[0]}): logits within {worst:.4g} (tolerance "
+        f"{LM_TINY_CPU_TOL}), {exact} of {n_rows} rows bit for bit; greedy "
+        f"tokens equal at {compared} decisions, {skipped} skipped at a top-2 "
+        f"margin <= {2 * LM_TINY_CPU_TOL}")
+
+    # -- step latency, replayed and eager; the replayed step profiled --------
+    step = {}
+    for b in (1, 8):
+        feeds = lm.example_decode_feeds(cfg, batch=b, capacity=32, seed=b)
+        xs = [torch.as_tensor(feeds[k], device="cuda") for k in names]
+        for dp, a in arts.items():
+            step[(dp, b, "replay")] = sync_ms(torch, lambda: a.dm(*xs))
+            step[(dp, b, "eager")] = sync_ms(torch, lambda: a.dm.apply(*xs))
+        step[("ref", b, "eager")] = sync_ms(torch, lambda: lm.decode_step_ref(
+            params, xs[0], xs[1], xs[2:], cfg))
+    log("lm_tiny step latency (host wall, synchronized each step, capacity "
+        "32): " + ", ".join(f"{dp} batch {b} {how} {ms:.4f} ms"
+                            for (dp, b, how), ms in step.items()))
+    feeds = lm.example_decode_feeds(cfg, batch=8, capacity=32, seed=3)
+    xs = [torch.as_tensor(feeds[k], device="cuda") for k in names]
+    reps = 20
+    busy, traced, kern = profile_decode(
+        torch, "lm_tiny int step replay (batch 8, capacity 32)",
+        lambda: arts["int"].dm(*xs), reps)
+    if busy is not None:
+        mv_k = [e for e in kern if "mvau_conv_kernel" in e.key]
+        n_mv = sum(e.count for e in mv_k) / reps
+        per_step = sum(e.count for e in kern) / reps
+        check(n_mv == 2, f"lm_tiny: {n_mv} mvau_conv_kernel per replayed "
+              "int step, expected 2")
+        log(f"profile lm_tiny int step: {per_step:.0f} kernels/step, "
+            f"mvau_conv_kernel {n_mv:.0f}/step taking "
+            f"{sum(e.device_time_total for e in mv_k) / reps / 1e3:.5f} "
+            f"ms/step of device time; device busy {busy:.4f} ms of the "
+            f"untraced replay's {step[('int', 8, 'replay')]:.4f} ms")
+
+    # -- the engine ------------------------------------------------------------
+    reg = ArtifactRegistry()
+    adapter = DecodeAdapter()
+    reg.register("lm-int", arts["int"], adapter=adapter, default=True)
+    reg.register("lm-f32", arts["f32"], adapter=adapter)
+    plan = [[(rng.integers(0, cfg.vocab, int(rng.integers(1, 7))).tolist())
+             for _ in range(LM_TINY_SEQS_PER_THREAD)]
+            for _ in range(LM_TINY_THREADS)]
+    n_new = [int(rng.integers(20, 41)) for _ in range(LM_TINY_THREADS)]
+    eng = ServeEngine(reg, max_batch=max(LM_TINY_BUCKETS),
+                      buckets=LM_TINY_BUCKETS, batch_wait_ms=1.0)
+    results, errors = {}, []
+
+    def client(tid, artifact):
+        try:
+            results[(artifact, tid)] = greedy_generate(
+                eng, plan[tid], n_new[tid], artifact=artifact)
+        except Exception as e:                        # noqa: BLE001
+            errors.append(repr(e))
+
+    def traffic(artifact):
+        threads = [threading.Thread(target=client, args=(t, artifact))
+                   for t in range(LM_TINY_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    try:
+        base = eng.warmup()
+        tables = [a.dm._exec for a in arts.values()]
+        start = {id(g): g.replays for t in tables for g in t.graphs.values()}
+        B.reset_launch_counts()
+        eng.metrics.reset_clock()
+        t0 = time.perf_counter()
+        traffic("lm-int")
+        wall_int = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        traffic("lm-f32")
+        serve_counts = dict(B.launch_counts)
+        replayed = {k: 0 for k in serve_counts}
+        for t in tables:
+            for g in t.graphs.values():
+                for k, v in g.launches.items():
+                    replayed[k] += v * (g.replays - start[id(g)])
+        traces = eng.trace_counts()
+        # a traced window of the same int traffic: the device's busy share
+        from torch.autograd import DeviceType
+        from torch.profiler import profile
+
+        with profile(**traced_steps()) as prof:
+            greedy_generate(eng, [[1]], 2)             # warm-up step
+            prof.step()
+            t0 = time.perf_counter()
+            traffic("lm-int")
+            torch.cuda.synchronize()
+            wall_traced = time.perf_counter() - t0
+            prof.step()
+    finally:
+        eng.stop()
+    check(not errors, f"lm_tiny engine clients failed: {errors[:3]}")
+    check(traces == base, f"lm_tiny: captures after warmup {traces} != {base}")
+    check(serve_counts == replayed, f"lm_tiny engine launches {serve_counts} "
+          f"!= graph replays {replayed}")
+    check(serve_counts["mvau_int"] > 0 and serve_counts["mvau_int_wide"] == 0,
+          f"lm_tiny engine: mvau_int launches {serve_counts}")
+    n_tok = 0
+    for tid in range(LM_TINY_THREADS):
+        ti, tf = results[("lm-int", tid)], results[("lm-f32", tid)]
+        check(ti == tf, f"lm_tiny thread {tid}: int tokens != f32 tokens")
+        for p, toks in zip(plan[tid], ti):
+            check(len(toks) == n_new[tid], "lm_tiny: wrong token count")
+            check(toks == eager_greedy(p, n_new[tid], LM_TINY_CAPS[-1]),
+                  f"lm_tiny: served tokens of {p} != eager decode_step_ref")
+            n_tok += len(toks)
+    crossed = sum(len(p) + n_new[tid] > LM_TINY_CAPS[0]
+                  for tid in range(LM_TINY_THREADS) for p in plan[tid])
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep"))
+    n_seq = LM_TINY_THREADS * LM_TINY_SEQS_PER_THREAD
+    log(f"lm_tiny engine: {n_seq} "
+        f"sequences from {LM_TINY_THREADS} threads through greedy_generate "
+        f"(prompts of 1-6 tokens, {min(n_new)}-{max(n_new)} new tokens, "
+        f"{crossed} crossing capacity {LM_TINY_CAPS[0]}), on the int "
+        f"artifact then the f32 one: tokens int == f32 == eager "
+        f"decode_step_ref; no capture after warmup {traces}; every launch a "
+        f"replay {replayed}")
+    log(f"lm_tiny engine metrics (int): {n_tok} tokens in {wall_int:.3f} s = "
+        f"{n_tok / wall_int:.1f} tokens/s; {snap['completed']:.0f} requests "
+        f"completed by then ({n_tok - n_seq} decode, {n_seq} prefill, the "
+        f"rest release), latency over all of them: p50 "
+        f"{snap['p50_ms']:.3f} ms, p99 {snap['p99_ms']:.3f} ms, mean batch "
+        f"{snap['mean_batch']:.2f}; traced window {wall_traced * 1e3:.3f} ms, "
+        + ("device busy not measured (no CUDA events)" if busy_us <= 0 else
+           f"device busy {busy_us / 1e3:.3f} ms = "
+           f"{busy_us / (wall_traced * 1e6):.1%} of the window"))
+    log(f"lm_tiny phase: {time.perf_counter() - t_phase:.1f} s")
+    return mv_lm, decode_counts, serve_counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: training (fsl_train)
 # ---------------------------------------------------------------------------
 TRAIN_STEPS = 150
@@ -2733,12 +3147,16 @@ def main() -> int:
     wide_counts = wide_code_path(torch, np, B)
     qmm, lm_counts, lm_graph_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
+    mv["lm_tiny_gemm_form"], tiny_counts, tiny_serve_counts = lm_tiny_path(
+        torch, np, B, KM, ref, err)
+    mv["max_abs_err"] = max(mv["max_abs_err"], err["mvau_int"])
     train_counts = train_path(torch, np, B)
     dse_counts = dse_path(torch, np, B)
     paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
              "fsl_serve": serve_counts, "lm_decode": lm_counts,
-             "lm_decode_graph": lm_graph_counts, "fsl_train": train_counts,
-             "dse": dse_counts}
+             "lm_decode_graph": lm_graph_counts,
+             "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
+             "fsl_train": train_counts, "dse": dse_counts}
     for k in kernels:
         by_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -2764,6 +3182,11 @@ def main() -> int:
         check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
               f"mvau_int's {route} route never ran on the training or the "
               f"DSE path: {by_path}")
+    # the compiled LM decode: every mvau_int launch on the int8 wgmma route
+    for p in ("lm_tiny_decode", "lm_tiny_serve"):
+        check(paths[p]["mvau_int"] > 0
+              and mv["launches_by_route"]["cuda_core"][p] == 0,
+              f"lm-tiny path {p}: mvau_int launches {paths[p]}")
     log("kernels " + " ".join(f"{k['name']}={k['launches_by_path']}"
                               for k in kernels))
     log(json.dumps({"kernels": kernels}))

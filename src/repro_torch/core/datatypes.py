@@ -265,6 +265,22 @@ def _rule_float(node, in_specs, g):
     return None
 
 
+@register_datatype_rule("embed")
+def _rule_embed(node, in_specs, g):
+    """Token gather: rows of the table, so the table's grid passes through."""
+    return in_specs[0]
+
+
+@register_datatype_rule("rmsnorm", "silu", "gelu", "attn_decode",
+                        "attn_prefill")
+def _rule_float_transformer(node, in_specs, g):
+    """Normalization, smooth activations and softmax attention are real
+    valued: the decode workload keeps them floating point and re-enters the
+    integer domain at the next activation quantizer (which the lowering
+    streamlines to a single ``quantize``)."""
+    return None
+
+
 # ---------------------------------------------------------------------------
 # InferDataTypes — the annotation pass
 # ---------------------------------------------------------------------------
@@ -426,6 +442,23 @@ def LowerToIntegerDatapath(g: Graph) -> Graph:
             int_dom.setdefault(node.outputs[0], spec)
             g.dtypes[node.outputs[0]] = int_dom[node.outputs[0]]
             continue
+        if node.op == "embed":
+            t_name, ids_name = node.inputs
+            wspec = g.dtypes.get(t_name)
+            if wspec is not None and t_name in g.initializers:
+                w = np.asarray(g.initializers[t_name])
+                codes = _quantize_np(w, wspec)
+                stored, packed = _storage_array(codes, wspec)
+                g.initializers[t_name] = stored
+                g.dtypes[t_name] = wspec
+                node.attrs = dict(node.attrs, w_packed=packed,
+                                  w_bits=wspec.total_bits)
+                int_dom[node.outputs[0]] = wspec
+                g.dtypes[node.outputs[0]] = wspec
+                continue
+            # unannotated table: a float gather; the generic frontier below
+            # has nothing to rewrite (ids are not grid tensors)
+            continue
         if node.op == "mvau":
             x_name, w_name, t_name = node.inputs
             xspec = int_dom.get(x_name)
@@ -523,7 +556,9 @@ def LowerToIntegerDatapath(g: Graph) -> Graph:
                     # round-half-even contract the level count equals the
                     # quantize() code, so the 2^b−1-way counting compare
                     # streamlines to one round+clip and the output enters
-                    # the integer domain.
+                    # the integer domain.  (The attention and norm ops
+                    # between quantizers stay float: this is where the
+                    # decode workload re-enters the integer datapath.)
                     node.op = "quantize"
                     node.inputs = [x_name]
                     node.attrs = {"bits": out_spec.total_bits,

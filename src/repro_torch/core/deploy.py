@@ -61,6 +61,9 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
       (:func:`repro_torch.kernels.ops.residual_gaps`): one GAP call on both
       operands of the add.
 
+    Threshold tables that are initializers are prepared once here
+    (:func:`repro_torch.kernels.ops.prepare_tables`), not on every call.
+
     ``fold_pools=False`` folds only the ``im2col`` nodes, so each ``add``
     and ``global_acc_pool`` runs as a step of its own: the lowering the
     GAP folds are measured against.  The folded intermediates are listed, in node order, in the function's
@@ -80,6 +83,7 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
                               f"implementation for ops {missing}")
     consts = {k: as_tensor(v, dev) for k, v in graph.initializers.items()}
     nodes = [n.copy() for n in graph.nodes]       # freeze against later edits
+    kops.prepare_tables(nodes, graph.initializers, consts)
     input_names = tuple(graph.inputs)
     output_names = tuple(graph.outputs)
     pairs = kops.conv_pairs(nodes, output_names)
@@ -251,7 +255,9 @@ class DeployedModel:
                label: Optional[str] = None) -> Tuple[int, ...]:
         """Warm one zero batch per bucket: on the card, capture it as a CUDA
         graph; on the CPU, run it once.  ``example`` is a BATCHED input of
-        any batch size; its trailing dims/dtype define the sample shape.  A
+        any batch size; its trailing dims/dtype define the sample shape (for
+        a multi-input graph, a tuple of one batched array per input, all
+        padded along the leading batch axis).  A
         bucket already warmed is skipped.  Per-bucket seconds land in
         :attr:`compile_log` and, with ``metrics`` (a ``ServeMetrics``), in
         its compile counters under ``label`` (default: the graph's name).
@@ -263,8 +269,8 @@ class DeployedModel:
             raise not_ported("the persistent compile cache (warmup(cache=))",
                              "checkpoints and compile cache")
         if len(self.input_names) != 1:
-            raise not_ported("warmup of a multi-input graph",
-                             "compiled LM decode (lm-tiny)")
+            return self._warmup_multi(buckets, example, metrics=metrics,
+                                      label=label)
         ex = as_tensor(example, self.device)
         if ex.ndim < 1:
             raise ValueError("example must be batched (leading batch axis)")
@@ -274,6 +280,31 @@ class DeployedModel:
                             device=self.device)
             self._exec.warm((x,), name=label or self.graph.name,
                              metrics=metrics)
+        self._buckets = bs
+        return bs
+
+    def _warmup_multi(self, buckets: Sequence[int], example, *,
+                      metrics: Optional[Any] = None,
+                      label: Optional[str] = None) -> Tuple[int, ...]:
+        """Multi-input warmup (the decode graph's (tokens, pos, k*, v*)):
+        ``example`` is one BATCHED array per graph input, in input order.
+        Every input is padded along the shared leading batch axis, so one
+        bucket is one warmed signature (on the card one CUDA graph); other
+        dims (the KV capacity) vary by calling warmup once per value."""
+        if not isinstance(example, (tuple, list)) \
+                or len(example) != len(self.input_names):
+            raise ValueError(
+                f"multi-input graph '{self.graph.name}' needs one batched "
+                f"example per input {self.input_names}")
+        samples = [as_tensor(e, self.device) for e in example]
+        if any(sm.ndim < 1 for sm in samples):
+            raise ValueError("examples must be batched (leading batch axis)")
+        bs = normalize_buckets(buckets)
+        for b in bs:
+            xs = tuple(torch.zeros((b,) + tuple(sm.shape[1:]), dtype=sm.dtype,
+                                   device=self.device) for sm in samples)
+            self._exec.warm(xs, name=label or self.graph.name,
+                            metrics=metrics)
         self._buckets = bs
         return bs
 

@@ -7,7 +7,8 @@ passes in :mod:`repro_torch.core.transforms` rewrite it exactly as the
 reference's rewrite its graph, so the two streamlined graphs compare dump
 for dump.
 
-Ops (all the paper's ResNet-9 needs, plus the fused HW ops):
+Ops (all the paper's ResNet-9 needs, the fused HW ops, and the decoder
+LM's decode step):
 
 =================  ==========================================================
 ``im2col``         patch extraction (the FINN lowering of Conv)
@@ -19,6 +20,11 @@ Ops (all the paper's ResNet-9 needs, plus the fused HW ops):
 ``mul`` / ``add``  scalar/elementwise affine (scales get folded by passes)
 ``maxpool``        2×2 window max
 ``mvau``           fused matmul+multithreshold — the CUDA MVAU kernel
+``embed``          token-id row gather (the LM's embedding table)
+``rmsnorm``        RMS normalization (float, between quantizers)
+``silu``/``gelu``  smooth activations (float)
+``attn_decode``    one causal decode step over a fixed-capacity KV cache
+``attn_prefill``   causal self-attention over a whole prompt
 =================  ==========================================================
 """
 
@@ -270,7 +276,7 @@ def _ex_multithreshold(node: Node, x: torch.Tensor,
 
     axis = node.attrs.get("channel_axis", -1)
     args = (node.attrs.get("out_base", 0), node.attrs.get("out_scale", 1.0),
-            node.attrs.get("out_bias", 0.0))
+            node.attrs.get("out_bias", 0.0), node.attrs.get("sorted_levels"))
     if t.ndim == 2 and axis not in (-1, x.ndim - 1):
         # Per-channel thresholds on a non-trailing axis: legal in the IR (the
         # NCHW case the paper's pass removes) — move channels last,
@@ -353,6 +359,52 @@ def _ex_gap(node: Node, x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=axes)
 
 
+# -- decode-workload ops (models.lm's decode and prefill export) -------------
+# The interpreter, the lowered model and ``models.lm.decode_step_ref`` call
+# the same function for each: the decode chain is bit for bit only so.
+def _ex_embed(node: Node, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Token-id row gather.  After integer lowering the table holds codes
+    (packed int4 when ``w_packed``); gathering codes then dequantizing is
+    bit for bit the float gather."""
+    out = table[ids.long()]
+    if node.attrs.get("w_packed"):
+        from repro_torch.core import quant
+
+        out = quant.unpack_int4(out)
+    return out
+
+
+def _ex_rmsnorm(node: Node, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    from repro_torch.models import layers as L
+
+    return L.rmsnorm({"g": g}, x, node.attrs.get("eps", 1e-6))
+
+
+def _ex_silu(node: Node, x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.models import layers as L
+
+    return L.silu(x)
+
+
+def _ex_gelu(node: Node, x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.models import layers as L
+
+    return L.gelu_tanh(x)
+
+
+def _ex_attn_decode(node: Node, q, k_new, v_new, k_cache, v_cache, pos):
+    from repro_torch.kernels import ref
+
+    return ref.attn_decode(q, k_new, v_new, k_cache, v_cache, pos,
+                           node.attrs["heads"])
+
+
+def _ex_attn_prefill(node: Node, q, k, v):
+    from repro_torch.kernels import ref
+
+    return ref.attn_prefill(q, k, v, node.attrs["heads"])
+
+
 def _maxpool(node: Node, x: torch.Tensor) -> torch.Tensor:
     k = node.attrs.get("kernel", 2)
     n, h, w, c = x.shape
@@ -380,6 +432,12 @@ _EXECUTORS: Dict[str, Callable[..., torch.Tensor]] = {
     "maxpool": _maxpool,
     "relu": lambda node, x: torch.clamp_min(x, 0),
     "flatten": lambda node, x: x.reshape(x.shape[0], -1),
+    "embed": _ex_embed,
+    "rmsnorm": _ex_rmsnorm,
+    "silu": _ex_silu,
+    "gelu": _ex_gelu,
+    "attn_decode": _ex_attn_decode,
+    "attn_prefill": _ex_attn_prefill,
 }
 
 

@@ -324,34 +324,42 @@ def thresholds_for(spec: FixedPointSpec) -> np.ndarray:
 
 def multithreshold(x: torch.Tensor, thresholds: torch.Tensor,
                    out_base: int = 0, out_scale: float = 1.0,
-                   out_bias: float = 0.0) -> torch.Tensor:
+                   out_bias: float = 0.0,
+                   sorted_levels: Optional[bool] = None) -> torch.Tensor:
     """``out_scale * (out_base + Σᵢ 1[x ≥ Tᵢ]) + out_bias``.
 
     ``thresholds`` is either ``(L,)`` (per-tensor) or ``(C, L)``
-    (per-channel, with x's trailing dim = C — NHWC canonical form).
+    (per-channel, with x's trailing dim = C — NHWC canonical form);
+    ``sorted_levels`` as in :func:`threshold_counts`.
     """
     if thresholds.ndim == 2 and x.shape[-1] != thresholds.shape[0]:
         raise ValueError(
             f"per-channel thresholds {tuple(thresholds.shape)} vs x "
             f"{tuple(x.shape)}: channel dim must be trailing (NHWC canonical "
             "form)")
-    counts = threshold_counts(x, thresholds).to(torch.float32)
+    counts = threshold_counts(x, thresholds, sorted_levels).to(torch.float32)
     return (out_scale * (out_base + counts) + out_bias).to(x.dtype)
 
 
-def threshold_counts(x: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+def threshold_counts(x: torch.Tensor, thresholds: torch.Tensor,
+                     sorted_levels: Optional[bool] = None) -> torch.Tensor:
     """``Σᵢ 1[x ≥ Tᵢ]`` over the threshold axis — int32 counts.
 
     ``thresholds`` is ``(L,)`` or ``(C, L)`` (C = x's trailing dim).  Sorted
     tables with L ≥ 64 are binary-searched (``searchsorted(T, x, right)``
     counts exactly the ``Tᵢ ≤ x``), which keeps 16-bit activation grids
     (L = 65535) tractable; unsorted or short tables take the dense compare.
+    ``sorted_levels`` says whether the table is sorted where the caller
+    knows it (a graph's constant table, checked once when it is lowered);
+    None checks here, which waits for the device.
     """
     if thresholds.ndim not in (1, 2):
         raise ValueError("thresholds must be rank 1 or 2")
     n_levels = thresholds.shape[-1]
     t = thresholds.to(x.device)
-    if n_levels >= 64 and bool(torch.all(torch.diff(t, dim=-1) >= 0)):
+    if sorted_levels is None and n_levels >= 64:
+        sorted_levels = bool(torch.all(torch.diff(t, dim=-1) >= 0))
+    if n_levels >= 64 and sorted_levels:
         t = t.to(x.dtype)
         if t.ndim == 1:
             return torch.searchsorted(t.contiguous(), x.contiguous(),

@@ -24,7 +24,8 @@ __all__ = ["mvau", "mvau_conv", "mvau_int", "mvau_int_conv",
            "mvau_int_conv_gap", "qmatmul", "gap", "conv_pairs", "gap_tails",
            "residual_gaps", "folded_into", "conv_mvau_node",
            "conv_mvau_int_node", "conv_mvau_int_gap_node", "tail_fits",
-           "graph_op_impls", "kernel_dispatch", "mvau_node", "mvau_int_node"]
+           "graph_op_impls", "kernel_dispatch", "mvau_node", "mvau_int_node",
+           "prepare_tables"]
 
 
 def _as_2d(x: torch.Tensor):
@@ -302,6 +303,44 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     return "xla"
 
 
+def prepare_tables(nodes, initializers, consts) -> None:
+    """Prepare the threshold tables of ``nodes`` (copies the lowering owns)
+    once, when a graph is lowered, instead of on every call:
+
+    * an ``mvau_int`` node's per-tensor (L,) table becomes a contiguous
+      (N, L) int32 constant of its own (``<table>@<N>``), the form the
+      kernels read, so no replay broadcasts and copies it;
+    * a ``multithreshold`` or ``multithreshold_int`` node with a table of
+      64 levels or more records in ``sorted_levels`` whether the table is
+      sorted, which decides binary search against the dense compare.
+      Checked at run time it would wait for the device, which a CUDA graph
+      capture forbids.
+
+    ``initializers`` are the graph's numpy arrays, ``consts`` the same
+    tensors on the lowering's device; the node's operands and results do
+    not change."""
+    import numpy as np
+
+    for node in nodes:
+        t_name = node.inputs[-1]
+        if t_name not in initializers:
+            continue
+        t = np.asarray(initializers[t_name])
+        if node.op == "mvau_int" and t.ndim == 1 \
+                and node.inputs[1] in initializers:
+            n = np.asarray(initializers[node.inputs[1]]).shape[1] \
+                * (2 if node.attrs.get("w_packed") else 1)
+            name = f"{t_name}@{n}"
+            if name not in consts:
+                consts[name] = _thresholds_2d(
+                    consts[t_name].to(torch.int32), n).contiguous()
+            node.inputs[-1] = name
+        elif node.op in ("multithreshold", "multithreshold_int") \
+                and t.shape[-1] >= 64:
+            node.attrs["sorted_levels"] = bool(np.all(np.diff(t, axis=-1)
+                                                      >= 0))
+
+
 def mvau_node(node, x, w, t):
     """Executor of an ``mvau`` node on (M, K) patch rows."""
     return mvau(x, w, t, out_base=node.attrs.get("out_base", 0),
@@ -436,7 +475,8 @@ def graph_op_impls():
 
     def _multithreshold_int_node(node, x, t):
         base = node.attrs.get("out_base", 0)
-        counts = ref.threshold_counts_fast(x.to(torch.int32), t)
+        counts = ref.threshold_counts_fast(x.to(torch.int32), t,
+                                           node.attrs.get("sorted_levels"))
         return (base + counts).to(torch.int32)
 
     def _requantize_node(node, q):

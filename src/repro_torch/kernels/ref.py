@@ -13,6 +13,8 @@ partial sums leave int32, far inside float64's 53-bit mantissa.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import quant
@@ -97,13 +99,14 @@ def _counts_unrolled(acc: torch.Tensor, thresholds: torch.Tensor) -> torch.Tenso
 _UNROLL_MAX_LEVELS = 64   # above this, sorted tables binary-search instead
 
 
-def threshold_counts_fast(acc: torch.Tensor,
-                          thresholds_int: torch.Tensor) -> torch.Tensor:
+def threshold_counts_fast(acc: torch.Tensor, thresholds_int: torch.Tensor,
+                          sorted_levels=None) -> torch.Tensor:
     """``Σᵢ 1[acc ≥ Tᵢ]``: unrolled below 64 levels, else
-    :func:`quant.threshold_counts` (binary search on sorted tables)."""
+    :func:`quant.threshold_counts` (binary search on sorted tables;
+    ``sorted_levels`` as there)."""
     if thresholds_int.shape[-1] < _UNROLL_MAX_LEVELS:
         return _counts_unrolled(acc, thresholds_int.to(acc.device))
-    return quant.threshold_counts(acc, thresholds_int)
+    return quant.threshold_counts(acc, thresholds_int, sorted_levels)
 
 
 def mvau_int_fast(x_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -176,3 +179,78 @@ def gap(x: torch.Tensor) -> torch.Tensor:
     if not x.dtype.is_floating_point:
         return torch.sum(x.to(torch.int32), dim=(1, 2)).to(torch.int32)
     return torch.sum(x.to(torch.float32), dim=(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# Decode-workload attention: one definition shared by the graph interpreter,
+# the compiled DeployedModel and models.lm.decode_step_ref, so "bit for bit
+# with the interpreter" is a property of the code.  All math is float32, no
+# GQA broadcast (callers require n_kv_heads == n_heads).
+#
+# The two contractions are a broadcast product summed by halving
+# (:func:`_halving_sum`): elementwise adds in a fixed pairwise order.  A
+# batched GEMM (``torch.einsum``) may pick another kernel, hence another
+# summation order, for another batch size, and the serving contract is that
+# a sequence's logits do not depend on the bucket it is padded into.
+# ---------------------------------------------------------------------------
+def _halving_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a fixed tree of elementwise adds: the upper half
+    is added onto the lower half (an odd last slice onto the first) until
+    one slice is left.  Each output element's order of additions depends
+    only on the length of ``dim``, on any device and at any batch size."""
+    x = torch.movedim(x, dim, -1)
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = n // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        if n % 2:
+            y = torch.cat([y[..., :1] + x[..., 2 * h:], y[..., 1:]], dim=-1)
+        x = y
+    return x[..., 0]
+
+
+def attn_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos: torch.Tensor, heads: int):
+    """One causal decode step over a fixed-capacity KV cache.
+
+    q/k_new/v_new: (B, D) float32 projections of the current token;
+    k_cache/v_cache: (B, C, D) with positions ``< pos`` filled; pos: (B,)
+    int32 write/read position per row.  Returns ``(out (B, D), k_cache',
+    v_cache')`` with the new K/V written at ``pos`` (a new tensor: the
+    serving layer owns cache storage)."""
+    B, D = q.shape
+    C = k_cache.shape[1]
+    hd = D // heads
+    ar = torch.arange(C, dtype=torch.int32, device=q.device)
+    slot = ar[None, :] == pos.to(torch.int32)[:, None]              # (B, C)
+    kc = torch.where(slot[..., None], k_new[:, None, :].to(k_cache.dtype),
+                     k_cache)
+    vc = torch.where(slot[..., None], v_new[:, None, :].to(v_cache.dtype),
+                     v_cache)
+    qh = q.to(torch.float32).reshape(B, 1, heads, hd)
+    kh = kc.to(torch.float32).reshape(B, C, heads, hd)
+    vh = vc.to(torch.float32).reshape(B, C, heads, hd)
+    s = _halving_sum(qh * kh, -1).transpose(1, 2) / math.sqrt(hd)  # (B,H,C)
+    live = ar[None, None, :] <= pos.to(torch.int32)[:, None, None]
+    s = torch.where(live, s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    out = _halving_sum(w.transpose(1, 2)[..., None] * vh, 1)       # (B,H,hd)
+    return out.reshape(B, D).to(q.dtype), kc, vc
+
+
+def attn_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 heads: int) -> torch.Tensor:
+    """Causal self-attention over a whole prompt: q/k/v (B, S, D) float32."""
+    B, S, D = q.shape
+    hd = D // heads
+    qh = q.to(torch.float32).reshape(B, S, 1, heads, hd)
+    kh = k.to(torch.float32).reshape(B, 1, S, heads, hd)
+    vh = v.to(torch.float32).reshape(B, 1, S, heads, hd)
+    s = _halving_sum(qh * kh, -1).permute(0, 3, 1, 2) / math.sqrt(hd)
+    ar = torch.arange(S, dtype=torch.int32, device=q.device)
+    causal = ar[None, :] <= ar[:, None]                     # (q, k)
+    s = torch.where(causal[None, None], s, -math.inf)       # (B, H, S, S)
+    w = torch.softmax(s, dim=-1)
+    out = _halving_sum(w.permute(0, 2, 3, 1)[..., None] * vh, 2)  # (B,S,H,hd)
+    return out.reshape(B, S, D).to(q.dtype)

@@ -271,7 +271,9 @@ def mlp_init(gen: torch.Generator, d: int, f: int, act: str = "swiglu",
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """``v`` rounded to ``like``'s dtype, on its device.  A fill, not a copy
+    from the host, so it may run inside a CUDA graph capture."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

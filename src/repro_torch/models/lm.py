@@ -14,6 +14,10 @@ Entry points (functions of (params, batch), as in the reference):
 * ``init_cache(cfg, B, max_len, dtype, device)`` — the KV cache.
 * ``decode_step(params, tokens, cache, cfg)`` — one new token for every
   sequence; the cache's k/v are written in place.
+* ``export_decode_graph`` / ``export_prefill_graph`` — the dense decode
+  step and the whole-prompt forward as core Graphs for
+  ``repro_torch.compile(..., recipe="lm-decode")``, ``decode_step_ref``
+  their eager mirror, bit for bit with the compiled artifact.
 
 MoE, MLA, SSM, hybrid, VLM and audio families wait for later slices of the
 port and raise ``NotImplementedError``.
@@ -21,6 +25,7 @@ port and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -213,3 +218,301 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                          "len": c["len"] + tokens.shape[1]}
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, x, cfg)[:, 0], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Decode serving through the repro_torch.compile datatype IR
+# ---------------------------------------------------------------------------
+# The exporters put the dense decode/prefill step onto the core Graph, so
+# the compiler that builds resnet9 builds the LM: weights land as
+# fake-quantized initializers (annotated with their FixedPointSpec), every
+# matmul input passes through a FINN activation quantizer (multithreshold
+# over the canonical grid table, which lower_to_integer_datapath
+# streamlines to one ``quantize``), and the real-valued ops (rmsnorm, gelu,
+# silu, softmax attention) stay float between quantizers.  The graphs are
+# built from the same numpy values as the reference's: the same node names,
+# ops, attrs and initializers.  ``decode_step_ref`` is the eager mirror of
+# the decode graph, bit for bit with the compiled artifact.
+
+def _decode_exportable(cfg: ArchConfig) -> None:
+    """The exporter covers the plain dense family; fail loudly otherwise."""
+    problems = []
+    if cfg.family != "dense":
+        problems.append(f"family={cfg.family!r} (need 'dense')")
+    if cfg.attention != "gqa" or cfg.n_kv_heads != cfg.n_heads:
+        problems.append("grouped/latent attention (need n_kv_heads==n_heads)")
+    if cfg.pos != "none":
+        problems.append(f"pos={cfg.pos!r} (rotary ids are not graph ops yet)")
+    if cfg.qkv_bias or cfg.qk_norm:
+        problems.append("qkv_bias/qk_norm")
+    if cfg.moe_experts:
+        problems.append("moe")
+    if cfg.tie_embeddings:
+        problems.append("tie_embeddings")
+    if cfg.act not in ("gelu", "swiglu"):
+        problems.append(f"act={cfg.act!r}")
+    if problems:
+        raise ValueError(
+            f"config '{cfg.name}' is not decode-exportable: "
+            + "; ".join(problems))
+
+
+def _np(a):
+    import numpy as np
+
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _block_params(params: Params, i: int):
+    """Layer ``i``'s view of the stacked ``blocks`` tree, as numpy."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda a: _np(a[i]), params["blocks"])
+
+
+def _export_graph(params: Params, cfg: ArchConfig, *, decode: bool,
+                  name: Optional[str] = None):
+    import numpy as np
+
+    from repro_torch.core import quant
+    from repro_torch.core.graph import Graph, Node
+
+    _decode_exportable(cfg)
+    wspec, aspec = _wspec(cfg), _aspec(cfg)
+    H = cfg.n_heads
+    nodes = []
+    inits: Dict[str, Any] = {}
+    dtypes: Dict[str, Any] = {}
+
+    def w_init(nm, arr):
+        w = np.asarray(_np(arr), np.float32)
+        if wspec is not None:
+            w = fake_quant(torch.from_numpy(np.ascontiguousarray(w)),
+                           wspec).numpy()
+        inits[nm] = w
+        dtypes[nm] = wspec
+        return nm
+
+    def f_init(nm, arr):                 # float param (norm gains): no grid
+        inits[nm] = np.asarray(_np(arr), np.float32)
+        return nm
+
+    def act_quant(x_t, out):
+        """FINN activation quantizer: multithreshold over the canonical grid
+        (exactly ``fake_quant(x, aspec)``).  Each node owns its table: the
+        integer lowering rewrites int-fed tables in place."""
+        if aspec is None:
+            return x_t
+        t_nm = f_init(out + "_t", quant.thresholds_for(aspec))
+        nodes.append(Node("multithreshold", [x_t, t_nm], [out],
+                          {"channel_axis": -1, "out_base": aspec.qmin,
+                           "out_scale": aspec.scale}))
+        return out
+
+    def matmul(x_t, w_nm, out):
+        nodes.append(Node("matmul", [x_t, w_nm], [out]))
+        return out
+
+    x = "x0"
+    nodes.append(Node("embed", [w_init("embed_w", params["embed"]), "tokens"],
+                      [x]))
+    cache_in, cache_out = [], []
+    for i in range(cfg.n_layers):
+        bp = _block_params(params, i)
+        p = f"l{i}"
+        nodes.append(Node("rmsnorm", [x, f_init(f"{p}.ln1_g", bp["ln1"]["g"])],
+                          [f"{p}.n1"], {"eps": cfg.norm_eps}))
+        hq = act_quant(f"{p}.n1", f"{p}.aq1")
+        q = matmul(hq, w_init(f"{p}.wq", bp["attn"]["wq"]["w"]), f"{p}.q")
+        k = matmul(hq, w_init(f"{p}.wk", bp["attn"]["wk"]["w"]), f"{p}.k")
+        v = matmul(hq, w_init(f"{p}.wv", bp["attn"]["wv"]["w"]), f"{p}.v")
+        if decode:
+            cache_in += [f"k{i}", f"v{i}"]
+            cache_out += [f"k{i}_out", f"v{i}_out"]
+            nodes.append(Node("attn_decode",
+                              [q, k, v, f"k{i}", f"v{i}", "pos"],
+                              [f"{p}.ao", f"k{i}_out", f"v{i}_out"],
+                              {"heads": H}))
+        else:
+            cache_out += [k, v]          # prefill: the projections ARE the cache
+            nodes.append(Node("attn_prefill", [q, k, v], [f"{p}.ao"],
+                              {"heads": H}))
+        aoq = act_quant(f"{p}.ao", f"{p}.aq2")
+        matmul(aoq, w_init(f"{p}.wo", bp["attn"]["wo"]["w"]), f"{p}.o")
+        nodes.append(Node("add", [x, f"{p}.o"], [f"{p}.r1"]))
+        nodes.append(Node("rmsnorm",
+                          [f"{p}.r1", f_init(f"{p}.ln2_g", bp["ln2"]["g"])],
+                          [f"{p}.n2"], {"eps": cfg.norm_eps}))
+        h2q = act_quant(f"{p}.n2", f"{p}.aq3")
+        if cfg.act == "gelu":
+            matmul(h2q, w_init(f"{p}.w_up", bp["mlp"]["w_up"]["w"]),
+                   f"{p}.up")
+            nodes.append(Node("gelu", [f"{p}.up"], [f"{p}.h"]))
+        else:                            # swiglu
+            matmul(h2q, w_init(f"{p}.w_gate", bp["mlp"]["w_gate"]["w"]),
+                   f"{p}.gate")
+            nodes.append(Node("silu", [f"{p}.gate"], [f"{p}.sg"]))
+            matmul(h2q, w_init(f"{p}.w_up", bp["mlp"]["w_up"]["w"]),
+                   f"{p}.up")
+            nodes.append(Node("mul", [f"{p}.sg", f"{p}.up"], [f"{p}.h"]))
+        hq2 = act_quant(f"{p}.h", f"{p}.aq4")   # mirrors L.mlp's mid-MLP QAT
+        matmul(hq2, w_init(f"{p}.w_down", bp["mlp"]["w_down"]["w"]),
+               f"{p}.dn")
+        mq = act_quant(f"{p}.dn", f"{p}.aq5")   # mirrors _attn_block's output
+        nodes.append(Node("add", [f"{p}.r1", mq], [f"{p}.r2"]))
+        x = f"{p}.r2"
+    nodes.append(Node("rmsnorm",
+                      [x, f_init("final_g", params["final_norm"]["g"])],
+                      ["nf"], {"eps": cfg.norm_eps}))
+    fq = act_quant("nf", "head_aq")
+    matmul(fq, w_init("lm_head_w", params["lm_head"]["w"]), "logits")
+    inputs = ["tokens"] + (["pos"] + cache_in if decode else [])
+    gname = name or (f"{cfg.name or 'lm'}-" + ("decode" if decode else
+                                               "prefill"))
+    g = Graph(nodes=nodes, inputs=inputs, outputs=["logits"] + cache_out,
+              initializers=inits, name=gname)
+    g.dtypes.update(dtypes)
+    g.toposort()
+    return g
+
+
+def export_decode_graph(params: Params, cfg: ArchConfig, *,
+                        name: Optional[str] = None):
+    """One-token decode step as a core Graph.
+
+    Inputs: ``tokens (B,) int32``, ``pos (B,) int32``, then per layer
+    ``k{i}/v{i} (B, C, d_model) f32``: the capacity ``C`` is free, so one
+    graph serves every KV bucket and the deploy layer captures one CUDA
+    graph per (batch bucket x capacity).  Outputs: ``logits (B,
+    vocab_padded)`` then the updated ``k{i}_out/v{i}_out`` caches.
+    """
+    return _export_graph(params, cfg, decode=True, name=name)
+
+
+def export_prefill_graph(params: Params, cfg: ArchConfig, *,
+                         name: Optional[str] = None):
+    """Whole-prompt forward as a core Graph: ``tokens (B, S)`` ->
+    ``logits (B, S, V)`` plus per-layer K/V projections ``(B, S, d_model)``
+    (they ARE the prefill cache)."""
+    return _export_graph(params, cfg, decode=False, name=name)
+
+
+def decode_step_ref(params: Params, tokens, pos, caches, cfg: ArchConfig):
+    """Eager float32 mirror of :func:`export_decode_graph`, bit for bit with
+    the compiled artifact: the same helpers in the same order
+    (``fake_quant`` == the graph's grid multithreshold == the int
+    datapath's ``quantize``; ``rmsnorm``, ``gelu_tanh``, ``silu`` and
+    ``ref.attn_decode`` are the graph executors' own functions).
+
+    tokens/pos: (B,) int32; caches: [k0, v0, k1, v1, ...] each (B, C, D).
+    Runs on the device of ``params``.  Returns ``(logits (B, V),
+    new_caches)``.
+    """
+    from repro_torch.kernels import ref
+
+    wspec, aspec = _wspec(cfg), _aspec(cfg)
+    dev = params["embed"].device
+
+    def fq_w(w):
+        return fake_quant(w, wspec) if wspec is not None else w
+
+    def aq(t):
+        return fake_quant(t, aspec) if aspec is not None else t
+
+    def mm(a, w):
+        return ref._f32_matmul(a, fq_w(w))
+
+    with torch.no_grad():
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+        caches = [torch.as_tensor(c, device=dev) for c in caches]
+        x = fq_w(params["embed"]).to(torch.float32)[tokens]
+        new_caches = []
+        for i, bp in enumerate(_layers(params, cfg)):
+            hq = aq(L.rmsnorm(bp["ln1"], x, cfg.norm_eps))
+            q = mm(hq, bp["attn"]["wq"]["w"])
+            k = mm(hq, bp["attn"]["wk"]["w"])
+            v = mm(hq, bp["attn"]["wv"]["w"])
+            o, kc, vc = ref.attn_decode(q, k, v, caches[2 * i],
+                                        caches[2 * i + 1], pos, cfg.n_heads)
+            new_caches += [kc, vc]
+            x = x + mm(aq(o), bp["attn"]["wo"]["w"])
+            h2q = aq(L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
+            if cfg.act == "gelu":
+                h = L.gelu_tanh(mm(h2q, bp["mlp"]["w_up"]["w"]))
+            else:
+                h = (L.silu(mm(h2q, bp["mlp"]["w_gate"]["w"]))
+                     * mm(h2q, bp["mlp"]["w_up"]["w"]))
+            dn = mm(aq(h), bp["mlp"]["w_down"]["w"])
+            x = x + aq(dn)
+        fq = aq(L.rmsnorm(params["final_norm"], x, cfg.norm_eps))
+        logits = mm(fq, params["lm_head"]["w"])
+    return logits, new_caches
+
+
+def example_decode_feeds(cfg: ArchConfig, *, batch: int = 2,
+                         capacity: int = 8, seed: int = 0):
+    """Named numpy feeds for :func:`export_decode_graph` golden-IO checks,
+    drawn as the reference draws them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    feeds = {
+        "tokens": rng.randint(0, cfg.vocab, size=(batch,)).astype(np.int32),
+        "pos": rng.randint(0, capacity, size=(batch,)).astype(np.int32),
+    }
+    for i in range(cfg.n_layers):
+        feeds[f"k{i}"] = rng.randn(batch, capacity,
+                                   cfg.d_model).astype(np.float32)
+        feeds[f"v{i}"] = rng.randn(batch, capacity,
+                                   cfg.d_model).astype(np.float32)
+    return feeds
+
+
+def example_prefill_feeds(cfg: ArchConfig, *, batch: int = 2, seq: int = 4,
+                          seed: int = 0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"tokens": rng.randint(0, cfg.vocab,
+                                  size=(batch, seq)).astype(np.int32)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeHooks:
+    """The decode workload's hook bundle (the recipe's
+    ``workload_hooks("decode")``; FSL's is the other)."""
+
+    export_decode: Any
+    export_prefill: Any
+    step_ref: Any
+    example_feeds: Any
+
+
+def _export_for_compile(model, qcfg):
+    """``repro_torch.compile`` exporter: model = {"params", "cfg"}."""
+    params, cfg = model["params"], model["cfg"]
+    if qcfg is not None and qcfg is not cfg.quant:
+        cfg = dataclasses.replace(cfg, quant=qcfg)
+    return export_decode_graph(params, cfg)
+
+
+def _register_recipe():
+    from repro_torch.core.recipes import register_recipe
+
+    register_recipe(
+        "lm-decode",
+        [],   # datatype passes ride in via compile(datapath="int"); no CNN
+              # streamlining, and float attention is not HW-mappable
+        description=("dense decoder-LM decode/prefill: datatype inference + "
+                     "integer lowering only"),
+        exporter=_export_for_compile,
+        hooks={"decode": DecodeHooks(export_decode_graph,
+                                     export_prefill_graph,
+                                     decode_step_ref,
+                                     example_decode_feeds)})
+
+
+_register_recipe()

@@ -1031,3 +1031,101 @@ def test_trained_int_artifact_card_equals_cpu(card):
     assert int(ties.sum()) <= 1, ties
     code = pipe.qcfg.layer(resnet9.plan(8)[-1]["name"]).act.scale
     assert ((got - want).abs()[ties] <= code).all()
+
+
+# ---------------------------------------------------------------------------
+# compiled LM decode (lm-tiny) on the card
+# ---------------------------------------------------------------------------
+LM_BUCKETS = (1, 2, 4, 8)
+LM_CAPS = (8, 16)
+
+
+@pytest.fixture(scope="module")
+def lm_tiny():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+    from repro_torch.serve.decode import build_decode_artifact
+
+    cfg = get_config("lm-tiny")
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                            device="cuda")
+    arts = {dp: build_decode_artifact(params, cfg, datapath=dp,
+                                      capacities=LM_CAPS, device="cuda")
+            for dp in ("int", "f32")}
+    for art in arts.values():
+        art.warmup(LM_BUCKETS)
+    return cfg, params, arts
+
+
+def _lm_feeds(cfg, batch, cap, seed):
+    from repro_torch.models import lm
+
+    feeds = lm.example_decode_feeds(cfg, batch=batch, capacity=cap, seed=seed)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in feeds.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", LM_BUCKETS)
+@pytest.mark.parametrize("cap", LM_CAPS)
+def test_lm_tiny_replay_equals_eager_and_ref(lm_tiny, bucket, cap):
+    """Every warmed (bucket, capacity) of the int and f32 decode artifacts:
+    the replayed CUDA graph == the eager lowered function ==
+    ``decode_step_ref`` on the card, bit for bit, and the int step
+    launches ``mvau_int`` twice."""
+    from repro_torch.models import lm
+
+    cfg, params, arts = lm_tiny
+    feeds = _lm_feeds(cfg, bucket, cap, seed=bucket + cap)
+    xs = [feeds[k] for k in arts["int"].dm.input_names]
+    caches = xs[2:]
+    logits, new = lm.decode_step_ref(params, feeds["tokens"], feeds["pos"],
+                                     caches, cfg)
+    want = [logits] + new
+    base = arts["int"].trace_count()
+    for dp, art in arts.items():
+        B.reset_launch_counts()
+        replay = art.dm(*xs)
+        if dp == "int":
+            assert B.launch_counts["mvau_int"] == 2
+        eager = art.dm.apply(*xs)
+        for a, b, c in zip(replay, eager, want):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    assert arts["int"].trace_count() == base
+
+
+@pytest.mark.cuda
+def test_lm_tiny_row_is_bucket_invariant(lm_tiny):
+    """One sequence's row is the same stepped alone (bucket 1) and beside
+    seven others (bucket 8)."""
+    cfg, _, arts = lm_tiny
+    feeds = _lm_feeds(cfg, 8, 16, seed=21)
+    dm = arts["int"].dm
+    full = dm(*[feeds[k] for k in dm.input_names])
+    for b in (0, 3, 7):
+        one = dm(*[feeds[k][b:b + 1] for k in dm.input_names])
+        for a, c in zip(full, one):
+            assert torch.equal(a[b:b + 1], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shared", [True, False])
+def test_mvau_int_at_the_lm_shape_equals_plain(card, m, shared):
+    """The int8 kernel in GEMM form at lm-tiny's w_down: K 96, N 64, 255
+    levels (binary search), with one table shared by every column (as the
+    lowering expands it) and with a random sorted table per column."""
+    g = torch.Generator().manual_seed(m)
+    x = torch.randint(-128, 128, (m, 96), generator=g).to(torch.int8)
+    w = torch.randint(-128, 128, (96, 64), generator=g).to(torch.int8)
+    if shared:
+        row = torch.sort(torch.randint(-60000, 60000, (255,), generator=g)
+                         ).values
+        t = row[None].expand(64, 255)
+    else:
+        t = torch.sort(torch.randint(-60000, 60000, (64, 255), generator=g),
+                       dim=1).values
+    x, w, t = (v.to(card) for v in (x, w, t.to(torch.int32).contiguous()))
+    assert torch.equal(KM.mvau_int(x, w, t, -128),
+                       KM.mvau_int_plain(x, w, t, -128))

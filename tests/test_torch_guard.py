@@ -24,9 +24,12 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {"repro_torch.kernels.qmatmul", "repro_torch.models.lm",
-        "repro_torch.launch.serve", "repro_torch.configs.qwen2_5_3b"} <= set(mods)
+        "repro_torch.launch.serve", "repro_torch.configs.qwen2_5_3b",
+        "repro_torch.configs.lm_tiny", "repro_torch.serve.decode"} <= set(mods)
 from repro_torch.models.common import get_config
-get_config("qwen2.5-3b")
+get_config("qwen2.5-3b"), get_config("lm-tiny")
+from repro_torch.core.recipes import recipe
+recipe("lm-decode").workload_hooks("decode")
 repro_torch.compile, repro_torch.QuantConfig, repro_torch.FixedPointSpec
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
