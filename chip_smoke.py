@@ -64,6 +64,25 @@ ends the run with a non-zero exit if it fails:
    recompute, every kernel launch a graph replay; requests/s, p50/p99
    latency and mean batch, closed loop and saturated (open loop), and the
    device's busy share in a traced window of each.
+4c. the multi-tenant cluster on the card (path ``cluster``):
+   ``ServeCluster(replicas=2, max_batch=64, batch_wait_ms=2,
+   tenant_quota=0.25)`` over a ``sharded_tenant_registry`` (the serial
+   NCM head on one card) with the width-64 int flip ensemble as the
+   default backbone and the f32 one beside it, warmed through a
+   ``CompileCache`` in a fresh directory (one warm record per bucket and
+   backbone); 16 tenants of 5 classes x 5 shots; 1,024 classify requests
+   of 1-4 frames from 4 closed-loop clients over 15 tenants, one switched
+   to the f32 backbone halfway, while the 16th floods past its quota:
+   no capture after warmup, no failure, every rejection the flooder's
+   ``TenantOverQuota``, every launch a replay, prototypes bit for bit an
+   offline recompute, every answer (class ids and similarities) bit for
+   bit the same query through a single ``ServeEngine``; requests/s,
+   p50/p99, mean batch, and the busy share of a traced window.  Then a
+   cold restart from the same cache directory (a fresh pipeline, registry
+   and one-replica cluster): one hit per bucket, no new record, every
+   first replay's digest equal to its record, answers bit for bit the
+   first cluster's, ``add_replica`` warm with no lookup and no capture;
+   warm seconds per bucket, miss against hit.
 5. wide codes: ``grid_point(8, 8)`` and ``paper_w16a16()`` int artifacts
    (and w6a4 beside them) compiled on the card at the widest width their
    lowering admits, every MVAU on the CUDA-core kernel with its im2col
@@ -134,14 +153,14 @@ ends the run with a non-zero exit if it fails:
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are set to 0 just before each path (phases 3-4, the
-engine's traffic, the counted forwards of phase 5, the eager and the
-captured ``generate`` runs of phase 6, the eager steps and the engine's
+engine's traffic, the cluster's traffic, the counted forwards of phase 5,
+the eager and the captured ``generate`` runs of phase 6, the eager steps and the engine's
 traffic of phase 6b, and phases 7 and 8 as a whole) and
 read just after; launches made while comparing or timing kernels do not
 count.  A graph's launches are
 recorded when it is captured and counted at each replay: the paths
-``fsl_serve``, ``lm_decode_graph`` and ``lm_tiny_serve`` are counted from
-replays only (the
+``fsl_serve``, ``cluster``, ``lm_decode_graph`` and ``lm_tiny_serve`` are
+counted from replays only (the
 script checks that every launch there was one).
 """
 
@@ -912,7 +931,7 @@ def time_fused_gap(torch, KM, KG, ref, gen, err):
             "conv_alone_ms": ms["conv"], "unfused_chain_ms": ms["chain"]}
 
 
-PROFILE_READS = 3
+PROFILE_READS = 5
 
 
 def traced_steps():
@@ -926,33 +945,37 @@ def traced_steps():
             "schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
 
 
-def profile_forward(torch, label: str, fn, reps: int = 5,
-                    batch: int = BATCH, unit: str = "forward", top: int = 0):
-    """Device time by kernel over ``reps`` calls of ``fn`` (a forward at
-    batch 64, or a training step; torch.profiler, CUDA activity), the
-    ``top`` largest kernels printed (all with 0); returns the device-busy
-    ms per call (None when the profiler saw no device time) and the
-    kernels' profiler events.  The profiler's own host cost stretches the
-    traced run's wall time, so the busy share printed here is a floor.
+def traced_reads(torch, label: str, fn, reps: int):
+    """Trace ``reps`` calls of ``fn`` (torch.profiler, CUDA activity) after
+    one untraced call and one traced warm-up call whose events are dropped;
+    returns the kernels' profiler events, the host wall time of the ``reps``
+    calls in microseconds and their CUDA-event time in milliseconds.
 
     Every call of ``fn`` launches the same kernels, so each kernel's count
     is a multiple of ``reps``; a read where one is not has lost events in
-    the tracer (a replayed int forward once read 22.4 kernels of its 27)
-    and is traced again, at most PROFILE_READS times in all."""
+    the tracer (a replayed int forward once read 22.4 kernels of its 27, a
+    replayed w8 decode step 244.25 qmatmul kernels of its 252) and is
+    traced again, at most PROFILE_READS times in all.  A kernel counted
+    more often than its calls launch it still shows in the caller's
+    checks, since a read is only ever repeated, never corrected."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
 
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for read in range(1, PROFILE_READS + 1):
         with profile(**traced_steps()) as prof:
             fn()                      # warm-up step: its events are dropped
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
+            start.record()
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            end.record()
+            end.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
         kern = [e for e in prof.key_averages()
@@ -965,6 +988,18 @@ def profile_forward(torch, label: str, fn, reps: int = 5,
             f"({len(torn)} kernels with counts not a multiple of {reps}, "
             f"e.g. {torn[0]})" + (", traced again" if read < PROFILE_READS
                                   else ""))
+    return kern, wall_us, start.elapsed_time(end)
+
+
+def profile_forward(torch, label: str, fn, reps: int = 5,
+                    batch: int = BATCH, unit: str = "forward", top: int = 0):
+    """Device time by kernel over ``reps`` calls of ``fn`` (a forward at
+    batch 64, or a training step; :func:`traced_reads`), the ``top``
+    largest kernels printed (all with 0); returns the device-busy ms per
+    call (None when the profiler saw no device time) and the kernels'
+    profiler events.  The profiler's own host cost stretches the traced
+    run's wall time, so the busy share printed here is a floor."""
+    kern, wall_us, _ = traced_reads(torch, label, fn, reps)
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
@@ -1678,6 +1713,391 @@ def engine_load(torch, reg, reqs, closed: bool, traced: bool, base):
     log(msg)
 
 
+CLUSTER_TENANTS = 16
+CLUSTER_REQUESTS = 1024        # classify requests of 1-4 frames, 4 clients
+CLUSTER_FLOOD_MAX = 5000       # the flooder's submits at most
+CLUSTER_BACKBONES = ("w6a4-int", "f32")
+
+
+def cluster_registry(qcfg, params):
+    """A fresh pipeline (nothing warm in memory) and a
+    ``sharded_tenant_registry`` with the int flip ensemble as the default
+    backbone and the f32 one beside it."""
+    from repro_torch.fsl.pipeline import FSLPipeline
+    from repro_torch.serve.cluster import sharded_tenant_registry
+
+    pipe = FSLPipeline(width=WIDTH, qcfg=qcfg, device="cuda")
+    reg = sharded_tenant_registry()
+    reg.register_backbone("w6a4-int", pipe.deploy(params, datapath="int"),
+                          default=True)
+    reg.register_backbone("f32", pipe.deploy(params, datapath="f32"))
+    return reg
+
+
+def warm_log(reg):
+    """Per backbone, the warm seconds of each bucket and whether the cache
+    held its record."""
+    return {bb: [(e["bucket"], e["seconds"], e["cached"])
+                 for e in reg.get(bb).feats._exec.compile_log]
+            for bb in CLUSTER_BACKBONES}
+
+
+def cluster_phase(torch, np, B):
+    """The multi-tenant cluster on the card at width 64: ``ServeCluster``
+    with 2 replicas over a ``sharded_tenant_registry`` (the int flip
+    ensemble, the f32 one beside it), max_batch 64, a tenant quota of a
+    quarter of the queue, warmed through a ``CompileCache`` in a fresh
+    directory.  16 tenants each register 5 classes x 5 shots; 4 closed-loop
+    clients send 1,024 classify requests of 1-4 frames spread over 15
+    tenants, one of which is switched to the f32 backbone halfway, while
+    the 16th floods past its quota.  Checks: no capture after warmup,
+    nothing failed, every rejection the flooder's ``TenantOverQuota``,
+    every launch a graph replay, each tenant's prototypes bit for bit an
+    offline recompute, and every answer (class ids and similarities) bit
+    for bit the same query through a single ``ServeEngine``.  Then a cold
+    restart: a fresh pipeline, registry and one-replica cluster over the
+    same cache directory: one hit per bucket and backbone, no new record,
+    every digest matched, the restarted cluster's answers bit for bit the
+    first's, and ``add_replica`` warm from the shared artifacts.  Logs the
+    warm seconds per bucket (miss against hit), requests/s, p50/p99, mean
+    batch and the device's busy share in a traced window.  Returns the
+    traffic's launch counts (path ``cluster``)."""
+    import tempfile
+
+    B.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cluster-cache-",
+                                     dir=str(B.BUILD_DIR)) as cache_dir:
+        return _cluster_run(torch, np, B, cache_dir)
+
+
+def _register_all(cluster, reg, tenants, switched, shots):
+    """Every tenant's shots, one register request per class and in order
+    (so each lies in its own bucket-8 batch); the tenant to be switched
+    registers on the f32 backbone too."""
+    for t in tenants:
+        for w, x in shots[t].items():
+            for bb in CLUSTER_BACKBONES if t == switched else ("w6a4-int",):
+                cluster.submit_register(t, w, x, artifact=bb).result(120)
+
+
+def _cluster_run(torch, np, B, cache_dir):
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    from repro_torch.ckpt import CompileCache
+    from repro_torch.fsl import ncm
+    from repro_torch.serve import ServeEngine, pad_to_bucket
+    from repro_torch.serve.cluster import ServeCluster, TenantOverQuota
+
+    t_phase = time.perf_counter()
+    qcfg, params, data, _, _ = fsl_setup(torch, np)
+    tenants = [f"t{i:02d}" for i in range(CLUSTER_TENANTS)]
+    flooder, switched = tenants[-1], tenants[-2]
+    rng = np.random.default_rng(21)
+    shots, pools = {}, {}
+    for t in tenants:
+        ep = data.episode(rng, 5, 5, 40)
+        shots[t] = {w: ep["support_x"][ep["support_y"] == w]
+                    for w in range(5)}
+        pools[t] = ep["query_x"]
+    plan = []
+    for i in range(CLUSTER_REQUESTS):
+        t = tenants[i % (CLUSTER_TENANTS - 1)]
+        n = int(rng.integers(1, 5))
+        plan.append((t, pools[t][rng.integers(0, len(pools[t]), n)]))
+    flood_x = pools[flooder][:4]
+    cache = CompileCache(cache_dir)
+    reg = cluster_registry(qcfg, params)
+    cluster = ServeCluster(reg, replicas=2, max_batch=64, batch_wait_ms=2.0,
+                           tenant_quota=0.25, compile_cache=cache)
+    n_buckets = len(cluster.engines[0].buckets)
+    try:
+        for t in tenants:
+            cluster.add_tenant(t)
+        t0 = time.perf_counter()
+        base = cluster.warmup(img=IMG)
+        warm_s = time.perf_counter() - t0
+        check(all(base[bb] == n_buckets for bb in CLUSTER_BACKBONES)
+              and len(set(base.values())) == 1,
+              f"captures after the cluster's warmup {base}")
+        st = cache.stats()
+        check(st == {"hits": 0, "misses": 2 * n_buckets,
+                     "stores": 2 * n_buckets, "load_errors": 0,
+                     "entries": 2 * n_buckets},
+              f"cold warmup's cache stats {st}")
+        cold_log = warm_log(reg)
+        _register_all(cluster, reg, tenants, switched, shots)
+        tables = {bb: reg.get(bb).feats._exec for bb in CLUSTER_BACKBONES}
+        start = {id(g): g.replays for t in tables.values()
+                 for g in t.graphs.values()}
+        B.reset_launch_counts()
+        for eng in cluster.engines:
+            eng.metrics.reset_clock()
+        results, lat, errors = {}, {}, []
+        half = threading.Barrier(ENGINE_THREADS + 1)
+        flood = {"submitted": 0, "rejected": 0, "futs": []}
+        flooding = threading.Event()
+
+        def client(k):
+            try:
+                mine = list(range(k, len(plan), ENGINE_THREADS))
+                for j, i in enumerate(mine):
+                    if j == len(mine) // 2:
+                        half.wait()
+                    t, x = plan[i]
+                    t1 = time.perf_counter()
+                    results[i] = cluster.submit_classify(t, x).result(120)
+                    lat[i] = time.perf_counter() - t1
+            except Exception as e:                    # noqa: BLE001
+                errors.append(repr(e))
+                half.abort()
+
+        def flood_client():
+            # open loop: submit without waiting until the quota bites
+            try:
+                while flood["submitted"] < CLUSTER_FLOOD_MAX and (
+                        flood["rejected"] == 0 or flood["submitted"] < 500):
+                    try:
+                        flood["futs"].append(cluster.submit_classify(
+                            flooder, flood_x))
+                    except TenantOverQuota:
+                        flood["rejected"] += 1
+                    flood["submitted"] += 1
+            except Exception as e:                    # noqa: BLE001
+                errors.append(repr(e))
+            flooding.set()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(ENGINE_THREADS)]
+        threads.append(threading.Thread(target=flood_client))
+        for th in threads:
+            th.start()
+        half.wait()
+        reg.set_tenant_default(switched, "f32")          # per-tenant A/B
+        for th in threads:
+            th.join()
+        for f in flood["futs"]:
+            f.result(120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(B.launch_counts)
+        check(not errors, f"cluster clients failed: {errors[:3]}")
+        traces = cluster.trace_counts()
+        snap = cluster.metrics_snapshot()
+        engine_snaps = snap["replicas"]
+    finally:
+        cluster.stop()
+    check(traces == base, f"captures after warmup: {traces} != {base}")
+    n_flood = len(flood["futs"])
+    n_req = len(plan)
+    check(flood["rejected"] > 0, f"the flooder was never over quota "
+          f"({flood['submitted']} submits)")
+    check(snap["completed"] == n_req + n_flood
+          and snap["over_quota"] == flood["rejected"] == snap["rejected"],
+          f"cluster: {snap['completed']} completed, {snap['rejected']} "
+          f"rejected, {snap['over_quota']} over quota; the flooder "
+          f"{flood['rejected']} rejected of {flood['submitted']}")
+    check(all(s["failed"] == 0 for s in snap["tenants"].values())
+          and all(s["over_quota"] == 0 for t, s in snap["tenants"].items()
+                  if t != flooder),
+          f"per-tenant failures or rejections {snap['tenants']}")
+    by_art = {}
+    for t, _ in plan:
+        by_art.setdefault(t, set())
+    for i, r in results.items():
+        by_art[plan[i][0]].add(r.artifact)
+    check(by_art[switched] == {f"{switched}/w6a4-int", f"{switched}/f32"},
+          f"{switched} served by {by_art[switched]}: the switch did not land")
+    # every launch of the traffic a replay of a warmed graph
+    replayed = {k: 0 for k in counts}
+    for t in tables.values():
+        for g in t.graphs.values():
+            for k, v in g.launches.items():
+                replayed[k] += v * (g.replays - start.get(id(g), 0))
+    check(counts == replayed, f"cluster launches {counts} != replays "
+          f"{replayed}")
+
+    # prototypes: bit for bit an offline recompute through the same feats,
+    # padded to the bucket the engine padded each register to
+    def offline(bb, x):
+        padded, n, _ = pad_to_bucket(x, cluster.engines[0].buckets)
+        return reg.get(bb).feats(padded)[:n]
+
+    labs = torch.as_tensor(np.repeat(np.arange(5), 5))
+    for t in tenants:
+        for bb in (("w6a4-int", "f32") if t == switched else ("w6a4-int",)):
+            sup = torch.cat([offline(bb, shots[t][w]) for w in range(5)])
+            want = ncm.class_means(sup, labs, 5).cpu().numpy()
+            got, ids = reg.tenant_store(t, bb).prototypes()
+            check(ids == (0, 1, 2, 3, 4) and np.array_equal(got, want),
+                  f"{t}/{bb}: prototypes != offline recompute")
+
+    # the same queries through a single ServeEngine over the same registry
+    single = ServeEngine(reg, max_batch=64, max_queue=512, batch_wait_ms=2.0)
+    again, errs = {}, []
+
+    def ask_single(k):
+        try:
+            for i in range(k, n_req, ENGINE_THREADS):
+                t, x = plan[i]
+                again[i] = single.submit_classify(
+                    x, artifact=results[i].artifact, tenant=t).result(120)
+        except Exception as e:                        # noqa: BLE001
+            errs.append(repr(e))
+
+    try:
+        check(single.warmup(img=IMG) == base, "a capture at the single "
+              "engine's warmup")
+        ths = [threading.Thread(target=ask_single, args=(k,))
+               for k in range(ENGINE_THREADS)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+    finally:
+        single.stop()
+    check(not errs, f"single engine failed: {errs[:3]}")
+    for i in range(n_req):
+        a, b = results[i], again[i]
+        check(a.class_ids == b.class_ids and np.array_equal(a.sims, b.sims),
+              f"request {i} ({plan[i][0]}): cluster answer != single "
+              "engine's")
+    lats = np.sort(np.asarray([lat[i] for i in range(n_req)])) * 1e3
+    p50, p99 = np.percentile(lats, 50), np.percentile(lats, 99)
+    batches = sum(s["batches"] for s in engine_snaps)
+    mean_batch = (sum(s["mean_batch"] * s["batches"] for s in engine_snaps)
+                  / max(batches, 1))
+    log(f"cluster: 2 replicas, {len(tenants)} tenants x 5 classes x 5 "
+        f"shots; warmup {warm_s:.3f} s ({2 * n_buckets} captures, "
+        f"{2 * n_buckets} records published); {n_req} classify requests of "
+        f"1-4 frames from {ENGINE_THREADS} closed-loop clients over "
+        f"{len(tenants) - 1} tenants ({switched} switched to f32 halfway) in "
+        f"{wall:.3f} s while {flooder} flooded: {flood['submitted']} "
+        f"submits, {flood['rejected']} TenantOverQuota, {n_flood} served; "
+        f"no capture after warmup; 0 failed; prototypes bit for bit the "
+        f"offline recompute; every answer bit for bit the single engine's; "
+        f"every launch a replay: {replayed}")
+    log(f"cluster metrics, {ENGINE_THREADS} closed-loop clients + a "
+        f"flooder: {(n_req + n_flood) / wall:.1f} requests/s "
+        f"({n_req / wall:.1f} of the clients'), client p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms, mean batch {mean_batch:.2f} over {batches} "
+        "batches")
+    log("cluster cold warm seconds per bucket (miss): " + "; ".join(
+        f"{bb} " + ", ".join(f"b{b} {s:.4f}" for b, s, c in rows)
+        for bb, rows in cold_log.items()))
+
+    # -- the traced window: the same clients' traffic again ------------------
+    n_traced = min(400, n_req)
+    traced = ServeCluster(reg, replicas=2, max_batch=64, batch_wait_ms=2.0,
+                          tenant_quota=0.25, compile_cache=cache)
+    try:
+        for t in tenants:
+            traced.add_tenant(t)
+        check(traced.warmup(img=IMG) == base, "a capture at a second "
+              "cluster's warmup")
+        with profile(**traced_steps()) as prof:
+            t, x = plan[0]
+            traced.submit_classify(t, x).result(120)
+            prof.step()
+            t0 = time.perf_counter()
+            errs = []
+
+            def closed(k):
+                try:
+                    for i in range(k, n_traced, ENGINE_THREADS):
+                        t, x = plan[i]
+                        traced.submit_classify(t, x).result(120)
+                except Exception as e:                # noqa: BLE001
+                    errs.append(repr(e))
+
+            ths = [threading.Thread(target=closed, args=(k,))
+                   for k in range(ENGINE_THREADS)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            torch.cuda.synchronize()
+            twall = time.perf_counter() - t0
+            prof.step()
+        check(not errs, f"traced window failed: {errs[:3]}")
+    finally:
+        traced.stop()
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep"))
+    log(f"cluster traced window, {ENGINE_THREADS} closed-loop clients: "
+        f"{n_traced} requests in {twall * 1e3:.3f} ms, "
+        f"{n_traced / twall:.1f} requests/s, "
+        "device busy " + ("not measured (no CUDA events)" if busy_us <= 0
+                          else f"{busy_us / 1e3:.3f} ms = "
+                          f"{busy_us / (twall * 1e6):.1%} of the window"))
+
+    # -- cold restart: a fresh pipeline, registry and cluster ----------------
+    stats_before = cache.stats()
+    entries = set(cache.keys())
+    cache2 = CompileCache(cache_dir)                   # a new process's view
+    reg2 = cluster_registry(qcfg, params)
+    restarted = ServeCluster(reg2, replicas=1, max_batch=64,
+                             batch_wait_ms=2.0, tenant_quota=0.25,
+                             compile_cache=cache2)
+    try:
+        for t in tenants:
+            restarted.add_tenant(t)
+        reg2.set_tenant_default(switched, "f32")
+        t0 = time.perf_counter()
+        base2 = restarted.warmup(img=IMG)
+        warm2_s = time.perf_counter() - t0
+        st2 = cache2.stats()
+        check(st2 == {"hits": 2 * n_buckets, "misses": 0, "stores": 0,
+                      "load_errors": 0, "entries": 2 * n_buckets}
+              and set(cache2.keys()) == entries,
+              f"restart's cache stats {st2} (first {stats_before})")
+        check(base2 == base, f"restart's captures {base2} != {base}")
+        hot_log = warm_log(reg2)
+        check(all(c for rows in hot_log.values() for _, _, c in rows),
+              f"a restored bucket not marked cached: {hot_log}")
+        _register_all(restarted, reg2, tenants, switched, shots)
+        def again2(i):
+            t, x = plan[i]
+            return restarted.submit_classify(
+                t, x, artifact=results[i].artifact.split("/")[1]).result(120)
+
+        t0 = time.perf_counter()
+        first = again2(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(64):
+            r = first if i == 0 else again2(i)
+            check(r.artifact == results[i].artifact
+                  and r.class_ids == results[i].class_ids
+                  and np.array_equal(r.sims, results[i].sims),
+                  f"restarted cluster's answer to request {i} != the "
+                  "first cluster's")
+        st_add = cache2.stats()
+        t0 = time.perf_counter()
+        restarted.add_replica()
+        add_s = time.perf_counter() - t0
+        check(cache2.stats() == st_add and restarted.trace_counts() == base2
+              and len(restarted.engines) == 2,
+              "add_replica looked up the cache or captured")
+        check(np.array_equal(again2(0).sims, first.sims), "a request after "
+              "add_replica differs")
+    finally:
+        restarted.stop()
+    log(f"cluster cold restart: 1 replica warmed in {warm2_s:.3f} s, "
+        f"{st2['hits']} hits = {2 * n_buckets} buckets, 0 stores, every "
+        f"digest matched; first request served in {first_ms:.3f} ms, 64 "
+        f"answers bit for bit the first cluster's; add_replica "
+        f"{add_s * 1e3:.3f} ms, no lookup, no capture")
+    log("cluster restart warm seconds per bucket (hit): " + "; ".join(
+        f"{bb} " + ", ".join(f"b{b} {s:.4f}" for b, s, c in rows)
+        for bb, rows in hot_log.items()))
+    log(f"cluster phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def wide_code_path(torch, np, B):
     """The int artifacts whose codes do not fit int8 -- ``grid_point(8, 8)``
     (8-bit unsigned activations) and the paper's 16-bit baseline
@@ -2041,32 +2461,13 @@ def time_qmatmul(torch, Q, KQ, cfg, trees):
 
 
 def profile_decode(torch, label, step_fn, reps):
-    """Device time by kernel over ``reps`` decode steps (torch.profiler,
-    CUDA activity) and, in the same traced run, the CUDA-event time from
-    the first step's start to the last one's end: the busy share of that
-    one run.  The profiler's host cost stretches the traced run, so the
-    share is a floor for the untraced loop."""
-    from torch.autograd import DeviceType
-    from torch.profiler import profile
-
-    step_fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(**traced_steps()) as prof:
-        step_fn()                     # warm-up step: its events are dropped
-        torch.cuda.synchronize()
-        prof.step()
-        start.record()
-        for _ in range(reps):
-            step_fn()
-        end.record()
-        end.synchronize()
-        prof.step()
-    elapsed = start.elapsed_time(end) / reps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]   # the step's span
+    """Device time by kernel over ``reps`` decode steps
+    (:func:`traced_reads`) and, in the same traced run, the CUDA-event time
+    from the first step's start to the last one's end: the busy share of
+    that one run.  The profiler's host cost stretches the traced run, so
+    the share is a floor for the untraced loop."""
+    kern, _, elapsed = traced_reads(torch, label, step_fn, reps)
+    elapsed /= reps
     busy_us = sum(e.device_time_total for e in kern)
     if busy_us <= 0:
         log(f"profile {label}: device time not measured (no CUDA events)")
@@ -3138,6 +3539,7 @@ def main() -> int:
     profile_fsl_graphs(torch, B, graph_state)
     del graph_state
     serve_counts = engine_phase(torch, np, B)
+    cluster_counts = cluster_phase(torch, np, B)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
     mv["real_inputs_ms"], fused_real_ms = time_real_inputs(
         torch, KM, dm_int, x, mv.pop("layer_ms"))
@@ -3153,7 +3555,8 @@ def main() -> int:
     train_counts = train_path(torch, np, B)
     dse_counts = dse_path(torch, np, B)
     paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
-             "fsl_serve": serve_counts, "lm_decode": lm_counts,
+             "fsl_serve": serve_counts, "cluster": cluster_counts,
+             "lm_decode": lm_counts,
              "lm_decode_graph": lm_graph_counts,
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
              "fsl_train": train_counts, "dse": dse_counts}
@@ -3182,6 +3585,13 @@ def main() -> int:
         check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
               f"mvau_int's {route} route never ran on the training or the "
               f"DSE path: {by_path}")
+    # the cluster's traffic: the int backbone's 8 mvau_int launches a forward
+    # on the int8 wgmma route, r2b's with the GAP epilogue (replays only)
+    cl = paths["cluster"]
+    check(cl["mvau_int"] > 0 and cl["mvau_int_gap"] > 0
+          and mv["launches_by_route"]["cuda_core"]["cluster"] == 0
+          and cl["mvau_int"] == 8 * cl["mvau_int_gap"],
+          f"cluster path: launches {cl}")
     # the compiled LM decode: every mvau_int launch on the int8 wgmma route
     for p in ("lm_tiny_decode", "lm_tiny_serve"):
         check(paths[p]["mvau_int"] > 0

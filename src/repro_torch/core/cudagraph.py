@@ -36,6 +36,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as B
@@ -144,30 +145,82 @@ class GraphTable:
         return outs
 
     def warm(self, xs: Sequence[torch.Tensor], *, name: str,
-             metrics: Optional[Any] = None) -> None:
+             metrics: Optional[Any] = None, cache: Optional[Any] = None,
+             key: Optional[str] = None) -> None:
         """Make ``xs``'s signature a warmed shape: on the card, capture a
-        graph with ``xs`` as its static inputs; elsewhere, run it once
-        eagerly.  A shape already warmed is skipped.  The seconds it took
-        land in :attr:`compile_log` and, with ``metrics`` (a
-        ``ServeMetrics``), in ``metrics.record_compile``."""
-        key = self.key(xs)
+        graph with ``xs`` as its static inputs and replay it once; elsewhere,
+        run it once eagerly.  A shape already warmed is skipped.
+
+        With ``cache`` (a :class:`~repro_torch.ckpt.CompileCache`) and its
+        ``key``, a miss publishes the bucket's warm record (bucket,
+        signature, warm seconds, SHA-256 of that first replay's outputs, of
+        the eager run on the CPU); a hit warms and captures the same way,
+        then checks the first replay's digest against the record and raises
+        :class:`~repro_torch.ckpt.compile_cache.WarmDigestMismatch` if they
+        differ.  The seconds it took land in :attr:`compile_log` (with
+        ``cached`` and ``key``) and, with ``metrics`` (a ``ServeMetrics``),
+        in ``metrics.record_compile``."""
+        from repro_torch.ckpt.compile_cache import (WarmDigestMismatch,
+                                                    output_digest)
+
+        sig = self.key(xs)
+        bucket = int(xs[0].shape[0])
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            with self._lock:
-                if key in self.graphs:
-                    return
+        with self._lock:
+            if sig in self.graphs or (self.device.type != "cuda"
+                                      and sig in self._eager_shapes):
+                return
+            built = {}
+
+            def run(digest: bool = True) -> Optional[str]:
+                """Capture (or run eagerly); with ``digest``, replay once
+                and return the digest of the first outputs."""
+                if self.device.type != "cuda":
+                    self._eager_shapes.add(sig)
+                    with torch.no_grad():
+                        outs = _tuple(self.fn(*xs))
+                    return output_digest(outs) if digest else None
                 if self._stream is None:
                     self._stream = torch.cuda.Stream(self.device)
                     self._pool = torch.cuda.graph_pool_handle()
-                self.graphs[key] = CapturedGraph(self.fn, xs, pool=self._pool,
-                                                 stream=self._stream)
-        else:
-            if key in self._eager_shapes:
-                return
-            self(*xs)
+                g = built["graph"] = CapturedGraph(
+                    self.fn, xs, pool=self._pool, stream=self._stream)
+                if not digest:
+                    return None
+                with torch.cuda.stream(self._stream):
+                    g.replay()
+                    return output_digest(g.outputs)
+
+            def record() -> Dict[str, Any]:
+                digest = run()
+                return {"bucket": bucket, "name": name,
+                        "signature": [[list(s), str(d)] for s, d in sig],
+                        "warm_s": time.perf_counter() - t0,
+                        "sha256": np.frombuffer(bytes.fromhex(digest),
+                                                np.uint8)}
+
+            hit = False
+            if cache is None:
+                run(digest=False)
+            else:
+                rec, hit, _ = cache.get_or_compile(
+                    key, record, meta={"artifact": name, "bucket": bucket})
+                if hit:
+                    digest = run()
+                    want = bytes(np.asarray(rec["sha256"], np.uint8)).hex()
+                    if digest != want:
+                        self._eager_shapes.discard(sig)
+                        raise WarmDigestMismatch(
+                            f"{name} bucket {bucket}: the first replay's "
+                            f"outputs digest to {digest[:16]}..., the cache "
+                            f"entry {key} recorded {want[:16]}...: this "
+                            "replica computes differently from the one that "
+                            "published it")
+            if "graph" in built:
+                self.graphs[sig] = built["graph"]
         dt = time.perf_counter() - t0
-        bucket = int(xs[0].shape[0])
         self.compile_log.append({"bucket": bucket, "seconds": dt,
-                                 "cached": False, "key": None})
+                                 "cached": hit,
+                                 "key": key if cache is not None else None})
         if metrics is not None:
-            metrics.record_compile(name, bucket, dt, cached=False)
+            metrics.record_compile(name, bucket, dt, cached=hit)

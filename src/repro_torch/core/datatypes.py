@@ -55,6 +55,7 @@ __all__ = [
     "DATATYPE_RULES",
     "accumulator_spec",
     "threshold_output_spec",
+    "datatype_rule",
     "register_datatype_rule",
     "InferDataTypes",
     "LowerToIntegerDatapath",
@@ -168,6 +169,12 @@ def register_datatype_rule(*ops: str, override: bool = False):
             DATATYPE_RULES[op] = fn
         return fn
     return deco
+
+
+def datatype_rule(*ops: str):
+    """The reference's deprecated alias of :func:`register_datatype_rule`
+    (same conflict semantics: re-registering an op raises)."""
+    return register_datatype_rule(*ops)
 
 
 @register_datatype_rule("im2col", "transpose", "maxpool", "flatten", "relu")

@@ -163,6 +163,12 @@ def pow2_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(bs)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype as numpy spells it (``torch.float32`` -> ``"float32"``),
+    as the reference's cache keys write dtypes."""
+    return str(dtype).replace("torch.", "")
+
+
 def normalize_buckets(buckets: Sequence[int]) -> Tuple[int, ...]:
     """Dedup + sort a bucket list; rejects empty lists and non-positive or
     non-integral sizes."""
@@ -235,7 +241,8 @@ class DeployedModel:
     def compile_log(self) -> list:
         """Per warmed bucket: ``{"bucket", "seconds", "cached", "key"}``
         (seconds of warm-up runs and capture on the card, of the eager run
-        on the CPU; never cached: the port has no compile cache yet)."""
+        on the CPU; ``cached`` when a compile cache held the bucket's warm
+        record, which the capture was then checked against)."""
         return self._exec.compile_log
 
     @property
@@ -261,16 +268,17 @@ class DeployedModel:
         bucket already warmed is skipped.  Per-bucket seconds land in
         :attr:`compile_log` and, with ``metrics`` (a ``ServeMetrics``), in
         its compile counters under ``label`` (default: the graph's name).
-        ``cache`` (the reference's persistent compile cache) is not ported
-        and raises."""
-        from repro_torch.models.layers import not_ported
 
-        if cache is not None:
-            raise not_ported("the persistent compile cache (warmup(cache=))",
-                             "checkpoints and compile cache")
+        With ``cache`` (a :class:`repro_torch.ckpt.CompileCache`) each
+        bucket's key is the reference's (``kind="deployed-model"``, the
+        artifact's :meth:`fingerprint`, shape and dtype) plus the device's
+        environment record: a miss publishes the bucket's warm record, a
+        hit captures again and checks its first replay against the record
+        (:meth:`GraphTable.warm <repro_torch.core.cudagraph.GraphTable.warm>`).
+        """
         if len(self.input_names) != 1:
-            return self._warmup_multi(buckets, example, metrics=metrics,
-                                      label=label)
+            return self._warmup_multi(buckets, example, cache=cache,
+                                      metrics=metrics, label=label)
         ex = as_tensor(example, self.device)
         if ex.ndim < 1:
             raise ValueError("example must be batched (leading batch axis)")
@@ -278,19 +286,29 @@ class DeployedModel:
         for b in bs:
             x = torch.zeros((b,) + tuple(ex.shape[1:]), dtype=ex.dtype,
                             device=self.device)
-            self._exec.warm((x,), name=label or self.graph.name,
-                             metrics=metrics)
+            self._warm((x,), cache, metrics, label,
+                       shape=list(x.shape), dtype=dtype_name(x.dtype))
         self._buckets = bs
         return bs
 
+    def _warm(self, xs, cache, metrics, label, **shape) -> None:
+        key = None
+        if cache is not None:
+            key = cache.key(kind="deployed-model", graph=self.fingerprint(),
+                            device=self.device, **shape)
+        self._exec.warm(xs, name=label or self.graph.name, metrics=metrics,
+                        cache=cache, key=key)
+
     def _warmup_multi(self, buckets: Sequence[int], example, *,
+                      cache: Optional[Any] = None,
                       metrics: Optional[Any] = None,
                       label: Optional[str] = None) -> Tuple[int, ...]:
         """Multi-input warmup (the decode graph's (tokens, pos, k*, v*)):
         ``example`` is one BATCHED array per graph input, in input order.
         Every input is padded along the shared leading batch axis, so one
         bucket is one warmed signature (on the card one CUDA graph); other
-        dims (the KV capacity) vary by calling warmup once per value."""
+        dims (the KV capacity) vary by calling warmup once per value.  The
+        cache key lists every input's shape and dtype, as the reference's."""
         if not isinstance(example, (tuple, list)) \
                 or len(example) != len(self.input_names):
             raise ValueError(
@@ -303,8 +321,9 @@ class DeployedModel:
         for b in bs:
             xs = tuple(torch.zeros((b,) + tuple(sm.shape[1:]), dtype=sm.dtype,
                                    device=self.device) for sm in samples)
-            self._exec.warm(xs, name=label or self.graph.name,
-                            metrics=metrics)
+            self._warm(xs, cache, metrics, label,
+                       shape=[list(x.shape) for x in xs],
+                       dtype=[dtype_name(x.dtype) for x in xs])
         self._buckets = bs
         return bs
 
@@ -436,7 +455,8 @@ def compile(graph_or_model: Any, qcfg: Any = None, *,
             sample_input: Optional[Any] = None,
             verify_feeds: Optional[Dict[str, Any]] = None,
             device: DeviceLike = None,
-            rtol: float = 1e-5, atol: float = 1e-6) -> DeployedModel:
+            rtol: float = 1e-5, atol: float = 1e-6,
+            tracer: Optional[Any] = None) -> DeployedModel:
     """Build a :class:`DeployedModel` on ``device`` (default: the card).
 
     Args mirror the reference's ``repro.compile``:
@@ -452,6 +472,10 @@ def compile(graph_or_model: Any, qcfg: Any = None, *,
       sample_input / verify_feeds: golden input(s) for per-pass IO
         verification, executed on ``device``.
       device: where the artifact runs; ``"cpu"`` takes the plain versions.
+      tracer: optional :class:`repro_torch.obs.Tracer` for compiler
+        telemetry (a ``compile.build`` span with one ``compile.pass`` child
+        per pass); default is the process-global tracer, a no-op until
+        configured.
     """
     if datapath not in ("f32", "int"):
         raise ValueError(f"datapath must be 'f32' or 'int', got {datapath!r}")
@@ -476,7 +500,8 @@ def compile(graph_or_model: Any, qcfg: Any = None, *,
         passes += ["infer_datatypes", "lower_to_integer_datapath"]
         if fuse:
             passes.append("fuse_integer_datapath")
-    result = PassManager(rtol=rtol, atol=atol, device=dev).run(
+    result = PassManager(rtol=rtol, atol=atol, tracer=tracer,
+                         device=dev).run(
         graph, passes, verify_feeds=verify_feeds)
     hw = result.graph
     from repro_torch.core.passes import resolve_pass

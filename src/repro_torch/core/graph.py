@@ -39,11 +39,21 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["Node", "Graph", "execute", "GraphBuildError"]
+__all__ = ["Node", "Graph", "execute", "GraphBuildError", "set_index_enabled"]
 
 
 class GraphBuildError(RuntimeError):
     """A graph reached the HW-mapping stage with non-mappable nodes."""
+
+
+# Escape hatch for benchmarking the cached index against the linear scans
+# (the reference's benchmarks flip it) — not for production use.
+_INDEX_ENABLED = True
+
+
+def set_index_enabled(enabled: bool) -> None:
+    global _INDEX_ENABLED
+    _INDEX_ENABLED = bool(enabled)
 
 
 @dataclasses.dataclass
@@ -151,7 +161,9 @@ class Graph:
     def insert_after(self, ref: Node, node: Node) -> None:
         self.insert_node(self.nodes.index(ref) + 1, node)
 
-    def _index(self) -> Dict[str, Any]:
+    def _index(self) -> Optional[Dict[str, Any]]:
+        if not _INDEX_ENABLED:
+            return None
         if self._cache is None:
             prod: Dict[str, Node] = {}
             cons: Dict[str, List[Node]] = {}
@@ -168,21 +180,38 @@ class Graph:
 
     # -- small query helpers used by the transform passes -------------------
     def producer(self, tensor: str) -> Optional[Node]:
-        return self._index()["prod"].get(tensor)
+        idx = self._index()
+        if idx is not None:
+            return idx["prod"].get(tensor)
+        for n in self.nodes:
+            if tensor in n.outputs:
+                return n
+        return None
 
     def consumers(self, tensor: str) -> List[Node]:
+        idx = self._index()
+        if idx is None:
+            return [n for n in self.nodes if tensor in n.inputs]
         # the index stores one entry per consuming *position* (so the
         # mutators can retire occurrences one at a time); de-dup here so a
-        # node reading the same tensor twice is reported once
+        # node reading the same tensor twice is reported once, exactly like
+        # the linear scan
         seen, out = set(), []
-        for n in self._index()["cons"].get(tensor, ()):
+        for n in idx["cons"].get(tensor, ()):
             if id(n) not in seen:
                 seen.add(id(n))
                 out.append(n)
         return out
 
     def fresh_name(self, stem: str) -> str:
-        taken = self._index()["names"]
+        idx = self._index()
+        if idx is not None:
+            taken = idx["names"]
+        else:
+            taken = set(self.initializers)
+            for n in self.nodes:
+                taken.update(n.inputs)
+                taken.update(n.outputs)
         i = 0
         while f"{stem}_{i}" in taken:
             i += 1

@@ -286,9 +286,13 @@ class PassManager:
     """
 
     def __init__(self, *, rtol: float = 1e-5, atol: float = 1e-6,
-                 device: DeviceLike = None):
+                 tracer: Optional[Any] = None, device: DeviceLike = None):
         self.rtol = rtol
         self.atol = atol
+        if tracer is None:
+            from repro_torch.obs import get_tracer
+            tracer = get_tracer()
+        self.tracer = tracer
         # where golden-IO verification executes the graph (None: the
         # device of the tensor feeds, else the card)
         self.device = device
@@ -326,31 +330,58 @@ class PassManager:
 
         golden = outputs(graph) if verify_feeds is not None else None
         g = graph
-        for p in resolved:
-            before = op_histogram(g)
-            n_before = len(g.nodes)
-            t0 = time.perf_counter()
-            g = apply_pass(g, p)
-            dt = time.perf_counter() - t0
-            after = op_histogram(g)
-            delta = {op: after.get(op, 0) - before.get(op, 0)
-                     for op in set(before) | set(after)
-                     if after.get(op, 0) != before.get(op, 0)}
-            rec = PassRecord(p.name, n_before, len(g.nodes), delta, dt)
-            if golden is not None:
-                outs = outputs(g)
-                err = max((float(np.max(np.abs(a - b))) if a.size else 0.0)
-                          for a, b in zip(outs, golden))
-                rec.max_abs_err = err
-                rec.verified = bool(
-                    all(np.allclose(a, b, rtol=self.rtol, atol=self.atol)
-                        for a, b in zip(outs, golden)))
-            trace.records.append(rec)
-            if rec.verified is False:
-                raise PassVerificationError(
-                    f"pass '{p.name}' changed graph semantics: max abs "
-                    f"output error {err:.3e} exceeds "
-                    f"rtol={self.rtol}/atol={self.atol}\n{trace.report()}")
+        tr = self.tracer
+        # Compiler telemetry (repro_torch.obs), as the reference's: one
+        # "compile.build" root span per build, one "compile.pass" child per
+        # pass — wall time, node/op deltas and verification verdicts on the
+        # same trace spine the serving requests use.  A null span when
+        # tracing is disabled.
+        with tr.span("compile.build",
+                     attrs={"graph": graph.name,
+                            "n_passes": len(resolved),
+                            "verified": verify_feeds is not None}) as root:
+            for p in resolved:
+                before = op_histogram(g)
+                n_before = len(g.nodes)
+                t0 = time.perf_counter()
+                g = apply_pass(g, p)
+                t1 = time.perf_counter()
+                after = op_histogram(g)
+                delta = {op: after.get(op, 0) - before.get(op, 0)
+                         for op in set(before) | set(after)
+                         if after.get(op, 0) != before.get(op, 0)}
+                rec = PassRecord(p.name, n_before, len(g.nodes), delta,
+                                 t1 - t0)
+                if golden is not None:
+                    outs = outputs(g)
+                    err = max((float(np.max(np.abs(a - b))) if a.size
+                               else 0.0) for a, b in zip(outs, golden))
+                    rec.max_abs_err = err
+                    rec.verified = bool(
+                        all(np.allclose(a, b, rtol=self.rtol, atol=self.atol)
+                            for a, b in zip(outs, golden)))
+                if tr.enabled:
+                    tr.record(
+                        "compile.pass", t0, t1, trace=root.trace,
+                        parent=root.span_id,
+                        status=("ok" if rec.verified in (True, None)
+                                else "io-mismatch"),
+                        attrs={"pass": p.name,
+                               "nodes_before": n_before,
+                               "nodes_after": len(g.nodes),
+                               "op_delta": delta,
+                               "establishes": list(p.establishes),
+                               "verified": rec.verified,
+                               "max_abs_err": rec.max_abs_err})
+                trace.records.append(rec)
+                if rec.verified is False:
+                    root.set("failed_pass", p.name)
+                    raise PassVerificationError(
+                        f"pass '{p.name}' changed graph semantics: max abs "
+                        f"output error {err:.3e} exceeds "
+                        f"rtol={self.rtol}/atol={self.atol}\n"
+                        f"{trace.report()}")
+            root.set("total_ms", trace.total_s * 1e3)
         return BuildResult(g, trace)
 
 

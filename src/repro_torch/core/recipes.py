@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import warnings
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.core import passes as P
@@ -107,6 +108,16 @@ class BuildRecipe:
         raise ValueError(
             f"recipe '{self.name}' has no workload hooks for kind {kind!r}; "
             f"available kinds: {list(self.hook_kinds())}")
+
+    def require_fsl_hooks(self) -> "BuildRecipe":
+        """The reference's deprecated spelling of ``workload_hooks("fsl")``:
+        warns, fails loudly on a recipe without FSL hooks, returns
+        ``self``."""
+        warnings.warn(
+            "BuildRecipe.require_fsl_hooks() is deprecated; use "
+            "workload_hooks('fsl')", DeprecationWarning, stacklevel=2)
+        self.workload_hooks("fsl")
+        return self
 
 
 _RECIPES: Dict[str, BuildRecipe] = {}

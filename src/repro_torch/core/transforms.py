@@ -12,7 +12,7 @@ MVAU fusion).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -29,6 +29,7 @@ __all__ = [
     "FoldMulIntoMultiThreshold",
     "FuseMatMulThresholdToMVAU",
     "VerifyHWMappable",
+    "apply_transforms",
 ]
 
 _NCHW_TO_NHWC = (0, 2, 3, 1)
@@ -306,4 +307,12 @@ def VerifyHWMappable(g: Graph) -> Graph:
         raise GraphBuildError(
             f"graph '{g.name}' is not HW-mappable; offending ops: {sorted(set(bad))}. "
             "Architecture-dependent streamline steps are missing (paper Sec. III-A).")
+    return g
+
+
+def apply_transforms(g: Graph, passes: Sequence[Transform]) -> Graph:
+    """Apply bare transforms in order (the reference's deprecated helper;
+    :class:`~repro_torch.core.passes.PassManager` is the checked path)."""
+    for p in passes:
+        g = p(g)
     return g

@@ -99,7 +99,6 @@ class FSLPipeline:
         from repro_torch.core.deploy import compile as compile_graph
         from repro_torch.core.deploy import normalize_buckets
         from repro_torch.core.quant import fake_quant
-        from repro_torch.models.layers import not_ported
 
         if self.qcfg is None:
             raise ValueError("deploy() needs a QuantConfig: the compiled "
@@ -131,17 +130,23 @@ class FSLPipeline:
                    label: Optional[str] = None) -> tuple:
             """Warm one zero batch of (b, img, img, 3) frames per bucket: a
             CUDA graph of the whole ensemble on the card, one eager run on
-            the CPU.  ``cache`` is not ported and raises."""
-            if cache is not None:
-                raise not_ported("the persistent compile cache "
-                                 "(warmup(cache=))",
-                                 "checkpoints and compile cache")
+            the CPU.  With ``cache`` (a ``CompileCache``) each bucket's key
+            is the reference's: the deployed graph's fingerprint AND the
+            ensemble's config (flip, activation grid, frame size), as the
+            fused program is not the bare DeployedModel."""
+            name = label or f"fused-{dm.graph.name}"
             bs = normalize_buckets(buckets)
             for b in bs:
-                table.warm((torch.zeros((b, img, img, 3), dtype=torch.float32,
+                shape = (b, img, img, 3)
+                key = None
+                if cache is not None:
+                    key = cache.key(kind="fused-feats",
+                                    graph=dm.fingerprint(), flip=flip,
+                                    act=repr(act), shape=list(shape),
+                                    dtype="float32", device=dm.device)
+                table.warm((torch.zeros(shape, dtype=torch.float32,
                                         device=dm.device),),
-                           name=label or f"fused-{dm.graph.name}",
-                           metrics=metrics)
+                           name=name, metrics=metrics, cache=cache, key=key)
             return bs
 
         feats.deployed_model = dm

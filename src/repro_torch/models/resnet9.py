@@ -171,6 +171,15 @@ def forward(params: Params, x: torch.Tensor,
     return torch.mean(x, dim=(1, 2))                      # -> GAP in export
 
 
+def l2_features(params: Params, x: torch.Tensor, qcfg=None,
+                width: int = 64) -> torch.Tensor:
+    """:func:`forward`'s features, each row divided by its L2 norm
+    (floored at 1e-8), as the reference's."""
+    f = forward(params, x, qcfg, width)
+    norm = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+    return f / torch.clamp_min(norm, 1e-8)
+
+
 # float32 roundings of slack on each side of a grid midpoint: the export's
 # quotient, and QAT's product and sum, round once each
 TIE_ULPS = 4

@@ -14,8 +14,13 @@ The port's copies of the JAX package's ``obs/{tracer,metrics,export}.py``
   attribution behind ``DeployedModel.profile()``, recorded into sweep
   points.
 
-The reference's HLO analysis and trace summarizer read XLA artifacts and
-are not part of the port.  A process-global default tracer
+* ``python -m repro_torch.obs.summarize trace.jsonl`` — render a trace
+  file into queue-wait / padding-overhead / exec breakdowns (the
+  reference's summarizer; compile builds add ``compile.build`` /
+  ``compile.pass`` spans to the same files).
+
+The reference's HLO analysis (``obs/hlo.py``, ``obs/diagnose.py``) reads
+XLA artifacts and is not ported yet.  A process-global default tracer
 (disabled until :func:`configure` attaches an exporter) lets components
 instrument unconditionally at near-zero cost when nobody is looking.
 """

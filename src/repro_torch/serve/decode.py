@@ -272,7 +272,9 @@ class DecodeArtifact:
         """Warm one signature per (batch bucket x capacity): on the card one
         CUDA graph each.  ``img`` is part of the registry's warmup
         signature and ignored (decode shapes come from ``d_model`` and
-        ``capacities``); ``cache`` is not ported and raises."""
+        ``capacities``).  ``cache`` (a ``CompileCache``) goes to
+        :meth:`DeployedModel.warmup`: one warm record per (bucket,
+        capacity), checked at a restore."""
         name = label or "decode"
         for cap in self.capacities:
             ex = []

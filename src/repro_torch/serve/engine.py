@@ -176,9 +176,10 @@ class ServeEngine:
         padding to the old set would quietly reintroduce mid-flight
         retraces), so it still has to cover ``max_batch``.
 
-        ``cache`` is the reference's persistent compile cache, not ported:
-        the artifacts' warmup raises when it is given.  Per-bucket capture
-        times land in ``self.metrics``."""
+        ``cache`` (a :class:`repro_torch.ckpt.CompileCache`) publishes each
+        bucket's warm record or, on a restarted replica, captures again and
+        checks the first replay against it; per-bucket warm times land in
+        ``self.metrics`` either way, marked cached on a restore."""
         bs = self.buckets
         if buckets is not None:
             bs = normalize_buckets(buckets)

@@ -177,8 +177,8 @@ class ServeMetrics:
                        cached: bool = False) -> None:
         """One per-bucket executable build during warmup: ``seconds`` of
         cold-start cost (on the card: the warm-up runs and the CUDA-graph
-        capture), ``cached=True`` when a persistent compile cache restored
-        the executable instead (the reference's; not ported)."""
+        capture), ``cached=True`` when a compile cache held the bucket's
+        warm record (the capture was then checked against it)."""
         with self._lock:
             key = "true" if cached else "false"
             self._c_compile.inc(cached=key)

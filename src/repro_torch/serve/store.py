@@ -26,7 +26,27 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fsl import ncm
 
-__all__ = ["PrototypeStore"]
+__all__ = ["HEAD_ROWS", "PrototypeStore", "head_sims"]
+
+# Query rows of every NCM head call: a classify's rows run in blocks of
+# exactly this many (the last zero-padded).  On the card PyTorch picks a row
+# norm's reduction layout, and cuBLAS a GEMM, from the row count, so the
+# same query could round differently in a batch of 3 and one of 8; with one
+# block shape a query's similarities never depend on its batch neighbours
+# (a cluster replica and a single engine answer it bit for bit alike).
+HEAD_ROWS = 64
+
+
+def head_sims(q: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
+    """(n, D) queries × (C, D) unit prototype rows -> (n, C) cosine
+    similarities, ``ncm._l2(q) @ means.T`` over blocks of
+    :data:`HEAD_ROWS` rows."""
+    n = q.shape[0]
+    pad = max(1, -(-n // HEAD_ROWS)) * HEAD_ROWS - n
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
+    return torch.cat([ncm._l2(b) @ means.T
+                      for b in q.split(HEAD_ROWS)])[:n]
 
 
 class PrototypeStore:
@@ -34,9 +54,10 @@ class PrototypeStore:
 
     ``register`` rebuilds the cached prototype matrix eagerly —
     registrations are onboarding, classifies are the latency path.
-    ``classify`` is one (Q, C) similarity with the query rows padded to a
-    power-of-two bucket, the same shape discipline the artifact applies to
-    backbone batches.
+    ``classify`` is one (Q, C) similarity with the query rows padded to
+    blocks of :data:`HEAD_ROWS` (the reference pads to a power-of-two
+    bucket; one block shape also makes a row's bits independent of its
+    batch on the card).
     """
 
     def __init__(self, device: DeviceLike = None):
@@ -118,39 +139,34 @@ class PrototypeStore:
             return means.cpu().numpy().copy(), ids
 
     def _sims(self, q: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
-        return ncm._l2(q) @ means.T
+        return head_sims(q, means)
 
     def classify(self, query_features
                  ) -> Tuple[List[Hashable], np.ndarray]:
         """NCM over the current store: (n, D) queries -> (class ids, (n, C)
-        cosine similarities).  A 1-D query is accepted as one row.  Query
-        rows pad to a power-of-two bucket, sliced back before the argmax."""
+        cosine similarities).  A 1-D query is accepted as one row.  The
+        head runs on fixed blocks of :data:`HEAD_ROWS` query rows
+        (:func:`head_sims`)."""
         q = self._f32(query_features)
         if q.ndim == 1:
             q = q[None, :]
         with self._lock:
             means, ids = self._prototypes_locked()
-        n = q.shape[0]
-        nb = 1 << max(n - 1, 0).bit_length()
-        if nb != n:
-            q = torch.cat([q, q.new_zeros((nb - n, q.shape[1]))])
-        sims = self._sims(q, means)[:n]
+        sims = self._sims(q, means)
         pred = sims.argmax(dim=-1).tolist()
         return [ids[i] for i in pred], sims.cpu().numpy()
 
     def prime(self, dim: int, buckets: Sequence[int] = (1,)) -> None:
-        """Run the classify head once per query bucket ahead of traffic
-        (the current prototypes when classes exist, a (1, D) dummy
-        otherwise), so first requests find warm allocator and kernels."""
+        """Run the classify head once ahead of traffic (the current
+        prototypes when classes exist, a (1, D) dummy otherwise), so first
+        requests find warm allocator and kernels.  Every call has the same
+        block shape, so ``buckets`` needs no call of its own."""
         with self._lock:
             try:
                 means, _ = self._prototypes_locked()
             except RuntimeError:
                 means = torch.zeros((1, int(dim)), device=self.device)
-        for nb in sorted({int(b) for b in buckets} | {1}):
-            if nb >= 1:
-                self._sims(torch.zeros((nb, int(dim)), device=self.device),
-                           means)
+        self._sims(torch.zeros((1, int(dim)), device=self.device), means)
 
     def reset(self) -> None:
         with self._lock:

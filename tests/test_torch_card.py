@@ -959,6 +959,151 @@ def test_engine_on_the_card_no_capture_after_warmup(card):
         assert r.class_ids == want.tolist()
 
 
+def _cluster_registry(params, dev):
+    from repro_torch.fsl.pipeline import FSLPipeline
+    from repro_torch.serve.cluster import sharded_tenant_registry
+
+    pipe = FSLPipeline(width=8, qcfg=repro_torch.QuantConfig.paper_w6a4(),
+                       device=dev)
+    reg = sharded_tenant_registry()
+    reg.register_backbone("int", pipe.deploy(params, "int"), default=True)
+    reg.register_backbone("f32", pipe.deploy(params, "f32"))
+    return reg
+
+
+@pytest.mark.cuda
+def test_cluster_cold_then_restart_on_the_card(card, tmp_path):
+    """The cluster at width 8 on the card: 4 tenants (one on the f32
+    backbone) served by 2 replicas from two threads, nothing captured after
+    warmup, prototypes bit for bit with an offline recompute; then a cold
+    restart from the same cache directory: every bucket a cache hit, no new
+    record, every digest matched, and the same queries answered bit for bit
+    (class ids and similarities).  Features equal the CPU's bit for bit."""
+    import threading
+
+    from repro_torch.ckpt import CompileCache
+    from repro_torch.fsl import ncm
+    from repro_torch.serve.cluster import ServeCluster
+
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    rng = np.random.default_rng(5)
+    tenants = ("a", "b", "c", "d")
+    shots = {t: {c: rng.random((3, 32, 32, 3)).astype(np.float32)
+                 for c in range(3)} for t in tenants}
+    queries = [(tenants[i % 4], rng.random((1 + i % 4, 32, 32, 3)).astype(
+        np.float32)) for i in range(48)]
+    cache = CompileCache(str(tmp_path))
+
+    def serve(replicas):
+        reg = _cluster_registry(params, card)
+        with ServeCluster(reg, replicas=replicas, max_batch=8,
+                          batch_wait_ms=1.0, tenant_quota=0.5,
+                          compile_cache=cache) as cluster:
+            for t in tenants:
+                cluster.add_tenant(t)
+            reg.set_tenant_default("d", "f32")
+            base = cluster.warmup(img=32)
+            for t in tenants:
+                for c, x in shots[t].items():
+                    cluster.submit_register(t, c, x).result(60)
+            out = [None] * len(queries)
+
+            def client(lo):
+                for i in range(lo, len(queries), 2):
+                    t, x = queries[i]
+                    out[i] = cluster.submit_classify(t, x).result(60)
+
+            threads = [threading.Thread(target=client, args=(lo,))
+                       for lo in (0, 1)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            assert cluster.trace_counts() == base
+            snap = cluster.metrics_snapshot()
+            assert snap["completed"] == len(queries) + 12
+            assert snap["rejected"] == 0
+        return reg, base, out
+
+    reg, base, first = serve(2)
+    assert base["int"] == base["f32"] == 4 and cache.stats()["stores"] == 8
+    for t in tenants:
+        bb = "f32" if t == "d" else "int"
+        feats = reg.get(bb).feats
+        sup = torch.cat([feats(x) for x in shots[t].values()])
+        want = ncm.class_means(sup, torch.as_tensor(np.repeat(np.arange(3),
+                                                              3)), 3)
+        np.testing.assert_array_equal(reg.tenant_store(t).prototypes()[0],
+                                      want.cpu().numpy())
+    stats = cache.stats()
+    reg2, base2, second = serve(1)
+    assert base2 == base
+    assert cache.stats()["stores"] == stats["stores"]
+    assert cache.stats()["hits"] == stats["hits"] + 8
+    assert cache.stats()["load_errors"] == 0
+    for r1, r2 in zip(first, second):
+        assert r1.artifact == r2.artifact
+        assert r1.class_ids == r2.class_ids
+        np.testing.assert_array_equal(r1.sims, r2.sims)
+    cpu = _cluster_registry(resnet9.init_params(
+        torch.Generator().manual_seed(0), 8, device="cpu"), "cpu")
+    x = queries[3][1]
+    for bb in ("int", "f32"):
+        np.testing.assert_array_equal(reg2.get(bb).feats(x).cpu().numpy(),
+                                      cpu.get(bb).feats(x).numpy())
+
+
+@pytest.mark.cuda
+def test_warm_captures_a_shape_already_run_eagerly(card, tmp_path):
+    """A shape run eagerly before warmup (the lm-tiny decode's eager steps)
+    is still captured by ``warm``, with or without a cache."""
+    from repro_torch.ckpt import CompileCache
+    from repro_torch.core.cudagraph import GraphTable
+
+    for cache in (None, CompileCache(str(tmp_path))):
+        table = GraphTable(lambda x: x * 2 + 1, card)
+        x = torch.ones((4, 3), device=card)
+        table(x)
+        assert table.trace_count == 1 and not table.graphs
+        table.warm((x,), name="t", cache=cache,
+                   key=None if cache is None else cache.key(kind="t"))
+        assert len(table.graphs) == 1
+        assert torch.equal(table(x)[0], x * 2 + 1)
+
+
+@pytest.mark.cuda
+def test_cache_digest_check_on_restore_on_the_card(card, tmp_path):
+    """A restored bucket's first replay is checked against the record: a
+    tampered digest raises, and the graph is not kept."""
+    from repro_torch.ckpt import CompileCache
+    from repro_torch.ckpt.compile_cache import WarmDigestMismatch
+
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    cache = CompileCache(str(tmp_path))
+    ex = np.zeros((1, 32, 32, 3), np.float32)
+    dm1 = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    dm1.warmup([1, 4], ex, cache=cache)
+    assert [e["cached"] for e in dm1.compile_log] == [False, False]
+    dm2 = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    dm2.warmup([1, 4], ex, cache=cache)
+    assert [e["cached"] for e in dm2.compile_log] == [True, True]
+    assert dm2.trace_count == 2                    # captured again, checked
+    key = dm2.compile_log[1]["key"]
+    rec = cache.load(key)
+    rec["sha256"] = (rec["sha256"] ^ np.uint8(1)).astype(np.uint8)
+    cache.store(key, rec)
+    dm3 = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
+    dm3.warmup([1], ex, cache=cache)
+    with pytest.raises(WarmDigestMismatch):
+        dm3.warmup([4], ex, cache=cache)
+    assert dm3.trace_count == 1
+    x = np.random.default_rng(0).random((4, 32, 32, 3)).astype(np.float32)
+    assert torch.equal(dm2(x), dm1(x))
+
+
 def _train_setup(dev, width: int = 8):
     from repro_torch.data.synthetic import SyntheticImages
     from repro_torch.fsl.pipeline import FSLPipeline

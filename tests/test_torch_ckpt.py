@@ -177,8 +177,15 @@ def test_named_checkpoint_rejects_unsafe_names(tmp_path, bad):
 
 
 def test_compile_cache_and_resharding_wait_for_their_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        CompileCache(str(tmp_path))
+    """The compile cache has been ported (its contracts:
+    ``tests/test_torch_compile_cache.py``): it opens over a checkpoint
+    directory and stores named entries there.  Elastic resharding still
+    waits for the distribution slice."""
+    cache = CompileCache(str(tmp_path))
+    key = cache.key(kind="ckpt-test")
+    cache.store(key, {"x": np.arange(3, dtype=np.uint8)})
+    assert cache.mgr.all_named() == [key]
+    assert CheckpointManager(str(tmp_path)).has_named(key)
     with pytest.raises(NotImplementedError, match="resharding"):
         restore_resharded(CheckpointManager(str(tmp_path)), {}, None)
 

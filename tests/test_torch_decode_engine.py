@@ -300,5 +300,11 @@ def test_multi_input_warmup_contract(art_int):
         dm.warmup((1,), np.zeros((1,), np.int32))
     with pytest.raises(ValueError, match="batched"):
         dm.warmup((1,), tuple(np.zeros((), np.int32) for _ in range(n)))
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        art_int.warmup((1,), cache=object())
+    # a cache is consulted for every bucket not yet warm (the cache itself:
+    # tests/test_torch_compile_cache.py): one without CompileCache's
+    # interface is refused, never ignored
+    ex = tuple(np.zeros((1,), np.int32) if nm in ("tokens", "pos")
+               else np.zeros((1, CAPS[0], art_int.d_model), np.float32)
+               for nm in dm.input_names)
+    with pytest.raises(AttributeError, match="key"):
+        dm.warmup((16,), ex, cache=object())

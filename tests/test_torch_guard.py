@@ -25,9 +25,16 @@ for m in mods:
     importlib.import_module(m)
 assert {"repro_torch.kernels.qmatmul", "repro_torch.models.lm",
         "repro_torch.launch.serve", "repro_torch.configs.qwen2_5_3b",
-        "repro_torch.configs.lm_tiny", "repro_torch.serve.decode"} <= set(mods)
+        "repro_torch.configs.lm_tiny", "repro_torch.serve.decode",
+        "repro_torch.serve.cluster.cluster",
+        "repro_torch.serve.cluster.sharded",
+        "repro_torch.serve.cluster.tenancy", "repro_torch.dist.sharding",
+        "repro_torch.dist.act_sharding", "repro_torch.obs.summarize",
+        "repro_torch.configs.resnet9_paper"} <= set(mods)
 from repro_torch.models.common import get_config
-get_config("qwen2.5-3b"), get_config("lm-tiny")
+get_config("qwen2.5-3b"), get_config("lm-tiny"), get_config("resnet9-paper")
+from repro_torch.fsl import FSLPipeline
+from repro_torch.core import compile_graph, PassManager
 from repro_torch.core.recipes import recipe
 recipe("lm-decode").workload_hooks("decode")
 repro_torch.compile, repro_torch.QuantConfig, repro_torch.FixedPointSpec

@@ -393,13 +393,18 @@ def test_registry_metadata_default_adapter_and_bucketing():
 
 
 def test_deploy_warmup_cache_is_not_ported(served):
+    """The compile cache is ported now (its contracts:
+    ``tests/test_torch_compile_cache.py``): both warmups consult a given
+    cache for every bucket not yet warm, so one without ``CompileCache``'s
+    interface is refused, never ignored."""
     _, pt, _, tpipe = served
     feats = tpipe.deploy(pt, datapath="int")
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        feats.warmup([1], img=IMG, cache=object())
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        feats.deployed_model.warmup([1], np.zeros((1, IMG, IMG, 3),
-                                                  np.float32), cache=object())
+    with pytest.raises(AttributeError, match="key"):
+        feats.warmup([32], img=IMG, cache=object())
+    with pytest.raises(AttributeError, match="key"):
+        feats.deployed_model.warmup([32], np.zeros((1, IMG, IMG, 3),
+                                                   np.float32), cache=object())
+    assert 32 not in [e["bucket"] for e in feats._exec.compile_log]
 
 
 # ---------------------------------------------------------------------------
