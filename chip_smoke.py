@@ -147,7 +147,24 @@ ends the run with a non-zero exit if it fails:
    registers the frontier and a ``ServeEngine`` serves the knee, its
    features bit for bit the record's probe features and its
    classification the offline NCM's.
-9. a JSON line of every kernel with its launches on its paths (the integer
+9. LM training (path ``lm_train``): ``qwen2.5-3b`` at full width (d 2048,
+   16 / 2 heads of 128, d_ff 11008, vocab 151,936, QKV bias, tied
+   embeddings), cut to 4 of its 36 layers, bf16 compute with float32
+   parameters and moments, through ``make_train_step(cfg, lr=3e-4)`` at
+   grad_accum 2, batch 8, seq 128 on ``token_lm_batch`` data: 21 steps
+   (the loss after 20 below step 0's, finite), ms per step (CUDA events on
+   resident batches), tokens/s, kernels and device busy share of a traced
+   step, peak memory; two same-seed runs of 3 steps bit for bit (losses,
+   parameters, moments); 2 steps + a checkpoint in the reference's layout
+   + a restore + 1 step == 3 straight, bit for bit; remat on == off (loss
+   and gradients bit for bit, peak memory of both); one step with
+   ``compress_pod_grads=True`` (residuals within half their leaf's int8
+   step); the reference's smoke (``launch.train.main(["--arch",
+   "qwen2.5-3b", "--reduced", "--steps", N, "--batch", "2", "--seq",
+   "16", "--ckpt-dir", tmp])``, N = 1, 2, 3) on the card against the same
+   run on the CPU (rtol 1e-5 at the first loss, 1e-4 after an update).
+   No kernel of the port is on this path: its launch counts must all be 0.
+10. a JSON line of every kernel with its launches on its paths (the integer
    MVAU's also by route: int8 ``wgmma`` and CUDA cores) and its numbers,
    the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -155,7 +172,7 @@ ends the run with a non-zero exit if it fails:
 Launch counters are set to 0 just before each path (phases 3-4, the
 engine's traffic, the cluster's traffic, the counted forwards of phase 5,
 the eager and the captured ``generate`` runs of phase 6, the eager steps and the engine's
-traffic of phase 6b, and phases 7 and 8 as a whole) and
+traffic of phase 6b, and phases 7, 8 and 9 as a whole) and
 read just after; launches made while comparing or timing kernels do not
 count.  A graph's launches are
 recorded when it is captured and counted at each replay: the paths
@@ -3485,6 +3502,274 @@ def dse_path(torch, np, B):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: LM training (lm_train)
+# ---------------------------------------------------------------------------
+LM_TRAIN_LAYERS = 4              # of qwen2.5-3b's 36: the cut of depth
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_TRAIN_STEPS = 20
+LM_TRAIN_TIMED = 5
+LM_TRAIN_LR = 3e-4
+# the launcher's smoke (the reference's own command for its training stack)
+LM_SMOKE = ["--arch", LM_ARCH, "--reduced", "--batch", "2", "--seq", "16"]
+LM_SMOKE_STEPS = 3
+# card against CPU on the smoke: the first loss is a forward on the same
+# parameters; the later ones start from parameters that may differ by 2 lr
+# where a gradient lies within the bf16 noise of 0 (AdamW's first update
+# is close to lr * sign(g)), as the port against JAX does on the CPU
+LM_SMOKE_RTOL = (1e-5, 1e-4, 1e-4)
+
+
+def lm_train_path(torch, np, B):
+    """The port's LM training path at Qwen2.5-3B's full width, cut to
+    LM_TRAIN_LAYERS layers, on the card: ``make_train_step`` for
+    LM_TRAIN_STEPS steps (the loss falls), two same-seed runs bit for bit,
+    resume == straight through a checkpoint in the reference's layout,
+    remat on == off bit for bit (peak memory of both), one step with int8
+    error-feedback compression, and ``launch.train.main`` (the reference's
+    smoke) on the card against the CPU.  No kernel of the port runs on
+    this path: returns its launch counts, which must all be 0."""
+    import dataclasses
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data.synthetic import token_lm_batch
+    from repro_torch.dist.compression import compress_int8, init_residuals
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step, train_dtype_policy
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+    from repro_torch.optim import AdamWState, adamw_init
+    from repro_torch.tree import tree_flatten
+
+    B.reset_launch_counts()
+    t_phase = time.perf_counter()
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    _, moment_dtype, gdtype = train_dtype_policy(cfg)
+    n_micro = cfg.grad_accum
+    step = make_train_step(cfg, lr=LM_TRAIN_LR)
+
+    def init():
+        p = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        return p, adamw_init(p, moment_dtype)
+
+    def batch(i):
+        b = token_lm_batch(i, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab)
+        return {k: torch.from_numpy(v).reshape(
+            n_micro, LM_TRAIN_BATCH // n_micro, -1).cuda() for k, v in b.items()}
+
+    def run(params, opt, first, n):
+        losses = []
+        for i in range(first, first + n):
+            params, opt, loss = step(params, opt, batches[i])
+            losses.append(loss)
+        return params, opt, [float(v) for v in losses]
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(tree_flatten(a)[0],
+                                                     tree_flatten(b)[0]))
+
+    batches = [batch(i) for i in range(LM_TRAIN_STEPS + 1 + LM_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init()
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    log(f"lm_train: {LM_ARCH} at full width (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab} padded {cfg.vocab_padded}, QKV bias, tied "
+        f"embeddings), cut to {cfg.n_layers} of {full.n_layers} layers; "
+        f"{n_params} parameters ({cfg.compute_dtype} compute, params / "
+        f"moments / gradient buffers {str(torch.float32)[6:]} / "
+        f"{str(moment_dtype)[6:]} / {str(gdtype)[6:]}, remat "
+        f"{cfg.remat}); grad_accum {n_micro}, batch {LM_TRAIN_BATCH}, seq "
+        f"{LM_TRAIN_SEQ}, token_lm_batch data, make_train_step(lr="
+        f"{LM_TRAIN_LR}), random weights (CUDA generator, seed 0)")
+
+    # -- the loss falls over LM_TRAIN_STEPS steps ----------------------------
+    t0 = time.perf_counter()
+    params, opt, losses = run(params, opt, 0, LM_TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses),
+          f"lm_train losses not finite: {losses}")
+    check(losses[LM_TRAIN_STEPS] < losses[0],
+          f"lm_train loss after {LM_TRAIN_STEPS} steps {losses[-1]} >= "
+          f"{losses[0]} at step 0")
+    log(f"lm_train: {LM_TRAIN_STEPS + 1} steps in {t_run:.2f} s (first step "
+        f"included); loss {losses[0]:.4f} -> {losses[LM_TRAIN_STEPS]:.4f} "
+        f"after {LM_TRAIN_STEPS} steps; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB over the "
+        f"{base / 2**30:.3f} GiB held before the phase)")
+
+    # -- time: CUDA events over steps on resident batches, then one traced ---
+    state = {"p": params, "o": opt, "i": LM_TRAIN_STEPS + 1}
+
+    def one_step():
+        state["p"], state["o"], _ = step(state["p"], state["o"],
+                                         batches[state["i"] % len(batches)])
+        state["i"] += 1
+
+    one_step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(LM_TRAIN_TIMED):
+        one_step()
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) / LM_TRAIN_TIMED * 1e3
+    step_ms = start.elapsed_time(end) / LM_TRAIN_TIMED
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    busy, kern = profile_forward(torch, "lm_train step", one_step, reps=2,
+                                 batch=LM_TRAIN_BATCH, unit="step", top=15)
+    groups = {}
+    for e in kern:
+        name = e.key.lower()
+        group = ("GEMM" if any(t in name for t in ("gemm", "nvjet", "cutlass",
+                                                    "sm90_", "xmma"))
+                 else "reduction" if "reduce" in name
+                 else "copy/cast" if "copy" in name or "cat" in name
+                 else "elementwise")
+        n, t = groups.get(group, (0, 0.0))
+        groups[group] = (n + e.count, t + e.device_time_total)
+    log("lm_train step by kind: " + ", ".join(
+        f"{g} {t / 2e3:.3f} ms ({n / 2:.0f} kernels)"
+        for g, (n, t) in sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    log(f"lm_train step: {step_ms:.3f} ms (CUDA events, {LM_TRAIN_TIMED} "
+        f"steps on resident batches; host wall {wall_ms:.3f} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, "
+        f"{sum(e.count for e in kern) / 2:.0f} kernels a step, device busy "
+        + (f"{busy:.3f} ms ({busy / step_ms:.1%} of the untraced step)"
+           if busy is not None else "not measured"))
+    del params, opt, state
+
+    # -- two same-seed runs, bit for bit; resume == straight -----------------
+    n3 = 3
+    pa, oa, la = run(*init(), 0, n3)
+    pb, ob, lb = run(*init(), 0, n3)
+    check(la == lb and same(pa, pb) and same(oa.m, ob.m)
+          and same(oa.v, ob.v),
+          f"two same-seed lm_train runs differ: losses {la} / {lb}")
+    del pb, ob
+    t0 = time.perf_counter()
+    p2, o2, l2 = run(*init(), 0, 2)
+    with tempfile.TemporaryDirectory(prefix="lm-train-ckpt-") as d:
+        mgr = CheckpointManager(d)
+        mgr.save(2, {"params": p2, "m": o2.m, "v": o2.v},
+                 meta={"step": 2, "mesh": [1, 1], "arch": cfg.name})
+        like, _ = init()
+        st = mgr.restore({"params": like, "m": like, "v": like})
+        meta = mgr.meta()
+    del p2, o2, like
+    o3 = AdamWState(step=torch.full((), meta["step"], dtype=torch.int32,
+                                    device="cuda"), m=st["m"], v=st["v"])
+    p3, o3, l3 = run(st["params"], o3, 2, 1)
+    ck_s = time.perf_counter() - t0
+    check(l2 + l3 == la and same(p3, pa) and same(o3.m, oa.m)
+          and same(o3.v, oa.v),
+          f"lm_train resume != straight: losses {l2 + l3} / {la}")
+    log(f"lm_train: two same-seed runs of {n3} steps equal bit for bit "
+        f"(losses {la}, every parameter and moment); 2 steps + checkpoint "
+        f"(params, m, v: {3 * n_params * 4 / 2**30:.2f} GiB, meta {meta}) + "
+        f"restore + 1 step == {n3} straight, bit for bit ({ck_s:.1f} s)")
+    del pa, oa, p3, o3, st
+
+    # -- remat on and off: equal loss and gradients, bit for bit -------------
+    mb = {k: v[0] for k, v in batches[0].items()}
+    grads, peaks = {}, {}
+    params, _ = init()
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        leaves, unflatten = tree_flatten(params)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = lm.loss_fn(unflatten(live), mb, c)
+        g = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        grads[remat] = (loss.detach(), g)
+        del live, loss, g
+    check(torch.equal(grads[True][0], grads[False][0])
+          and all(torch.equal(a, b) for a, b in zip(grads[True][1],
+                                                    grads[False][1])),
+          "lm_train: remat on and off give different loss or gradients")
+    log(f"lm_train: remat on == off, loss and every gradient bit for bit "
+        f"(one microbatch of {LM_TRAIN_BATCH // n_micro} x {LM_TRAIN_SEQ}); "
+        f"peak memory {peaks[True] / 2**30:.3f} GiB with remat, "
+        f"{peaks[False] / 2**30:.3f} GiB without")
+    del grads
+
+    # -- one step with int8 error-feedback compression -----------------------
+    opt = adamw_init(params, moment_dtype)
+    res0 = init_residuals(params)
+    leaves, unflatten = tree_flatten(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    acc = [torch.zeros_like(t) for t in leaves]
+    for i in range(n_micro):
+        g = torch.autograd.grad(lm.loss_fn(unflatten(live), {
+            k: v[i] for k, v in batches[0].items()}, cfg), live)
+        for a, gi in zip(acc, g):
+            a.add_(gi)
+    del live, g
+    scales = [compress_int8(torch.div(a, torch.full(
+        (), float(n_micro), device="cuda")))[1] for a in acc]
+    del acc
+    cstep = make_train_step(cfg, lr=LM_TRAIN_LR, compress_pod_grads=True)
+    _, _, closs, res = cstep(params, opt, batches[0], res0)
+    worst = max(float(r.abs().max() / s) for r, s in
+                zip(tree_flatten(res)[0], scales))
+    check(float(closs) == losses[0],
+          f"EF-compressed step loss {float(closs)} != {losses[0]}, the same "
+          "parameters and batch")
+    check(worst <= 0.5 + 127 * 2 ** -23,
+          f"EF residual {worst} of its leaf's int8 step, above 1/2")
+    log(f"lm_train: one step with compress_pod_grads=True: loss "
+        f"{float(closs):.6f} (uncompressed {losses[0]:.6f}); largest "
+        f"residual {worst:.6f} of its leaf's int8 step (bound 1/2)")
+    del params, opt, res0, res, scales
+
+    # -- the reference's smoke through launch.train, card against CPU --------
+    got = {}
+    for dev in ("cuda", "cpu"):
+        got[dev] = []
+        for n in range(1, LM_SMOKE_STEPS + 1):
+            args = LM_SMOKE + ["--steps", str(n)]
+            buf = io.StringIO()
+            with tempfile.TemporaryDirectory(prefix="lm-smoke-") as d, \
+                    redirect_stdout(buf):
+                got[dev].append(launch_train.main(
+                    args + ["--ckpt-dir", d] if dev == "cuda"
+                    else args + ["--device", "cpu"]))
+            if n == LM_SMOKE_STEPS:
+                got[dev + "_out"] = buf.getvalue().strip().splitlines()
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"])]
+    check(all(r <= t for r, t in zip(rel, LM_SMOKE_RTOL)),
+          f"launch.train smoke: card losses {got['cuda']} against CPU "
+          f"{got['cpu']} (relative {rel}, allowed {LM_SMOKE_RTOL})")
+    check(ieee_flags(torch), "TF32 is on after LM training")
+    log(f"lm_train: `python -m repro_torch.launch.train "
+        f"{' '.join(LM_SMOKE)} --steps {LM_SMOKE_STEPS}` on the card: losses "
+        f"{got['cuda']}, on the CPU {got['cpu']} (relative "
+        f"{['%.3g' % r for r in rel]}, allowed {LM_SMOKE_RTOL}); its lines "
+        f"on the card: {got['cuda_out']}")
+
+    counts = dict(B.launch_counts)
+    check(all(v == 0 for v in counts.values()),
+          f"lm_train launched a kernel of the port: {counts}")
+    log(f"lm_train: phase {time.perf_counter() - t_phase:.2f} s; launches "
+        f"{counts} (the training path multiplies float weights: no kernel "
+        f"of the port is on it)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3554,12 +3839,14 @@ def main() -> int:
     mv["max_abs_err"] = max(mv["max_abs_err"], err["mvau_int"])
     train_counts = train_path(torch, np, B)
     dse_counts = dse_path(torch, np, B)
+    lm_train_counts = lm_train_path(torch, np, B)
     paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
              "fsl_serve": serve_counts, "cluster": cluster_counts,
              "lm_decode": lm_counts,
              "lm_decode_graph": lm_graph_counts,
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
-             "fsl_train": train_counts, "dse": dse_counts}
+             "fsl_train": train_counts, "dse": dse_counts,
+             "lm_train": lm_train_counts}
     for k in kernels:
         by_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches_by_path"] = by_path

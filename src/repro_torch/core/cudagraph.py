@@ -32,6 +32,7 @@ the card.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -77,13 +78,22 @@ class CapturedGraph:
             stream.synchronize()
             reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph()
-            with state.capture():
-                self.graph.capture_begin(pool=pool,
-                                         capture_error_mode="thread_local")
-                try:
-                    out = fn(*self.inputs)
-                finally:
-                    self.graph.capture_end()
+            # no garbage collection inside the capture: a collection there
+            # may free a dropped graph, whose memory pool goes back to the
+            # device with a call that invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with state.capture():
+                    self.graph.capture_begin(
+                        pool=pool, capture_error_mode="thread_local")
+                    try:
+                        out = fn(*self.inputs)
+                    finally:
+                        self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
         self.outputs = _tuple(out)
         self.counters = state.counters       # kept alive with the graph
         self.launches: Dict[str, int] = dict(state.launches)

@@ -381,8 +381,10 @@ class DeployedModel:
                 backend: Optional[str] = None) -> Dict[str, Any]:
         """Per-node FLOPs/bytes/estimated-ms attribution for one batch
         shape (:func:`repro_torch.obs.costmodel.profile_deployed`); the
-        sweep records ``totals.est_ms`` as ``modeled_ms``.  The XLA
-        cross-check (``xla=True``) has no counterpart here and raises."""
+        sweep records ``totals.est_ms`` as ``modeled_ms``.  ``xla=True``
+        (the default) adds the whole-program FLOPs that PyTorch's
+        ``FlopCounterMode`` counts over the plain version, the port's
+        counterpart of the reference's XLA cross-check."""
         from repro_torch.obs.costmodel import profile_deployed
 
         return profile_deployed(self, example, xla=xla, backend=backend)

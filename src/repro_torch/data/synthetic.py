@@ -91,3 +91,23 @@ class SyntheticImages:
                 "support_y": np.asarray(sup_y, np.int32),
                 "query_x": np.concatenate(qry_x),
                 "query_y": np.asarray(qry_y, np.int32)}
+
+
+def token_lm_batch(seed: int, batch: int, seq: int, vocab: int
+                   ) -> Dict[str, np.ndarray]:
+    """Markov-chain token stream for LM examples: learnable but nontrivial.
+
+    The reference's function draw for draw: the same seed gives the same
+    int32 ``tokens`` and ``labels`` (``tokens`` shifted by one)."""
+    rng = np.random.default_rng(seed)
+    # sparse row-stochastic transition structure shared across the run
+    trans_rng = np.random.default_rng(1234)
+    fanout = 4
+    nxt = trans_rng.integers(0, vocab, size=(vocab, fanout))
+    toks = np.empty((batch, seq + 1), np.int64)
+    toks[:, 0] = rng.integers(0, vocab, size=batch)
+    choices = rng.integers(0, fanout, size=(batch, seq))
+    for t in range(seq):
+        toks[:, t + 1] = nxt[toks[:, t], choices[:, t]]
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}

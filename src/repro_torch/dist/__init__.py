@@ -1,7 +1,7 @@
 """Distribution substrate of the port: the serial halves.
 
-Counterpart of the JAX package's ``repro.dist``.  This slice ports what the
-serving cluster needs on one card:
+Counterpart of the JAX package's ``repro.dist``.  The serial halves the
+serving cluster and the one-card train step need:
 
 * :mod:`~repro_torch.dist.act_sharding` — named activation-sharding
   constraint points; ``constrain`` is the identity (one device, one
@@ -10,9 +10,13 @@ serving cluster needs on one card:
   device, the signal to take the serial path) and ``prototype_spec``
   (class rows split when their count divides the devices, else
   replicated).
+* :mod:`~repro_torch.dist.compression` — int8 gradient compression with
+  error feedback, the train step's ``compress_pod_grads``.
+* :mod:`~repro_torch.dist.straggler` — ``StragglerMonitor``, the
+  launcher's straggler policy.
 
-The parameter/batch/optimizer/cache sharding trees, gradient compression,
-the straggler policy and pipeline parallelism are not ported yet.
+The parameter/batch/optimizer/cache sharding trees and pipeline
+parallelism are not ported yet.
 """
 
 from repro_torch.dist import act_sharding  # noqa: F401

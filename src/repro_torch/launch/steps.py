@@ -1,5 +1,12 @@
-"""Prefill / decode step builders and serving quantization: the port of the
-JAX package's ``launch/steps.py`` (its serving half; no train step yet).
+"""Train / prefill / decode step builders and serving quantization: the
+port of the JAX package's ``launch/steps.py`` on one card.
+
+``make_train_step`` is the reference's train step op for op: a loop over
+the leading microbatch axis (``torch.autograd.grad`` of ``loss_fn``),
+accumulation in the policy's gradient dtype, division by the microbatch
+count, optional int8 error-feedback compression, global-norm clipping and
+AdamW.  The reference's sharded accumulation buffer (``acc_shardings``)
+waits for the distribution slice.
 
 ``make_decode_step`` is the one-token serve step with (optionally)
 serving-quantized weights: the paper's bit-width lever applied where decode
@@ -18,9 +25,12 @@ import torch
 
 from repro_torch.core.cudagraph import CapturedGraph
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.compression import ef_compress_tree
 from repro_torch.models import lm
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import not_ported, quantize_dense_for_serving
+from repro_torch.optim import adamw_update, clip_by_global_norm
+from repro_torch.tree import tree_flatten, tree_map
 
 Params = Any
 
@@ -29,6 +39,15 @@ def model_module(cfg: ArchConfig):
     if cfg.family == "audio":
         raise not_ported("the audio family (whisper)", "encoder-decoder")
     return lm
+
+
+def train_dtype_policy(cfg: ArchConfig):
+    """(param_dtype, moment_dtype, grad_accum_dtype), the reference's:
+    bfloat16 storage everywhere above 50B parameters (the update math
+    stays float32 inside ``adamw_update``), float32 below."""
+    if cfg.n_params() > 5e10:
+        return torch.bfloat16, torch.bfloat16, torch.bfloat16
+    return torch.float32, torch.float32, torch.float32
 
 
 def quantize_tree_for_serving(params: Params, bits: int) -> Params:
@@ -55,6 +74,81 @@ def quantize_tree_for_serving(params: Params, bits: int) -> Params:
     return walk(params)
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: ArchConfig, *, compress_pod_grads: bool = False,
+                    lr: float = 1e-4, acc_shardings=None,
+                    grad_dtype=None) -> Callable:
+    """Returns train_step(params, opt_state, batch[, residuals]) ->
+    (params, opt_state, loss[, residuals]).
+
+    batch tensors are pre-microbatched: (n_micro, mb, ...).  Each
+    microbatch's gradients (``torch.autograd.grad`` of ``loss_fn``) add
+    into buffers of the policy's gradient dtype (or ``grad_dtype``), which
+    are divided by ``n_micro``; with ``compress_pod_grads`` and residuals
+    given, they pass through ``ef_compress_tree``; then
+    ``clip_by_global_norm(grads, 1.0)`` and ``adamw_update(..., lr,
+    weight_decay=0.1)``.  ``loss`` is the mean of the microbatch losses,
+    a 0-d float32 tensor.  Nothing waits for the device.
+
+    ``params`` must not hold a serving head copy (``embed_head``, see
+    ``lm.with_head_copy``): the update would leave it stale.
+    """
+    mod = model_module(cfg)
+    if acc_shardings is not None:
+        raise not_ported("a sharded gradient-accumulation buffer "
+                         "(acc_shardings)", "distribution substrate")
+
+    _, _, gdtype = train_dtype_policy(cfg)
+    if grad_dtype is not None:
+        gdtype = grad_dtype
+
+    def train_step(params, opt_state, batch, residuals=None):
+        if "embed_head" in params:
+            raise ValueError("params hold a serving head copy (embed_head) "
+                             "that an update would leave stale; train on "
+                             "the tree without it")
+        leaves, unflatten = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        tree = unflatten(live)
+        acc = [torch.zeros(p.shape, dtype=gdtype, device=p.device)
+               for p in leaves]
+        n_micro = tree_flatten(batch)[0][0].shape[0]
+        losses = []
+        for i in range(n_micro):
+            loss = mod.loss_fn(tree, tree_map(lambda t: t[i], batch), cfg)
+            grads = torch.autograd.grad(loss, live)
+            for a, g in zip(acc, grads):
+                a.add_(g.to(a.dtype))
+            losses.append(loss.detach())
+        del tree, live
+        # a true division on every device (CUDA divides by a Python scalar
+        # as a multiply by its reciprocal)
+        grads = unflatten([torch.div(a, torch.full((), float(n_micro),
+                                                   dtype=a.dtype,
+                                                   device=a.device))
+                           for a in acc])
+        del acc
+
+        new_res = residuals
+        if compress_pod_grads and residuals is not None:
+            grads, new_res = ef_compress_tree(grads, residuals)
+
+        grads, _ = clip_by_global_norm(grads, 1.0)
+        params, opt_state = adamw_update(params, grads, opt_state, lr,
+                                         weight_decay=0.1)
+        loss = torch.stack(losses).mean()
+        if residuals is None:
+            return params, opt_state, loss
+        return params, opt_state, loss, new_res
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     mod = model_module(cfg)
 

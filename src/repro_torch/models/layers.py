@@ -276,20 +276,70 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
+class _Silu(torch.autograd.Function):
+    """silu whose backward is ``jax.grad``'s, op for op in x's dtype: the
+    cotangent ``ct * t + (x * ct) * (t * (1 - t))``, ``t`` the logistic
+    (JAX's logistic derivative ``ans * (1 - ans)``).  Autograd through
+    the forward's ops would round other intermediates in bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t = _logistic(x)
+        ctx.save_for_backward(x, t)
+        return x * t
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, t = ctx.saved_tensors
+        return ct * t + (x * ct) * (t * (1 - t))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` as the reference's ``jax.nn.silu`` evaluates in
     x's dtype: the logistic expands to ``1 / (1 + exp(-x))`` with every op
     rounded to that dtype (bf16 for the projections), which
-    ``torch.sigmoid``'s single rounding would not reproduce."""
-    return x * (1 / (1 + torch.exp(-x)))
+    ``torch.sigmoid``'s single rounding would not reproduce.  Its gradient
+    is the reference's too (:class:`_Silu`)."""
+    return _Silu.apply(x)
+
+
+def _gelu_consts(x: torch.Tensor):
+    return _const(math.sqrt(2 / math.pi), x), _const(0.044715, x)
+
+
+class _GeluTanh(torch.autograd.Function):
+    """gelu (tanh form) whose backward is ``jax.grad``'s of
+    ``x * 0.5 * (1 + tanh(s * (x + k * x**3)))``, op for op in x's dtype:
+    tanh's derivative as JAX writes it, ``(g + g * ans) * (1 - ans)``,
+    ``x**3``'s as ``3 * x**2``, and x's three cotangents summed in the
+    order JAX's backward pass adds them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s, k = _gelu_consts(x)
+        th = torch.tanh(s * (x + k * (x * x * x)))
+        cdf = 0.5 * (1.0 + th)
+        ctx.save_for_backward(x, th, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, th, cdf = ctx.saved_tensors
+        s, k = _gelu_consts(x)
+        g = (0.5 * (x * ct)) * (1 - th)
+        ct_u = s * (g + g * th)
+        return (ct * cdf + ct_u) + (k * ct_u) * (3 * (x * x))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (tanh form, its default) op for op in x's dtype,
-    constants rounded to that dtype first as JAX's weak types are."""
-    cube = x * x * x
-    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * cube)
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
+    constants rounded to that dtype first as JAX's weak types are; its
+    gradient is the reference's too (:class:`_GeluTanh`)."""
+    return _GeluTanh.apply(x)
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "swiglu", wspec=None,

@@ -9,7 +9,12 @@ Entry points (functions of (params, batch), as in the reference):
   unchanged.  The reference scans over the stacked leaves; the port loops
   over layers in Python.
 * ``forward(params, batch, cfg)`` — full-sequence logits (and a zero aux
-  loss, the reference's MoE slot).
+  loss, the reference's MoE slot).  With ``cfg.remat`` and gradients
+  enabled every block is recomputed in the backward
+  (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+* ``loss_fn(params, batch, cfg)`` — token cross-entropy in float32 over
+  all ``vocab_padded`` logits (+ 0.01 x the aux loss): what
+  ``launch.steps.make_train_step`` differentiates.
 * ``prefill(params, batch, cfg)`` — last-position logits only.
 * ``init_cache(cfg, B, max_len, dtype, device)`` — the KV cache.
 * ``decode_step(params, tokens, cache, cfg)`` — one new token for every
@@ -34,6 +39,7 @@ from repro_torch.core.quant import fake_quant
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig
+from repro_torch.tree import tree_flatten
 
 Params = Dict[str, Any]
 
@@ -87,30 +93,64 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s tree: a view of every stacked leaf at index i."""
-    if isinstance(blocks, dict):
-        return {k: _layer(v, i) for k, v in blocks.items()}
-    return blocks[i]
-
-
 def _layers(params: Params, cfg: ArchConfig) -> List[Params]:
-    return [_layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    """Each layer's tree of views into the stacked leaves.  ``unbind``
+    makes them: its backward stacks the layers' gradients into one leaf
+    gradient, where one select per layer would add n_layers full-size
+    leaves."""
+    leaves, unflatten = tree_flatten(params["blocks"])
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [unflatten([views[i] for views in per_leaf])
+            for i in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
 # Blocks, embedding, head
 # ---------------------------------------------------------------------------
+def _attn_half(p: Params, x: torch.Tensor, cfg: ArchConfig,
+               positions: torch.Tensor, cache=None):
+    """The block's attention branch: (its output, the new cache); the
+    reference names the output ``attn_out``."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    return L.attention(p["attn"], h, cfg, positions, cache=cache,
+                       wspec=_wspec(cfg))
+
+
+def _mlp_half(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The block's MLP branch, its output on the activation grid; the
+    reference names it ``mlp_out``."""
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    m = L.mlp(p["mlp"], h, cfg.act, _wspec(cfg), _aspec(cfg))
+    return fake_quant(m, _aspec(cfg))
+
+
 def _attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, cache=None):
-    ws, as_ = _wspec(cfg), _aspec(cfg)
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, new_cache = L.attention(p["attn"], h, cfg, positions, cache=cache,
-                               wspec=ws)
+    a, new_cache = _attn_half(p, x, cfg, positions, cache)
     x = x + a
-    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    m = L.mlp(p["mlp"], h, cfg.act, ws, as_)
-    return x + fake_quant(m, as_), new_cache
+    return x + _mlp_half(p, x, cfg), new_cache
+
+
+def _checkpoint(fn, *args):
+    from torch.utils.checkpoint import checkpoint
+
+    # the forward draws no random numbers: no RNG state to stash
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _remat_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One block with activation checkpointing, the reference's ``_remat``:
+    the whole block recomputed in the backward, or with ``remat_policy ==
+    "tp_outputs"`` the attention and MLP branches recomputed separately,
+    so their outputs (``attn_out``, ``mlp_out``) are the saved tensors.
+    The ops are ``_attn_block``'s, so the values and gradients are the
+    same bits as without remat."""
+    if cfg.remat_policy == "tp_outputs":
+        x = x + _checkpoint(lambda t: _attn_half(p, t, cfg, positions)[0], x)
+        return x + _checkpoint(lambda t: _mlp_half(p, t, cfg), x)
+    return _checkpoint(lambda t: _attn_block(p, t, cfg, positions)[0], x)
 
 
 def _embed_tokens(p: Params, tokens: torch.Tensor,
@@ -154,8 +194,12 @@ def _trunk(params: Params, batch: Dict[str, torch.Tensor],
     x = _embed_tokens(params, batch["tokens"], cfg)
     B, S, _ = x.shape
     positions = _positions_for(batch, S, B, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in _layers(params, cfg):
-        x, _ = _attn_block(bp, x, cfg, positions)
+        if remat:
+            x = _remat_block(bp, x, cfg, positions)
+        else:
+            x, _ = _attn_block(bp, x, cfg, positions)
     return x
 
 
@@ -167,6 +211,26 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
                   cfg.norm_eps)
     return _head(params, x, cfg), torch.zeros((), dtype=torch.float32,
                                               device=x.device)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+            ) -> torch.Tensor:
+    """Mean token cross-entropy, float32, plus 0.01 x the aux loss: the
+    reference's ``loss_fn`` op for op.  The log-sum-exp runs over all
+    ``vocab_padded`` logits, padding columns included, minus the gold
+    logit (a gather), as the reference computes it.
+
+    A tied head reads ``embed`` itself: a serving copy added by
+    :func:`with_head_copy` (``embed_head``) is ignored here, as it would
+    be stale after an update and would cut the head's gradient to the
+    table."""
+    params = {k: v for k, v in params.items() if k != "embed_head"}
+    logits, aux = forward(params, batch, cfg)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    return ce + 0.01 * aux
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig

@@ -17,19 +17,25 @@ inferred for the given batch and produces one row per node:
   cores), read from its card dispatch label;
 * **kernel** — the dispatch label from :meth:`DeployedModel.dispatch_table`.
 
-The reference's optional ``xla`` totals (XLA's ``cost_analysis()``) have
-no counterpart: ``xla=True`` raises.  The farm records ``totals.est_ms``
-as ``modeled_ms`` per sweep point.
+``xla=True`` (the default, as in the reference) adds the whole-program
+count that stands beside the per-node model, the port's counterpart of
+XLA's ``cost_analysis()``: ``{"flops": ...}`` from
+``torch.utils.flop_counter.FlopCounterMode`` over the artifact's plain
+version (the graph interpreter on the CPU, at the example's shape).  It
+counts the matmul-family products (``2·M·K·N``); the card's hand-written
+kernels are opaque to the counter, so it never runs them.  PyTorch counts
+no bytes accessed, so there is no ``bytes_accessed`` key (the reference
+also leaves out a key XLA does not report).  The farm records
+``totals.est_ms`` as ``modeled_ms`` per sweep point.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-from repro_torch.models.layers import not_ported
 
 __all__ = ["BACKEND_ROOFLINE", "KERNEL_PEAK_OPS", "backend_of",
            "profile_deployed", "render_profile"]
@@ -126,22 +132,25 @@ def profile_deployed(dm, example, *, xla: bool = True,
     ``example`` is a batched input (same contract as ``dm(example)``); its
     shapes are inferred by running the graph on zeros of that shape on the
     CPU (``Graph.infer_shapes``).  Returns ``{"batch", "backend", "nodes":
-    [row...], "totals", "xla": None}``; rows carry ``share`` of the total
+    [row...], "totals", "xla"}``; rows carry ``share`` of the total
     modeled time and ``kernel`` from the live dispatch table.  ``backend``
-    defaults to :func:`backend_of` the artifact's device.
+    defaults to :func:`backend_of` the artifact's device.  ``xla``: the
+    whole-program ``{"flops"}`` that ``FlopCounterMode`` counts over that
+    same CPU run (the module docstring), or None with ``xla=False``.
     """
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.kernels import ops as kops
 
-    if xla:
-        raise not_ported("the XLA cost-analysis cross-check "
-                         "(profile(xla=True))", "observability")
     be = backend or backend_of(dm.device)
     peak, bw = BACKEND_ROOFLINE.get(be, BACKEND_ROOFLINE["cpu"])
 
     g = dm.graph.copy()
     if len(dm.input_names) != 1:
         raise ValueError("profile_deployed supports single-input graphs")
-    g.infer_shapes({dm.input_names[0]: example})
+    counter = FlopCounterMode(display=False) if xla else None
+    with counter or contextlib.nullcontext():
+        g.infer_shapes({dm.input_names[0]: example})
     kernels = {r["tensor"]: r["kernel"] for r in dm.dispatch_table()}
     unit_peaks = KERNEL_PEAK_OPS.get(be, {})
     folded = kops.folded_into(g.nodes, g.outputs)
@@ -174,7 +183,9 @@ def profile_deployed(dm, example, *, xla: bool = True,
     }
     shape = np.shape(example)
     return {"batch": int(shape[0]) if shape else 1, "backend": be,
-            "nodes": rows, "totals": totals, "xla": None}
+            "nodes": rows, "totals": totals,
+            "xla": ({"flops": float(counter.get_total_flops())}
+                    if counter is not None else None)}
 
 
 def render_profile(prof: Dict[str, Any], top: int = 0) -> str:

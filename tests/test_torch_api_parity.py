@@ -204,3 +204,52 @@ def test_require_fsl_hooks_warns_as_reference():
         warnings.simplefilter("ignore", DeprecationWarning)
         with pytest.raises(ValueError, match="no FSL hooks"):
             bare.require_fsl_hooks()
+
+
+TRAINING_NAMES = [
+    ("models.lm", "loss_fn"),
+    ("launch.steps", "make_train_step"),
+    ("launch.steps", "train_dtype_policy"),
+    ("data.synthetic", "token_lm_batch"),
+    ("dist.compression", "compress_int8"),
+    ("dist.compression", "decompress_int8"),
+    ("dist.compression", "init_residuals"),
+    ("dist.compression", "ef_compress_tree"),
+    ("dist.straggler", "StragglerMonitor"),
+    ("launch.train", "main"),
+]
+
+
+@pytest.mark.parametrize("mod,name", TRAINING_NAMES)
+def test_training_names_resolve(mod, name):
+    ref = getattr(importlib.import_module(f"repro.{mod}"), name)
+    port = getattr(importlib.import_module(f"repro_torch.{mod}"), name)
+    assert callable(port) and port.__name__ == ref.__name__
+    assert port.__module__ == f"repro_torch.{mod}"
+
+
+@pytest.mark.parametrize("datapath", ["int", "f32"])
+def test_profile_default_counts_the_matmul_flops(datapath):
+    """``dm.profile(x)`` at its default works, and its ``xla.flops`` is
+    2·ΣM·K·N over the artifact's matmul-family nodes (the FLOPs the CPU
+    run of the plain version performs in products)."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.deploy import compile as tcompile
+    from repro_torch.models import resnet9
+
+    params = resnet9.init_params(torch.Generator().manual_seed(1), 4, "cpu")
+    dm = tcompile(params, QuantConfig.paper_w6a4(), recipe="resnet9",
+                  datapath=datapath, device="cpu")
+    x = np.zeros((3, 32, 32, 3), np.float32)
+    prof = dm.profile(x)
+    g = dm.graph.copy().infer_shapes({dm.input_names[0]: x})
+    want = 0
+    for n in g.nodes:
+        if n.op in ("matmul", "matmul_int", "mvau", "mvau_int"):
+            *m, k = g.shapes[n.inputs[0]]
+            want += 2 * int(np.prod(m)) * k * g.shapes[n.outputs[0]][-1]
+    assert want > 0 and prof["xla"] == {"flops": float(want)}
+    assert prof["xla"]["flops"] == sum(
+        r["flops"] for r in prof["nodes"]
+        if r["op"] in ("matmul", "matmul_int", "mvau", "mvau_int"))
+    assert dm.profile(x, xla=False)["xla"] is None

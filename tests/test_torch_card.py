@@ -862,6 +862,48 @@ def test_two_graphs_on_two_streams_keep_their_split_counters(card):
 
 
 @pytest.mark.cuda
+def test_capture_survives_collectable_dropped_graphs(card):
+    """Graphs dropped in reference cycles are freed whenever the garbage
+    collector runs, and freeing one returns its memory pool to the device.
+    With collections due at every allocation while another graph captures
+    (thresholds of 1, garbage graphs present), the capture still completes
+    and its replay equals the eager result: no collection runs inside a
+    capture."""
+    import gc
+
+    from repro_torch.core.cudagraph import WARM_RUNS, CapturedGraph
+
+    x = torch.randn(64, 64, device=card)
+
+    def capture(fn):
+        g = CapturedGraph(fn, (x,), pool=torch.cuda.graph_pool_handle(),
+                          stream=torch.cuda.Stream(card))
+        g.cycle = g                     # only the collector frees it
+        return g
+
+    dropped = [capture(lambda t: t @ t) for _ in range(3)]
+    calls = []
+    thresholds = gc.get_threshold()
+
+    def fn(t):
+        calls.append(1)
+        if len(calls) == WARM_RUNS + 1:          # inside the capture
+            dropped.clear()
+            gc.set_threshold(1, 1, 1)
+            junk = [[] for _ in range(2000)]     # collections fall due
+            del junk
+        return t @ t + 1
+
+    try:
+        g = capture(fn)
+    finally:
+        gc.set_threshold(*thresholds)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.outputs[0], x @ x + 1)
+
+
+@pytest.mark.cuda
 def test_decode_graph_equals_eager_two_layers(card):
     """Qwen2.5-3B at full width, 2 layers, w8 and w4: the captured decode
     step gives the eager step's logits and greedy tokens bit for bit over a
@@ -1274,3 +1316,98 @@ def test_mvau_int_at_the_lm_shape_equals_plain(card, m, shared):
     x, w, t = (v.to(card) for v in (x, w, t.to(torch.int32).contiguous()))
     assert torch.equal(KM.mvau_int(x, w, t, -128),
                        KM.mvau_int_plain(x, w, t, -128))
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+LM_TRAIN_LR = 3e-4
+
+
+def _lm_train(dev, layers=2):
+    """qwen2.5-3b at full width, ``layers`` deep: parameters from a CPU
+    generator (the same on every device), its step and a batch maker."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import token_lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=layers)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+
+    def batch(i, size=2, seq=16):
+        b = token_lm_batch(i, size, seq, cfg.vocab)
+        return {k: torch.from_numpy(v).reshape(cfg.grad_accum, -1, seq).to(dev)
+                for k, v in b.items()}
+
+    return (params, adamw_init(params),
+            make_train_step(cfg, lr=LM_TRAIN_LR), batch)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_card_against_cpu(card):
+    """One full-width step (2 layers, bf16 compute) on the card and on the
+    CPU from the same parameters.  The two devices' bf16 GEMMs sum in other
+    orders, so a bf16 rounding (2^-8 relative) now and then falls the
+    other way, as between the port and JAX on the CPU: the loss within
+    rtol 1e-4 (7.2e-6 measured on an H100), the first moment (0.1 x the
+    clipped gradients) within 2^-6 of each leaf's largest value (0.0083
+    measured, the CPU tests' gradient tolerance), every parameter within
+    2 lr: AdamW's first update is close to lr * sign(g), and where a
+    gradient lies within that noise of 0 the two signs may disagree."""
+    from repro_torch.tree import tree_flatten, tree_paths
+
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        params, opt, step, batch = _lm_train(dev)
+        p, o, loss = step(params, opt, batch(0))
+        got[dev.type] = (float(loss), tree_flatten(p)[0],
+                         tree_flatten(o.m)[0], tree_paths(p))
+    (lg, pg, mg, paths), (lc, pc, mc, _) = got["cuda"], got["cpu"]
+    print(f"card {lg!r} cpu {lc!r} relative {abs(lg - lc) / lc:.3g}")
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for path, a, b, ma, mb in zip(paths, pg, pc, mg, mc):
+        dm = float((ma.cpu() - mb).abs().max() / mb.abs().max())
+        dp = float((a.cpu() - b).abs().max())
+        print(f"{path}: m {dm:.3g} of max, params {dp / LM_TRAIN_LR:.3g} lr")
+        assert dm <= 2 ** -6, path
+        assert dp <= 2 * LM_TRAIN_LR * (1 + 1e-3), path
+
+
+@pytest.mark.cuda
+def test_lm_train_two_runs_bit_for_bit(card):
+    """Two same-seed runs of 2 full-width steps: losses and every
+    parameter and moment bit for bit (no atomics on the path: the
+    embedding's backward accumulates each row's tokens in one order)."""
+    from repro_torch.tree import tree_flatten
+
+    runs = []
+    for _ in range(2):
+        params, opt, step, batch = _lm_train(card)
+        losses = []
+        for i in range(2):
+            params, opt, loss = step(params, opt, batch(i, 4, 32))
+            losses.append(float(loss))
+        runs.append((losses, tree_flatten((params, opt.m, opt.v))[0]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_lm_train_launcher_resume_equals_straight(card, tmp_path, capsys):
+    """``launch.train.main`` on the card (its default device): 2 steps, a
+    checkpoint, a resume and 1 step give the loss of 3 straight steps, bit
+    for bit."""
+    from repro_torch.launch import train
+
+    smoke = ["--arch", "qwen2.5-3b", "--reduced", "--batch", "2", "--seq",
+             "16"]
+    straight = train.main(smoke + ["--steps", "3"])
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    train.main(smoke + ["--steps", "2"] + ck)
+    resumed = train.main(smoke + ["--steps", "1", "--resume"] + ck)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed == straight

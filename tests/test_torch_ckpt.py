@@ -242,8 +242,10 @@ def test_profile_counts_the_reference_flops_and_bytes(artifacts):
                                    rtol=1e-12)
     assert abs(sum(r["share"] for r in pt["nodes"]) - 1.0) < 1e-9
     assert render_profile(pt, top=3).count("\n") == 3
-    with pytest.raises(NotImplementedError, match="XLA"):
-        dt.profile(x)
+    # the default (xla=True) adds the whole-program FLOP count
+    full = dt.profile(x)
+    assert full["nodes"] == pt["nodes"] and full["totals"] == pt["totals"]
+    assert set(full["xla"]) == {"flops"} and full["xla"]["flops"] > 0
     h100 = profile_deployed(dt, x, xla=False, backend="h100")
     assert h100["totals"]["est_ms"] < pt["totals"]["est_ms"]
 
