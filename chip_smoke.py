@@ -104,6 +104,21 @@ ends the run with a non-zero exit if it fails:
    step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
    and greedy tokens are compared.
+6a. the recurrent-state and vision-language LM families (paths
+   ``lm_families`` eager, ``lm_families_graph`` replays): ``qmatmul``
+   held against its plain version at each (K, N) of the five configs'
+   products (in phase 6's kernel check) and timed there at batch 4, w8
+   and w4, beside its bound; mamba2-780m (48 Mamba2 blocks, tied head)
+   and zamba2-7b (81 slots: 68 Mamba2 blocks and 13 invocations of one
+   shared attention+MLP block, untied head) at full size, w8 and w4;
+   qwen2-vl-7b (M-RoPE), qwen3-14b (qk-norm) and phi3-medium-14b at full
+   width cut to 4 layers, w8: each through ``generate`` (batch 4, prompt
+   8, 16 new tokens) eager and replayed, equal tokens, the logits of
+   every step bit for bit, qmatmul launches a step (96, 228, 29), graph
+   pool and weight bytes, ms a step eager and replayed, one profiled
+   replay (kernels a step, device busy); a full-width copy of mamba2's
+   first 2 slots and zamba2's first 6 (5 Mamba2 blocks and the shared
+   block) decoded on the card and on the CPU at w8.
 6b. compiled LM decode (paths ``lm_tiny_decode``, ``lm_tiny_serve``):
    the int8 MVAU in GEMM form at lm-tiny's ``w_down`` (M 1, 3 and 8, K 96,
    N 64, 255 levels; a table shared by every column and one per column)
@@ -171,14 +186,14 @@ ends the run with a non-zero exit if it fails:
 
 Launch counters are set to 0 just before each path (phases 3-4, the
 engine's traffic, the cluster's traffic, the counted forwards of phase 5,
-the eager and the captured ``generate`` runs of phase 6, the eager steps and the engine's
-traffic of phase 6b, and phases 7, 8 and 9 as a whole) and
-read just after; launches made while comparing or timing kernels do not
-count.  A graph's launches are
-recorded when it is captured and counted at each replay: the paths
-``fsl_serve``, ``cluster``, ``lm_decode_graph`` and ``lm_tiny_serve`` are
-counted from replays only (the
-script checks that every launch there was one).
+the eager and the captured ``generate`` runs of phases 6 and 6a, the
+eager steps and the engine's traffic of phase 6b, and phases 7, 8 and 9
+as a whole) and read just after; launches made while comparing or timing
+kernels do not count.  A graph's launches are recorded when it is
+captured and counted at each replay: the paths ``fsl_serve``,
+``cluster``, ``lm_decode_graph``, ``lm_families_graph`` and
+``lm_tiny_serve`` are counted from replays only (the script checks that
+every launch there was one).
 """
 
 from __future__ import annotations
@@ -2290,9 +2305,10 @@ def _leaf(blocks, name):
     return blocks["mlp" if name.startswith("w_") else "attn"][name]
 
 
-def check_qmatmul(torch, Q, KQ, cfg):
+def check_qmatmul(torch, Q, KQ, cfg, extra=()):
     """qmatmul against its plain version on the card: ragged M, N, K (the
-    scalar and the vector weight loads), the decode shapes at batch 4 and
+    scalar and the vector weight loads), the decode shapes at batch 4, the
+    (K, N) of ``extra`` at batch 4 (their codes drawn on the card) and
     one prefill shape (batch 4 x prompt 8), f32 and bf16 x, w8 and w4.
     Tolerance: only the order of the float32 sum differs, so the error is
     held within 2e-5 of S = sum_k |bf16(x)| |code| scale (plus one bf16
@@ -2300,22 +2316,30 @@ def check_qmatmul(torch, Q, KQ, cfg):
     codes every partial sum is an integer below 2^24: bit for bit."""
     dev = "cuda"
     gen = torch.Generator().manual_seed(4321)
+    on_card = torch.Generator(device=dev).manual_seed(4321)
     shapes = [(1, 32, 16), (5, 130, 66), (3, 37, 12), (9, 515, 264),
               (70, 300, 130)]
     shapes += [(LM_BATCH, k, n) for _, k, n in _projections(cfg)]
     shapes.append((LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff))
-    decode = {(LM_BATCH, k, n) for _, k, n in _projections(cfg)}
-    worst = {"abs": 0.0, "of_tol": 0.0, "rel_f32": 0.0, "abs_decode": 0.0}
+    wide = [(LM_BATCH, k, n) for k, n in extra]
+    shapes += wide
+    decode = {(LM_BATCH, k, n) for _, k, n in _projections(cfg)} | set(wide)
+    worst = {"abs": 0.0, "of_tol": 0.0, "rel_f32": 0.0, "abs_decode": 0.0,
+             "abs_extra": 0.0}
     n_checked = 0
     for bits in (8, 4):
         lim = 8 if bits == 4 else 128
         for m, k, n in shapes:
-            codes = torch.randint(-lim, lim, (k, n), generator=gen)
+            g = on_card if (m, k, n) in wide else gen
+            codes = torch.randint(-lim, lim, (k, n), generator=g,
+                                  device=g.device)
             w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
                  else codes.to(torch.int8)).to(dev)
-            s = (torch.rand((n,), generator=gen) * 0.02 + 0.001).to(dev)
+            s = (torch.rand((n,), generator=g, device=g.device) * 0.02
+                 + 0.001).to(dev)
             for xdt in (torch.float32, torch.bfloat16):
-                x = (torch.rand((m, k), generator=gen) * 2 - 1).to(xdt).to(dev)
+                x = (torch.rand((m, k), generator=g, device=g.device) * 2
+                     - 1).to(xdt).to(dev)
                 got = KQ.qmatmul(x, w, s, bits)
                 want = KQ.qmatmul_plain(x, w, s, bits)
                 torch.cuda.synchronize()
@@ -2343,6 +2367,9 @@ def check_qmatmul(torch, Q, KQ, cfg):
                     check(torch.equal(got, KQ.qmatmul(x, w, s, bits)),
                           f"qmatmul {m}x{k}x{n} w{bits} {xdt}: two launches "
                           "differ")
+                if (m, k, n) in wide:
+                    worst["abs_extra"] = max(worst["abs_extra"],
+                                             d.max().item())
                 n_checked += 1
         lim = 8 if bits == 4 else 32
         for m, k, n in ((LM_BATCH, cfg.d_model, 256), (LM_BATCH, cfg.d_ff,
@@ -2383,6 +2410,11 @@ def check_qmatmul(torch, Q, KQ, cfg):
         f"sum|bf16(x)||code|scale {worst['rel_f32']:.3g} (tolerance 2e-5); "
         "integer inputs bit for bit; two launches bit for bit at the decode "
         "shapes")
+    if wide:
+        log(f"kernel check qmatmul at the LM families' {len(wide)} (K, N) "
+            f"({', '.join(f'{k}x{n}' for _, k, n in wide)}), batch "
+            f"{LM_BATCH}, w8 and w4, f32 and bf16 x: max abs err "
+            f"{worst['abs_extra']:.3g}; two launches bit for bit")
     return worst["abs_decode"]
 
 
@@ -2500,6 +2532,136 @@ def profile_decode(torch, label, step_fn, reps):
     return busy, elapsed, kern
 
 
+def _tokens(torch, prompt, t):
+    return torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                           device="cuda")
+
+
+def decode_ms(torch, cfg, tree, prompt, n_timed):
+    """The eager decode step after the prompt, greedy, in a cache the size
+    of one generation: CUDA-event ms a step over ``n_timed`` steps and the
+    host's ms a step.  The logits after them are checked finite."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import lm
+
+    decode = make_decode_step(cfg)
+    cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_TOKENS + 1)
+    for t in range(LM_PROMPT):
+        tok, cache = decode(tree, {"tokens": _tokens(torch, prompt, t)},
+                            cache)
+    tok = tok[:, None]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for _ in range(n_timed):
+        nxt, cache = decode(tree, {"tokens": tok}, cache)
+        tok = nxt[:, None]
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - h0) * 1e3 / n_timed
+    logits, _ = lm.decode_step(tree, tok, cache, cfg)
+    check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
+          "logits after the timed decode steps not finite")
+    return start.elapsed_time(end) / n_timed, host
+
+
+def replay_ms(torch, st, prompt, n_timed):
+    """The captured step ``st`` replayed after the prompt: CUDA-event ms a
+    step over ``n_timed`` replays and the host's ms a step."""
+    st.reset()
+    for t in range(LM_PROMPT):
+        st.step(_tokens(torch, prompt, t))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for _ in range(n_timed):
+        st.step()
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - h0) * 1e3 / n_timed
+    return start.elapsed_time(end) / n_timed, host
+
+
+def check_replay_logits(torch, label, cfg, tree, st, prompt):
+    """The captured step ``st`` beside the eager ``decode_step`` over the
+    prompt and LM_TOKENS greedy tokens: the logits of every step finite
+    and bit for bit, and the greedy tokens equal."""
+    from repro_torch.launch.steps import greedy
+    from repro_torch.models import lm
+
+    steps = LM_PROMPT + LM_TOKENS
+    st.reset()
+    cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
+    tok = None
+    for t in range(steps):
+        feed = _tokens(torch, prompt, t) if t < LM_PROMPT else tok
+        logits, cache = lm.decode_step(tree, feed, cache, cfg)
+        tok = greedy(logits, cfg)[:, None]
+        st.step(feed)
+        check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
+              f"{label} step {t}: logits not finite")
+        check(torch.equal(st.logits, logits) and torch.equal(st.tokens, tok),
+              f"{label} step {t}: the captured step's logits or tokens != "
+              "the eager step's")
+
+
+def card_vs_cpu(torch, label, cfg, tree, prompt, steps):
+    """``tree``, the float32 parameters of the full-width cut ``cfg`` on
+    the card, quantized to w8 on the card and on the CPU (the codes
+    checked equal) and decoded on both: the prompt teacher-forced, then
+    the CPU's greedy tokens fed to both.  Logits within CPU_CHECK_TOL;
+    greedy tokens equal where the CPU's top-2 margin exceeds twice it.
+    Returns the largest difference."""
+    from repro_torch.launch.steps import quantize_tree_for_serving
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_flatten, tree_map
+
+    q_dev = lm.with_head_copy(quantize_tree_for_serving(tree, 8), cfg)
+    q_cpu = lm.with_head_copy(quantize_tree_for_serving(
+        tree_map(lambda t: t.cpu(), tree), 8), cfg)
+    for a, b in zip(tree_flatten(q_dev)[0], tree_flatten(q_cpu)[0]):
+        check(torch.equal(a.cpu(), b), f"{label}: w8 codes or scales differ "
+              "between card and CPU")
+    caches = {"cuda": lm.init_cache(cfg, LM_BATCH, steps + 1),
+              "cpu": lm.init_cache(cfg, LM_BATCH, steps + 1, device="cpu")}
+    tok = None
+    worst, compared, skipped = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for t in range(steps):
+        feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32)
+                if t < prompt.shape[1] else tok)
+        lc, caches["cpu"] = lm.decode_step(q_cpu, feed, caches["cpu"], cfg)
+        lg, caches["cuda"] = lm.decode_step(q_dev, feed.cuda(),
+                                            caches["cuda"], cfg)
+        lc = lc[:, :cfg.vocab].float()
+        lg = lg[:, :cfg.vocab].float().cpu()
+        check(bool(torch.isfinite(lg).all()), f"{label}: card logits not "
+              "finite")
+        worst = max(worst, float((lg - lc).abs().max()))
+        top2 = torch.topk(lc, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * CPU_CHECK_TOL
+        check(torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure]),
+              f"{label} step {t}: greedy tokens differ between card and CPU "
+              "at a top-2 margin above twice the tolerance")
+        compared += int(sure.sum())
+        skipped += int((~sure).sum())
+        tok = lc.argmax(-1, keepdim=True).to(torch.int32)
+    check(worst <= CPU_CHECK_TOL,
+          f"{label}: card and CPU logits differ by {worst}")
+    forced = min(steps, prompt.shape[1])
+    log(f"{label} card vs CPU ({cfg.n_layers} layer slots, full width, w8, "
+        f"{steps} steps: {forced} teacher-forced, then the CPU's greedy "
+        f"tokens; {time.perf_counter() - t0:.1f} s): logits within "
+        f"{worst:.4g} (tolerance {CPU_CHECK_TOL}); greedy tokens equal at "
+        f"{compared} decisions, {skipped} skipped at a top-2 margin <= "
+        f"{2 * CPU_CHECK_TOL}")
+    return worst
+
+
 def lm_path(torch, np, B, Q, KQ):
     """The port's LM decode-serving path at Qwen2.5-3B's full width and
     depth on the card, at w8 and w4; returns the qmatmul kernel's numbers
@@ -2507,14 +2669,14 @@ def lm_path(torch, np, B, Q, KQ):
     import dataclasses
 
     from repro_torch.launch.serve import generate, graphed_step
-    from repro_torch.launch.steps import (greedy, make_decode_step,
+    from repro_torch.launch.steps import (make_decode_step,
                                           quantize_tree_for_serving)
     from repro_torch.models import lm
     from repro_torch.models.common import get_config
     from repro_torch.tree import tree_flatten, tree_map
 
     cfg = get_config(LM_ARCH)
-    err = check_qmatmul(torch, Q, KQ, cfg)
+    err = check_qmatmul(torch, Q, KQ, cfg, extra=family_shapes())
 
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -2633,54 +2795,16 @@ def lm_path(torch, np, B, Q, KQ):
 
     # -- captured step against eager step: logits bit for bit ---------------
     for bits in (8, 4):
-        st = graphs[bits]
-        st.reset()
-        cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
-        tok = None
-        for t in range(steps):
-            feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
-                                    device="cuda") if t < LM_PROMPT else tok)
-            logits, cache = lm.decode_step(q[bits], feed, cache, cfg)
-            tok = greedy(logits, cfg)[:, None]
-            st.step(feed)
-            check(torch.equal(st.logits, logits)
-                  and torch.equal(st.tokens, tok),
-                  f"w{bits} step {t}: the captured step's logits or tokens "
-                  "!= the eager step's")
+        check_replay_logits(torch, f"lm w{bits}", cfg, q[bits], graphs[bits],
+                            prompt)
         log(f"lm decode graph w{bits}: logits and greedy tokens of all "
             f"{steps} steps equal the eager step's bit for bit")
 
     # -- per-step decode latency, untraced ----------------------------------
-    decode = make_decode_step(cfg)
+    n_timed = LM_TOKENS // 2
     step_ms = {}
     for bits, tree in ((8, q[8]), (4, q[4]), (0, p0)):
-        cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
-        tok = torch.as_tensor(prompt[:, :1], dtype=torch.int32, device="cuda")
-        for t in range(LM_PROMPT):
-            tok, cache = decode(tree, {"tokens": torch.as_tensor(
-                prompt[:, t:t + 1], dtype=torch.int32, device="cuda")}, cache)
-        state = {"tok": tok[:, None], "cache": cache}
-
-        def one():
-            nxt, state["cache"] = decode(tree, {"tokens": state["tok"]},
-                                         state["cache"])
-            state["tok"] = nxt[:, None]
-
-        torch.cuda.synchronize()
-        n_timed = LM_TOKENS // 2
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        for _ in range(n_timed):
-            one()
-        end.record()
-        end.synchronize()
-        host = (time.perf_counter() - h0) * 1e3 / n_timed
-        step_ms[bits] = start.elapsed_time(end) / n_timed
-        logits, _ = lm.decode_step(tree, state["tok"], state["cache"], cfg)
-        check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
-              f"w{bits} logits not finite")
+        step_ms[bits], host = decode_ms(torch, cfg, tree, prompt, n_timed)
         log(f"lm decode step {'bf16' if bits == 0 else f'w{bits}'} "
             f"(untraced, {n_timed} steps): {step_ms[bits]:.3f} ms/step "
             f"between CUDA events, host {host:.3f} ms/step, "
@@ -2688,23 +2812,7 @@ def lm_path(torch, np, B, Q, KQ):
 
     graph_ms = {}
     for bits in (8, 4):
-        st = graphs[bits]
-        st.reset()
-        for t in range(LM_PROMPT):
-            st.step(torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
-                                    device="cuda"))
-        torch.cuda.synchronize()
-        n_timed = LM_TOKENS // 2
-        start_ev = torch.cuda.Event(enable_timing=True)
-        end_ev = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start_ev.record()
-        for _ in range(n_timed):
-            st.step()
-        end_ev.record()
-        end_ev.synchronize()
-        host = (time.perf_counter() - h0) * 1e3 / n_timed
-        graph_ms[bits] = start_ev.elapsed_time(end_ev) / n_timed
+        graph_ms[bits], host = replay_ms(torch, graphs[bits], prompt, n_timed)
         log(f"lm decode step w{bits} captured (untraced, {n_timed} replays): "
             f"{graph_ms[bits]:.3f} ms/step between CUDA events, host "
             f"{host:.3f} ms/step, {LM_BATCH / graph_ms[bits] * 1e3:.1f} tok/s "
@@ -2724,6 +2832,7 @@ def lm_path(torch, np, B, Q, KQ):
         f"{seq.numel()} positions): {agree:.4f}")
 
     # -- where the time goes: traced last ------------------------------------
+    decode = make_decode_step(cfg)
     cache = lm.init_cache(cfg, LM_BATCH, 64)
     state = {"tok": torch.as_tensor(prompt[:, :1], dtype=torch.int32,
                                     device="cuda"), "cache": cache}
@@ -2769,46 +2878,11 @@ def lm_path(torch, np, B, Q, KQ):
             f"{gbusy / graph_ms[bits]:.1%}")
 
     # -- card against CPU: 2 layers at full width, w8 ------------------------
-    small = dataclasses.replace(cfg, n_layers=CPU_CHECK_LAYERS)
-    two = dict(params, blocks=tree_map(
-        lambda t: t[:CPU_CHECK_LAYERS].contiguous(), params["blocks"]))
     del p0
-    q_dev = lm.with_head_copy(quantize_tree_for_serving(two, 8), small)
-    q_cpu = lm.with_head_copy(quantize_tree_for_serving(
-        tree_map(lambda t: t.cpu(), two), 8), small)
-    for (a, b) in zip(tree_flatten(q_dev)[0], tree_flatten(q_cpu)[0]):
-        check(torch.equal(a.cpu(), b), "w8 codes or scales differ between "
-              "card and CPU")
-    caches = {"cuda": lm.init_cache(small, LM_BATCH, CPU_CHECK_STEPS + 1),
-              "cpu": lm.init_cache(small, LM_BATCH, CPU_CHECK_STEPS + 1,
-                                   device="cpu")}
-    tok = torch.as_tensor(prompt[:, :1], dtype=torch.int32)
-    worst, compared, skipped = 0.0, 0, 0
-    t0 = time.perf_counter()
-    for t in range(CPU_CHECK_STEPS):
-        feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32)
-                if t < LM_PROMPT else tok)
-        lc, caches["cpu"] = lm.decode_step(q_cpu, feed, caches["cpu"], small)
-        lg, caches["cuda"] = lm.decode_step(q_dev, feed.cuda(),
-                                            caches["cuda"], small)
-        lc = lc[:, :small.vocab].float()
-        lg = lg[:, :small.vocab].float().cpu()
-        check(bool(torch.isfinite(lg).all()), "card logits not finite")
-        worst = max(worst, float((lg - lc).abs().max()))
-        top2 = torch.topk(lc, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > 2 * CPU_CHECK_TOL
-        check(torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure]),
-              f"step {t}: greedy tokens differ between card and CPU at a "
-              "top-2 margin above twice the tolerance")
-        compared += int(sure.sum())
-        skipped += int((~sure).sum())
-        tok = lc.argmax(-1, keepdim=True).to(torch.int32)
-    check(worst <= CPU_CHECK_TOL, f"card and CPU logits differ by {worst}")
-    log(f"lm card vs CPU ({CPU_CHECK_LAYERS} layers, full width, w8, "
-        f"{CPU_CHECK_STEPS} teacher-forced steps, {time.perf_counter() - t0:.1f}"
-        f" s): logits within {worst:.4g} (tolerance {CPU_CHECK_TOL}); greedy "
-        f"tokens equal at {compared} decisions, {skipped} skipped at a top-2 "
-        f"margin <= {2 * CPU_CHECK_TOL}")
+    card_vs_cpu(torch, "lm", dataclasses.replace(
+        cfg, n_layers=CPU_CHECK_LAYERS), dict(params, blocks=tree_map(
+            lambda t: t[:CPU_CHECK_LAYERS].contiguous(), params["blocks"])),
+        prompt, CPU_CHECK_STEPS)
 
     w8, w4 = timing[8], timing[4]
     entry = {"name": "qmatmul", "route": "cuda",
@@ -2823,6 +2897,348 @@ def lm_path(torch, np, B, Q, KQ):
              "w4": {k: w4[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
     return entry, counts, graph_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6a: the recurrent-state and vision-language LM families
+# ---------------------------------------------------------------------------
+FAMILY_FULL = ("mamba2-780m", "zamba2-7b")            # at full size
+FAMILY_CUT = ("qwen2-vl-7b", "qwen3-14b", "phi3-medium-14b")
+FAMILY_CUT_LAYERS = 4           # full width; the cut of depth (PERF.md §4)
+# card against CPU: layer slots of a full-width copy (zamba2's first six
+# slots hold five Mamba2 blocks and one invocation of the shared block)
+FAMILY_CPU_SLOTS = {"mamba2-780m": 2, "zamba2-7b": 6}
+FAMILY_CPU_STEPS = 8
+FAMILY_TIMED = 8
+FAMILY_PROFILE_REPS = 3
+FAMILY_QMM_STREAM_BYTES = 256e6  # codes streamed per timed shape (> L2)
+FAMILY_VLM_TEXT = 16             # text tokens after the vision prefix
+
+
+def family_config(name: str):
+    import dataclasses
+
+    from repro_torch.models.common import get_config
+
+    cfg = get_config(name)
+    if name in FAMILY_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_CUT_LAYERS)
+    return cfg
+
+
+def family_products(cfg):
+    """(name, K, N, launches a decode step) of every quantized product of
+    one decode step at serving bits: the Mamba2 in/out projections, the
+    attention block's 7 (the hybrid's shared block at each invocation)
+    and an untied head."""
+    from repro_torch.models.lm import _layer_kinds
+
+    kinds = _layer_kinds(cfg)
+    out = []
+    n_mamba = kinds.count("mamba")
+    if n_mamba:
+        di, gn = cfg.d_inner, 2 * cfg.ssm_groups * cfg.ssm_state
+        out += [("in_proj", cfg.d_model, 2 * di + gn + cfg.ssm_heads,
+                 n_mamba), ("out_proj", di, cfg.d_model, n_mamba)]
+    n_attn = kinds.count("attn") + kinds.count("shared")
+    if n_attn:
+        out += [(name, k, n, n_attn) for name, k, n in _projections(cfg)]
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", cfg.d_model, cfg.vocab_padded, 1))
+    return out
+
+
+def family_shapes():
+    """The distinct (K, N) of the five configs' quantized products."""
+    shapes = []
+    for name in FAMILY_FULL + FAMILY_CUT:
+        for _, k, n, _ in family_products(family_config(name)):
+            if (k, n) not in shapes:
+                shapes.append((k, n))
+    return shapes
+
+
+def time_family_qmatmul(torch, Q, KQ):
+    """qmatmul at each (K, N) of the five configs, batch 4, bf16 x, w8 and
+    w4 (held against its plain version at these shapes in
+    :func:`check_qmatmul`): CUDA-event ms a launch over enough copies of
+    random codes to stream FAMILY_QMM_STREAM_BYTES from memory (nothing
+    sits in the 50 MB L2), beside the bound (codes + scales + x + out
+    bytes / 3.35 TB/s).  Returns {(bits, K, N): (ms, bound_ms)}."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for bits in (8, 4):
+        lim = 8 if bits == 4 else 128
+        for k, n in family_shapes():
+            nbytes = k * n // (2 if bits == 4 else 1)
+            copies = int(min(64, max(2, math.ceil(FAMILY_QMM_STREAM_BYTES
+                                                  / nbytes))))
+            codes = [torch.randint(-lim, lim, (k, n), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                     for _ in range(copies)]
+            codes = [Q.pack_int4(c) if bits == 4 else c.to(torch.int8)
+                     for c in codes]
+            s = torch.rand((n,), generator=gen, device=dev) * 0.02 + 0.001
+            x = (torch.rand((LM_BATCH, k), generator=gen, device=dev) * 2
+                 - 1).to(torch.bfloat16)
+            ms = cuda_ms(torch, lambda: [KQ.qmatmul(x, c, s, bits)
+                                         for c in codes], reps=3,
+                         sleep_cycles=QMM_SLEEP_CYCLES) / copies
+            bound = (nbytes + 4 * n + 2 * LM_BATCH * (k + n)) \
+                / PEAK_BYTES_PER_S * 1e3
+            out[(bits, k, n)] = (ms, bound)
+            log(f"kernel qmatmul w{bits} M={LM_BATCH} K={k:5d} N={n:6d}: "
+                f"kernel_ms={ms:.4f} bound_ms={bound:.4f} ({bound / ms:.1%} "
+                f"of the bound's rate; {nbytes / ms / 1e6:.0f} GB/s of codes"
+                f", {copies} copies streamed)")
+            del codes
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
+    """One config at one bit-width through ``generate``: eager (counted
+    into ``sums["lm_families"]``), then the captured step (its replays
+    counted into ``sums["lm_families_graph"]``), equal tokens, logits of
+    every step bit for bit; ms a step eager and replayed, and one profiled
+    replay.  Returns the numbers it printed."""
+    from repro_torch.launch.serve import generate, graphed_step
+
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    steps = LM_PROMPT + LM_TOKENS
+    label = f"{name} w{bits}"
+
+    B.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = generate(tree, cfg, prompt, LM_TOKENS, graph=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    counts = dict(B.launch_counts)
+    check(tuple(eager.shape) == (LM_BATCH, LM_TOKENS)
+          and bool(((eager >= 0) & (eager < cfg.vocab)).all()),
+          f"{label}: generated {tuple(eager.shape)} or a token outside the "
+          "vocabulary")
+    check(counts == {**{k: 0 for k in counts},
+                     "qmatmul": per_step * steps},
+          f"{label}: eager launches {counts}, expected {per_step} qmatmul a "
+          f"step over {steps} steps")
+    for k, v in counts.items():
+        sums["lm_families"][k] += v
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    t0 = time.perf_counter()
+    st = graphed_step(tree, cfg, LM_BATCH, steps + 1, torch.device("cuda"))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_stats()["reserved_bytes.all.current"] - before
+    check(st.graph.launches == {"qmatmul": per_step},
+          f"{label}: the decode graph records {st.graph.launches}")
+    B.reset_launch_counts()
+    r0 = st.graph.replays
+    replayed = generate(tree, cfg, prompt, LM_TOKENS)
+    torch.cuda.synchronize()
+    gcounts = dict(B.launch_counts)
+    replays = st.graph.replays - r0
+    check(replays == steps and gcounts == {
+        **{k: 0 for k in gcounts}, "qmatmul": replays * per_step},
+        f"{label}: replayed launches {gcounts} over {replays} replays")
+    for k, v in gcounts.items():
+        sums["lm_families_graph"][k] += v
+    check(torch.equal(replayed, eager),
+          f"{label}: the captured step's tokens != the eager step's")
+
+    check_replay_logits(torch, label, cfg, tree, st, prompt)
+    codes, scales, _ = _dense_bytes(tree)
+    res = {"eager_generate_s": eager_s, "capture_s": capture_s,
+           "pool_bytes": st.graph.pool_bytes, "reserved_grown": grown,
+           "weight_bytes": codes + scales, "sample": eager[0][:8].tolist()}
+    log(f"lm_families {label}: generate batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {LM_TOKENS} new tokens: eager {eager_s * 1e3:.1f} ms "
+        f"({per_step} qmatmul launches a step, {counts['qmatmul']} in all),"
+        f" captured in {capture_s:.3f} s (graph pool {st.graph.pool_bytes} "
+        f"bytes; reserved memory grew {grown} bytes), {replays} replays "
+        f"({gcounts['qmatmul']} qmatmul launches, all replays): equal "
+        f"tokens, logits of all {steps} steps bit for bit; weight bytes "
+        f"{codes} codes + {scales} scales; sample {res['sample']}")
+    res["eager_ms"], _ = decode_ms(torch, cfg, tree, prompt, FAMILY_TIMED)
+    res["replay_ms"], _ = replay_ms(torch, st, prompt, FAMILY_TIMED)
+    st.reset()
+    busy, traced, kern = profile_decode(
+        torch, f"{label} decode graph replay", st.step, FAMILY_PROFILE_REPS)
+    res["traced_ms"] = traced
+    if busy is not None:
+        reps = FAMILY_PROFILE_REPS
+        qmm = [e for e in kern if "qmm_" in e.key]
+        n_qmm = sum(e.count for e in qmm) / reps
+        check(n_qmm == per_step, f"{label}: {n_qmm} qmatmul kernels per "
+              f"profiled replay, expected {per_step}")
+        res.update(busy_ms=busy, kernels=sum(e.count for e in kern) / reps,
+                   qmm_ms=sum(e.device_time_total for e in qmm) / reps / 1e3)
+    log(f"lm_families {label} step: replayed {res['replay_ms']:.3f} "
+        f"ms/step, eager {res['eager_ms']:.3f} ms/step (CUDA events, "
+        f"{FAMILY_TIMED} steps after the prompt, batch {LM_BATCH}; "
+        f"{LM_BATCH / res['replay_ms'] * 1e3:.1f} tok/s replayed)"
+        + (f"; profiled replay: {res['kernels']:.0f} kernels/step, device "
+           f"busy {res['busy_ms']:.3f} ms/step ({res['busy_ms'] / res['replay_ms']:.1%}"
+           f" of the untraced replay), qmatmul {res['qmm_ms']:.4f} ms/step"
+           if "busy_ms" in res else ""))
+    return res
+
+
+def vlm_card_vs_cpu(torch, np, cfg, tree):
+    """The vision-language forward, card against CPU on the same w8 codes
+    ``tree``: ``cfg.vision_patches`` patch embeddings (rows of
+    isqrt(patches)) ahead of FAMILY_VLM_TEXT text tokens, with distinct
+    M-RoPE streams (patches t 0, h the row, w the column; text t == h == w
+    from one past the grid's largest index on).  Logits within CPU_CHECK_TOL.  On the card the same input with
+    t == h == w everywhere (plain RoPE) must give other logits, so the
+    streams reach the rotation.  Returns the largest difference."""
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    P, T = cfg.vision_patches, FAMILY_VLM_TEXT
+    side = math.isqrt(P)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (1, T))
+    patches = (rng.standard_normal((1, P, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    grid = np.arange(P)
+    text = max(side, (P - 1) // side + 1) + np.arange(T)
+    pos3 = np.stack([np.concatenate([np.zeros(P, np.int64), text]),
+                     np.concatenate([grid // side, text]),
+                     np.concatenate([grid % side, text])])[:, None]
+    flat = np.broadcast_to(np.arange(P + T), (3, 1, P + T))
+
+    def logits(params, dev, positions3):
+        out, _ = lm.forward(params, {
+            "tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev),
+            "patch_embeds": torch.as_tensor(patches, device=dev),
+            "positions3": torch.as_tensor(np.ascontiguousarray(positions3),
+                                          dtype=torch.int32, device=dev)},
+            cfg)
+        return out[..., :cfg.vocab].float().cpu()
+
+    t0 = time.perf_counter()
+    lg = logits(tree, "cuda", pos3)
+    plain = logits(tree, "cuda", flat)
+    lc = logits(tree_map(lambda t: t.cpu(), tree), "cpu", pos3)
+    check(tuple(lg.shape) == (1, P + T, cfg.vocab)
+          and bool(torch.isfinite(lg).all()),
+          f"{cfg.name}: card logits {tuple(lg.shape)} or not finite")
+    worst = float((lg - lc).abs().max())
+    moved = float((lg - plain).abs().max())
+    check(worst <= CPU_CHECK_TOL,
+          f"{cfg.name}: card and CPU forward logits differ by {worst}")
+    check(moved > 0, f"{cfg.name}: distinct M-RoPE streams left the logits "
+          "as plain RoPE's")
+    log(f"lm_families {cfg.name} card vs CPU forward ({cfg.n_layers} layers,"
+        f" full width, w8, {P} patch embeddings in rows of {side} + {T}"
+        f" text tokens, distinct t/h/w streams; "
+        f"{time.perf_counter() - t0:.1f} s): logits within {worst:.4g} "
+        f"(tolerance {CPU_CHECK_TOL}); plain RoPE's logits differ from them "
+        f"by up to {moved:.4g}")
+    return worst
+
+
+def lm_families_path(torch, np, B, Q, KQ):
+    """The recurrent-state and vision-language families on the card:
+    mamba2-780m and zamba2-7b at full size, w8 and w4; qwen2-vl-7b,
+    qwen3-14b and phi3-medium-14b at full width cut to FAMILY_CUT_LAYERS
+    layers, w8.  Returns the launch counts of the eager runs
+    (``lm_families``) and of the replays (``lm_families_graph``), and the
+    numbers for the kernels line."""
+    import dataclasses
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import quantize_tree_for_serving
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_flatten, tree_map
+
+    t_phase = time.perf_counter()
+    serve._GRAPHED.clear()        # earlier phases' graphs hold their weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = time_family_qmatmul(torch, Q, KQ)
+    sums = {p: {k: 0 for k in B.launch_counts}
+            for p in ("lm_families", "lm_families_graph")}
+    report = {}
+    for name in FAMILY_FULL + FAMILY_CUT:
+        cfg = family_config(name)
+        products = family_products(cfg)
+        per_step = sum(c for *_, c in products)
+        t0 = time.perf_counter()
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_flatten(params)[0])
+        slots = FAMILY_CPU_SLOTS.get(name)
+        small = None
+        if slots:
+            n_mamba = lm._layer_kinds(cfg)[:slots].count("mamba")
+            small = dict(params, mamba_blocks=tree_map(
+                lambda t: t[:n_mamba].clone(), params["mamba_blocks"]))
+        bits_list = (8, 4) if name in FAMILY_FULL else (8,)
+        trees = {bits: lm.with_head_copy(
+            quantize_tree_for_serving(params, bits), cfg)
+            for bits in bits_list}
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        size = ("full size" if name in FAMILY_FULL else
+                f"full width, cut to {FAMILY_CUT_LAYERS} layers")
+        log(f"lm_families {name}: {cfg.n_layers} layer slots ({size}), d "
+            f"{cfg.d_model}, vocab "
+            f"{cfg.vocab} padded {cfg.vocab_padded}, {n_params} float32 "
+            f"parameters drawn on the card and quantized to "
+            f"w{'/w'.join(map(str, bits_list))} in "
+            f"{time.perf_counter() - t0:.2f} s; qmatmul a step: "
+            + ", ".join(f"{p} ({k}, {n}) x{c}" for p, k, n, c in products)
+            + f" = {per_step}")
+        rep = {"qmatmul_per_step": per_step, "params": n_params}
+        for bits in bits_list:
+            rep[f"w{bits}"] = family_serve(torch, np, B, name, cfg,
+                                           trees[bits], bits, per_step, sums)
+            qmm_ms = sum(timing[(bits, k, n)][0] * c
+                         for _, k, n, c in products)
+            qmm_bound = sum(timing[(bits, k, n)][1] * c
+                            for _, k, n, c in products)
+            rep[f"w{bits}"].update(qmm_timed_ms=qmm_ms,
+                                   qmm_bound_ms=qmm_bound)
+            log(f"lm_families {name} w{bits}: qmatmul over one step from the "
+                f"per-shape times {qmm_ms:.4f} ms against its bound "
+                f"{qmm_bound:.4f} ms ({per_step} launches)")
+        if cfg.family == "vlm":
+            rep["vlm_cpu_check_max_abs"] = vlm_card_vs_cpu(torch, np, cfg,
+                                                           trees[8])
+        serve._GRAPHED.clear()
+        del trees
+        gc.collect()
+        torch.cuda.empty_cache()
+        if small is not None:
+            rep["cpu_check_max_abs"] = card_vs_cpu(
+                torch, f"lm_families {name}", dataclasses.replace(
+                    cfg, n_layers=slots), small, np.random.default_rng(
+                        1).integers(0, cfg.vocab, (LM_BATCH, FAMILY_CPU_STEPS)),
+                FAMILY_CPU_STEPS)
+            del small
+            gc.collect()
+            torch.cuda.empty_cache()
+        report[name] = rep
+    for p, c in sums.items():
+        check(c["qmatmul"] > 0 and all(v == 0 for k, v in c.items()
+                                       if k != "qmatmul"),
+              f"path {p}: launches {c}")
+    log(f"lm_families: launches eager {sums['lm_families']}, replayed "
+        f"{sums['lm_families_graph']}; phase {time.perf_counter() - t_phase:.1f}"
+        " s")
+    report["shapes"] = {f"w{b} {k}x{n}": {"ms": v[0], "bound_ms": v[1]}
+                        for (b, k, n), v in timing.items()}
+    return sums["lm_families"], sums["lm_families_graph"], report
 
 
 # ---------------------------------------------------------------------------
@@ -3834,6 +4250,8 @@ def main() -> int:
     wide_counts = wide_code_path(torch, np, B)
     qmm, lm_counts, lm_graph_counts = lm_path(torch, np, B, Q, KQ)
     kernels.append(qmm)
+    fam_counts, fam_graph_counts, qmm["lm_families"] = lm_families_path(
+        torch, np, B, Q, KQ)
     mv["lm_tiny_gemm_form"], tiny_counts, tiny_serve_counts = lm_tiny_path(
         torch, np, B, KM, ref, err)
     mv["max_abs_err"] = max(mv["max_abs_err"], err["mvau_int"])
@@ -3844,6 +4262,8 @@ def main() -> int:
              "fsl_serve": serve_counts, "cluster": cluster_counts,
              "lm_decode": lm_counts,
              "lm_decode_graph": lm_graph_counts,
+             "lm_families": fam_counts,
+             "lm_families_graph": fam_graph_counts,
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
              "fsl_train": train_counts, "dse": dse_counts,
              "lm_train": lm_train_counts}
@@ -3861,6 +4281,12 @@ def main() -> int:
             check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
                   f"kernel {k['name']} never ran on the training or the "
                   f"DSE path: {by_path}")
+        else:
+            # the recurrent-state and vision-language families, eager and
+            # replayed
+            check(by_path["lm_families"] > 0
+                  and by_path["lm_families_graph"] > 0,
+                  f"qmatmul never ran on the LM families' paths: {by_path}")
     # the integer MVAU's two routes: int8 wgmma, and the CUDA cores for
     # wider codes (grid_point(8, 8), the 16-bit Table II row)
     mv = next(k for k in kernels if k["name"] == "mvau_int")

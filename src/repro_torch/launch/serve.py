@@ -6,12 +6,15 @@ The port's counterpart of the JAX package's eager serving loop
 ``repro.launch.serve``), with the same flags plus ``--device``::
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --bits 8
-    python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --bits 4 \\
+    python -m repro_torch.launch.serve --arch mamba2-780m --reduced --bits 4 \\
         --device cpu
 
-At ``--bits 8`` or ``4`` every projection of every layer runs the qmatmul
-kernel on the card (7 launches per layer and step).  On the card each step
-is one replay of the decode step captured as a CUDA graph
+``--arch`` takes every config of the dense, vision-language, SSM and
+hybrid families (qwen2.5-3b, qwen3-14b, phi3-medium-14b, qwen2-vl-7b,
+mamba2-780m, zamba2-7b).  At ``--bits 8`` or ``4`` every quantized
+product runs the qmatmul kernel on the card: 7 launches per attention
+block and step, 2 per Mamba2 block, 1 for an untied head.  On the card
+each step is one replay of the decode step captured as a CUDA graph
 (:class:`repro_torch.launch.steps.GraphedDecodeStep`, captured once per
 batch and cache length); on the CPU it runs eagerly.
 """

@@ -180,13 +180,14 @@ class GraphedDecodeStep:
     ``batch`` sequences and ``max_len`` positions (on the card only).
 
     :attr:`tokens` is the static (B, 1) int32 input; a replay
-    (:meth:`step`) runs every layer, writes the cache's k/v rows in place,
-    writes the advanced length back into the static cache (the eager step
-    returns it as a new tensor), and writes the greedy next tokens into
-    :attr:`tokens`; :attr:`logits` holds the step's (B, V) logits until the
-    next replay.  The graph is captured once, after eager warm-up steps on
-    the capture's side stream; :meth:`reset` empties the cache for a new
-    generation.  :attr:`graph` is the :class:`CapturedGraph` (its launch
+    (:meth:`step`) runs every layer, writes the cache's k/v rows and SSM
+    state in place, copies every leaf the eager step returns as a new
+    tensor (the advanced lengths) back into the static cache, and writes
+    the greedy next tokens into :attr:`tokens`; :attr:`logits` holds the
+    step's (B, V) logits until the next replay.  Any family's cache tree
+    works: ``attn``, ``mamba`` and ``shared``.  The graph is captured
+    once, after eager warm-up steps on the capture's side stream;
+    :meth:`reset` empties the cache for a new generation.  :attr:`graph` is the :class:`CapturedGraph` (its launch
     record, replays and ``pool_bytes``: the memory its private pool
     reserved at capture)."""
 
@@ -201,12 +202,14 @@ class GraphedDecodeStep:
         self.cache = mod.init_cache(cfg, batch, max_len,
                                     dtype=mod.compute_dtype(cfg), device=dev)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-        c = self.cache["attn"]
+        static = tree_flatten(self.cache)[0]
 
         def step(tokens):
             logits, new_cache = mod.decode_step(params, tokens, self.cache,
                                                 cfg)
-            c["len"].copy_(new_cache["attn"]["len"])
+            for old, new in zip(static, tree_flatten(new_cache)[0]):
+                if new is not old:
+                    old.copy_(new)
             tokens.copy_(greedy(logits, cfg)[:, None])
             return logits
 
@@ -217,8 +220,8 @@ class GraphedDecodeStep:
         self.reset()
 
     def reset(self) -> None:
-        """Empty the cache: zero k, v and every length."""
-        for t in self.cache["attn"].values():
+        """Empty the cache: zero every leaf (k, v, SSM state, lengths)."""
+        for t in tree_flatten(self.cache)[0]:
             t.zero_()
         self.position = 0
 

@@ -4,8 +4,8 @@ PyTorch-port copy of the JAX package's ``models/common.py``: the same
 :class:`ArchConfig` fields and derived sizes, so a config file reads the
 same in both packages.  Every ``repro_torch/configs/<id>.py`` instantiates
 it and registers itself on import; :func:`get_config` imports
-``repro_torch.configs.<id>`` on first use.  This slice of the port builds
-the ``dense`` family only (:mod:`repro_torch.models.lm`).
+``repro_torch.configs.<id>`` on first use.  The port builds the ``dense``,
+``vlm``, ``ssm`` and ``hybrid`` families (:mod:`repro_torch.models.lm`).
 """
 
 from __future__ import annotations
@@ -164,9 +164,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 # the JAX package's configs whose families the port does not build yet
-UNPORTED = ("arctic-480b", "grok-1-314b", "mamba2-780m", "minicpm3-4b",
-            "phi3-medium-14b", "qwen2-vl-7b", "qwen3-14b", "whisper-tiny",
-            "zamba2-7b")
+UNPORTED = ("arctic-480b", "grok-1-314b", "minicpm3-4b", "whisper-tiny")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,5 +1,6 @@
 """Model building blocks of the LM: the PyTorch port of the JAX package's
-``models/layers.py`` for the dense decoder family.
+``models/layers.py`` for the dense, vision-language, SSM and hybrid
+decoder families.
 
 Params are plain dict trees of tensors, as in the reference.  Every linear
 layer routes through :func:`dense`, which applies the paper's fixed-point
@@ -11,22 +12,26 @@ quantized ``dense`` runs the hand-written qmatmul kernel
 The numerics follow the reference op for op: projections are bf16 whatever
 the compute dtype (``dense`` casts to its ``dtype``, bf16 by default, and
 the attention and MLP blocks never pass another), the bias is added in
-bf16, RoPE rotates interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``,
-and attention scores and softmax are float32.
+bf16, RoPE and M-RoPE rotate interleaved pairs ``x[..., 0::2]``/``x[...,
+1::2]``, and attention scores and softmax are float32.  A decode step
+writes its cache in place: the k/v rows at ``len``, and Mamba2's conv and
+SSM state (the reference's jitted step donates them), so one captured CUDA
+graph replays the step.
 
-Not in this slice of the port: chunked (flash-style) prefill attention,
-cross-attention, M-RoPE, MLA, MoE and Mamba.  The branches that would
-reach them raise ``NotImplementedError``.
+Not in this slice of the port: cross-attention, MLA and MoE.  The branches
+that would reach them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.quant import FixedPointSpec, fake_quant, pack_int4
+from repro_torch.core.quant import (FixedPointSpec, fake_quant, pack_int4,
+                                    unpack_int4)
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -35,7 +40,8 @@ Params = Dict[str, torch.Tensor]
 def not_ported(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it waits for the {slice_} slice of the "
-        "PyTorch port (repro_torch builds the dense LM family so far)")
+        "PyTorch port (repro_torch builds the dense, vision-language, SSM "
+        "and hybrid LM families so far)")
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
@@ -100,15 +106,22 @@ def dense(p: Params, x: torch.Tensor, wspec: Optional[FixedPointSpec] = None,
       accumulation, the scale applied to the accumulator, bf16 out.
     * w4 codes: packed int4 codes, the same path (unpacked in the kernel's
       tile load).
+
+    Codes in another ``dtype`` (the untied head of a float32 model) take
+    the reference's plain contraction: x and the codes in ``dtype``, a
+    float32 product (``torch.matmul``), times the scale.  That is not
+    qmatmul's function (bf16 x), and the reference leaves it to XLA too.
     """
     if "w_codes" in p:
         codes, scale = p["w_codes"], p["w_scale"]
-        if dtype != torch.bfloat16:
-            # the reference's float32 contraction of codes (an untied,
-            # quantized LM head) is not qmatmul's function
-            raise not_ported(f"a quantized dense in {dtype}", "untied-head")
         bits = 4 if codes.shape[-1] != scale.shape[-1] else 8
-        y = ops.qmatmul(x.to(torch.bfloat16), codes, scale, bits)
+        if dtype == torch.bfloat16:
+            y = ops.qmatmul(x.to(torch.bfloat16), codes, scale, bits)
+        else:
+            w = unpack_int4(codes) if bits == 4 else codes
+            acc = torch.matmul(x.to(dtype).to(torch.float32),
+                               w.to(dtype).to(torch.float32))
+            y = (acc * scale).to(dtype)
     else:
         w = fake_quant(p["w"], wspec) if wspec is not None else p["w"]
         y = torch.matmul(x.to(dtype), w.to(dtype))
@@ -146,14 +159,59 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     ang = positions[..., None].to(torch.float32) * _rope_freqs(hd, theta,
                                                                x.device)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate x's interleaved pairs by ``ang`` (B, S, hd/2), shared by
+    every head."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_runs(n: int, sections: Tuple[int, ...]) -> Tuple[Tuple[int, int], ...]:
+    """(stream, pairs) runs over the ``n`` frequency pairs.  Pair ``i`` is
+    rotated by stream (0 t, 1 h, 2 w) ``jnp.searchsorted(bounds, i,
+    side="right")`` clipped to 2, as the reference, with ``round(n * s /
+    total)`` pairs a section (Python's rounding) and the last bound ``n``.
+    Python ints, so a captured decode step copies nothing from the host."""
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections:
+        acc += round(n * s / total)
+        bounds.append(acc)
+    bounds[-1] = n
+    runs: List[List[int]] = []
+    for i in range(n):
+        stream = min(sum(b <= i for b in bounds), 2)
+        if runs and runs[-1][0] == stream:
+            runs[-1][1] += 1
+        else:
+            runs.append([stream, 1])
+    return tuple((stream, k) for stream, k in runs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(2, 3, 3)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions3 (3, B, S) = (t, h, w) ids.
+
+    The hd/2 frequency pairs split into ``sections``, each rotated by its
+    own position stream (:func:`_mrope_runs`).  Text tokens carry t == h
+    == w, which is plain RoPE."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)
+    pos = torch.cat([positions3[stream][..., None].expand(
+        *positions3.shape[1:], k)
+        for stream, k in _mrope_runs(hd // 2, tuple(sections))], dim=-1)
+    ang = pos.to(torch.float32) * freqs                          # (B, S, n)
+    return _rotate(x, ang)
+
+
 # ---------------------------------------------------------------------------
-# Attention (GQA + KV cache)
+# Attention (GQA + KV cache + chunked/flash prefill)
 # ---------------------------------------------------------------------------
 def attn_init(gen: torch.Generator, cfg, stack: Tuple[int, ...] = (),
               device: torch.device = torch.device("cpu"),
@@ -200,9 +258,56 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
     return _gqa_mix(w, v).to(q.dtype)
 
 
+def _chunked_sdpa(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
+    """Flash-style online-softmax attention, O(chunk x Sk) memory: q blocks
+    of ``chunk`` rows in turn, each over the kv blocks with a running
+    (max, denominator, accumulator) in float32, as the reference's scans.
+
+    The reference scans every kv block and keeps the carry of those past
+    the diagonal (``_causal_kv_scan``'s ``where(keep, new, old)``); the
+    port stops at the diagonal block, which gives the same values."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    nq, nk = Sq // chunk, Sk // chunk
+    qb = q.reshape(B, nq, chunk, KV, rep, hd)
+    kb = k.reshape(B, nk, chunk, KV, hd)
+    vb = v.reshape(B, nk, chunk, KV, hd)
+    scale = 1.0 / math.sqrt(hd)
+    rows = torch.arange(chunk, device=q.device)
+    blocks = []
+    for iq in range(nq):
+        qi = qb[:, iq].to(torch.float32)
+        m = torch.full((B, KV, rep, chunk), -math.inf, dtype=torch.float32,
+                       device=q.device)
+        den = torch.zeros((B, KV, rep, chunk), dtype=torch.float32,
+                          device=q.device)
+        acc = torch.zeros((B, chunk, KV, rep, hd), dtype=torch.float32,
+                          device=q.device)
+        for ik in range(min(iq + 1, nk) if causal else nk):
+            kj = kb[:, ik].to(torch.float32)
+            vj = vb[:, ik].to(torch.float32)
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qi, kj) * scale
+            if causal:
+                keep = ((ik * chunk + rows)[None, :]
+                        <= (iq * chunk + rows)[:, None])
+                s = torch.where(keep, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            pr = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + pr.sum(-1)
+            acc = (acc * corr.permute(0, 3, 1, 2)[..., None]
+                   + torch.einsum("bgrqk,bkgh->bqgrh", pr, vj))
+            m = m_new
+        out = acc / den.permute(0, 3, 1, 2)[..., None]
+        blocks.append(out.to(q.dtype))
+    return torch.stack(blocks, dim=1).reshape(B, Sq, H, hd)
+
+
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
               cache: Optional[Params] = None, causal: bool = True,
               kv_source: Optional[torch.Tensor] = None,
+              positions3: Optional[torch.Tensor] = None,
               wspec: Optional[FixedPointSpec] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA self-attention.  Modes:
@@ -211,6 +316,10 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     * prefill with a cache dict: fills the cache, returns (out, cache);
     * decode: x is (B, 1, d); the cache holds k, v (B, Smax, KV, hd) and a
       0-d ``len``; positions at ``len`` and beyond are masked.
+
+    ``cfg.pos == "mrope"`` rotates q and k by ``positions3`` (3, B, S).  A
+    causal sequence longer than twice ``cfg.prefill_chunk`` and a multiple
+    of it runs :func:`_chunked_sdpa`, as in the reference.
 
     The cache's ``k`` and ``v`` are written in place at ``len`` (the
     reference's jitted step donates them), and the returned cache holds the
@@ -230,7 +339,8 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.pos == "mrope":
-        raise not_ported("M-RoPE", "vision-language (qwen2-vl)")
+        q = apply_mrope(q, positions3, cfg.rope_theta)
+        k = apply_mrope(k, positions3, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -249,9 +359,9 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
             return dense(p["wo"], out.reshape(B, 1, H * hd), wspec), new_cache
 
     if causal and S > 2 * cfg.prefill_chunk and S % cfg.prefill_chunk == 0:
-        raise not_ported(f"chunked (flash-style) prefill attention at "
-                          f"S={S} > 2 x prefill_chunk", "long-prefill")
-    out = _sdpa(q, k, v, causal=causal)
+        out = _chunked_sdpa(q, k, v, cfg.prefill_chunk, causal=True)
+    else:
+        out = _sdpa(q, k, v, causal=causal)
     return dense(p["wo"], out.reshape(B, S, H * hd), wspec), new_cache
 
 
@@ -350,3 +460,172 @@ def mlp(p: Params, x: torch.Tensor, act: str = "swiglu", wspec=None,
         h = gelu_tanh(dense(p["w_up"], x, wspec))
     h = fake_quant(h, aspec)
     return dense(p["w_down"], h, wspec)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD: state-space duality, chunked)
+# ---------------------------------------------------------------------------
+def mamba_init(gen: torch.Generator, cfg, stack: Tuple[int, ...] = (),
+               device: torch.device = torch.device("cpu"),
+               d_model: Optional[int] = None) -> Params:
+    """The reference's Mamba2 block parameters: ``in_proj`` to (z, x, B, C,
+    dt), a depthwise causal conv N(0, 0.01) over (x, B, C), ``A_log`` =
+    log(linspace(1, 16)) per head, ``D`` 1, ``dt_bias`` 0, the gated
+    RMSNorm's gain and ``out_proj``."""
+    d = d_model or cfg.d_model
+    di, N, G = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_groups
+    nh = di // cfg.ssm_head_dim
+    conv_dim = di + 2 * G * N
+    kw = dict(stack=stack, device=device)
+    conv_w = torch.randn((*stack, cfg.ssm_conv, conv_dim), generator=gen,
+                         dtype=torch.float32, device=gen.device)
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32))
+
+    def per_layer(t):
+        return t.to(device).expand(*stack, *t.shape).clone()
+
+    return {
+        "in_proj": dense_init(gen, d, 2 * di + 2 * G * N + nh, **kw),
+        "conv_w": conv_w.mul_(0.1).to(device),
+        "conv_b": torch.zeros((*stack, conv_dim), dtype=torch.float32,
+                              device=device),
+        "A_log": per_layer(a_log),
+        "D": torch.ones((*stack, nh), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((*stack, nh), dtype=torch.float32,
+                               device=device),
+        "gnorm": rmsnorm_init(di, **kw),
+        "out_proj": dense_init(gen, di, d, **kw),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d, then silu.  x (B, S, C), w (K, C).  Returns
+    (y, new_state): the state is the last K-1 inputs, in x's dtype (the
+    caller stores it)."""
+    K, S = w.shape[0], x.shape[1]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    new_state = xp[:, -(K - 1):] if K > 1 else None
+    return silu(y + b), new_state
+
+
+def _segsum(a_log: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = exp(sum_{j < m <= i} a_log_m), the lower-triangular decay
+    matrix: (..., Q) -> (..., Q, Q).  The upper triangle is masked before
+    the exp, as the reference does: its large positive sums would overflow,
+    and 0 x inf in the backward would poison the whole gradient."""
+    Q = a_log.shape[-1]
+    cs = torch.cumsum(a_log, dim=-1)
+    dif = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=a_log.device).tril()
+    return torch.exp(torch.where(mask, dif, -math.inf))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``.  ``F.softplus`` switches
+    to ``x`` above its threshold and rounds another formula."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _repeat_heads(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    """``jnp.repeat(t, rep, axis=dim)``: each group ``rep`` times in a row
+    (a view where the groups number 1)."""
+    t = t.unsqueeze(dim + 1)
+    shape = list(t.shape)
+    shape[dim + 1] = rep
+    return t.expand(shape).flatten(dim, dim + 1)
+
+
+def mamba_apply(p: Params, u: torch.Tensor, cfg, *,
+                state: Optional[Params] = None, wspec=None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba2 SSD block.  u: (B, S, d).
+
+    Train/prefill: the chunked SSD (quadratic within a chunk of
+    ``min(cfg.ssm_chunk, S)`` positions, a recurrence over the chunks'
+    states).  Decode (S == 1 with a state): the O(1) recurrent update.
+
+    ``state`` ({"conv": (B, K-1, C) in the cache dtype, "ssm": (B, nh, P,
+    N) float32}) is updated in place and returned; without one the result
+    carries no state."""
+    B, S, d = u.shape
+    di = cfg.ssm_expand * d
+    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    nh = di // P
+    proj = dense(p["in_proj"], u, wspec)
+    z, xBC, dt = torch.split(proj, [di, di + 2 * G * N, nh], dim=-1)
+
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                 None if state is None else state["conv"])
+    x, B_, C_ = torch.split(xBC, [di, G * N, G * N], dim=-1)
+    x = x.reshape(B, S, nh, P)
+    B_ = B_.reshape(B, S, G, N)
+    C_ = C_.reshape(B, S, G, N)
+    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])          # (B, S, nh)
+    A = -torch.exp(p["A_log"])                                   # (nh,)
+    a_log = (dt * A).to(torch.float32)                           # (B, S, nh)
+    xdt = x.to(torch.float32) * dt[..., None]                    # (B, S, nh, P)
+    rep = nh // G
+
+    if S == 1 and state is not None:                    # -------- decode
+        ssm = state["ssm"]                                       # (B, nh, P, N)
+        Bg = _repeat_heads(B_[:, 0], rep, 1)                     # (B, nh, N)
+        Cg = _repeat_heads(C_[:, 0], rep, 1)
+        ssm.mul_(torch.exp(a_log[:, 0])[..., None, None]).add_(
+            xdt[:, 0][..., None] * Bg[:, :, None, :])
+        state["conv"].copy_(new_conv)
+        y = torch.einsum("bhpn,bhn->bhp", ssm, Cg.to(torch.float32))
+        y = y + p["D"][None, :, None] * x[:, 0].to(torch.float32)
+        y = y.reshape(B, 1, di).to(u.dtype)
+        y = rmsnorm(p["gnorm"], y * silu(z))
+        return dense(p["out_proj"], y, wspec), state
+
+    # -------- chunked SSD (train / prefill)
+    Q = min(cfg.ssm_chunk, S)
+    assert S % Q == 0, f"seq {S} must divide ssm_chunk {Q}"
+    nc = S // Q
+    xdt_c = xdt.reshape(B, nc, Q, nh, P)
+    B_c = B_.reshape(B, nc, Q, G, N)
+    C_c = C_.reshape(B, nc, Q, G, N)
+    al_c = a_log.reshape(B, nc, Q, nh)
+
+    L = _segsum(al_c.permute(0, 1, 3, 2))                        # (B, nc, nh, Q, Q)
+    Bh = _repeat_heads(B_c, rep, 3).to(torch.float32)            # (B, nc, Q, nh, N)
+    Ch = _repeat_heads(C_c, rep, 3).to(torch.float32)
+    att = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh) * L
+    Y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xdt_c)
+
+    cs = torch.cumsum(al_c, dim=2)
+    seg_end = torch.exp(al_c.sum(2, keepdim=True) - cs)
+    S_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", Bh, xdt_c, seg_end)
+    a_chunk = torch.exp(al_c.sum(2))                             # (B, nc, nh)
+
+    s = (torch.zeros((B, nh, P, N), dtype=torch.float32, device=u.device)
+         if state is None else state["ssm"])
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * a_chunk[:, c][..., None, None] + S_chunk[:, c]
+    prev_states = torch.stack(prev, dim=1)                       # (B, nc, nh, P, N)
+
+    decay_in = torch.exp(cs)                                     # (B, nc, Q, nh)
+    Y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states, decay_in)
+
+    y = (Y_diag + Y_off).reshape(B, S, nh, P)
+    y = y + p["D"][None, None, :, None] * x.to(torch.float32)
+    y = y.reshape(B, S, di).to(u.dtype)
+    y = rmsnorm(p["gnorm"], y * silu(z))
+    out = dense(p["out_proj"], y, wspec)
+    if state is None:
+        return out, None
+    state["conv"].copy_(new_conv)
+    state["ssm"].copy_(s)
+    return out, state

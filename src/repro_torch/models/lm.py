@@ -1,31 +1,38 @@
-"""Decoder LM of the dense family: the PyTorch port of the JAX package's
-``models/lm.py`` (its dense path).
+"""Decoder LM of the dense, vision-language, SSM and hybrid families: the
+PyTorch port of the JAX package's ``models/lm.py``.
 
 Entry points (functions of (params, batch), as in the reference):
 
 * ``init_params(gen, cfg, device)`` — parameter tree with stacked
-  ``(n_layers, ...)`` block leaves, the reference's layout, so a JAX tree
-  carried across with :func:`repro_torch.convert.params_from_numpy` runs
-  unchanged.  The reference scans over the stacked leaves; the port loops
-  over layers in Python.
+  ``(n_layers, ...)`` block leaves (``blocks`` for attention blocks,
+  ``mamba_blocks`` for Mamba2 blocks, and the hybrid's one
+  ``shared_block``), the reference's layout, so a JAX tree carried across
+  with :func:`repro_torch.convert.params_from_numpy` runs unchanged.  The
+  reference scans over the stacked leaves; the port loops over layers in
+  Python.
 * ``forward(params, batch, cfg)`` — full-sequence logits (and a zero aux
-  loss, the reference's MoE slot).  With ``cfg.remat`` and gradients
-  enabled every block is recomputed in the backward
-  (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+  loss, the reference's MoE slot).  A vision-language batch may carry
+  ``patch_embeds``, a prefix of precomputed patch embeddings.  With
+  ``cfg.remat`` and gradients enabled every block is recomputed in the
+  backward (``torch.utils.checkpoint``), as the reference's
+  ``jax.checkpoint``.
 * ``loss_fn(params, batch, cfg)`` — token cross-entropy in float32 over
   all ``vocab_padded`` logits (+ 0.01 x the aux loss): what
   ``launch.steps.make_train_step`` differentiates.
 * ``prefill(params, batch, cfg)`` — last-position logits only.
-* ``init_cache(cfg, B, max_len, dtype, device)`` — the KV cache.
+* ``init_cache(cfg, B, max_len, dtype, device)`` — the decode cache: KV
+  for attention blocks (``attn``), conv and SSM state for Mamba2 blocks
+  (``mamba``), KV for each invocation of the hybrid's shared block
+  (``shared``).
 * ``decode_step(params, tokens, cache, cfg)`` — one new token for every
-  sequence; the cache's k/v are written in place.
+  sequence; the cache's k/v rows and SSM state are written in place.
 * ``export_decode_graph`` / ``export_prefill_graph`` — the dense decode
   step and the whole-prompt forward as core Graphs for
   ``repro_torch.compile(..., recipe="lm-decode")``, ``decode_step_ref``
   their eager mirror, bit for bit with the compiled artifact.
 
-MoE, MLA, SSM, hybrid, VLM and audio families wait for later slices of the
-port and raise ``NotImplementedError``.
+MoE, MLA and the audio family wait for later slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,64 +63,97 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise L.not_ported(f"the {cfg.family} family", cfg.family)
+def _require_ported(cfg: ArchConfig) -> None:
+    """Raise for what the port does not build yet: MoE, MLA and the audio
+    family (whisper)."""
+    if cfg.family == "audio":
+        raise L.not_ported("the audio family (whisper)",
+                           "encoder-decoder (whisper)")
     if cfg.attention == "mla":
         raise L.not_ported("MLA attention", "MLA (minicpm3)")
     if cfg.moe_experts:
         raise L.not_ported("MoE layers", "moe")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family}")
+
+
+def _is_shared_slot(cfg: ArchConfig, i: int) -> bool:
+    return cfg.hybrid_period > 0 and (i % cfg.hybrid_period
+                                      == cfg.hybrid_period - 1)
+
+
+def _layer_kinds(cfg: ArchConfig) -> List[str]:
+    """Per-slot kind list: 'attn' (attn+mlp block), 'mamba', 'shared'."""
+    if cfg.family == "ssm":
+        return ["mamba"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        return ["shared" if _is_shared_slot(cfg, i) else "mamba"
+                for i in range(cfg.n_layers)]
+    return ["attn"] * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _attn_block_init(gen: torch.Generator, cfg: ArchConfig, stack, dev
+                     ) -> Params:
+    return {"ln1": L.rmsnorm_init(cfg.d_model, stack, dev),
+            "ln2": L.rmsnorm_init(cfg.d_model, stack, dev),
+            "attn": L.attn_init(gen, cfg, stack, dev),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, stack,
+                              dev)}
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 device: DeviceLike = None) -> Params:
     """Embedding N(0, 0.02), RMSNorm gains 1, dense weights uniform in
-    ±1/sqrt(d_in), zero biases: the reference's distributions.  The draws
-    come from ``gen`` on its own device (a CUDA generator draws the full
-    model on the card), then move to ``device`` (default: the card)."""
-    _require_dense(cfg)
+    ±1/sqrt(d_in), zero biases, Mamba2 blocks as ``layers.mamba_init``:
+    the reference's distributions.  The draws come from ``gen`` on its own
+    device (a CUDA generator draws the full model on the card), then move
+    to ``device`` (default: the card)."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    n, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
     embed = torch.randn((cfg.vocab_padded, d), generator=gen,
                         dtype=torch.float32, device=gen.device)
     p: Params = {"embed": embed.mul_(0.02).to(dev),
                  "final_norm": L.rmsnorm_init(d, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.vocab_padded, device=dev)
-    stack = (n,)
-    p["blocks"] = {
-        "ln1": L.rmsnorm_init(d, stack, dev),
-        "ln2": L.rmsnorm_init(d, stack, dev),
-        "attn": L.attn_init(gen, cfg, stack, dev),
-        "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.act, stack, dev),
-    }
+    kinds = _layer_kinds(cfg)
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    if n_attn:
+        p["blocks"] = _attn_block_init(gen, cfg, (n_attn,), dev)
+    if n_mamba:
+        p["mamba_blocks"] = {
+            "ln": L.rmsnorm_init(d, (n_mamba,), dev),
+            "mamba": L.mamba_init(gen, cfg, (n_mamba,), dev)}
+    if cfg.family == "hybrid":          # ONE shared attention+MLP block
+        p["shared_block"] = _attn_block_init(gen, cfg, (), dev)
     return p
 
 
-def _layers(params: Params, cfg: ArchConfig) -> List[Params]:
-    """Each layer's tree of views into the stacked leaves.  ``unbind``
-    makes them: its backward stacks the layers' gradients into one leaf
-    gradient, where one select per layer would add n_layers full-size
-    leaves."""
-    leaves, unflatten = tree_flatten(params["blocks"])
+def _stacked_views(tree: Params) -> List[Params]:
+    """Each layer's tree of views into a tree of stacked leaves.
+    ``unbind`` makes them: its backward stacks the layers' gradients into
+    one leaf gradient, where one select per layer would add a full-size
+    leaf per layer."""
+    leaves, unflatten = tree_flatten(tree)
     per_leaf = [leaf.unbind(0) for leaf in leaves]
     return [unflatten([views[i] for views in per_leaf])
-            for i in range(cfg.n_layers)]
+            for i in range(len(per_leaf[0]))]
 
 
 # ---------------------------------------------------------------------------
 # Blocks, embedding, head
 # ---------------------------------------------------------------------------
 def _attn_half(p: Params, x: torch.Tensor, cfg: ArchConfig,
-               positions: torch.Tensor, cache=None):
+               positions: torch.Tensor, cache=None, positions3=None):
     """The block's attention branch: (its output, the new cache); the
     reference names the output ``attn_out``."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     return L.attention(p["attn"], h, cfg, positions, cache=cache,
-                       wspec=_wspec(cfg))
+                       positions3=positions3, wspec=_wspec(cfg))
 
 
 def _mlp_half(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -125,10 +165,17 @@ def _mlp_half(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor, cache=None):
-    a, new_cache = _attn_half(p, x, cfg, positions, cache)
+                positions: torch.Tensor, cache=None, positions3=None):
+    a, new_cache = _attn_half(p, x, cfg, positions, cache, positions3)
     x = x + a
     return x + _mlp_half(p, x, cfg), new_cache
+
+
+def _mamba_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None):
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, new_state = L.mamba_apply(p["mamba"], h, cfg, state=state,
+                                 wspec=_wspec(cfg))
+    return x + y, new_state
 
 
 def _checkpoint(fn, *args):
@@ -140,17 +187,27 @@ def _checkpoint(fn, *args):
 
 
 def _remat_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, positions3=None,
+                 policy: str = "") -> torch.Tensor:
     """One block with activation checkpointing, the reference's ``_remat``:
-    the whole block recomputed in the backward, or with ``remat_policy ==
+    the whole block recomputed in the backward, or with ``policy ==
     "tp_outputs"`` the attention and MLP branches recomputed separately,
     so their outputs (``attn_out``, ``mlp_out``) are the saved tensors.
     The ops are ``_attn_block``'s, so the values and gradients are the
     same bits as without remat."""
-    if cfg.remat_policy == "tp_outputs":
-        x = x + _checkpoint(lambda t: _attn_half(p, t, cfg, positions)[0], x)
+    if policy == "tp_outputs":
+        x = x + _checkpoint(lambda t: _attn_half(
+            p, t, cfg, positions, positions3=positions3)[0], x)
         return x + _checkpoint(lambda t: _mlp_half(p, t, cfg), x)
-    return _checkpoint(lambda t: _attn_block(p, t, cfg, positions)[0], x)
+    return _checkpoint(lambda t: _attn_block(
+        p, t, cfg, positions, positions3=positions3)[0], x)
+
+
+def _run_mamba(p: Params, x: torch.Tensor, cfg: ArchConfig,
+               remat: bool) -> torch.Tensor:
+    if remat:
+        return _checkpoint(lambda t: _mamba_block(p, t, cfg)[0], x)
+    return _mamba_block(p, x, cfg)[0]
 
 
 def _embed_tokens(p: Params, tokens: torch.Tensor,
@@ -158,10 +215,30 @@ def _embed_tokens(p: Params, tokens: torch.Tensor,
     return p["embed"][tokens].to(compute_dtype(cfg))
 
 
+def _embed_batch(p: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings, after a vision-language batch's precomputed
+    ``patch_embeds`` prefix (the reference stubs the vision frontend)."""
+    x = _embed_tokens(p, batch["tokens"], cfg)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def _positions_for(batch, S: int, B: int, device) -> torch.Tensor:
     if "positions" in batch:
         return batch["positions"]
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _positions3_for(batch, cfg: ArchConfig, positions: torch.Tensor):
+    """M-RoPE position streams; text-only default t == h == w (== plain
+    RoPE)."""
+    if cfg.pos != "mrope":
+        return batch.get("positions3")
+    if "positions3" in batch:
+        return batch["positions3"]
+    return positions[None].expand(3, *positions.shape)
 
 
 def with_head_copy(params: Params, cfg: ArchConfig) -> Params:
@@ -188,25 +265,56 @@ def _head(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward, prefill
 # ---------------------------------------------------------------------------
+def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor, remat: bool) -> torch.Tensor:
+    """zamba2's layout: runs of ``hybrid_period - 1`` Mamba2 blocks, each
+    followed by a fresh invocation of the ONE shared attention+MLP block
+    (same weights), then the trailing Mamba2 blocks."""
+    run = cfg.hybrid_period - 1
+    mblocks = _stacked_views(params["mamba_blocks"])
+    sp = params["shared_block"]
+    consumed = 0
+    for _ in range(_layer_kinds(cfg).count("shared")):
+        for bp in mblocks[consumed:consumed + run]:
+            x = _run_mamba(bp, x, cfg, remat)
+        consumed += run
+        if remat:
+            x = _remat_block(sp, x, cfg, positions)
+        else:
+            x, _ = _attn_block(sp, x, cfg, positions)
+    for bp in mblocks[consumed:]:
+        x = _run_mamba(bp, x, cfg, remat)
+    return x
+
+
 def _trunk(params: Params, batch: Dict[str, torch.Tensor],
            cfg: ArchConfig) -> torch.Tensor:
-    _require_dense(cfg)
-    x = _embed_tokens(params, batch["tokens"], cfg)
+    _require_ported(cfg)
+    x = _embed_batch(params, batch, cfg)
     B, S, _ = x.shape
     positions = _positions_for(batch, S, B, x.device)
+    positions3 = _positions3_for(batch, cfg, positions)
     remat = cfg.remat and torch.is_grad_enabled()
-    for bp in _layers(params, cfg):
-        if remat:
-            x = _remat_block(bp, x, cfg, positions)
-        else:
-            x, _ = _attn_block(bp, x, cfg, positions)
+    if cfg.family == "ssm":
+        for bp in _stacked_views(params["mamba_blocks"]):
+            x = _run_mamba(bp, x, cfg, remat)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, cfg, positions, remat)
+    else:
+        for bp in _stacked_views(params["blocks"]):
+            if remat:
+                x = _remat_block(bp, x, cfg, positions, positions3,
+                                 cfg.remat_policy)
+            else:
+                x, _ = _attn_block(bp, x, cfg, positions,
+                                   positions3=positions3)
     return x
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux loss); aux is the reference's MoE slot, zero for
-    the dense family."""
+    the ported families."""
     x = L.rmsnorm(params["final_norm"], _trunk(params, batch, cfg),
                   cfg.norm_eps)
     return _head(params, x, cfg), torch.zeros((), dtype=torch.float32,
@@ -218,7 +326,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     """Mean token cross-entropy, float32, plus 0.01 x the aux loss: the
     reference's ``loss_fn`` op for op.  The log-sum-exp runs over all
     ``vocab_padded`` logits, padding columns included, minus the gold
-    logit (a gather), as the reference computes it.
+    logit (a gather), as the reference computes it; a vision prefix
+    carries no loss.
 
     A tied head reads ``embed`` itself: a serving copy added by
     :func:`with_head_copy` (``embed_head``) is ignored here, as it would
@@ -226,6 +335,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
     table."""
     params = {k: v for k, v in params.items() if k != "embed_head"}
     logits, aux = forward(params, batch, cfg)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
@@ -247,15 +358,65 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 def init_cache(cfg: ArchConfig, B: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None) -> Params:
-    """KV cache with a leading layer axis: k, v (n_layers, B, max_len, KV,
-    hd) and per-layer int32 lengths."""
-    _require_dense(cfg)
+    """Decode cache with a leading layer axis, per family: ``attn`` and
+    ``shared`` hold k, v (n, B, max_len, KV, hd) and per-layer int32
+    lengths; ``mamba`` holds the conv state (n, B, ssm_conv - 1, conv dim)
+    in ``dtype`` and the SSM state (n, B, heads, head dim, ssm_state) in
+    float32."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                     "v": torch.zeros(shape, dtype=dtype, device=dev),
-                     "len": torch.zeros((cfg.n_layers,), dtype=torch.int32,
-                                        device=dev)}}
+    kinds = _layer_kinds(cfg)
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    n_shared = kinds.count("shared")
+
+    def kv(n):
+        shape = (n, B, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
+
+    cache: Params = {}
+    if n_attn:
+        cache["attn"] = kv(n_attn)
+    if n_mamba:
+        di, N = cfg.d_inner, cfg.ssm_state
+        conv_dim = di + 2 * cfg.ssm_groups * N
+        cache["mamba"] = {
+            "conv": torch.zeros((n_mamba, B, cfg.ssm_conv - 1, conv_dim),
+                                dtype=dtype, device=dev),
+            "ssm": torch.zeros((n_mamba, B, di // cfg.ssm_head_dim,
+                                cfg.ssm_head_dim, N), dtype=torch.float32,
+                               device=dev)}
+    if n_shared:
+        cache["shared"] = kv(n_shared)
+    return cache
+
+
+def _kv_layer(c: Params, i: int) -> Params:
+    return {"k": c["k"][i], "v": c["v"][i], "len": c["len"][i]}
+
+
+def _mamba_layer(c: Params, i: int) -> Params:
+    return {"conv": c["conv"][i], "ssm": c["ssm"][i]}
+
+
+def _hybrid_decode(params: Params, x: torch.Tensor, cache: Params,
+                   cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+    """One token through zamba2's layout; invocation ``s`` of the shared
+    block reads and writes its own KV cache ``shared[s]``."""
+    run = cfg.hybrid_period - 1
+    mblocks = _stacked_views(params["mamba_blocks"])
+    m = cache["mamba"]
+    consumed = 0
+    for s in range(_layer_kinds(cfg).count("shared")):
+        for i in range(consumed, consumed + run):
+            x, _ = _mamba_block(mblocks[i], x, cfg, state=_mamba_layer(m, i))
+        consumed += run
+        x, _ = _attn_block(params["shared_block"], x, cfg, positions,
+                           cache=_kv_layer(cache["shared"], s))
+    for i in range(consumed, len(mblocks)):
+        x, _ = _mamba_block(mblocks[i], x, cfg, state=_mamba_layer(m, i))
+    return x
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
@@ -263,23 +424,35 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """One new token for every sequence: tokens (B, 1) -> logits (B, V).
 
-    Positions come from the first layer's cache length, kept on the device
-    (no host sync per step).  The cache's k/v are updated in place and the
-    returned cache holds them with every length advanced by the new
-    tokens.
+    Positions come from the first attention (or shared-block) layer's
+    cache length, kept on the device (no host sync per step); an SSM
+    model has none.  The cache's k/v rows and Mamba2 state are updated in
+    place; the returned cache holds the same tensors, with every length
+    advanced by the new tokens (new length tensors).
     """
-    _require_dense(cfg)
-    B = tokens.shape[0]
+    _require_ported(cfg)
+    B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
-    c = cache["attn"]
     if positions is None:
-        positions = c["len"][0].expand(B, 1)
-    for i, bp in enumerate(_layers(params, cfg)):
-        lc = {"k": c["k"][i], "v": c["v"][i], "len": c["len"][i]}
-        x, _ = _attn_block(bp, x, cfg, positions, cache=lc)
+        ref = cache.get("attn") or cache.get("shared")
+        positions = (ref["len"][0].expand(B, 1) if ref is not None else
+                     torch.zeros((B, 1), dtype=torch.int32, device=x.device))
+    positions3 = _positions3_for({}, cfg, positions)
     new_cache = dict(cache)
-    new_cache["attn"] = {"k": c["k"], "v": c["v"],
-                         "len": c["len"] + tokens.shape[1]}
+    if cfg.family == "ssm":
+        m = cache["mamba"]
+        for i, bp in enumerate(_stacked_views(params["mamba_blocks"])):
+            x, _ = _mamba_block(bp, x, cfg, state=_mamba_layer(m, i))
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, x, cache, cfg, positions)
+        c = cache["shared"]
+        new_cache["shared"] = {"k": c["k"], "v": c["v"], "len": c["len"] + T}
+    else:
+        c = cache["attn"]
+        for i, bp in enumerate(_stacked_views(params["blocks"])):
+            x, _ = _attn_block(bp, x, cfg, positions, cache=_kv_layer(c, i),
+                               positions3=positions3)
+        new_cache["attn"] = {"k": c["k"], "v": c["v"], "len": c["len"] + T}
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, x, cfg)[:, 0], new_cache
 
@@ -494,7 +667,7 @@ def decode_step_ref(params: Params, tokens, pos, caches, cfg: ArchConfig):
         caches = [torch.as_tensor(c, device=dev) for c in caches]
         x = fq_w(params["embed"]).to(torch.float32)[tokens]
         new_caches = []
-        for i, bp in enumerate(_layers(params, cfg)):
+        for i, bp in enumerate(_stacked_views(params["blocks"])):
             hq = aq(L.rmsnorm(bp["ln1"], x, cfg.norm_eps))
             q = mm(hq, bp["attn"]["wq"]["w"])
             k = mm(hq, bp["attn"]["wk"]["w"])

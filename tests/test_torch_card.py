@@ -1411,3 +1411,78 @@ def test_lm_train_launcher_resume_equals_straight(card, tmp_path, capsys):
     resumed = train.main(smoke + ["--steps", "1", "--resume"] + ck)
     assert "resumed from step 2" in capsys.readouterr().out
     assert resumed == straight
+
+
+# ---------------------------------------------------------------------------
+# The recurrent-state and vision-language families: decode graphs, qmatmul
+# at the ragged in-projection widths
+# ---------------------------------------------------------------------------
+# (config, layer slots of the full-width copy, qmatmul launches a step):
+# mamba2's 2 Mamba2 blocks (tied head); zamba2's first 6 slots, five Mamba2
+# blocks and one invocation of the shared block, with the untied head;
+# qwen2-vl's 2 M-RoPE blocks and its untied head
+FAMILY_GRAPHS = [("mamba2-780m", 2, 4), ("zamba2-7b", 6, 18),
+                 ("qwen2-vl-7b", 2, 15)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("arch,slots,per_step", FAMILY_GRAPHS)
+def test_family_decode_graph_equals_eager(card, arch, slots, per_step, bits):
+    """A full-width copy of the config's first layer slots at w8 and w4:
+    the captured decode step gives the eager step's logits and greedy
+    tokens bit for bit over a prompt and generated tokens (the SSM state
+    and the shared block's KV written in place, the lengths copied back);
+    ``generate`` twice through one graph, ``reset()`` between, gives the
+    eager tokens both times; the graph records ``per_step`` qmatmul
+    launches."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import (GraphedDecodeStep, greedy,
+                                          quantize_tree_for_serving)
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=slots)
+    params = lm.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    q = lm.with_head_copy(quantize_tree_for_serving(params, bits), cfg)
+    del params
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (2, 4))
+    step = GraphedDecodeStep(q, cfg, 2, 12)
+    assert step.graph.launches == {"qmatmul": per_step}
+    cache = lm.init_cache(cfg, 2, 12)
+    tok = None
+    for t in range(9):
+        feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                                device=card) if t < 4 else tok)
+        logits, cache = lm.decode_step(q, feed, cache, cfg)
+        nxt = greedy(logits, cfg)
+        step.step(feed)
+        assert torch.equal(step.logits, logits), (arch, bits, t)
+        assert torch.equal(step.tokens[:, 0], nxt), (arch, bits, t)
+        tok = nxt[:, None]
+    want = generate(q, cfg, prompt, 5, graph=False)
+    assert torch.equal(generate(q, cfg, prompt, 5), want)
+    assert torch.equal(generate(q, cfg, prompt, 5), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(4, 1536, 6448), (1, 1536, 6448),
+                                   (4, 3584, 14576), (3, 3584, 14576)])
+def test_qmatmul_at_the_ragged_in_proj_widths(card, m, k, n, bits):
+    """mamba2's and zamba2's in-projections (N = 6448 and 14576, not
+    multiples of the 64- or 128-column tile) against the plain version at
+    the tolerance of ``test_qmatmul_kernel_equals_plain``; two launches
+    bit for bit."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, codes = _qmm_inputs(m, k, n, bits, torch.bfloat16, card,
+                                 m + k + n)
+    got = KQ.qmatmul(x, w, s, bits)
+    want = KQ.qmatmul_plain(x, w, s, bits)
+    scale = (x.float().abs() @ codes.float().abs()) * s
+    tol = 2e-5 * scale + want.float().abs() * 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got, KQ.qmatmul(x, w, s, bits))

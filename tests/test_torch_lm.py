@@ -184,26 +184,24 @@ def test_serving_quantization_consistency(compute_dtype):
 
 
 def test_later_slices_raise():
-    """What this slice does not build raises NotImplementedError naming
-    the missing piece instead of computing something else."""
+    """What the port does not build yet raises NotImplementedError naming
+    the missing piece instead of computing something else: MoE, MLA and
+    the audio family, cross-attention, and the serving quantization of
+    MoE expert banks."""
     _, cfg = _cfgs("float32")
+    for over, what in ((dict(family="moe", moe_experts=4, moe_top_k=2),
+                        "MoE"), (dict(attention="mla"), "MLA"),
+                       (dict(family="audio"), "audio")):
+        bad = dataclasses.replace(cfg, **over)
+        with pytest.raises(NotImplementedError, match=what):
+            tlm.init_params(torch.Generator(), bad, device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            tlm.init_cache(bad, B, S, device="cpu")
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
-    long = torch.from_numpy(_tokens(cfg, 3, (1, 3 * cfg.prefill_chunk)))
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tlm.forward(params, {"tokens": long}, cfg)
-    for over in (dict(family="moe", moe_experts=4, moe_top_k=2),
-                 dict(attention="mla"), dict(family="ssm")):
-        with pytest.raises(NotImplementedError):
-            tlm.init_params(torch.Generator(), dataclasses.replace(cfg, **over),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tlm.forward(params, {"tokens": long[:, :4]},
-                    dataclasses.replace(cfg, pos="mrope"))
+    x = torch.zeros((1, 2, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        L.attention(params["blocks"]["attn"], x, cfg, None, kv_source=x)
     with pytest.raises(NotImplementedError, match="MoE expert banks"):
         quantize_tree_for_serving({"moe": {"w_gate": torch.zeros((2, 4, 6))}},
                                   8)
-    head = quantize_tree_for_serving({"lm_head": {"w": torch.ones((4, 6))}},
-                                     8)["lm_head"]
-    with pytest.raises(NotImplementedError, match="quantized dense"):
-        L.dense(head, torch.ones((1, 4)), dtype=torch.float32)
