@@ -119,6 +119,24 @@ ends the run with a non-zero exit if it fails:
    replay (kernels a step, device busy); a full-width copy of mamba2's
    first 2 slots and zamba2's first 6 (5 Mamba2 blocks and the shared
    block) decoded on the card and on the CPU at w8.
+6c. MoE, MLA and the audio encoder-decoder (paths ``lm_moe_mla_audio``
+   eager, ``lm_moe_mla_audio_graph`` replays): ``qmatmul`` held against
+   its plain version at the four configs' 25 (M, K, N) (in phase 6's
+   kernel check; whisper's encoder rows at M 6,000 bit for bit on integer
+   inputs too) and timed there, w8 and w4, beside its bound and cuBLAS;
+   grok-1-314b (4 of 64 layers) and arctic-480b (2 of 35) at full width,
+   their expert banks drawn on the card one expert at a time into codes,
+   minicpm3-4b and whisper-tiny at full size, each at w8 and w4 through
+   ``generate`` (batch 4, prompt 8, 16 new tokens) eager and replayed:
+   equal tokens, the logits of every step bit for bit, qmatmul launches a
+   step (113, 783, 435, 32), weight and graph pool bytes, ms a step eager
+   and replayed, one profiled replay; whisper decodes an utterance's
+   cross k/v from ``encode`` (24 launches at M 6,000) and
+   ``build_cross_cache`` (8), copied into the captured cross leaves; card
+   against CPU at w8: 2 layers of grok and minicpm3, 1 of arctic (the
+   routed experts equal wherever the router's k-th and (k+1)-th
+   probabilities differ by more than 1e-3), whisper in full with its
+   encoder output and cross k/v.
 6b. compiled LM decode (paths ``lm_tiny_decode``, ``lm_tiny_serve``):
    the int8 MVAU in GEMM form at lm-tiny's ``w_down`` (M 1, 3 and 8, K 96,
    N 64, 255 levels; a table shared by every column and one per column)
@@ -186,13 +204,15 @@ ends the run with a non-zero exit if it fails:
 
 Launch counters are set to 0 just before each path (phases 3-4, the
 engine's traffic, the cluster's traffic, the counted forwards of phase 5,
-the eager and the captured ``generate`` runs of phases 6 and 6a, the
+the eager and the captured ``generate`` runs of phases 6, 6a and 6c
+(with whisper's ``encode`` and ``build_cross_cache``), the
 eager steps and the engine's traffic of phase 6b, and phases 7, 8 and 9
 as a whole) and read just after; launches made while comparing or timing
 kernels do not count.  A graph's launches are recorded when it is
 captured and counted at each replay: the paths ``fsl_serve``,
-``cluster``, ``lm_decode_graph``, ``lm_families_graph`` and
-``lm_tiny_serve`` are counted from replays only (the script checks that
+``cluster``, ``lm_decode_graph``, ``lm_families_graph``,
+``lm_moe_mla_audio_graph`` and ``lm_tiny_serve`` are counted from replays
+only (the script checks that
 every launch there was one).
 """
 
@@ -2291,6 +2311,9 @@ CPU_CHECK_LAYERS, CPU_CHECK_STEPS = 2, 16
 # 0.03125: the CPU port and the JAX reference differ by one ulp at this
 # width and depth, so two ulps
 CPU_CHECK_TOL = 0.0625
+# card vs CPU with MoE: the routed experts must agree wherever the CPU
+# router's k-th and (k+1)-th probabilities are further apart than this
+MOE_ROUTE_MARGIN = 1e-3
 
 
 def _projections(cfg):
@@ -2308,8 +2331,10 @@ def _leaf(blocks, name):
 def check_qmatmul(torch, Q, KQ, cfg, extra=()):
     """qmatmul against its plain version on the card: ragged M, N, K (the
     scalar and the vector weight loads), the decode shapes at batch 4, the
-    (K, N) of ``extra`` at batch 4 (their codes drawn on the card) and
-    one prefill shape (batch 4 x prompt 8), f32 and bf16 x, w8 and w4.
+    (M, K, N) of ``extra`` (their codes drawn on the card) and one prefill
+    shape (batch 4 x prompt 8), f32 and bf16 x, w8 and w4.  The ``extra``
+    shapes with M above 1,000 (whisper's encoder) are held bit for bit on
+    integer inputs too.
     Tolerance: only the order of the float32 sum differs, so the error is
     held within 2e-5 of S = sum_k |bf16(x)| |code| scale (plus one bf16
     rounding of the output for bf16 x).  On integer-valued x with small
@@ -2321,7 +2346,7 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
               (70, 300, 130)]
     shapes += [(LM_BATCH, k, n) for _, k, n in _projections(cfg)]
     shapes.append((LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff))
-    wide = [(LM_BATCH, k, n) for k, n in extra]
+    wide = list(dict.fromkeys(extra))
     shapes += wide
     decode = {(LM_BATCH, k, n) for _, k, n in _projections(cfg)} | set(wide)
     worst = {"abs": 0.0, "of_tol": 0.0, "rel_f32": 0.0, "abs_decode": 0.0,
@@ -2373,7 +2398,8 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
                 n_checked += 1
         lim = 8 if bits == 4 else 32
         for m, k, n in ((LM_BATCH, cfg.d_model, 256), (LM_BATCH, cfg.d_ff,
-                                                       cfg.d_model), (7, 100, 18)):
+                                                       cfg.d_model), (7, 100, 18),
+                        *[s for s in wide if s[0] > 1000]):
             codes = torch.randint(-lim, lim, (k, n), generator=gen)
             w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
                  else codes.to(torch.int8)).to(dev)
@@ -2411,10 +2437,10 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
         "integer inputs bit for bit; two launches bit for bit at the decode "
         "shapes")
     if wide:
-        log(f"kernel check qmatmul at the LM families' {len(wide)} (K, N) "
-            f"({', '.join(f'{k}x{n}' for _, k, n in wide)}), batch "
-            f"{LM_BATCH}, w8 and w4, f32 and bf16 x: max abs err "
-            f"{worst['abs_extra']:.3g}; two launches bit for bit")
+        log(f"kernel check qmatmul at the LM families' {len(wide)} (M, K, N) "
+            f"({', '.join(f'{m}x{k}x{n}' for m, k, n in wide)}), w8 and w4, "
+            f"f32 and bf16 x: max abs err {worst['abs_extra']:.3g}; two "
+            "launches bit for bit; integer inputs bit for bit at M > 1000")
     return worst["abs_decode"]
 
 
@@ -2537,15 +2563,27 @@ def _tokens(torch, prompt, t):
                            device="cuda")
 
 
-def decode_ms(torch, cfg, tree, prompt, n_timed):
+def _fresh_cache(cfg, steps, cross=None, device="cuda"):
+    """A decode cache for one generation of ``steps`` steps; whisper's
+    cross k/v copied in from ``cross``."""
+    from repro_torch.launch.steps import model_module
+
+    cache = model_module(cfg).init_cache(cfg, LM_BATCH, steps + 1,
+                                         device=device)
+    if cross is not None:
+        for name in ("k", "v"):
+            cache["cross"][name].copy_(cross[name])
+    return cache
+
+
+def decode_ms(torch, cfg, tree, prompt, n_timed, cross=None):
     """The eager decode step after the prompt, greedy, in a cache the size
     of one generation: CUDA-event ms a step over ``n_timed`` steps and the
     host's ms a step.  The logits after them are checked finite."""
-    from repro_torch.launch.steps import make_decode_step
-    from repro_torch.models import lm
+    from repro_torch.launch.steps import make_decode_step, model_module
 
     decode = make_decode_step(cfg)
-    cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_TOKENS + 1)
+    cache = _fresh_cache(cfg, LM_PROMPT + LM_TOKENS, cross)
     for t in range(LM_PROMPT):
         tok, cache = decode(tree, {"tokens": _tokens(torch, prompt, t)},
                             cache)
@@ -2561,16 +2599,16 @@ def decode_ms(torch, cfg, tree, prompt, n_timed):
     end.record()
     end.synchronize()
     host = (time.perf_counter() - h0) * 1e3 / n_timed
-    logits, _ = lm.decode_step(tree, tok, cache, cfg)
+    logits, _ = model_module(cfg).decode_step(tree, tok, cache, cfg)
     check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
           "logits after the timed decode steps not finite")
     return start.elapsed_time(end) / n_timed, host
 
 
-def replay_ms(torch, st, prompt, n_timed):
+def replay_ms(torch, st, prompt, n_timed, cross=None):
     """The captured step ``st`` replayed after the prompt: CUDA-event ms a
     step over ``n_timed`` replays and the host's ms a step."""
-    st.reset()
+    st.reset(cross)
     for t in range(LM_PROMPT):
         st.step(_tokens(torch, prompt, t))
     torch.cuda.synchronize()
@@ -2586,20 +2624,19 @@ def replay_ms(torch, st, prompt, n_timed):
     return start.elapsed_time(end) / n_timed, host
 
 
-def check_replay_logits(torch, label, cfg, tree, st, prompt):
+def check_replay_logits(torch, label, cfg, tree, st, prompt, cross=None):
     """The captured step ``st`` beside the eager ``decode_step`` over the
     prompt and LM_TOKENS greedy tokens: the logits of every step finite
     and bit for bit, and the greedy tokens equal."""
-    from repro_torch.launch.steps import greedy
-    from repro_torch.models import lm
+    from repro_torch.launch.steps import greedy, model_module
 
     steps = LM_PROMPT + LM_TOKENS
-    st.reset()
-    cache = lm.init_cache(cfg, LM_BATCH, steps + 1)
+    st.reset(cross)
+    cache = _fresh_cache(cfg, steps, cross)
     tok = None
     for t in range(steps):
         feed = _tokens(torch, prompt, t) if t < LM_PROMPT else tok
-        logits, cache = lm.decode_step(tree, feed, cache, cfg)
+        logits, cache = model_module(cfg).decode_step(tree, feed, cache, cfg)
         tok = greedy(logits, cfg)[:, None]
         st.step(feed)
         check(bool(torch.isfinite(logits[:, :cfg.vocab].float()).all()),
@@ -2612,9 +2649,7 @@ def check_replay_logits(torch, label, cfg, tree, st, prompt):
 def card_vs_cpu(torch, label, cfg, tree, prompt, steps):
     """``tree``, the float32 parameters of the full-width cut ``cfg`` on
     the card, quantized to w8 on the card and on the CPU (the codes
-    checked equal) and decoded on both: the prompt teacher-forced, then
-    the CPU's greedy tokens fed to both.  Logits within CPU_CHECK_TOL;
-    greedy tokens equal where the CPU's top-2 margin exceeds twice it.
+    checked equal) and decoded on both (:func:`decode_card_vs_cpu`).
     Returns the largest difference."""
     from repro_torch.launch.steps import quantize_tree_for_serving
     from repro_torch.models import lm
@@ -2626,39 +2661,117 @@ def card_vs_cpu(torch, label, cfg, tree, prompt, steps):
     for a, b in zip(tree_flatten(q_dev)[0], tree_flatten(q_cpu)[0]):
         check(torch.equal(a.cpu(), b), f"{label}: w8 codes or scales differ "
               "between card and CPU")
-    caches = {"cuda": lm.init_cache(cfg, LM_BATCH, steps + 1),
-              "cpu": lm.init_cache(cfg, LM_BATCH, steps + 1, device="cpu")}
+    return decode_card_vs_cpu(torch, label, cfg, q_dev, q_cpu, prompt,
+                              steps)
+
+
+class RouteRecorder:
+    """Records every MoE routing (router probabilities and chosen experts)
+    while active, by device: a wrapper around ``layers.moe_route``."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.orig = layers, layers.moe_route
+        self.calls = {"cpu": [], "cuda": []}
+
+    def __enter__(self):
+        def route(p, flat, cfg):
+            probs, gates, idx = self.orig(p, flat, cfg)
+            self.calls[probs.device.type].append((probs.float().cpu(),
+                                                  idx.cpu()))
+            return probs, gates, idx
+
+        self.layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.orig
+
+
+def decode_card_vs_cpu(torch, label, cfg, q_dev, q_cpu, prompt, steps,
+                       crosses=None):
+    """The same serving tree on the card (``q_dev``) and on the CPU
+    (``q_cpu``) decoded on both: the prompt teacher-forced, then the CPU's
+    greedy tokens fed to both.  Logits within CPU_CHECK_TOL; greedy tokens
+    equal where the CPU's top-2 margin exceeds twice it.  With MoE the
+    routed experts (as sets) must be equal wherever the CPU router's k-th
+    and (k+1)-th probabilities differ by more than MOE_ROUTE_MARGIN; a
+    sequence routed apart at a closer tie is compared up to that step
+    only.  ``crosses`` ({"cuda", "cpu"}) are whisper's cross k/v.  Returns
+    the largest difference."""
+    import contextlib
+
+    from repro_torch.launch.steps import model_module
+
+    mod = model_module(cfg)
+    caches = {dev: _fresh_cache(cfg, steps, None if crosses is None
+                                else crosses[dev], dev)
+              for dev in ("cuda", "cpu")}
+    k = cfg.moe_top_k
+    rec = RouteRecorder() if cfg.moe_experts else contextlib.nullcontext()
+    apart = {}                        # sequence -> step its routes parted
     tok = None
-    worst, compared, skipped = 0.0, 0, 0
+    worst, compared, skipped, routed, gaps_min = 0.0, 0, 0, 0, math.inf
     t0 = time.perf_counter()
-    for t in range(steps):
-        feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32)
-                if t < prompt.shape[1] else tok)
-        lc, caches["cpu"] = lm.decode_step(q_cpu, feed, caches["cpu"], cfg)
-        lg, caches["cuda"] = lm.decode_step(q_dev, feed.cuda(),
-                                            caches["cuda"], cfg)
-        lc = lc[:, :cfg.vocab].float()
-        lg = lg[:, :cfg.vocab].float().cpu()
-        check(bool(torch.isfinite(lg).all()), f"{label}: card logits not "
-              "finite")
-        worst = max(worst, float((lg - lc).abs().max()))
-        top2 = torch.topk(lc, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > 2 * CPU_CHECK_TOL
-        check(torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure]),
-              f"{label} step {t}: greedy tokens differ between card and CPU "
-              "at a top-2 margin above twice the tolerance")
-        compared += int(sure.sum())
-        skipped += int((~sure).sum())
-        tok = lc.argmax(-1, keepdim=True).to(torch.int32)
+    with rec:
+        for t in range(steps):
+            feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32)
+                    if t < prompt.shape[1] else tok)
+            lc, caches["cpu"] = mod.decode_step(q_cpu, feed, caches["cpu"],
+                                                cfg)
+            lg, caches["cuda"] = mod.decode_step(q_dev, feed.cuda(),
+                                                 caches["cuda"], cfg)
+            if cfg.moe_experts:
+                for (pc, ic), (_, ig) in zip(rec.calls["cpu"],
+                                             rec.calls["cuda"]):
+                    top = torch.sort(pc, dim=-1, descending=True).values
+                    gap = top[:, k - 1] - top[:, k]
+                    same = (ic.sort(-1).values == ig.sort(-1).values).all(-1)
+                    for b in range(ic.shape[0]):
+                        if b in apart:
+                            continue
+                        if not bool(same[b]):
+                            check(float(gap[b]) <= MOE_ROUTE_MARGIN,
+                                  f"{label} step {t}, sequence {b}: experts "
+                                  f"{ic[b].tolist()} on the CPU, "
+                                  f"{ig[b].tolist()} on the card, at a gap "
+                                  f"{float(gap[b]):.3g}")
+                            apart[b] = t
+                        else:
+                            routed += 1
+                            gaps_min = min(gaps_min, float(gap[b]))
+                rec.calls = {"cpu": [], "cuda": []}
+            rows = [b for b in range(lc.shape[0]) if b not in apart]
+            lc = lc[rows, :cfg.vocab].float()
+            lg = lg[rows, :cfg.vocab].float().cpu()
+            check(bool(torch.isfinite(lg).all()), f"{label}: card logits not "
+                  "finite")
+            if rows:
+                worst = max(worst, float((lg - lc).abs().max()))
+                top2 = torch.topk(lc, 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > 2 * CPU_CHECK_TOL
+                check(torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure]),
+                      f"{label} step {t}: greedy tokens differ between card "
+                      "and CPU at a top-2 margin above twice the tolerance")
+                compared += int(sure.sum())
+                skipped += int((~sure).sum())
+            full = torch.zeros((LM_BATCH, 1), dtype=torch.int32)
+            full[rows] = lc.argmax(-1, keepdim=True).to(torch.int32)
+            tok = full
     check(worst <= CPU_CHECK_TOL,
           f"{label}: card and CPU logits differ by {worst}")
     forced = min(steps, prompt.shape[1])
-    log(f"{label} card vs CPU ({cfg.n_layers} layer slots, full width, w8, "
+    log(f"{label} card vs CPU ({cfg.n_layers} layer slots, full width, "
         f"{steps} steps: {forced} teacher-forced, then the CPU's greedy "
         f"tokens; {time.perf_counter() - t0:.1f} s): logits within "
         f"{worst:.4g} (tolerance {CPU_CHECK_TOL}); greedy tokens equal at "
         f"{compared} decisions, {skipped} skipped at a top-2 margin <= "
-        f"{2 * CPU_CHECK_TOL}")
+        f"{2 * CPU_CHECK_TOL}"
+        + (f"; routed experts equal at {routed} (token, layer) choices, "
+           f"smallest k-th/(k+1)-th gap among them {gaps_min:.3g}; "
+           f"sequences routed apart at a gap <= {MOE_ROUTE_MARGIN}: "
+           f"{apart or 'none'}" if cfg.moe_experts else ""))
     return worst
 
 
@@ -2676,7 +2789,8 @@ def lm_path(torch, np, B, Q, KQ):
     from repro_torch.tree import tree_flatten, tree_map
 
     cfg = get_config(LM_ARCH)
-    err = check_qmatmul(torch, Q, KQ, cfg, extra=family_shapes())
+    err = check_qmatmul(torch, Q, KQ, cfg,
+                        extra=family_shapes() + mma_shapes())
 
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -2949,60 +3063,74 @@ def family_products(cfg):
 
 
 def family_shapes():
-    """The distinct (K, N) of the five configs' quantized products."""
+    """The distinct (M, K, N) of the five configs' quantized products at
+    batch LM_BATCH."""
     shapes = []
     for name in FAMILY_FULL + FAMILY_CUT:
         for _, k, n, _ in family_products(family_config(name)):
-            if (k, n) not in shapes:
-                shapes.append((k, n))
+            if (LM_BATCH, k, n) not in shapes:
+                shapes.append((LM_BATCH, k, n))
     return shapes
 
 
-def time_family_qmatmul(torch, Q, KQ):
-    """qmatmul at each (K, N) of the five configs, batch 4, bf16 x, w8 and
-    w4 (held against its plain version at these shapes in
-    :func:`check_qmatmul`): CUDA-event ms a launch over enough copies of
-    random codes to stream FAMILY_QMM_STREAM_BYTES from memory (nothing
-    sits in the 50 MB L2), beside the bound (codes + scales + x + out
-    bytes / 3.35 TB/s).  Returns {(bits, K, N): (ms, bound_ms)}."""
+def time_family_qmatmul(torch, Q, KQ, shapes):
+    """qmatmul at each (M, K, N) of ``shapes``, bf16 x, w8 and w4 (held
+    against its plain version at these shapes in :func:`check_qmatmul`):
+    CUDA-event ms a launch over enough copies of random codes to stream
+    FAMILY_QMM_STREAM_BYTES from memory (nothing sits in the 50 MB L2),
+    beside the bound (the larger of codes + scales + x + out bytes at
+    3.35 TB/s and 2MKN at the bf16 peak) and the library yardstick, cuBLAS
+    bf16 on codes cast to bf16 before the timing, times the scale.
+    Returns {(bits, M, K, N): {"ms", "bound_ms", "bound_by",
+    "library_ms"}}."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(23)
     out = {}
     for bits in (8, 4):
         lim = 8 if bits == 4 else 128
-        for k, n in family_shapes():
+        for m, k, n in shapes:
             nbytes = k * n // (2 if bits == 4 else 1)
             copies = int(min(64, max(2, math.ceil(FAMILY_QMM_STREAM_BYTES
                                                   / nbytes))))
-            codes = [torch.randint(-lim, lim, (k, n), generator=gen,
-                                   device=dev, dtype=torch.int32)
-                     for _ in range(copies)]
+            ints = [torch.randint(-lim, lim, (k, n), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                    for _ in range(copies)]
             codes = [Q.pack_int4(c) if bits == 4 else c.to(torch.int8)
-                     for c in codes]
+                     for c in ints]
+            w16 = [c.to(torch.bfloat16) for c in ints]
+            del ints
             s = torch.rand((n,), generator=gen, device=dev) * 0.02 + 0.001
-            x = (torch.rand((LM_BATCH, k), generator=gen, device=dev) * 2
+            x = (torch.rand((m, k), generator=gen, device=dev) * 2
                  - 1).to(torch.bfloat16)
             ms = cuda_ms(torch, lambda: [KQ.qmatmul(x, c, s, bits)
                                          for c in codes], reps=3,
                          sleep_cycles=QMM_SLEEP_CYCLES) / copies
-            bound = (nbytes + 4 * n + 2 * LM_BATCH * (k + n)) \
-                / PEAK_BYTES_PER_S * 1e3
-            out[(bits, k, n)] = (ms, bound)
-            log(f"kernel qmatmul w{bits} M={LM_BATCH} K={k:5d} N={n:6d}: "
-                f"kernel_ms={ms:.4f} bound_ms={bound:.4f} ({bound / ms:.1%} "
-                f"of the bound's rate; {nbytes / ms / 1e6:.0f} GB/s of codes"
-                f", {copies} copies streamed)")
-            del codes
+            lib = cuda_ms(torch, lambda: [(torch.matmul(x, w) * s).to(
+                torch.bfloat16) for w in w16], reps=3,
+                sleep_cycles=QMM_SLEEP_CYCLES) / copies
+            b_ms = (nbytes + 4 * n + 2 * m * (k + n)) / PEAK_BYTES_PER_S * 1e3
+            o_ms = 2 * m * k * n / PEAK_BF16_OPS * 1e3
+            by = "bytes" if b_ms >= o_ms else "operations"
+            out[(bits, m, k, n)] = {"ms": ms, "bound_ms": max(b_ms, o_ms),
+                                    "bound_by": by, "library_ms": lib}
+            log(f"kernel qmatmul w{bits} M={m:5d} K={k:5d} N={n:6d}: "
+                f"kernel_ms={ms:.4f} library_ms={lib:.4f} bound_ms="
+                f"{max(b_ms, o_ms):.4f} ({by}; {max(b_ms, o_ms) / ms:.1%} of "
+                f"the bound's rate; {nbytes / ms / 1e6:.0f} GB/s of codes, "
+                f"{copies} copies streamed)")
+            del codes, w16
     torch.cuda.empty_cache()
     return out
 
 
-def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
+def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums,
+                 paths=("lm_families", "lm_families_graph"), cross=None):
     """One config at one bit-width through ``generate``: eager (counted
-    into ``sums["lm_families"]``), then the captured step (its replays
-    counted into ``sums["lm_families_graph"]``), equal tokens, logits of
-    every step bit for bit; ms a step eager and replayed, and one profiled
-    replay.  Returns the numbers it printed."""
+    into ``sums[paths[0]]``), then the captured step (its replays counted
+    into ``sums[paths[1]]``), equal tokens, logits of every step bit for
+    bit; ms a step eager and replayed, and one profiled replay.  ``cross``
+    is whisper's cross k/v of an utterance.  Returns the numbers it
+    printed."""
     from repro_torch.launch.serve import generate, graphed_step
 
     rng = np.random.default_rng(0)
@@ -3013,7 +3141,7 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
     B.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eager = generate(tree, cfg, prompt, LM_TOKENS, graph=False)
+    eager = generate(tree, cfg, prompt, LM_TOKENS, graph=False, cross=cross)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
     counts = dict(B.launch_counts)
@@ -3026,7 +3154,7 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
           f"{label}: eager launches {counts}, expected {per_step} qmatmul a "
           f"step over {steps} steps")
     for k, v in counts.items():
-        sums["lm_families"][k] += v
+        sums[paths[0]][k] += v
 
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["reserved_bytes.all.current"]
@@ -3039,7 +3167,7 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
           f"{label}: the decode graph records {st.graph.launches}")
     B.reset_launch_counts()
     r0 = st.graph.replays
-    replayed = generate(tree, cfg, prompt, LM_TOKENS)
+    replayed = generate(tree, cfg, prompt, LM_TOKENS, cross=cross)
     torch.cuda.synchronize()
     gcounts = dict(B.launch_counts)
     replays = st.graph.replays - r0
@@ -3047,16 +3175,16 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
         **{k: 0 for k in gcounts}, "qmatmul": replays * per_step},
         f"{label}: replayed launches {gcounts} over {replays} replays")
     for k, v in gcounts.items():
-        sums["lm_families_graph"][k] += v
+        sums[paths[1]][k] += v
     check(torch.equal(replayed, eager),
           f"{label}: the captured step's tokens != the eager step's")
 
-    check_replay_logits(torch, label, cfg, tree, st, prompt)
+    check_replay_logits(torch, label, cfg, tree, st, prompt, cross)
     codes, scales, _ = _dense_bytes(tree)
     res = {"eager_generate_s": eager_s, "capture_s": capture_s,
            "pool_bytes": st.graph.pool_bytes, "reserved_grown": grown,
            "weight_bytes": codes + scales, "sample": eager[0][:8].tolist()}
-    log(f"lm_families {label}: generate batch {LM_BATCH}, prompt "
+    log(f"{paths[0]} {label}: generate batch {LM_BATCH}, prompt "
         f"{LM_PROMPT}, {LM_TOKENS} new tokens: eager {eager_s * 1e3:.1f} ms "
         f"({per_step} qmatmul launches a step, {counts['qmatmul']} in all),"
         f" captured in {capture_s:.3f} s (graph pool {st.graph.pool_bytes} "
@@ -3064,8 +3192,9 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
         f"({gcounts['qmatmul']} qmatmul launches, all replays): equal "
         f"tokens, logits of all {steps} steps bit for bit; weight bytes "
         f"{codes} codes + {scales} scales; sample {res['sample']}")
-    res["eager_ms"], _ = decode_ms(torch, cfg, tree, prompt, FAMILY_TIMED)
-    res["replay_ms"], _ = replay_ms(torch, st, prompt, FAMILY_TIMED)
+    res["eager_ms"], _ = decode_ms(torch, cfg, tree, prompt, FAMILY_TIMED,
+                                   cross)
+    res["replay_ms"], _ = replay_ms(torch, st, prompt, FAMILY_TIMED, cross)
     st.reset()
     busy, traced, kern = profile_decode(
         torch, f"{label} decode graph replay", st.step, FAMILY_PROFILE_REPS)
@@ -3078,7 +3207,7 @@ def family_serve(torch, np, B, name, cfg, tree, bits, per_step, sums):
               f"profiled replay, expected {per_step}")
         res.update(busy_ms=busy, kernels=sum(e.count for e in kern) / reps,
                    qmm_ms=sum(e.device_time_total for e in qmm) / reps / 1e3)
-    log(f"lm_families {label} step: replayed {res['replay_ms']:.3f} "
+    log(f"{paths[0]} {label} step: replayed {res['replay_ms']:.3f} "
         f"ms/step, eager {res['eager_ms']:.3f} ms/step (CUDA events, "
         f"{FAMILY_TIMED} steps after the prompt, batch {LM_BATCH}; "
         f"{LM_BATCH / res['replay_ms'] * 1e3:.1f} tok/s replayed)"
@@ -3163,7 +3292,7 @@ def lm_families_path(torch, np, B, Q, KQ):
     serve._GRAPHED.clear()        # earlier phases' graphs hold their weights
     gc.collect()
     torch.cuda.empty_cache()
-    timing = time_family_qmatmul(torch, Q, KQ)
+    timing = time_family_qmatmul(torch, Q, KQ, family_shapes())
     sums = {p: {k: 0 for k in B.launch_counts}
             for p in ("lm_families", "lm_families_graph")}
     report = {}
@@ -3203,9 +3332,9 @@ def lm_families_path(torch, np, B, Q, KQ):
         for bits in bits_list:
             rep[f"w{bits}"] = family_serve(torch, np, B, name, cfg,
                                            trees[bits], bits, per_step, sums)
-            qmm_ms = sum(timing[(bits, k, n)][0] * c
+            qmm_ms = sum(timing[(bits, LM_BATCH, k, n)]["ms"] * c
                          for _, k, n, c in products)
-            qmm_bound = sum(timing[(bits, k, n)][1] * c
+            qmm_bound = sum(timing[(bits, LM_BATCH, k, n)]["bound_ms"] * c
                             for _, k, n, c in products)
             rep[f"w{bits}"].update(qmm_timed_ms=qmm_ms,
                                    qmm_bound_ms=qmm_bound)
@@ -3236,9 +3365,314 @@ def lm_families_path(torch, np, B, Q, KQ):
     log(f"lm_families: launches eager {sums['lm_families']}, replayed "
         f"{sums['lm_families_graph']}; phase {time.perf_counter() - t_phase:.1f}"
         " s")
-    report["shapes"] = {f"w{b} {k}x{n}": {"ms": v[0], "bound_ms": v[1]}
-                        for (b, k, n), v in timing.items()}
+    report["shapes"] = {f"w{b} {m}x{k}x{n}": v
+                        for (b, m, k, n), v in timing.items()}
     return sums["lm_families"], sums["lm_families_graph"], report
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: MoE, MLA and the audio encoder-decoder
+# ---------------------------------------------------------------------------
+MMA_CONFIGS = ("grok-1-314b", "arctic-480b", "minicpm3-4b", "whisper-tiny")
+# full width, cut in depth: one layer's expert banks are 4.83 GB (grok) and
+# 13.39 GB (arctic) at w8, so neither fits at full depth (PERF.md section 4)
+MMA_CUT = {"grok-1-314b": 4, "arctic-480b": 2}
+MMA_PATHS = ("lm_moe_mla_audio", "lm_moe_mla_audio_graph")
+# qmatmul launches a decode step at batch 4: 4 x (4 + 8 x 3) + 1,
+# 2 x (4 + 128 x 3 + 3) + 1, 62 x 7 + 1, 4 x 8
+MMA_QMM_PER_STEP = {"grok-1-314b": 113, "arctic-480b": 783,
+                    "minicpm3-4b": 435, "whisper-tiny": 32}
+WHISPER_ENC_QMM, WHISPER_CROSS_QMM = 24, 8
+# card against CPU: layers of a full-width copy, and decode steps (the
+# CPU's plain qmatmul takes ~20 s (grok) and ~30 s (arctic) a step over
+# every expert's codes)
+MMA_CPU_LAYERS = {"grok-1-314b": 2, "arctic-480b": 1, "minicpm3-4b": 2}
+MMA_CPU_STEPS = {"grok-1-314b": 2, "arctic-480b": 2, "minicpm3-4b": 8,
+                 "whisper-tiny": 8}
+# whisper's encoder output and cross k/v card vs CPU, in bf16 ulps at the
+# CPU tensor's largest magnitude: the CPU tests' end-to-end rule (the
+# encoder output read 2.00 on an H100)
+WHISPER_ENC_ULPS = 4
+
+
+def mma_config(name: str, layers: int = 0):
+    import dataclasses
+
+    from repro_torch.models.common import get_config
+
+    cfg = get_config(name)
+    layers = layers or MMA_CUT.get(name, 0)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def mma_products(cfg):
+    """(name, M, K, N, launches a decode step) of every quantized product
+    of one decode step at batch LM_BATCH: the attention's (MLA: wq_a, wq_b,
+    wkv_a, wo; ``wkv_b`` is dequantized, not a launch), each expert's three
+    at M = the capacity C (every expert reads its buffer), arctic's dense
+    residual, the MLP, an untied head; whisper's decoder blocks (self q, k,
+    v, o; cross q, o; up, down)."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    H, hd, M = cfg.n_heads, cfg.hd, LM_BATCH
+    if cfg.family == "audio":
+        kv = cfg.n_kv_heads * hd
+        return [(nm, M, k, nn, n) for nm, k, nn in (
+            ("self wq", d, H * hd), ("self wk", d, kv), ("self wv", d, kv),
+            ("self wo", H * hd, d), ("cross wq", d, H * hd),
+            ("cross wo", H * hd, d), ("w_up", d, f), ("w_down", f, d))]
+    proj = _projections(cfg)
+    if cfg.attention == "mla":
+        rd, vhd = cfg.mla_rope_dim, cfg.mla_v_head_dim or hd
+        out = [("wq_a", M, d, cfg.mla_q_rank, n),
+               ("wq_b", M, cfg.mla_q_rank, H * (hd + rd), n),
+               ("wkv_a", M, d, cfg.mla_kv_rank + rd, n),
+               ("wo", M, H * vhd, d, n)]
+    else:
+        out = [(nm, M, k, nn, n) for nm, k, nn in proj[:4]]
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        C = max(int(cfg.moe_capacity_factor * M * cfg.moe_top_k / E), 1)
+        out += [(f"expert {nm}", C, k, nn, n * E) for nm, k, nn in proj[4:]]
+    if not cfg.moe_experts or cfg.moe_dense_residual:
+        out += [(nm, M, k, nn, n) for nm, k, nn in proj[4:]]
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", M, d, cfg.vocab_padded, 1))
+    return out
+
+
+def whisper_encoder_products(cfg):
+    """(name, M, K, N, launches) of ``encode`` and ``build_cross_cache`` on
+    LM_BATCH utterances of ``enc_seq`` frames."""
+    d, f, M = cfg.d_model, cfg.d_ff, LM_BATCH * cfg.enc_seq
+    hd = cfg.n_heads * cfg.hd
+    return [("enc wq/wk/wv", M, d, hd, 3 * cfg.enc_layers),
+            ("enc wo", M, hd, d, cfg.enc_layers),
+            ("enc w_up", M, d, f, cfg.enc_layers),
+            ("enc w_down", M, f, d, cfg.enc_layers),
+            ("cross wk/wv", M, d, cfg.n_kv_heads * cfg.hd, 2 * cfg.n_layers)]
+
+
+def mma_shapes():
+    """The distinct (M, K, N) of the four configs' quantized products."""
+    shapes = []
+    for name in MMA_CONFIGS:
+        cfg = mma_config(name)
+        prods = mma_products(cfg) + (whisper_encoder_products(cfg)
+                                     if cfg.family == "audio" else [])
+        for _, m, k, n, _ in prods:
+            if (m, k, n) not in shapes:
+                shapes.append((m, k, n))
+    return shapes
+
+
+def whisper_encode(torch, np, B, cfg, tree, sums):
+    """``encode`` of LM_BATCH utterances of random frame embeddings, then
+    ``build_cross_cache``, on the card: 24 + 8 qmatmul launches (counted
+    into the eager path), finite outputs of the right shapes, their
+    CUDA-event ms.  Returns (frames, cross k/v, numbers)."""
+    from repro_torch.models import whisper
+
+    frames = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (LM_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+        device="cuda")
+    B.reset_launch_counts()
+    enc = whisper.encode(tree, frames, cfg)
+    n_enc = B.launch_counts["qmatmul"]
+    cross = whisper.build_cross_cache(tree, enc, cfg)
+    torch.cuda.synchronize()
+    counts = dict(B.launch_counts)
+    check(n_enc == WHISPER_ENC_QMM
+          and counts == {**{k: 0 for k in counts},
+                         "qmatmul": WHISPER_ENC_QMM + WHISPER_CROSS_QMM},
+          f"whisper encode + cross cache launches {counts} (encode {n_enc})")
+    for k, v in counts.items():
+        sums[MMA_PATHS[0]][k] += v
+    shape = (cfg.n_layers, LM_BATCH, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+    check(tuple(enc.shape) == (LM_BATCH, cfg.enc_seq, cfg.d_model)
+          and bool(torch.isfinite(enc.float()).all())
+          and all(tuple(cross[n].shape) == shape
+                  and bool(torch.isfinite(cross[n].float()).all())
+                  for n in ("k", "v")),
+          "whisper encoder output or cross k/v wrong shape or not finite")
+    res = {"encode_ms": cuda_ms(torch, lambda: whisper.encode(tree, frames,
+                                                              cfg), reps=5),
+           "cross_ms": cuda_ms(torch, lambda: whisper.build_cross_cache(
+               tree, enc, cfg), reps=5)}
+    log(f"{MMA_PATHS[0]} whisper encode: {LM_BATCH} x {cfg.enc_seq} frames, "
+        f"{cfg.enc_layers} layers, {WHISPER_ENC_QMM} qmatmul launches at M "
+        f"{LM_BATCH * cfg.enc_seq}: {res['encode_ms']:.3f} ms; cross k/v of "
+        f"{cfg.n_layers} layers, {WHISPER_CROSS_QMM} launches: "
+        f"{res['cross_ms']:.3f} ms")
+    return frames, cross, res
+
+
+def whisper_card_vs_cpu(torch, np, cfg, frames):
+    """whisper in full, float32 parameters drawn on the card, quantized
+    to w8 on the card and on the CPU (codes equal): the encoder output and
+    the cross k/v of the same frames within WHISPER_ENC_ULPS bf16 ulps at
+    the CPU tensor's largest magnitude (an absolute 0.0625 is two ulps of
+    an encoder output of 4 to 8), then MMA_CPU_STEPS decode steps on each
+    device's cross cache (:func:`decode_card_vs_cpu`).  Returns the
+    largest logit difference."""
+    from repro_torch.launch.steps import quantize_tree_for_serving
+    from repro_torch.models import whisper
+    from repro_torch.tree import tree_flatten, tree_map
+
+    params = whisper.init_params(torch.Generator(device="cuda").manual_seed(
+        1), cfg)
+    q = {"cuda": whisper.with_head_copy(quantize_tree_for_serving(params, 8),
+                                        cfg),
+         "cpu": whisper.with_head_copy(quantize_tree_for_serving(
+             tree_map(lambda t: t.cpu(), params), 8), cfg)}
+    for a, b in zip(tree_flatten(q["cuda"])[0], tree_flatten(q["cpu"])[0]):
+        check(torch.equal(a.cpu(), b), "whisper: w8 codes or scales differ "
+              "between card and CPU")
+    t0 = time.perf_counter()
+    enc = {dev: whisper.encode(q[dev], frames.to(dev), cfg)
+           for dev in ("cuda", "cpu")}
+    crosses = {dev: whisper.build_cross_cache(q[dev], enc[dev], cfg)
+               for dev in ("cuda", "cpu")}
+    pairs = {"encoder output": (enc["cuda"], enc["cpu"]),
+             **{f"cross {n}": (crosses["cuda"][n], crosses["cpu"][n])
+                for n in ("k", "v")}}
+    ulps = {}
+    for what, (card, cpu) in pairs.items():
+        cpu = cpu.float()
+        ulp = 2.0 ** (math.floor(math.log2(float(cpu.abs().max()))) - 7)
+        diff = float((card.float().cpu() - cpu).abs().max())
+        ulps[what] = (diff, diff / ulp)
+        check(diff <= WHISPER_ENC_ULPS * ulp, f"whisper {what}: card and CPU "
+              f"differ by {diff} ({diff / ulp} ulps)")
+    log(f"{MMA_PATHS[0]} whisper card vs CPU encode ({cfg.enc_layers} layers"
+        f", {LM_BATCH} x {cfg.enc_seq} frames, w8; "
+        f"{time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{k} within {d:.4g} ({u:.2f} ulps)"
+                    for k, (d, u) in ulps.items())
+        + f" (tolerance {WHISPER_ENC_ULPS} bf16 ulps at the CPU tensor's "
+        "largest magnitude)")
+    steps = MMA_CPU_STEPS[cfg.name]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab,
+                                               (LM_BATCH, steps))
+    return decode_card_vs_cpu(torch, f"{MMA_PATHS[0]} whisper-tiny", cfg,
+                              q["cuda"], q["cpu"], prompt, steps, crosses)
+
+
+def moe_mla_card_vs_cpu(torch, np, name):
+    """A full-width copy of MMA_CPU_LAYERS[name] layers at w8 on the card
+    and on the CPU.  MLA: float32 parameters drawn on the card and
+    quantized on both devices (:func:`card_vs_cpu`).  MoE: the serving
+    tree drawn on the card expert by expert and copied to the CPU, after
+    one expert bank quantized on both devices gave equal codes and
+    scales.  Returns the largest difference."""
+    from repro_torch.launch.steps import init_serving_params
+    from repro_torch.models import layers, lm
+    from repro_torch.tree import tree_map
+
+    cfg = mma_config(name, MMA_CPU_LAYERS[name])
+    steps = MMA_CPU_STEPS[name]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab,
+                                               (LM_BATCH, steps))
+    label = f"{MMA_PATHS[0]} {name}"
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if not cfg.moe_experts:
+        return card_vs_cpu(torch, label, cfg, lm.init_params(gen, cfg),
+                           prompt, steps)
+    w = torch.rand((cfg.d_model, cfg.d_ff), generator=gen, device="cuda")
+    for bits in (8, 4):
+        a = layers.quantize_dense_for_serving({"w": w}, bits)
+        b = layers.quantize_dense_for_serving({"w": w.cpu()}, bits)
+        check(all(torch.equal(a[k].cpu(), b[k]) for k in a),
+              f"{label}: an expert's w{bits} codes differ card vs CPU")
+    del w, a, b
+    q_dev = lm.with_head_copy(init_serving_params(gen, cfg, 8), cfg)
+    q_cpu = tree_map(lambda t: t.cpu(), q_dev)
+    return decode_card_vs_cpu(torch, label, cfg, q_dev, q_cpu, prompt,
+                              steps)
+
+
+def moe_mla_audio_path(torch, np, B, Q, KQ):
+    """grok-1-314b (4 of 64 layers) and arctic-480b (2 of 35) at full
+    width, minicpm3-4b and whisper-tiny at full size, each at w8 and w4
+    through ``generate``, eager and replayed; whisper on an utterance's
+    cross k/v from ``encode`` and ``build_cross_cache``.  Returns the
+    launch counts of the eager runs and of the replays, and the numbers
+    for the kernels line."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import init_serving_params, model_module
+
+    t_phase = time.perf_counter()
+    serve._GRAPHED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = time_family_qmatmul(torch, Q, KQ, mma_shapes())
+    sums = {p: {k: 0 for k in B.launch_counts} for p in MMA_PATHS}
+    report = {}
+    for name in MMA_CONFIGS:
+        cfg = mma_config(name)
+        mod = model_module(cfg)
+        products = mma_products(cfg)
+        per_step = sum(c for *_, c in products)
+        check(per_step == MMA_QMM_PER_STEP[name],
+              f"{name}: {per_step} quantized products a step")
+        size = (f"full width, cut to {cfg.n_layers} layers" if name in MMA_CUT
+                else "full size")
+        rep = {"qmatmul_per_step": per_step}
+        frames = None
+        for bits in (8, 4):
+            t0 = time.perf_counter()
+            tree = mod.with_head_copy(init_serving_params(
+                torch.Generator(device="cuda").manual_seed(0), cfg, bits),
+                cfg)
+            torch.cuda.synchronize()
+            log(f"{MMA_PATHS[0]} {name} w{bits}: {cfg.n_layers} layers "
+                f"({size}), d {cfg.d_model}, vocab {cfg.vocab} padded "
+                f"{cfg.vocab_padded}; serving tree drawn on the card in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (" (expert banks quantized one expert at a time)"
+                   if cfg.moe_experts else "")
+                + "; qmatmul a step: " + ", ".join(
+                    f"{p} ({m}x{k}x{n}) x{c}" for p, m, k, n, c in products)
+                + f" = {per_step}")
+            cross = None
+            if cfg.family == "audio":
+                frames, cross, enc = whisper_encode(torch, np, B, cfg, tree,
+                                                    sums)
+            res = family_serve(torch, np, B, name, cfg, tree, bits, per_step,
+                               sums, paths=MMA_PATHS, cross=cross)
+            if cfg.family == "audio":
+                res.update(enc)
+            res["qmm_timed_ms"] = sum(timing[(bits, m, k, n)]["ms"] * c
+                                      for _, m, k, n, c in products)
+            res["qmm_bound_ms"] = sum(timing[(bits, m, k, n)]["bound_ms"] * c
+                                      for _, m, k, n, c in products)
+            log(f"{MMA_PATHS[0]} {name} w{bits}: qmatmul over one step from "
+                f"the per-shape times {res['qmm_timed_ms']:.4f} ms against "
+                f"its bound {res['qmm_bound_ms']:.4f} ms ({per_step} "
+                "launches)")
+            rep[f"w{bits}"] = res
+            serve._GRAPHED.clear()
+            del tree, cross
+            gc.collect()
+            torch.cuda.empty_cache()
+        if cfg.family == "audio":
+            rep["cpu_check_max_abs"] = whisper_card_vs_cpu(torch, np, cfg,
+                                                           frames)
+        else:
+            rep["cpu_check_max_abs"] = moe_mla_card_vs_cpu(torch, np, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[name] = rep
+    for p, c in sums.items():
+        check(c["qmatmul"] > 0 and all(v == 0 for k, v in c.items()
+                                       if k != "qmatmul"),
+              f"path {p}: launches {c}")
+    log(f"{MMA_PATHS[0]}: launches eager {sums[MMA_PATHS[0]]}, replayed "
+        f"{sums[MMA_PATHS[1]]}; phase {time.perf_counter() - t_phase:.1f} s")
+    report["shapes"] = {f"w{b} {m}x{k}x{n}": v
+                        for (b, m, k, n), v in timing.items()}
+    return sums[MMA_PATHS[0]], sums[MMA_PATHS[1]], report
 
 
 # ---------------------------------------------------------------------------
@@ -4252,6 +4686,8 @@ def main() -> int:
     kernels.append(qmm)
     fam_counts, fam_graph_counts, qmm["lm_families"] = lm_families_path(
         torch, np, B, Q, KQ)
+    mma_counts, mma_graph_counts, qmm["moe_mla_audio"] = moe_mla_audio_path(
+        torch, np, B, Q, KQ)
     mv["lm_tiny_gemm_form"], tiny_counts, tiny_serve_counts = lm_tiny_path(
         torch, np, B, KM, ref, err)
     mv["max_abs_err"] = max(mv["max_abs_err"], err["mvau_int"])
@@ -4264,6 +4700,7 @@ def main() -> int:
              "lm_decode_graph": lm_graph_counts,
              "lm_families": fam_counts,
              "lm_families_graph": fam_graph_counts,
+             MMA_PATHS[0]: mma_counts, MMA_PATHS[1]: mma_graph_counts,
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
              "fsl_train": train_counts, "dse": dse_counts,
              "lm_train": lm_train_counts}
@@ -4282,10 +4719,11 @@ def main() -> int:
                   f"kernel {k['name']} never ran on the training or the "
                   f"DSE path: {by_path}")
         else:
-            # the recurrent-state and vision-language families, eager and
-            # replayed
-            check(by_path["lm_families"] > 0
-                  and by_path["lm_families_graph"] > 0,
+            # the recurrent-state and vision-language families, and MoE,
+            # MLA and the encoder-decoder, eager and replayed
+            check(all(by_path[p] > 0 for p in ("lm_families",
+                                               "lm_families_graph",
+                                               *MMA_PATHS)),
                   f"qmatmul never ran on the LM families' paths: {by_path}")
     # the integer MVAU's two routes: int8 wgmma, and the CUDA cores for
     # wider codes (grid_point(8, 8), the 16-bit Table II row)

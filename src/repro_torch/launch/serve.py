@@ -9,14 +9,25 @@ The port's counterpart of the JAX package's eager serving loop
     python -m repro_torch.launch.serve --arch mamba2-780m --reduced --bits 4 \\
         --device cpu
 
-``--arch`` takes every config of the dense, vision-language, SSM and
-hybrid families (qwen2.5-3b, qwen3-14b, phi3-medium-14b, qwen2-vl-7b,
-mamba2-780m, zamba2-7b).  At ``--bits 8`` or ``4`` every quantized
-product runs the qmatmul kernel on the card: 7 launches per attention
-block and step, 2 per Mamba2 block, 1 for an untied head.  On the card
+``--arch`` takes every LM config of the JAX package: the dense
+qwen2.5-3b, qwen3-14b, phi3-medium-14b and the MLA minicpm3-4b, the MoE
+grok-1-314b and arctic-480b, the vision-language qwen2-vl-7b, the SSM
+mamba2-780m, the hybrid zamba2-7b and the audio encoder-decoder
+whisper-tiny.  At ``--bits 8`` or ``4`` every quantized product runs the
+qmatmul kernel on the card: 7 launches per attention or MLA block and step
+(MLA's ``wkv_b`` is dequantized, not a launch), 4 per MoE block's
+attention and 3 per expert (every expert reads its capacity buffer, as in
+the reference) and 3 for arctic's dense residual, 2 per Mamba2 block, 8
+per whisper decoder block, 1 for an untied head.  MoE expert banks are
+drawn straight into codes (``steps.init_serving_params``).  On the card
 each step is one replay of the decode step captured as a CUDA graph
 (:class:`repro_torch.launch.steps.GraphedDecodeStep`, captured once per
 batch and cache length); on the CPU it runs eagerly.
+
+whisper-tiny runs the reference's loop as it is: the loop builds no cross
+cache, so its decoder attends to zero cross k/v (the reference's
+``init_cache``).  :func:`generate` takes ``cross=`` (from
+``whisper.build_cross_cache`` of an ``encode``) to decode an utterance.
 """
 
 from __future__ import annotations
@@ -33,9 +44,9 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import (
     GraphedDecodeStep,
+    init_serving_params,
     make_decode_step,
     model_module,
-    quantize_tree_for_serving,
 )
 from repro_torch.models.common import get_config
 
@@ -65,7 +76,7 @@ def graphed_step(params, cfg, batch: int, max_len: int,
 
 def generate(params, cfg, prompt, tokens: int, *,
              device: DeviceLike = None,
-             graph: Optional[bool] = None) -> torch.Tensor:
+             graph: Optional[bool] = None, cross=None) -> torch.Tensor:
     """Greedy generation: (B, P) prompt ids -> (B, tokens) int32 ids.
 
     The prompt is stepped through the cache one token at a time (the
@@ -74,7 +85,9 @@ def generate(params, cfg, prompt, tokens: int, *,
     are returned, as the reference returns them.  ``params`` must already
     lie on ``device`` (default: the card).  ``graph`` (default: on the
     card) replays the captured decode step; ``graph=False`` runs the eager
-    step.  The two give the same tokens.
+    step.  The two give the same tokens.  ``cross`` (whisper only) is
+    copied into the cache's cross k/v before the first step; without it
+    they stay zero, as in the reference's loop.
     """
     dev = resolve_device(device)
     mod = model_module(cfg)
@@ -88,13 +101,16 @@ def generate(params, cfg, prompt, tokens: int, *,
         graph = dev.type == "cuda"
     if graph:
         step = graphed_step(params, cfg, B, P + tokens + 1, dev)
-        step.reset()
+        step.reset(cross)
         for t in range(P):
             step.step(prompt[:, t:t + 1])
         return torch.cat([step.step().clone() for _ in range(tokens)], dim=1)
     params = mod.with_head_copy(params, cfg)
     cache = mod.init_cache(cfg, B, P + tokens + 1,
                            dtype=mod.compute_dtype(cfg), device=dev)
+    if cross is not None:
+        for name in ("k", "v"):
+            cache["cross"][name].copy_(cross[name])
     decode = make_decode_step(cfg)
     for t in range(P):
         tok, cache = decode(params, {"tokens": prompt[:, t:t + 1]}, cache)
@@ -127,9 +143,8 @@ def main(argv=None) -> torch.Tensor:
     dev = resolve_device(args.device)
     mod = model_module(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = mod.init_params(gen, cfg, device=dev)
+    params = init_serving_params(gen, cfg, args.bits, device=dev)
     if args.bits:
-        params = quantize_tree_for_serving(params, args.bits)
         sys.stdout.write(f"serving at w{args.bits} ("
                          f"{'packed int4' if args.bits == 4 else 'int8'} "
                          "weights)\n")

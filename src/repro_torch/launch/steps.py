@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.cudagraph import CapturedGraph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.compression import ef_compress_tree
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import not_ported, quantize_dense_for_serving
 from repro_torch.optim import adamw_update, clip_by_global_norm
@@ -36,9 +36,7 @@ Params = Any
 
 
 def model_module(cfg: ArchConfig):
-    if cfg.family == "audio":
-        raise not_ported("the audio family (whisper)", "encoder-decoder")
-    return lm
+    return whisper if cfg.family == "audio" else lm
 
 
 def train_dtype_policy(cfg: ArchConfig):
@@ -51,12 +49,15 @@ def train_dtype_policy(cfg: ArchConfig):
 
 
 def quantize_tree_for_serving(params: Params, bits: int) -> Params:
-    """Walk the param tree converting every dense 'w' (2-D+) to int codes.
+    """Walk the param tree converting every dense 'w' (2-D+) to int codes,
+    and every bare MoE expert bank (``w_gate``/``w_up``/``w_down`` of 3 or
+    more dims) likewise, per expert and output column, as the reference
+    does ("quantize expert banks too").
 
-    Norm gains, biases and the embedding table stay float (the table is
-    gather-indexed, and the tied head reads it in the compute dtype).  Bare
-    MoE expert banks, which the reference quantizes too, belong to a later
-    slice of the port and raise here.
+    Norm gains, biases, learned positions and the embedding table stay
+    float (the table is gather-indexed, and the tied head reads it in the
+    compute dtype).  A tree whose banks are already codes
+    (:func:`init_serving_params`) passes through unchanged there.
     """
     def walk(tree, path=()):
         if isinstance(tree, dict):
@@ -66,12 +67,26 @@ def quantize_tree_for_serving(params: Params, bits: int) -> Params:
                 return quantize_dense_for_serving(tree, bits)
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if path and path[-1] in ("w_gate", "w_up", "w_down") \
-                and getattr(tree, "ndim", 0) >= 3:
-            raise not_ported("serving quantization of MoE expert banks",
-                             "moe")
+                and isinstance(tree, torch.Tensor) and tree.ndim >= 3:
+            return quantize_dense_for_serving({"w": tree}, bits)
         return tree
 
     return walk(params)
+
+
+def init_serving_params(gen: torch.Generator, cfg: ArchConfig, bits: int,
+                        device: DeviceLike = None) -> Params:
+    """``quantize_tree_for_serving(init_params(gen, cfg, device), bits)``
+    (``init_params`` alone at bits 0), with MoE expert banks quantized one
+    expert at a time as they are drawn: the same draws and the same codes,
+    without a layer's float banks on the device at once (19.3 GB for a
+    grok-1 layer, 53.6 GB for arctic's)."""
+    mod = model_module(cfg)
+    if bits and cfg.moe_experts:
+        params = mod.init_params(gen, cfg, device, expert_bits=bits)
+    else:
+        params = mod.init_params(gen, cfg, device)
+    return quantize_tree_for_serving(params, bits) if bits else params
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +200,14 @@ class GraphedDecodeStep:
     tensor (the advanced lengths) back into the static cache, and writes
     the greedy next tokens into :attr:`tokens`; :attr:`logits` holds the
     step's (B, V) logits until the next replay.  Any family's cache tree
-    works: ``attn``, ``mamba`` and ``shared``.  The graph is captured
-    once, after eager warm-up steps on the capture's side stream;
-    :meth:`reset` empties the cache for a new generation.  :attr:`graph` is the :class:`CapturedGraph` (its launch
-    record, replays and ``pool_bytes``: the memory its private pool
-    reserved at capture)."""
+    works: ``attn`` (k/v or MLA's latent), ``mamba`` and ``shared``, and
+    whisper's ``self`` and ``cross``.  The graph is captured once, after
+    eager warm-up steps on the capture's side stream; :meth:`reset`
+    empties the cache for a new generation (whisper: a new utterance,
+    whose cross k/v it copies into the captured cross leaves).
+    :attr:`graph` is the :class:`CapturedGraph` (its launch record,
+    replays and ``pool_bytes``: the memory its private pool reserved at
+    capture)."""
 
     def __init__(self, params: Params, cfg: ArchConfig, batch: int,
                  max_len: int, device: DeviceLike = None):
@@ -219,10 +237,16 @@ class GraphedDecodeStep:
         (self.logits,) = self.graph.outputs
         self.reset()
 
-    def reset(self) -> None:
-        """Empty the cache: zero every leaf (k, v, SSM state, lengths)."""
+    def reset(self, cross: Optional[Params] = None) -> None:
+        """Empty the cache: zero every leaf (k, v, SSM state, lengths, a
+        previous utterance's cross k/v).  ``cross`` (whisper's
+        ``build_cross_cache`` output, {"k", "v"} of the cross leaves'
+        shapes) is then copied into the cross leaves in place."""
         for t in tree_flatten(self.cache)[0]:
             t.zero_()
+        if cross is not None:
+            for name in ("k", "v"):
+                self.cache["cross"][name].copy_(cross[name])
         self.position = 0
 
     def step(self, tokens: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -4,8 +4,10 @@ PyTorch-port copy of the JAX package's ``models/common.py``: the same
 :class:`ArchConfig` fields and derived sizes, so a config file reads the
 same in both packages.  Every ``repro_torch/configs/<id>.py`` instantiates
 it and registers itself on import; :func:`get_config` imports
-``repro_torch.configs.<id>`` on first use.  The port builds the ``dense``,
-``vlm``, ``ssm`` and ``hybrid`` families (:mod:`repro_torch.models.lm`).
+``repro_torch.configs.<id>`` on first use.  The port builds every family:
+``dense`` (with MLA attention), ``moe``, ``vlm``, ``ssm`` and ``hybrid``
+in :mod:`repro_torch.models.lm`, ``audio`` in
+:mod:`repro_torch.models.whisper`.
 """
 
 from __future__ import annotations
@@ -163,19 +165,15 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-# the JAX package's configs whose families the port does not build yet
-UNPORTED = ("arctic-480b", "grok-1-314b", "minicpm3-4b", "whisper-tiny")
+# the JAX package's configs the port does not build: none since the MoE,
+# MLA and audio families were ported
+UNPORTED: tuple = ()
 
 
 def get_config(name: str) -> ArchConfig:
-    """The registered config ``name``; configs register on import.  A
-    config of the JAX package whose family is not ported yet raises
-    ``not_ported``; a name neither package knows raises ``KeyError``."""
+    """The registered config ``name``; configs register on import.  A name
+    the port does not know raises ``KeyError``."""
     if name not in _REGISTRY:
-        if name in UNPORTED:
-            from repro_torch.models.layers import not_ported
-            raise not_ported(f"config {name!r}",
-                             "LM families and their configs")
         import importlib
         mod = name.replace("-", "_").replace(".", "_")
         full = f"repro_torch.configs.{mod}"

@@ -1,6 +1,7 @@
-"""Model building blocks of the LM: the PyTorch port of the JAX package's
-``models/layers.py`` for the dense, vision-language, SSM and hybrid
-decoder families.
+"""Model building blocks of the LMs: the PyTorch port of the JAX package's
+``models/layers.py`` for every family (dense, MLA, MoE, vision-language,
+SSM, hybrid, and the audio encoder-decoder's LayerNorm and
+cross-attention).
 
 Params are plain dict trees of tensors, as in the reference.  Every linear
 layer routes through :func:`dense`, which applies the paper's fixed-point
@@ -14,12 +15,15 @@ the compute dtype (``dense`` casts to its ``dtype``, bf16 by default, and
 the attention and MLP blocks never pass another), the bias is added in
 bf16, RoPE and M-RoPE rotate interleaved pairs ``x[..., 0::2]``/``x[...,
 1::2]``, and attention scores and softmax are float32.  A decode step
-writes its cache in place: the k/v rows at ``len``, and Mamba2's conv and
-SSM state (the reference's jitted step donates them), so one captured CUDA
-graph replays the step.
+writes its cache in place: the k/v rows at ``len``, MLA's latent and
+rope-key rows, and Mamba2's conv and SSM state (the reference's jitted
+step donates them), so one captured CUDA graph replays the step.
 
-Not in this slice of the port: cross-attention, MLA and MoE.  The branches
-that would reach them raise ``NotImplementedError``.
+Serving codes reach two functions that the reference cannot run on them
+(its ``moe`` and ``mla_attention`` fail on the tree its own
+``quantize_tree_for_serving`` makes): an expert bank of codes runs each
+expert's products through :func:`dense` (``qmatmul`` in bf16), and MLA's
+``wkv_b`` is dequantized for its two einsums.
 """
 
 from __future__ import annotations
@@ -40,8 +44,7 @@ Params = Dict[str, torch.Tensor]
 def not_ported(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it waits for the {slice_} slice of the "
-        "PyTorch port (repro_torch builds the dense, vision-language, SSM "
-        "and hybrid LM families so far)")
+        "PyTorch port")
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
@@ -142,6 +145,21 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * p["g"]).to(x.dtype)
+
+
+def layernorm_init(d: int, stack: Tuple[int, ...] = (),
+                   device: torch.device = torch.device("cpu")) -> Params:
+    return {"g": torch.ones((*stack, d), dtype=torch.float32, device=device),
+            "b": torch.zeros((*stack, d), dtype=torch.float32, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (mean, then the mean square of the centred
+    values), cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -310,40 +328,49 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
               positions3: Optional[torch.Tensor] = None,
               wspec: Optional[FixedPointSpec] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA self-attention.  Modes:
+    """GQA attention.  Modes:
 
     * train/prefill: ``cache`` is None (full sequence); returns (out, None);
     * prefill with a cache dict: fills the cache, returns (out, cache);
     * decode: x is (B, 1, d); the cache holds k, v (B, Smax, KV, hd) and a
-      0-d ``len``; positions at ``len`` and beyond are masked.
+      0-d ``len``; positions at ``len`` and beyond are masked;
+    * cross-attention: k and v from ``kv_source`` (B, Senc, d), not
+      rotated; or, with a cache that has no ``len`` (whisper's decode),
+      q alone against the cache's precomputed k and v.
 
     ``cfg.pos == "mrope"`` rotates q and k by ``positions3`` (3, B, S).  A
-    causal sequence longer than twice ``cfg.prefill_chunk`` and a multiple
-    of it runs :func:`_chunked_sdpa`, as in the reference.
+    causal self-attention longer than twice ``cfg.prefill_chunk`` and a
+    multiple of it runs :func:`_chunked_sdpa`, as in the reference.
 
     The cache's ``k`` and ``v`` are written in place at ``len`` (the
     reference's jitted step donates them), and the returned cache holds the
     same tensors with ``len + S``.
     """
-    if kv_source is not None or (cache is not None and "len" not in cache):
-        raise not_ported("cross-attention", "encoder-decoder (whisper)")
     B, S, _ = x.shape
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q = dense(p["wq"], x, wspec).reshape(B, S, H, hd)
-    k = dense(p["wk"], x, wspec).reshape(B, S, KV, hd)
-    v = dense(p["wv"], x, wspec).reshape(B, S, KV, hd)
+    if cache is not None and "len" not in cache:
+        # pure cross-attention against a precomputed KV cache
+        out = _sdpa(q, cache["k"], cache["v"], causal=False)
+        return dense(p["wo"], out.reshape(B, S, H * hd), wspec), None
+
+    src = x if kv_source is None else kv_source
+    Skv = src.shape[1]
+    k = dense(p["wk"], src, wspec).reshape(B, Skv, KV, hd)
+    v = dense(p["wv"], src, wspec).reshape(B, Skv, KV, hd)
     if "q_norm" in p:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos == "mrope":
-        q = apply_mrope(q, positions3, cfg.rope_theta)
-        k = apply_mrope(k, positions3, cfg.rope_theta)
+    if kv_source is None:               # rope applies to self-attention only
+        if cfg.pos == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        elif cfg.pos == "mrope":
+            q = apply_mrope(q, positions3, cfg.rope_theta)
+            k = apply_mrope(k, positions3, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_source is None:
         idx = cache["len"]
         rows = idx.to(torch.int64) + torch.arange(S, device=x.device)
         cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
@@ -357,12 +384,117 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
             w = torch.softmax(scores, dim=-1)
             out = _gqa_mix(w, v).to(x.dtype)
             return dense(p["wo"], out.reshape(B, 1, H * hd), wspec), new_cache
+    elif cache is not None:
+        # cross-attention with a cache that has a length: its k and v, as
+        # the reference reads them (the projections above go unused)
+        k, v = cache["k"], cache["v"]
 
     if causal and S > 2 * cfg.prefill_chunk and S % cfg.prefill_chunk == 0:
         out = _chunked_sdpa(q, k, v, cfg.prefill_chunk, causal=True)
     else:
-        out = _sdpa(q, k, v, causal=causal)
+        out = _sdpa(q, k, v, causal=causal and kv_source is None)
     return dense(p["wo"], out.reshape(B, S, H * hd), wspec), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (MiniCPM3 / DeepSeek-style)
+# ---------------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg, stack: Tuple[int, ...] = (),
+             device: torch.device = torch.device("cpu")) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    hd, rd = cfg.hd, cfg.mla_rope_dim
+    vhd = cfg.mla_v_head_dim or hd
+    qr, kvr = cfg.mla_q_rank, cfg.mla_kv_rank
+    kw = dict(stack=stack, device=device)
+    return {"wq_a": dense_init(gen, d, qr, **kw),
+            "q_a_norm": rmsnorm_init(qr, **kw),
+            "wq_b": dense_init(gen, qr, H * (hd + rd), **kw),
+            "wkv_a": dense_init(gen, d, kvr + rd, **kw),
+            "kv_a_norm": rmsnorm_init(kvr, **kw),
+            "wkv_b": dense_init(gen, kvr, H * (hd + vhd), **kw),
+            "wo": dense_init(gen, H * vhd, d, **kw)}
+
+
+def dense_weight(p: Params) -> torch.Tensor:
+    """A dense leaf's weight matrix as float: ``w``, or serving codes
+    (int4 unpacked) times their per-column scale, in float32."""
+    if "w_codes" not in p:
+        return p["w"]
+    codes, scale = p["w_codes"], p["w_scale"]
+    if codes.shape[-1] != scale.shape[-1]:
+        codes = unpack_int4(codes)
+    return codes.to(torch.float32) * scale[..., None, :]
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  *, cache: Optional[Params] = None, wspec=None
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA with the compressed cache (the latent ``c_kv`` and the shared
+    rope key ``k_pe``).
+
+    Prefill and training use the expanded form (k and v rebuilt from the
+    latent, v padded to q's width and sliced back); decode the absorbed
+    form: q is projected into the latent space, so attention reads the
+    (B, S, kv_rank) cache with no per-step expansion.  The decode writes
+    its ``c_kv`` and ``k_pe`` rows in place at the cache's length.  A
+    quantized ``wkv_b`` is dequantized (:func:`dense_weight`) for the two
+    einsums that read it.
+    """
+    B, S, _ = x.shape
+    H, hd, rd = cfg.n_heads, cfg.hd, cfg.mla_rope_dim
+    vhd = cfg.mla_v_head_dim or hd
+    kvr = cfg.mla_kv_rank
+    scale = 1.0 / math.sqrt(hd + rd)
+    f32 = torch.float32
+
+    q = dense(p["wq_b"], rmsnorm(p["q_a_norm"], dense(p["wq_a"], x, wspec)),
+              wspec).reshape(B, S, H, hd + rd)
+    q_nope = q[..., :hd]
+    q_pe = apply_rope(q[..., hd:], positions, cfg.rope_theta)
+
+    kv_a = dense(p["wkv_a"], x, wspec)                       # (B, S, kvr + rd)
+    c_kv = rmsnorm(p["kv_a_norm"], kv_a[..., :kvr])          # the latent
+    k_pe = apply_rope(kv_a[..., kvr:].reshape(B, S, 1, rd), positions,
+                      cfg.rope_theta)                        # shared by heads
+
+    w_kv_b = dense_weight(p["wkv_b"]).reshape(kvr, H, hd + vhd)
+    w_uk, w_uv = w_kv_b[..., :hd].to(f32), w_kv_b[..., hd:].to(f32)
+
+    def write(c):
+        idx = c["len"]
+        rows = idx.to(torch.int64) + torch.arange(S, device=x.device)
+        c["c_kv"].index_copy_(1, rows, c_kv.to(c["c_kv"].dtype))
+        c["k_pe"].index_copy_(1, rows, k_pe[:, :, 0].to(c["k_pe"].dtype))
+        return {"c_kv": c["c_kv"], "k_pe": c["k_pe"], "len": idx + S}
+
+    if cache is not None and S == 1:                # absorbed decode
+        new_cache = write(cache)
+        cc, cp = cache["c_kv"].to(f32), cache["k_pe"].to(f32)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(f32), w_uk)
+        s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat, cc)
+        s_pe = torch.einsum("bqhd,bkd->bhqk", q_pe.to(f32), cp)
+        s = (s_nope + s_pe) * scale
+        valid = torch.arange(cc.shape[1], device=x.device) < (cache["len"]
+                                                              + 1)
+        w = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
+        ctx = torch.einsum("bhqk,bkr->bqhr", w, cc)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+        y = dense(p["wo"], out.reshape(B, 1, H * vhd).to(x.dtype), wspec)
+        return y, new_cache
+
+    # expanded prefill / train path
+    k_nope = torch.einsum("bkr,rhd->bkhd", c_kv.to(f32), w_uk).to(x.dtype)
+    v = torch.einsum("bkr,rhv->bkhv", c_kv.to(f32), w_uv).to(x.dtype)
+    k = torch.cat([k_nope, k_pe.expand(B, S, H, rd)], dim=-1)
+    qfull = torch.cat([q_nope, q_pe], dim=-1)
+    vpad = torch.nn.functional.pad(v, (0, hd + rd - vhd))
+    if S > 2 * cfg.prefill_chunk and S % cfg.prefill_chunk == 0:
+        out = _chunked_sdpa(qfull, k, vpad, cfg.prefill_chunk)[..., :vhd]
+    else:
+        out = _sdpa(qfull, k, vpad, causal=True)[..., :vhd]
+    y = dense(p["wo"], out.reshape(B, S, H * vhd), wspec)
+    # a prefill fills the compressed cache
+    return y, (None if cache is None else write(cache))
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +592,137 @@ def mlp(p: Params, x: torch.Tensor, act: str = "swiglu", wspec=None,
         h = gelu_tanh(dense(p["w_up"], x, wspec))
     h = fake_quant(h, aspec)
     return dense(p["w_down"], h, wspec)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-based dropping dispatch)
+# ---------------------------------------------------------------------------
+def _expert_bank(gen: torch.Generator, lead: Tuple[int, ...], k: int, n: int,
+                 lim: float, device: torch.device, bits: int):
+    """A (*lead, k, n) bank of uniform(-lim, lim) weights, drawn one (k, n)
+    expert at a time.  With ``bits`` (8 or 4) each expert is quantized as
+    it is drawn (:func:`quantize_dense_for_serving`'s rule) into stacked
+    codes and scales, so no float bank of a layer exists whole; the draws
+    are the same either way."""
+    count = math.prod(lead)
+    if not bits:
+        out = torch.empty((count, k, n), dtype=torch.float32, device=device)
+        for i in range(count):
+            out[i] = _uniform(gen, (k, n), -lim, lim, device)
+        return out.reshape(*lead, k, n)
+    codes = torch.empty((count, k, n // 2 if bits == 4 else n),
+                        dtype=torch.int8, device=device)
+    scale = torch.empty((count, n), dtype=torch.float32, device=device)
+    for i in range(count):
+        q = quantize_dense_for_serving(
+            {"w": _uniform(gen, (k, n), -lim, lim, device)}, bits)
+        codes[i], scale[i] = q["w_codes"], q["w_scale"]
+    return {"w_codes": codes.reshape(*lead, *codes.shape[1:]),
+            "w_scale": scale.reshape(*lead, n)}
+
+
+def moe_init(gen: torch.Generator, cfg, stack: Tuple[int, ...] = (),
+             device: torch.device = torch.device("cpu"),
+             bits: int = 0) -> Params:
+    """The router, the stacked expert banks ``w_gate``/``w_up`` (E, d, f)
+    and ``w_down`` (E, f, d), uniform in ±1/sqrt(fan-in), and arctic's
+    dense residual MLP.  ``bits`` stores the banks as serving codes
+    (:func:`_expert_bank`)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    lead = (*stack, E)
+    p = {"router": dense_init(gen, d, E, stack=stack, device=device),
+         "w_gate": _expert_bank(gen, lead, d, f, 1 / math.sqrt(d), device,
+                                bits),
+         "w_up": _expert_bank(gen, lead, d, f, 1 / math.sqrt(d), device,
+                              bits),
+         "w_down": _expert_bank(gen, lead, f, d, 1 / math.sqrt(f), device,
+                                bits)}
+    if cfg.moe_dense_residual:
+        p["dense_mlp"] = mlp_init(gen, d, f, cfg.act, stack, device)
+    return p
+
+
+def moe_route(p: Params, flat: torch.Tensor, cfg):
+    """(probs (T, E), gate values (T, k), expert ids (T, k)): the float32
+    router (``dense`` in float32, on codes too), its softmax, the k largest
+    probabilities in descending order with ties to the lower expert id
+    (``jax.lax.top_k``'s order, from a stable descending sort), and the
+    gates renormalised to sum to one."""
+    logits = dense(p["router"], flat, None, dtype=torch.float32)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    gates = vals[:, :k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, idx[:, :k]
+
+
+def _expert(bank: Params, e: int) -> Params:
+    return {"w_codes": bank["w_codes"][e], "w_scale": bank["w_scale"][e]}
+
+
+def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, the Switch load-balance aux loss).
+
+    Sort-free capacity dispatch, as the reference: each (token, choice)
+    gets its rank within its expert from a one-hot cumulative sum; ranks
+    past the capacity ``C = max(int(capacity_factor * T * k / E), 1)`` (a
+    Python int fixed by the shape) go to the overflow row ``C`` as zeros
+    and are sliced away, so their writes may land in any order.  No step
+    reads a value on the host, so a CUDA graph captures it.
+
+    Float banks (bits 0, training) run the experts as batched einsums;
+    banks of serving codes run each expert's three products through
+    :func:`dense` on its codes (``qmatmul`` in bf16, the float32 codes
+    product in float32).
+    """
+    B, S, d = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    C = max(int(cfg.moe_capacity_factor * T * k / E), 1)
+    flat = x.reshape(T, d)
+    cd = x.dtype
+
+    probs, gates, idx = moe_route(p, flat, cfg)
+    experts = torch.arange(E, device=x.device)
+    me = (idx[:, :1] == experts).to(torch.float32).mean(0)
+    aux = E * torch.sum(me * probs.mean(0))
+
+    ids = idx.reshape(T * k)
+    one = (ids[:, None] == experts).to(torch.int32)             # (Tk, E)
+    pos = ((torch.cumsum(one, 0) - one) * one).sum(-1)          # rank
+    keep = pos < C
+    pos_c = torch.where(keep, pos, C)                           # C: overflow
+    tok = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
+    buf = torch.zeros((E, C + 1, d), dtype=cd, device=x.device)
+    buf.index_put_((ids, pos_c), flat[tok] * keep[:, None].to(cd))
+    buf = buf[:, :C]
+
+    if isinstance(p["w_gate"], dict):               # serving codes
+        outs = []
+        for e in range(E):
+            be = buf[e]
+            h = silu(dense(_expert(p["w_gate"], e), be, dtype=cd)) \
+                * dense(_expert(p["w_up"], e), be, dtype=cd)
+            outs.append(dense(_expert(p["w_down"], e), fake_quant(h, aspec),
+                              dtype=cd))
+        out_buf = torch.stack(outs)
+    else:
+        wg, wu, wd = (fake_quant(p[n], wspec) if wspec else p[n]
+                      for n in ("w_gate", "w_up", "w_down"))
+        h = silu(torch.einsum("ecd,edf->ecf", buf, wg.to(cd))) \
+            * torch.einsum("ecd,edf->ecf", buf, wu.to(cd))
+        out_buf = torch.einsum("ecf,efd->ecd", fake_quant(h, aspec),
+                               wd.to(cd))
+    out_buf = torch.cat([out_buf, torch.zeros((E, 1, d), dtype=cd,
+                                              device=x.device)], dim=1)
+    weighted = out_buf[ids, pos_c] * (gates.reshape(T * k, 1).to(cd)
+                                      * keep[:, None].to(cd))
+    y = weighted.reshape(T, k, d).sum(1)
+    if "dense_mlp" in p:            # arctic's parallel dense residual branch
+        y = y + mlp(p["dense_mlp"], flat, cfg.act, wspec, aspec)
+    return y.reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Decoder LM of the dense, vision-language, SSM and hybrid families: the
-PyTorch port of the JAX package's ``models/lm.py``.
+"""Decoder LM of the dense (GQA or MLA attention), MoE, vision-language, SSM
+and hybrid families: the PyTorch port of the JAX package's
+``models/lm.py``.
 
 Entry points (functions of (params, batch), as in the reference):
 
@@ -9,9 +10,11 @@ Entry points (functions of (params, batch), as in the reference):
   ``shared_block``), the reference's layout, so a JAX tree carried across
   with :func:`repro_torch.convert.params_from_numpy` runs unchanged.  The
   reference scans over the stacked leaves; the port loops over layers in
-  Python.
-* ``forward(params, batch, cfg)`` — full-sequence logits (and a zero aux
-  loss, the reference's MoE slot).  A vision-language batch may carry
+  Python.  ``expert_bits`` draws MoE expert banks straight into serving
+  codes (see :func:`repro_torch.launch.steps.init_serving_params`).
+* ``forward(params, batch, cfg)`` — full-sequence logits and the MoE
+  load-balance aux loss summed over layers (zero without MoE).  A
+  vision-language batch may carry
   ``patch_embeds``, a prefix of precomputed patch embeddings.  With
   ``cfg.remat`` and gradients enabled every block is recomputed in the
   backward (``torch.utils.checkpoint``), as the reference's
@@ -21,18 +24,19 @@ Entry points (functions of (params, batch), as in the reference):
   ``launch.steps.make_train_step`` differentiates.
 * ``prefill(params, batch, cfg)`` — last-position logits only.
 * ``init_cache(cfg, B, max_len, dtype, device)`` — the decode cache: KV
-  for attention blocks (``attn``), conv and SSM state for Mamba2 blocks
+  for attention blocks (``attn``; MLA's latent ``c_kv`` and rope key
+  ``k_pe`` instead), conv and SSM state for Mamba2 blocks
   (``mamba``), KV for each invocation of the hybrid's shared block
   (``shared``).
 * ``decode_step(params, tokens, cache, cfg)`` — one new token for every
-  sequence; the cache's k/v rows and SSM state are written in place.
+  sequence; the cache's k/v (or latent) rows and SSM state are written in
+  place.
 * ``export_decode_graph`` / ``export_prefill_graph`` — the dense decode
   step and the whole-prompt forward as core Graphs for
   ``repro_torch.compile(..., recipe="lm-decode")``, ``decode_step_ref``
   their eager mirror, bit for bit with the compiled artifact.
 
-MoE, MLA and the audio family wait for later slices of the port and raise
-``NotImplementedError``.
+The audio encoder-decoder (whisper) is :mod:`repro_torch.models.whisper`.
 """
 
 from __future__ import annotations
@@ -63,17 +67,8 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    """Raise for what the port does not build yet: MoE, MLA and the audio
-    family (whisper)."""
-    if cfg.family == "audio":
-        raise L.not_ported("the audio family (whisper)",
-                           "encoder-decoder (whisper)")
-    if cfg.attention == "mla":
-        raise L.not_ported("MLA attention", "MLA (minicpm3)")
-    if cfg.moe_experts:
-        raise L.not_ported("MoE layers", "moe")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+def _require_family(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -95,23 +90,32 @@ def _layer_kinds(cfg: ArchConfig) -> List[str]:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _attn_block_init(gen: torch.Generator, cfg: ArchConfig, stack, dev
-                     ) -> Params:
-    return {"ln1": L.rmsnorm_init(cfg.d_model, stack, dev),
-            "ln2": L.rmsnorm_init(cfg.d_model, stack, dev),
-            "attn": L.attn_init(gen, cfg, stack, dev),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, stack,
-                              dev)}
+def _attn_block_init(gen: torch.Generator, cfg: ArchConfig, stack, dev,
+                     expert_bits: int = 0) -> Params:
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, stack, dev),
+         "ln2": L.rmsnorm_init(cfg.d_model, stack, dev)}
+    if cfg.attention == "mla":
+        p["attn"] = L.mla_init(gen, cfg, stack, dev)
+    else:
+        p["attn"] = L.attn_init(gen, cfg, stack, dev)
+    if cfg.moe_experts:
+        p["moe"] = L.moe_init(gen, cfg, stack, dev, bits=expert_bits)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, stack,
+                              dev)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, *,
+                expert_bits: int = 0) -> Params:
     """Embedding N(0, 0.02), RMSNorm gains 1, dense weights uniform in
-    ±1/sqrt(d_in), zero biases, Mamba2 blocks as ``layers.mamba_init``:
-    the reference's distributions.  The draws come from ``gen`` on its own
-    device (a CUDA generator draws the full model on the card), then move
-    to ``device`` (default: the card)."""
-    _require_ported(cfg)
+    ±1/sqrt(d_in), zero biases, MoE banks as ``layers.moe_init``, Mamba2
+    blocks as ``layers.mamba_init``: the reference's distributions.  The
+    draws come from ``gen`` on its own device (a CUDA generator draws the
+    full model on the card), then move to ``device`` (default: the card).
+    ``expert_bits`` (8 or 4) stores each MoE expert bank as serving codes,
+    quantized one expert at a time as it is drawn; the rest stays float."""
     dev = resolve_device(device)
     d = cfg.d_model
     embed = torch.randn((cfg.vocab_padded, d), generator=gen,
@@ -123,7 +127,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     kinds = _layer_kinds(cfg)
     n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
     if n_attn:
-        p["blocks"] = _attn_block_init(gen, cfg, (n_attn,), dev)
+        p["blocks"] = _attn_block_init(gen, cfg, (n_attn,), dev,
+                                       expert_bits)
     if n_mamba:
         p["mamba_blocks"] = {
             "ln": L.rmsnorm_init(d, (n_mamba,), dev),
@@ -149,26 +154,43 @@ def _stacked_views(tree: Params) -> List[Params]:
 # ---------------------------------------------------------------------------
 def _attn_half(p: Params, x: torch.Tensor, cfg: ArchConfig,
                positions: torch.Tensor, cache=None, positions3=None):
-    """The block's attention branch: (its output, the new cache); the
-    reference names the output ``attn_out``."""
+    """The block's attention branch (GQA or MLA): (its output, the new
+    cache); the reference names the output ``attn_out``."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.attention == "mla":
+        return L.mla_attention(p["attn"], h, cfg, positions, cache=cache,
+                               wspec=_wspec(cfg))
     return L.attention(p["attn"], h, cfg, positions, cache=cache,
                        positions3=positions3, wspec=_wspec(cfg))
 
 
-def _mlp_half(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The block's MLP branch, its output on the activation grid; the
-    reference names it ``mlp_out``."""
+def _mlp_half(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """The block's MLP (or MoE) branch: its output on the activation grid,
+    which the reference names ``mlp_out``, and the MoE aux loss (None for
+    an MLP)."""
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    m = L.mlp(p["mlp"], h, cfg.act, _wspec(cfg), _aspec(cfg))
-    return fake_quant(m, _aspec(cfg))
+    if cfg.moe_experts:
+        m, aux = L.moe(p["moe"], h, cfg, _wspec(cfg), _aspec(cfg))
+    else:
+        m, aux = L.mlp(p["mlp"], h, cfg.act, _wspec(cfg), _aspec(cfg)), None
+    return fake_quant(m, _aspec(cfg)), aux
+
+
+def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor, cache=None, positions3=None):
+    """(output, MoE aux or None, new cache): the reference's
+    ``_attn_block``."""
+    a, new_cache = _attn_half(p, x, cfg, positions, cache, positions3)
+    x = x + a
+    m, aux = _mlp_half(p, x, cfg)
+    return x + m, aux, new_cache
 
 
 def _attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, cache=None, positions3=None):
-    a, new_cache = _attn_half(p, x, cfg, positions, cache, positions3)
-    x = x + a
-    return x + _mlp_half(p, x, cfg), new_cache
+    """:func:`_block` without the aux loss: (output, new cache)."""
+    y, _, new_cache = _block(p, x, cfg, positions, cache, positions3)
+    return y, new_cache
 
 
 def _mamba_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None):
@@ -188,19 +210,20 @@ def _checkpoint(fn, *args):
 
 def _remat_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, positions3=None,
-                 policy: str = "") -> torch.Tensor:
+                 policy: str = ""):
     """One block with activation checkpointing, the reference's ``_remat``:
     the whole block recomputed in the backward, or with ``policy ==
     "tp_outputs"`` the attention and MLP branches recomputed separately,
     so their outputs (``attn_out``, ``mlp_out``) are the saved tensors.
-    The ops are ``_attn_block``'s, so the values and gradients are the
-    same bits as without remat."""
+    The ops are ``_block``'s, so the values and gradients are the same
+    bits as without remat.  Returns (output, MoE aux or None)."""
     if policy == "tp_outputs":
         x = x + _checkpoint(lambda t: _attn_half(
             p, t, cfg, positions, positions3=positions3)[0], x)
-        return x + _checkpoint(lambda t: _mlp_half(p, t, cfg), x)
-    return _checkpoint(lambda t: _attn_block(
-        p, t, cfg, positions, positions3=positions3)[0], x)
+        m, aux = _checkpoint(lambda t: _mlp_half(p, t, cfg), x)
+        return x + m, aux
+    return _checkpoint(lambda t: _block(
+        p, t, cfg, positions, positions3=positions3)[:2], x)
 
 
 def _run_mamba(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -279,7 +302,7 @@ def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
             x = _run_mamba(bp, x, cfg, remat)
         consumed += run
         if remat:
-            x = _remat_block(sp, x, cfg, positions)
+            x, _ = _remat_block(sp, x, cfg, positions)
         else:
             x, _ = _attn_block(sp, x, cfg, positions)
     for bp in mblocks[consumed:]:
@@ -288,13 +311,16 @@ def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _trunk(params: Params, batch: Dict[str, torch.Tensor],
-           cfg: ArchConfig) -> torch.Tensor:
-    _require_ported(cfg)
+           cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocks' output before the final norm, and the MoE aux loss
+    summed over layers (a float32 zero without MoE)."""
+    _require_family(cfg)
     x = _embed_batch(params, batch, cfg)
     B, S, _ = x.shape
     positions = _positions_for(batch, S, B, x.device)
     positions3 = _positions3_for(batch, cfg, positions)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for bp in _stacked_views(params["mamba_blocks"]):
             x = _run_mamba(bp, x, cfg, remat)
@@ -303,22 +329,22 @@ def _trunk(params: Params, batch: Dict[str, torch.Tensor],
     else:
         for bp in _stacked_views(params["blocks"]):
             if remat:
-                x = _remat_block(bp, x, cfg, positions, positions3,
-                                 cfg.remat_policy)
+                x, aux = _remat_block(bp, x, cfg, positions, positions3,
+                                      cfg.remat_policy)
             else:
-                x, _ = _attn_block(bp, x, cfg, positions,
+                x, aux, _ = _block(bp, x, cfg, positions,
                                    positions3=positions3)
-    return x
+            if aux is not None:
+                aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux loss); aux is the reference's MoE slot, zero for
-    the ported families."""
-    x = L.rmsnorm(params["final_norm"], _trunk(params, batch, cfg),
-                  cfg.norm_eps)
-    return _head(params, x, cfg), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    """Returns (logits, MoE aux loss summed over layers)."""
+    x, aux = _trunk(params, batch, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
@@ -347,7 +373,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> torch.Tensor:
     """Full-sequence forward; emits ONLY last-position logits (B, V)."""
-    x = _trunk(params, batch, cfg)
+    x, _ = _trunk(params, batch, cfg)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return _head(params, x, cfg)[:, 0]
 
@@ -360,30 +386,39 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
                device: DeviceLike = None) -> Params:
     """Decode cache with a leading layer axis, per family: ``attn`` and
     ``shared`` hold k, v (n, B, max_len, KV, hd) and per-layer int32
-    lengths; ``mamba`` holds the conv state (n, B, ssm_conv - 1, conv dim)
-    in ``dtype`` and the SSM state (n, B, heads, head dim, ssm_state) in
-    float32."""
-    _require_ported(cfg)
+    lengths (MLA's ``attn`` holds the latent ``c_kv`` (n, B, max_len,
+    kv_rank) and the rope key ``k_pe`` (n, B, max_len, rope_dim)
+    instead of k and v); ``mamba`` holds the conv state (n, B, ssm_conv
+    - 1, conv dim) in ``dtype`` and the SSM state (n, B, heads, head dim,
+    ssm_state) in float32."""
     dev = resolve_device(device)
     kinds = _layer_kinds(cfg)
     n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
     n_shared = kinds.count("shared")
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     def kv(n):
-        shape = (n, B, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
+        return {"k": zeros(n, B, max_len, cfg.n_kv_heads, cfg.hd),
+                "v": zeros(n, B, max_len, cfg.n_kv_heads, cfg.hd),
                 "len": torch.zeros((n,), dtype=torch.int32, device=dev)}
 
     cache: Params = {}
     if n_attn:
-        cache["attn"] = kv(n_attn)
+        if cfg.attention == "mla":
+            cache["attn"] = {
+                "c_kv": zeros(n_attn, B, max_len, cfg.mla_kv_rank),
+                "k_pe": zeros(n_attn, B, max_len, cfg.mla_rope_dim),
+                "len": torch.zeros((n_attn,), dtype=torch.int32,
+                                   device=dev)}
+        else:
+            cache["attn"] = kv(n_attn)
     if n_mamba:
         di, N = cfg.d_inner, cfg.ssm_state
         conv_dim = di + 2 * cfg.ssm_groups * N
         cache["mamba"] = {
-            "conv": torch.zeros((n_mamba, B, cfg.ssm_conv - 1, conv_dim),
-                                dtype=dtype, device=dev),
+            "conv": zeros(n_mamba, B, cfg.ssm_conv - 1, conv_dim),
             "ssm": torch.zeros((n_mamba, B, di // cfg.ssm_head_dim,
                                 cfg.ssm_head_dim, N), dtype=torch.float32,
                                device=dev)}
@@ -393,7 +428,9 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int,
 
 
 def _kv_layer(c: Params, i: int) -> Params:
-    return {"k": c["k"][i], "v": c["v"][i], "len": c["len"][i]}
+    """Layer ``i``'s view of a stacked attention cache (k/v or MLA's
+    latent, and its length)."""
+    return {name: t[i] for name, t in c.items()}
 
 
 def _mamba_layer(c: Params, i: int) -> Params:
@@ -426,11 +463,11 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
 
     Positions come from the first attention (or shared-block) layer's
     cache length, kept on the device (no host sync per step); an SSM
-    model has none.  The cache's k/v rows and Mamba2 state are updated in
-    place; the returned cache holds the same tensors, with every length
-    advanced by the new tokens (new length tensors).
+    model has none.  The cache's k/v (or MLA latent) rows and Mamba2 state
+    are updated in place; the returned cache holds the same tensors, with
+    every length advanced by the new tokens (new length tensors).
     """
-    _require_ported(cfg)
+    _require_family(cfg)
     B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     if positions is None:
@@ -446,13 +483,13 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
     elif cfg.family == "hybrid":
         x = _hybrid_decode(params, x, cache, cfg, positions)
         c = cache["shared"]
-        new_cache["shared"] = {"k": c["k"], "v": c["v"], "len": c["len"] + T}
+        new_cache["shared"] = dict(c, len=c["len"] + T)
     else:
         c = cache["attn"]
         for i, bp in enumerate(_stacked_views(params["blocks"])):
             x, _ = _attn_block(bp, x, cfg, positions, cache=_kv_layer(c, i),
                                positions3=positions3)
-        new_cache["attn"] = {"k": c["k"], "v": c["v"], "len": c["len"] + T}
+        new_cache["attn"] = dict(c, len=c["len"] + T)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, x, cfg)[:, 0], new_cache
 

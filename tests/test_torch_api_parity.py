@@ -9,6 +9,7 @@ A config whose family is not ported raises the port's ``not_ported``
 message, and ``import repro_torch`` stays lazy.
 """
 
+import dataclasses
 import importlib
 import subprocess
 import sys
@@ -86,22 +87,19 @@ def test_resnet9_paper_config_matches_reference():
 
 
 def test_unported_configs_raise_not_ported():
-    """Every config of the JAX package either resolves in the port or
-    raises ``not_ported``, never ``ModuleNotFoundError``; what is still
-    unported is the MoE (grok-1, arctic), MLA (minicpm3) and audio
-    (whisper) configs."""
+    """Every config of the JAX package resolves in the port with equal
+    fields (MoE grok-1 and arctic, MLA minicpm3 and audio whisper among
+    them since their slice), and nothing is left unported."""
+    from repro.models.common import get_config as jget
     from repro.models.common import list_configs as jlist
     from repro_torch.models.common import UNPORTED, get_config
 
-    assert set(UNPORTED) == {"arctic-480b", "grok-1-314b", "minicpm3-4b",
-                             "whisper-tiny"}
-    assert set(UNPORTED) < set(jlist())
+    assert UNPORTED == ()
+    assert {"arctic-480b", "grok-1-314b", "minicpm3-4b",
+            "whisper-tiny"} <= set(jlist())
     for name in jlist():
-        if name in UNPORTED:
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                get_config(name)
-        else:
-            assert get_config(name).name == name
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jget(name)), name
 
 
 def test_unknown_config_raises_key_error():

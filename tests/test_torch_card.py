@@ -1486,3 +1486,106 @@ def test_qmatmul_at_the_ragged_in_proj_widths(card, m, k, n, bits):
     tol = 2e-5 * scale + want.float().abs() * 2.0 ** -7
     assert bool(((got.float() - want.float()).abs() <= tol).all())
     assert torch.equal(got, KQ.qmatmul(x, w, s, bits))
+
+
+# ---------------------------------------------------------------------------
+# MoE, MLA and the encoder-decoder: decode graphs, qmatmul at whisper's
+# encoder rows and an expert's single row
+# ---------------------------------------------------------------------------
+# (config, qmatmul launches a decode step at reduce_config size, 2 layers):
+# grok 2 x (4 + 4 experts x 3) + the untied head; arctic the same plus its
+# dense residual's 3 a layer; minicpm3 2 x 7 + the head; whisper 2 x 8
+MMA_GRAPHS = [("grok-1-314b", 33), ("arctic-480b", 39), ("minicpm3-4b", 15),
+              ("whisper-tiny", 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("arch,per_step", MMA_GRAPHS)
+def test_moe_mla_whisper_decode_graph_equals_eager(card, arch, per_step,
+                                                   bits):
+    """Each config at ``reduce_config`` size in bf16, at w8 and w4: the
+    captured decode step gives the eager step's logits and greedy tokens
+    bit for bit (MoE dispatch, MLA's latent rows, whisper's cross
+    attention inside the graph); the graph records ``per_step`` qmatmul
+    launches.  whisper decodes two utterances in turn through one graph
+    (``reset(cross)`` between): each equals its eager run, and the second
+    differs from the first."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import (GraphedDecodeStep, greedy,
+                                          init_serving_params, model_module)
+    from repro_torch.models.common import get_config
+    from repro_torch.models.testing import reduce_config
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                              compute_dtype="bfloat16")
+    mod = model_module(cfg)
+    q = mod.with_head_copy(init_serving_params(
+        torch.Generator(device=card).manual_seed(0), cfg, bits), cfg)
+    crosses = [None]
+    if cfg.family == "audio":
+        crosses = []
+        for seed in (1, 2):
+            frames = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                 generator=torch.Generator(
+                                     device=card).manual_seed(seed),
+                                 device=card)
+            crosses.append(mod.build_cross_cache(
+                q, mod.encode(q, frames, cfg), cfg))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (2, 4))
+    step = GraphedDecodeStep(q, cfg, 2, 12)
+    assert step.graph.launches == {"qmatmul": per_step}
+    outs = []
+    for cross in crosses:
+        step.reset(cross)
+        cache = mod.init_cache(cfg, 2, 12)
+        if cross is not None:
+            for n in ("k", "v"):
+                cache["cross"][n].copy_(cross[n])
+        tok = None
+        for t in range(9):
+            feed = (torch.as_tensor(prompt[:, t:t + 1], dtype=torch.int32,
+                                    device=card) if t < 4 else tok)
+            logits, cache = mod.decode_step(q, feed, cache, cfg)
+            nxt = greedy(logits, cfg)
+            step.step(feed)
+            assert torch.equal(step.logits, logits), (arch, bits, t)
+            assert torch.equal(step.tokens[:, 0], nxt), (arch, bits, t)
+            tok = nxt[:, None]
+        want = generate(q, cfg, prompt, 5, graph=False, cross=cross)
+        assert torch.equal(generate(q, cfg, prompt, 5, cross=cross), want)
+        outs.append(step.logits.clone())
+    if len(outs) == 2:
+        assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(6000, 384, 384), (6000, 384, 1536),
+                                   (6000, 1536, 384), (1, 7168, 4864),
+                                   (1, 4864, 7168)])
+def test_qmatmul_at_whisper_encoder_rows_and_expert_rows(card, m, k, n,
+                                                         bits):
+    """whisper's encoder and cross-cache products (M = 4 utterances x
+    1,500 frames: 750 row tiles of 8) and an arctic expert's at its
+    capacity of one row: against the plain version at the tolerance of
+    ``test_qmatmul_kernel_equals_plain``, bit for bit on integer inputs
+    (every partial sum an integer below 2^24), two launches bit for
+    bit."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, codes = _qmm_inputs(m, k, n, bits, torch.bfloat16, card,
+                                 m + k + n)
+    got = KQ.qmatmul(x, w, s, bits)
+    want = KQ.qmatmul_plain(x, w, s, bits)
+    scale = (x.float().abs() @ codes.float().abs()) * s
+    tol = 2e-5 * scale + want.float().abs() * 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got, KQ.qmatmul(x, w, s, bits))
+    xi = torch.randint(-16, 17, (m, k), generator=torch.Generator(
+        device=card).manual_seed(m), device=card).to(torch.bfloat16)
+    half = torch.full((n,), 0.5, device=card)
+    assert torch.equal(KQ.qmatmul(xi, w, half, bits),
+                       KQ.qmatmul_plain(xi, w, half, bits))

@@ -184,24 +184,41 @@ def test_serving_quantization_consistency(compute_dtype):
 
 
 def test_later_slices_raise():
-    """What the port does not build yet raises NotImplementedError naming
-    the missing piece instead of computing something else: MoE, MLA and
-    the audio family, cross-attention, and the serving quantization of
-    MoE expert banks."""
+    """The families that raised ``NotImplementedError`` until the MoE, MLA
+    and encoder-decoder slice now build: MoE, MLA and the audio family
+    (as a decoder-only LM, as the reference's ``lm`` takes it) give
+    parameters, a cache and finite logits; cross-attention runs; the
+    serving quantization of a bare MoE expert bank gives codes; and an
+    unknown family still raises the reference's ``ValueError``."""
     _, cfg = _cfgs("float32")
-    for over, what in ((dict(family="moe", moe_experts=4, moe_top_k=2),
-                        "MoE"), (dict(attention="mla"), "MLA"),
-                       (dict(family="audio"), "audio")):
-        bad = dataclasses.replace(cfg, **over)
-        with pytest.raises(NotImplementedError, match=what):
-            tlm.init_params(torch.Generator(), bad, device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            tlm.init_cache(bad, B, S, device="cpu")
+    for over, leaf in ((dict(family="moe", moe_experts=4, moe_top_k=2),
+                        ("blocks", "moe", "w_gate")),
+                       (dict(attention="mla", mla_q_rank=24, mla_kv_rank=16,
+                             mla_rope_dim=8, mla_v_head_dim=16),
+                        ("blocks", "attn", "wkv_b")),
+                       (dict(family="audio"), ("blocks", "mlp"))):
+        fam = dataclasses.replace(cfg, **over)
+        params = tlm.init_params(torch.Generator().manual_seed(0), fam,
+                                 device="cpu")
+        node = params
+        for k in leaf:
+            node = node[k]
+        cache = tlm.init_cache(fam, B, S, device="cpu")
+        logits, _ = tlm.decode_step(params, torch.zeros((B, 1),
+                                                        dtype=torch.int32),
+                                    cache, fam)
+        assert bool(torch.isfinite(logits).all())
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        L.attention(params["blocks"]["attn"], x, cfg, None, kv_source=x)
-    with pytest.raises(NotImplementedError, match="MoE expert banks"):
-        quantize_tree_for_serving({"moe": {"w_gate": torch.zeros((2, 4, 6))}},
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 2, cfg.d_model), generator=gen)
+    enc = torch.randn((1, 5, cfg.d_model), generator=gen)
+    out, new = L.attention(tlm._stacked_views(params["blocks"])[0]["attn"],
+                           x, cfg, None, causal=False, kv_source=enc)
+    assert tuple(out.shape) == (1, 2, cfg.d_model) and new is None
+    q = quantize_tree_for_serving({"moe": {"w_gate": torch.zeros((2, 4, 6))}},
                                   8)
+    assert set(q["moe"]["w_gate"]) == {"w_codes", "w_scale"}
+    with pytest.raises(ValueError, match="unknown family"):
+        tlm.forward(params, {"tokens": torch.zeros((B, S), dtype=torch.int32)},
+                    dataclasses.replace(cfg, family="cnn"))
