@@ -197,7 +197,26 @@ ends the run with a non-zero exit if it fails:
    "16", "--ckpt-dir", tmp])``, N = 1, 2, 3) on the card against the same
    run on the CPU (rtol 1e-5 at the first loss, 1e-4 after an update).
    No kernel of the port is on this path: its launch counts must all be 0.
-10. a JSON line of every kernel with its launches on its paths (the integer
+10. distribution (path ``dist``), ``tools/dist_smoke.py --time``
+   spawned twice from here (the kernel library built above is only
+   loaded by the ranks): (a) one rank over NCCL: the int artifact behind a
+   ``ShardedStore`` bit for bit the serial store, GPipe at one stage, the
+   sharded train step of reduced ``qwen2.5-3b`` (DTensor params, moments
+   and batch on the 1x1 debug mesh, ``acc_shardings``) against the plain
+   step, the w8 and w4 decode of ``qwen3-14b`` at full width cut to 2
+   layers (every projection ``qmatmul`` on the rank's columns) against the
+   serial decode of the same codes, both bit for bit (nothing is split on
+   1x1), ``restore_resharded`` bit for bit; (b) two ranks on this one card over ``gloo`` (NCCL takes no
+   two ranks on one card; gloo stages CUDA tensors through the host): the
+   sharded head across both (prototype rows split, 16 tenants' worth and
+   C in {1, 3, 4, 8, 11}) bit for bit the serial head.  The checks gloo
+   cannot run on CUDA tensors in torch 2.11 (point-to-point and DTensor's
+   functional collectives end the rank) are named and left to the 4-card
+   NCCL call of ``tools/dist_smoke.py``.  Sharded and serial ms of each
+   check.  Each rank counts its launches over its sharded runs; the path
+   is their sum and must show ``mvau_int``, ``mvau_int_gap`` and
+   ``qmatmul``.
+11. a JSON line of every kernel with its launches on its paths (the integer
    MVAU's also by route: int8 ``wgmma`` and CUDA cores) and its numbers,
    the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -206,8 +225,8 @@ Launch counters are set to 0 just before each path (phases 3-4, the
 engine's traffic, the cluster's traffic, the counted forwards of phase 5,
 the eager and the captured ``generate`` runs of phases 6, 6a and 6c
 (with whisper's ``encode`` and ``build_cross_cache``), the
-eager steps and the engine's traffic of phase 6b, and phases 7, 8 and 9
-as a whole) and read just after; launches made while comparing or timing
+eager steps and the engine's traffic of phase 6b, phases 7, 8 and 9
+as a whole, and each rank's sharded runs in phase 10) and read just after; launches made while comparing or timing
 kernels do not count.  A graph's launches are recorded when it is
 captured and counted at each replay: the paths ``fsl_serve``,
 ``cluster``, ``lm_decode_graph``, ``lm_families_graph``,
@@ -4620,6 +4639,73 @@ def lm_train_path(torch, np, B):
     return counts
 
 
+DIST_RANKS = 2                 # ranks spawned on the one card (gloo)
+DIST_TIMEOUT = 240             # s, one tools/dist_smoke.py run
+
+
+def dist_smoke(backend: str, ranks: int):
+    """``tools/dist_smoke.py --spawn ranks --backend backend --time``: its
+    summary (each rank's launches over its sharded runs summed)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, str(ROOT / "tools" / "dist_smoke.py"),
+               "--spawn", str(ranks), "--backend", backend, "--time",
+               "--out", out]
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=DIST_TIMEOUT)
+        path = Path(out) / "summary.json"
+        check(path.exists(), f"dist {backend} x{ranks}: no summary; exit "
+              f"{r.returncode}\n{r.stderr[-3000:]}")
+        summary = json.loads(path.read_text())
+    tag = f"dist {ranks} rank{'s' if ranks > 1 else ''} {backend}"
+    for name, c in summary["checks"].items():
+        log(f"  {tag} {name}: " + json.dumps(
+            {k: v for k, v in c.items() if k not in ("steps", "error")}))
+    for name, why in summary["deferred"].items():
+        log(f"  {tag} {name}: not run: {why}; across ranks it runs in the "
+            f"4-card NCCL call of tools/dist_smoke.py")
+    check(r.returncode == 0 and summary["ok"],
+          f"{tag} failed: {summary['failed']} "
+          + json.dumps({n: c.get("error", "")[-1500:]
+                        for n, c in summary["checks"].items()
+                        if not c.get("ok")}))
+    return summary
+
+
+def dist_path(torch, np, B):
+    """Phase 10: the distribution substrate on the card (see the module
+    docstring): (a) one rank over NCCL, (b) two ranks over gloo, each
+    ``tools/dist_smoke.py`` spawned from here (the kernel library built
+    above is loaded, not built, by the ranks).  Returns the ``dist``
+    path's launch counts (the ranks' sharded runs) and a report."""
+    t_phase = time.perf_counter()
+    B.reset_launch_counts()
+    counts = dict(B.launch_counts)
+    report = {}
+    for backend, ranks in (("nccl", 1), ("gloo", DIST_RANKS)):
+        summary = dist_smoke(backend, ranks)
+        if backend == "gloo":
+            log(f"dist {ranks} ranks on one card over gloo: CUDA tensors "
+                f"staged through the host by gloo; collectives "
+                f"{summary['collectives']}")
+        for k, v in summary["launches"].items():
+            counts[k] += v
+        report[f"{backend}{ranks}"] = {
+            k: summary[k] for k in ("world", "checks", "deferred",
+                                    "launches")}
+    check(counts["mvau_int"] > 0 and counts["mvau_int_gap"] > 0
+          and counts["qmatmul"] > 0, f"dist path: launches {counts}")
+    check(report["nccl1"]["checks"]["train"]["ok"]
+          and report["nccl1"]["checks"]["decode"]["ok"]
+          and report["nccl1"]["checks"]["restore"]["ok"]
+          and report[f"gloo{DIST_RANKS}"]["checks"]["head"]["ok"],
+          "dist: a check of (a) or (b) did not run")
+    log(f"dist: launches {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, report
+
+
 def main() -> int:
     import torch
 
@@ -4694,6 +4780,7 @@ def main() -> int:
     train_counts = train_path(torch, np, B)
     dse_counts = dse_path(torch, np, B)
     lm_train_counts = lm_train_path(torch, np, B)
+    dist_counts, _ = dist_path(torch, np, B)
     paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
              "fsl_serve": serve_counts, "cluster": cluster_counts,
              "lm_decode": lm_counts,
@@ -4703,7 +4790,7 @@ def main() -> int:
              MMA_PATHS[0]: mma_counts, MMA_PATHS[1]: mma_graph_counts,
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
              "fsl_train": train_counts, "dse": dse_counts,
-             "lm_train": lm_train_counts}
+             "lm_train": lm_train_counts, "dist": dist_counts}
     for k in kernels:
         by_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -4725,6 +4812,12 @@ def main() -> int:
                                                "lm_families_graph",
                                                *MMA_PATHS)),
                   f"qmatmul never ran on the LM families' paths: {by_path}")
+    # the distribution path: the sharded head's int artifact and the
+    # column-sharded decode projections ran the kernels on the ranks
+    for name in ("mvau_int", "mvau_int_gap", "qmatmul"):
+        k = next(k for k in kernels if k["name"] == name)
+        check(k["launches_by_path"]["dist"] > 0,
+              f"kernel {name} never ran on the dist path")
     # the integer MVAU's two routes: int8 wgmma, and the CUDA cores for
     # wider codes (grid_point(8, 8), the 16-bit Table II row)
     mv = next(k for k in kernels if k["name"] == "mvau_int")

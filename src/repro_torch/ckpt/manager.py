@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from repro_torch.convert import params_to_numpy
-from repro_torch.models.layers import not_ported
 from repro_torch.tree import tree_flatten, tree_paths
 
 __all__ = ["CheckpointManager", "content_key", "restore_resharded"]
@@ -169,7 +168,24 @@ class CheckpointManager:
 def restore_resharded(mgr: CheckpointManager, like: Any,
                       sharding_fn: Callable[[str, tuple], Any],
                       step: Optional[int] = None) -> Any:
-    """Restore + re-place each leaf under a new mesh's sharding: waits for
-    the cluster and distribution slice of the port."""
-    raise not_ported("restore_resharded (elastic resharding)",
-                     "cluster, distribution and scale")
+    """Restore + place each leaf under a NEW mesh's layout.
+
+    ``sharding_fn(path, shape)`` returns a layout (a
+    :class:`~repro_torch.dist.sharding.NamedSharding`, usually from the
+    restart mesh's trees): each restored leaf becomes a DTensor of it
+    (``distribute_tensor``; every rank reads the same checkpoint and
+    keeps its own chunk).  This is the elastic-scaling path: a checkpoint
+    written on one mesh restores onto any other.  Call it on every rank of
+    the mesh.
+    """
+    from torch.distributed.tensor import distribute_tensor
+
+    host_tree = mgr.restore(like, step)
+    leaves, unflatten = tree_flatten(host_tree)
+    placed = []
+    for key, leaf in zip(tree_paths(like), leaves):
+        t = torch.as_tensor(leaf)
+        lay = sharding_fn(key, tuple(t.shape))
+        placed.append(distribute_tensor(t, lay.mesh, lay.placements,
+                                        src_data_rank=None))
+    return unflatten(placed)

@@ -5,8 +5,9 @@ port of the JAX package's ``launch/steps.py`` on one card.
 the leading microbatch axis (``torch.autograd.grad`` of ``loss_fn``),
 accumulation in the policy's gradient dtype, division by the microbatch
 count, optional int8 error-feedback compression, global-norm clipping and
-AdamW.  The reference's sharded accumulation buffer (``acc_shardings``)
-waits for the distribution slice.
+AdamW.  The same step runs on DTensor params, moments and batches placed
+by the ``dist.sharding`` trees (eagerly; DTensor places each op), and
+``acc_shardings`` then keeps the accumulation buffer in those layouts.
 
 ``make_decode_step`` is the one-token serve step with (optionally)
 serving-quantized weights: the paper's bit-width lever applied where decode
@@ -25,10 +26,11 @@ import torch
 
 from repro_torch.core.cudagraph import CapturedGraph
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import dtensor as D
 from repro_torch.dist.compression import ef_compress_tree
 from repro_torch.models import lm, whisper
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import not_ported, quantize_dense_for_serving
+from repro_torch.models.layers import quantize_dense_for_serving
 from repro_torch.optim import adamw_update, clip_by_global_norm
 from repro_torch.tree import tree_flatten, tree_map
 
@@ -92,6 +94,19 @@ def init_serving_params(gen: torch.Generator, cfg: ArchConfig, bits: int,
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
+def _acc_buffer(p: torch.Tensor, dtype: torch.dtype, layout=None):
+    """A zero gradient buffer for leaf ``p``: a plain tensor for a plain
+    leaf; for a DTensor leaf a DTensor in ``layout``'s placements (a
+    :class:`~repro_torch.dist.sharding.NamedSharding`), else ``p``'s."""
+    if not D.is_dtensor(p):
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+    # zeros_like keeps the leaf's local device (meta in the dry run)
+    buf = torch.zeros_like(p, dtype=dtype)
+    if layout is None or tuple(layout.placements) == tuple(p.placements):
+        return buf
+    return buf.redistribute(layout.mesh, layout.placements)
+
+
 def make_train_step(cfg: ArchConfig, *, compress_pod_grads: bool = False,
                     lr: float = 1e-4, acc_shardings=None,
                     grad_dtype=None) -> Callable:
@@ -109,11 +124,17 @@ def make_train_step(cfg: ArchConfig, *, compress_pod_grads: bool = False,
 
     ``params`` must not hold a serving head copy (``embed_head``, see
     ``lm.with_head_copy``): the update would leave it stale.
+
+    On DTensor params (and batches) the same step runs sharded.  The
+    accumulation buffers are DTensors in the params' layouts, or in
+    ``acc_shardings`` (a tree of :class:`~repro_torch.dist.sharding.NamedSharding`,
+    usually the moments' layouts): each microbatch's gradients are
+    redistributed into them, ``Partial`` -> ``Shard`` a reduce-scatter,
+    the reference's accumulate-then-reduce-once pattern.  On plain tensors
+    (one device) ``acc_shardings`` picks no layout and is ignored, as a
+    sharding constraint on one device is the identity.
     """
     mod = model_module(cfg)
-    if acc_shardings is not None:
-        raise not_ported("a sharded gradient-accumulation buffer "
-                         "(acc_shardings)", "distribution substrate")
 
     _, _, gdtype = train_dtype_policy(cfg)
     if grad_dtype is not None:
@@ -124,18 +145,27 @@ def make_train_step(cfg: ArchConfig, *, compress_pod_grads: bool = False,
             raise ValueError("params hold a serving head copy (embed_head) "
                              "that an update would leave stale; train on "
                              "the tree without it")
+        with D.implicit(params, batch):
+            return _step(params, opt_state, batch, residuals)
+
+    def _step(params, opt_state, batch, residuals):
         leaves, unflatten = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         tree = unflatten(live)
-        acc = [torch.zeros(p.shape, dtype=gdtype, device=p.device)
-               for p in leaves]
+        layouts = [None] * len(leaves)
+        if acc_shardings is not None and D.any_dtensor(params):
+            layouts = tree_flatten(acc_shardings)[0]
+            if len(layouts) != len(leaves):
+                raise ValueError(f"acc_shardings has {len(layouts)} "
+                                 f"leaves, params {len(leaves)}")
+        acc = [_acc_buffer(p, gdtype, lay) for p, lay in zip(leaves, layouts)]
         n_micro = tree_flatten(batch)[0][0].shape[0]
         losses = []
         for i in range(n_micro):
             loss = mod.loss_fn(tree, tree_map(lambda t: t[i], batch), cfg)
             grads = torch.autograd.grad(loss, live)
             for a, g in zip(acc, grads):
-                a.add_(g.to(a.dtype))
+                a.add_(D.like(g.to(a.dtype), a))
             losses.append(loss.detach())
         del tree, live
         # a true division on every device (CUDA divides by a Python scalar
@@ -154,6 +184,8 @@ def make_train_step(cfg: ArchConfig, *, compress_pod_grads: bool = False,
         params, opt_state = adamw_update(params, grads, opt_state, lr,
                                          weight_decay=0.1)
         loss = torch.stack(losses).mean()
+        if D.is_dtensor(loss):
+            loss = loss.full_tensor()
         if residuals is None:
             return params, opt_state, loss
         return params, opt_state, loss, new_res

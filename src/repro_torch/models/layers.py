@@ -36,15 +36,11 @@ import torch
 
 from repro_torch.core.quant import (FixedPointSpec, fake_quant, pack_int4,
                                     unpack_int4)
+from repro_torch.dist import dtensor as D
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
-
-
-def not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it waits for the {slice_} slice of the "
-        "PyTorch port")
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
@@ -117,16 +113,28 @@ def dense(p: Params, x: torch.Tensor, wspec: Optional[FixedPointSpec] = None,
     """
     if "w_codes" in p:
         codes, scale = p["w_codes"], p["w_scale"]
+        # from the global shapes: a rank's codes hold only its columns
         bits = 4 if codes.shape[-1] != scale.shape[-1] else 8
-        if dtype == torch.bfloat16:
-            y = ops.qmatmul(x.to(torch.bfloat16), codes, scale, bits)
-        else:
+
+        def product(x, codes, scale):
+            if dtype == torch.bfloat16:
+                return ops.qmatmul(x.to(torch.bfloat16), codes, scale, bits)
             w = unpack_int4(codes) if bits == 4 else codes
             acc = torch.matmul(x.to(dtype).to(torch.float32),
                                w.to(dtype).to(torch.float32))
-            y = (acc * scale).to(dtype)
+            return (acc * scale).to(dtype)
+
+        if D.is_dtensor(codes):
+            # each rank runs the kernel on its own columns of the codes
+            y = D.local_columns(x, codes, scale, product)
+        else:
+            y = product(x, codes, scale)
     else:
         w = fake_quant(p["w"], wspec) if wspec is not None else p["w"]
+        if D.is_dtensor(w):
+            # FSDP gathers the weight's input dim, and x is made whole along
+            # it: no contraction is split over ranks (no partial sums)
+            w, x = D.unshard(w, (-2,)), D.unshard(x, (-1,))
         y = torch.matmul(x.to(dtype), w.to(dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -186,7 +194,7 @@ def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.reshape(x.shape).to(x.dtype)
+    return D.reshape(out, *x.shape).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,7 +260,7 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     scores over sqrt(hd), each query head against its KV group."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qh = q.reshape(B, Sq, KV, H // KV, hd)
+    qh = D.reshape(q, B, Sq, KV, H // KV, hd)
     return torch.einsum("bqgrh,bkgh->bgrqk", qh.to(torch.float32),
                         k.to(torch.float32)) / math.sqrt(hd)
 
@@ -262,11 +270,19 @@ def _gqa_mix(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     float32 (B, Sq, H, hd)."""
     out = torch.einsum("bgrqk,bkgh->bqgrh", w, v.to(torch.float32))
     B, Sq, KV, rep, hd = out.shape
-    return out.reshape(B, Sq, KV * rep, hd)
+    return D.reshape(out, B, Sq, KV * rep, hd)
 
 
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """Plain attention: q (B,Sq,H,hd), k/v (B,Sk,KV,hd).  GQA broadcast."""
+    """Plain attention: q (B,Sq,H,hd), k/v (B,Sk,KV,hd).  GQA broadcast.
+    On DTensors each rank attends with its own heads
+    (:func:`~repro_torch.dist.dtensor.by_heads`)."""
+    q = constrain(q, "attn_q_rows")
+    return D.by_heads(lambda q, k, v: _sdpa_heads(q, k, v, causal,
+                                                  q_offset), q, k, v)
+
+
+def _sdpa_heads(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     scores = _gqa_scores(q, k)
     if causal:
         iq = torch.arange(q.shape[1], device=q.device) + q_offset
@@ -284,18 +300,23 @@ def _chunked_sdpa(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
     The reference scans every kv block and keeps the carry of those past
     the diagonal (``_causal_kv_scan``'s ``where(keep, new, old)``); the
     port stops at the diagonal block, which gives the same values."""
+    return D.by_heads(lambda q, k, v: _chunked_heads(q, k, v, chunk, causal),
+                      q, k, v)
+
+
+def _chunked_heads(q, k, v, chunk: int, causal: bool) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
     nq, nk = Sq // chunk, Sk // chunk
-    qb = q.reshape(B, nq, chunk, KV, rep, hd)
-    kb = k.reshape(B, nk, chunk, KV, hd)
-    vb = v.reshape(B, nk, chunk, KV, hd)
+    qb = D.reshape(q, B, nq, chunk, KV, rep, hd)
+    kb = D.reshape(k, B, nk, chunk, KV, hd)
+    vb = D.reshape(v, B, nk, chunk, KV, hd)
     scale = 1.0 / math.sqrt(hd)
     rows = torch.arange(chunk, device=q.device)
     blocks = []
     for iq in range(nq):
-        qi = qb[:, iq].to(torch.float32)
+        qi = constrain(qb[:, iq].to(torch.float32), "attn_chunk_q")
         m = torch.full((B, KV, rep, chunk), -math.inf, dtype=torch.float32,
                        device=q.device)
         den = torch.zeros((B, KV, rep, chunk), dtype=torch.float32,
@@ -319,7 +340,7 @@ def _chunked_sdpa(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
             m = m_new
         out = acc / den.permute(0, 3, 1, 2)[..., None]
         blocks.append(out.to(q.dtype))
-    return torch.stack(blocks, dim=1).reshape(B, Sq, H, hd)
+    return D.reshape(torch.stack(blocks, dim=1), B, Sq, H, hd)
 
 
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
@@ -348,16 +369,19 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     """
     B, S, _ = x.shape
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(p["wq"], x, wspec).reshape(B, S, H, hd)
+    q = constrain(D.reshape(dense(p["wq"], x, wspec), B, S, H, hd),
+                  "attn_heads")
     if cache is not None and "len" not in cache:
         # pure cross-attention against a precomputed KV cache
         out = _sdpa(q, cache["k"], cache["v"], causal=False)
-        return dense(p["wo"], out.reshape(B, S, H * hd), wspec), None
+        return dense(p["wo"], D.reshape(out, B, S, H * hd), wspec), None
 
     src = x if kv_source is None else kv_source
     Skv = src.shape[1]
-    k = dense(p["wk"], src, wspec).reshape(B, Skv, KV, hd)
-    v = dense(p["wv"], src, wspec).reshape(B, Skv, KV, hd)
+    k = constrain(D.reshape(dense(p["wk"], src, wspec), B, Skv, KV, hd),
+                  "attn_heads")
+    v = constrain(D.reshape(dense(p["wv"], src, wspec), B, Skv, KV, hd),
+                  "attn_heads")
     if "q_norm" in p:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -373,17 +397,24 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     if cache is not None and kv_source is None:
         idx = cache["len"]
         rows = idx.to(torch.int64) + torch.arange(S, device=x.device)
-        cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+        D.index_copy_(cache["k"], 1, rows, k.to(cache["k"].dtype))
+        D.index_copy_(cache["v"], 1, rows, v.to(cache["v"].dtype))
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + S}
         k, v = cache["k"], cache["v"]
         if S == 1:
             # decode: mask positions beyond the current length
             valid = torch.arange(k.shape[1], device=x.device) < (idx + 1)
-            scores = _gqa_scores(q, k).masked_fill(~valid, -math.inf)
-            w = torch.softmax(scores, dim=-1)
-            out = _gqa_mix(w, v).to(x.dtype)
-            return dense(p["wo"], out.reshape(B, 1, H * hd), wspec), new_cache
+
+            def decode(q, k, v):
+                # a rank's own heads: the (replicated) mask's local copy
+                keep = valid.to_local() if D.is_dtensor(valid) \
+                    and not D.is_dtensor(q) else valid
+                scores = _gqa_scores(q, k).masked_fill(~keep, -math.inf)
+                return _gqa_mix(torch.softmax(scores, dim=-1), v)
+
+            out = D.by_heads(decode, q, k, v).to(x.dtype)
+            return (dense(p["wo"], D.reshape(out, B, 1, H * hd), wspec),
+                    new_cache)
     elif cache is not None:
         # cross-attention with a cache that has a length: its k and v, as
         # the reference reads them (the projections above go unused)
@@ -393,7 +424,7 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         out = _chunked_sdpa(q, k, v, cfg.prefill_chunk, causal=True)
     else:
         out = _sdpa(q, k, v, causal=causal and kv_source is None)
-    return dense(p["wo"], out.reshape(B, S, H * hd), wspec), new_cache
+    return dense(p["wo"], D.reshape(out, B, S, H * hd), wspec), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -447,24 +478,25 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     scale = 1.0 / math.sqrt(hd + rd)
     f32 = torch.float32
 
-    q = dense(p["wq_b"], rmsnorm(p["q_a_norm"], dense(p["wq_a"], x, wspec)),
-              wspec).reshape(B, S, H, hd + rd)
+    q = D.reshape(dense(p["wq_b"], rmsnorm(p["q_a_norm"],
+                                           dense(p["wq_a"], x, wspec)),
+                        wspec), B, S, H, hd + rd)
     q_nope = q[..., :hd]
     q_pe = apply_rope(q[..., hd:], positions, cfg.rope_theta)
 
     kv_a = dense(p["wkv_a"], x, wspec)                       # (B, S, kvr + rd)
     c_kv = rmsnorm(p["kv_a_norm"], kv_a[..., :kvr])          # the latent
-    k_pe = apply_rope(kv_a[..., kvr:].reshape(B, S, 1, rd), positions,
+    k_pe = apply_rope(D.reshape(kv_a[..., kvr:], B, S, 1, rd), positions,
                       cfg.rope_theta)                        # shared by heads
 
-    w_kv_b = dense_weight(p["wkv_b"]).reshape(kvr, H, hd + vhd)
+    w_kv_b = D.reshape(dense_weight(p["wkv_b"]), kvr, H, hd + vhd)
     w_uk, w_uv = w_kv_b[..., :hd].to(f32), w_kv_b[..., hd:].to(f32)
 
     def write(c):
         idx = c["len"]
         rows = idx.to(torch.int64) + torch.arange(S, device=x.device)
-        c["c_kv"].index_copy_(1, rows, c_kv.to(c["c_kv"].dtype))
-        c["k_pe"].index_copy_(1, rows, k_pe[:, :, 0].to(c["k_pe"].dtype))
+        D.index_copy_(c["c_kv"], 1, rows, c_kv.to(c["c_kv"].dtype))
+        D.index_copy_(c["k_pe"], 1, rows, k_pe[:, :, 0].to(c["k_pe"].dtype))
         return {"c_kv": c["c_kv"], "k_pe": c["k_pe"], "len": idx + S}
 
     if cache is not None and S == 1:                # absorbed decode
@@ -479,7 +511,8 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         w = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
         ctx = torch.einsum("bhqk,bkr->bqhr", w, cc)
         out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
-        y = dense(p["wo"], out.reshape(B, 1, H * vhd).to(x.dtype), wspec)
+        y = dense(p["wo"], D.reshape(out, B, 1, H * vhd).to(x.dtype),
+                  wspec)
         return y, new_cache
 
     # expanded prefill / train path
@@ -492,7 +525,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         out = _chunked_sdpa(qfull, k, vpad, cfg.prefill_chunk)[..., :vhd]
     else:
         out = _sdpa(qfull, k, vpad, causal=True)[..., :vhd]
-    y = dense(p["wo"], out.reshape(B, S, H * vhd), wspec)
+    y = dense(p["wo"], D.reshape(out, B, S, H * vhd), wspec)
     # a prefill fills the compressed cache
     return y, (None if cache is None else write(cache))
 
@@ -681,7 +714,7 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
     C = max(int(cfg.moe_capacity_factor * T * k / E), 1)
-    flat = x.reshape(T, d)
+    flat = D.reshape(x, T, d)
     cd = x.dtype
 
     probs, gates, idx = moe_route(p, flat, cfg)
@@ -695,9 +728,9 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
     keep = pos < C
     pos_c = torch.where(keep, pos, C)                           # C: overflow
     tok = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
-    buf = torch.zeros((E, C + 1, d), dtype=cd, device=x.device)
-    buf.index_put_((ids, pos_c), flat[tok] * keep[:, None].to(cd))
-    buf = buf[:, :C]
+    buf = D.index_put(torch.zeros((E, C + 1, d), dtype=cd, device=x.device),
+                      (ids, pos_c), flat[tok] * keep[:, None].to(cd))
+    buf = constrain(buf[:, :C], "moe_dispatch")     # EP all-to-all boundary
 
     if isinstance(p["w_gate"], dict):               # serving codes
         outs = []
@@ -719,10 +752,10 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
                                               device=x.device)], dim=1)
     weighted = out_buf[ids, pos_c] * (gates.reshape(T * k, 1).to(cd)
                                       * keep[:, None].to(cd))
-    y = weighted.reshape(T, k, d).sum(1)
+    y = D.reshape(weighted, T, k, d).sum(1)
     if "dense_mlp" in p:            # arctic's parallel dense residual branch
         y = y + mlp(p["dense_mlp"], flat, cfg.act, wspec, aspec)
-    return y.reshape(B, S, d), aux
+    return D.reshape(y, B, S, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -829,9 +862,9 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg, *,
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
                                  None if state is None else state["conv"])
     x, B_, C_ = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    x = x.reshape(B, S, nh, P)
-    B_ = B_.reshape(B, S, G, N)
-    C_ = C_.reshape(B, S, G, N)
+    x = D.reshape(x, B, S, nh, P)
+    B_ = D.reshape(B_, B, S, G, N)
+    C_ = D.reshape(C_, B, S, G, N)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])          # (B, S, nh)
     A = -torch.exp(p["A_log"])                                   # (nh,)
     a_log = (dt * A).to(torch.float32)                           # (B, S, nh)
@@ -847,7 +880,7 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg, *,
         state["conv"].copy_(new_conv)
         y = torch.einsum("bhpn,bhn->bhp", ssm, Cg.to(torch.float32))
         y = y + p["D"][None, :, None] * x[:, 0].to(torch.float32)
-        y = y.reshape(B, 1, di).to(u.dtype)
+        y = D.reshape(y, B, 1, di).to(u.dtype)
         y = rmsnorm(p["gnorm"], y * silu(z))
         return dense(p["out_proj"], y, wspec), state
 
@@ -855,10 +888,10 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg, *,
     Q = min(cfg.ssm_chunk, S)
     assert S % Q == 0, f"seq {S} must divide ssm_chunk {Q}"
     nc = S // Q
-    xdt_c = xdt.reshape(B, nc, Q, nh, P)
-    B_c = B_.reshape(B, nc, Q, G, N)
-    C_c = C_.reshape(B, nc, Q, G, N)
-    al_c = a_log.reshape(B, nc, Q, nh)
+    xdt_c = D.reshape(xdt, B, nc, Q, nh, P)
+    B_c = D.reshape(B_, B, nc, Q, G, N)
+    C_c = D.reshape(C_, B, nc, Q, G, N)
+    al_c = D.reshape(a_log, B, nc, Q, nh)
 
     L = _segsum(al_c.permute(0, 1, 3, 2))                        # (B, nc, nh, Q, Q)
     Bh = _repeat_heads(B_c, rep, 3).to(torch.float32)            # (B, nc, Q, nh, N)
@@ -882,9 +915,9 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg, *,
     decay_in = torch.exp(cs)                                     # (B, nc, Q, nh)
     Y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states, decay_in)
 
-    y = (Y_diag + Y_off).reshape(B, S, nh, P)
+    y = D.reshape(Y_diag + Y_off, B, S, nh, P)
     y = y + p["D"][None, None, :, None] * x.to(torch.float32)
-    y = y.reshape(B, S, di).to(u.dtype)
+    y = D.reshape(y, B, S, di).to(u.dtype)
     y = rmsnorm(p["gnorm"], y * silu(z))
     out = dense(p["out_proj"], y, wspec)
     if state is None:

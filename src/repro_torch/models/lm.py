@@ -48,6 +48,8 @@ import torch
 
 from repro_torch.core.quant import fake_quant
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import dtensor as D
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig
 from repro_torch.tree import tree_flatten
@@ -144,7 +146,9 @@ def _stacked_views(tree: Params) -> List[Params]:
     one leaf gradient, where one select per layer would add a full-size
     leaf per layer."""
     leaves, unflatten = tree_flatten(tree)
-    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    # a DTensor leaf whose layer axis is sharded is gathered first (unbind
+    # has no strategy along a sharded dim)
+    per_leaf = [D.unshard(leaf, (0,)).unbind(0) for leaf in leaves]
     return [unflatten([views[i] for views in per_leaf])
             for i in range(len(per_leaf[0]))]
 
@@ -180,6 +184,7 @@ def _block(p: Params, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor, cache=None, positions3=None):
     """(output, MoE aux or None, new cache): the reference's
     ``_attn_block``."""
+    x = constrain(x, "residual")
     a, new_cache = _attn_half(p, x, cfg, positions, cache, positions3)
     x = x + a
     m, aux = _mlp_half(p, x, cfg)
@@ -194,6 +199,7 @@ def _attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _mamba_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state=None):
+    x = constrain(x, "residual")
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     y, new_state = L.mamba_apply(p["mamba"], h, cfg, state=state,
                                  wspec=_wspec(cfg))
@@ -218,6 +224,7 @@ def _remat_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     The ops are ``_block``'s, so the values and gradients are the same
     bits as without remat.  Returns (output, MoE aux or None)."""
     if policy == "tp_outputs":
+        x = constrain(x, "residual")
         x = x + _checkpoint(lambda t: _attn_half(
             p, t, cfg, positions, positions3=positions3)[0], x)
         m, aux = _checkpoint(lambda t: _mlp_half(p, t, cfg), x)
@@ -233,9 +240,34 @@ def _run_mamba(p: Params, x: torch.Tensor, cfg: ArchConfig,
     return _mamba_block(p, x, cfg)[0]
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table's vocab rows are gathered
+    (FSDP), so the lookup keeps the tokens' batch sharding; it is an
+    ``embedding``, not an index, whose backward (``index_put``) has no
+    working DTensor strategy in torch 2.11."""
+    if not D.is_dtensor(table):
+        return table[tokens]
+    return D.reduce_partial(torch.nn.functional.embedding(
+        tokens.long(), D.unshard(table, (0,))))
+
+
+def _tied_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` for a tied (V, d) table; on DTensors only the model
+    axis shards the vocab columns (``D.columns_on``)."""
+    return torch.matmul(D.unshard(x, (-1,)), D.columns_on(w.T))
+
+
+def _gold(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its label.  Over vocab-sharded logits the
+    gather is a masked partial sum: it is reduced before the squeeze
+    reshapes it."""
+    return D.reduce_partial(torch.gather(lf, -1, labels.long()[..., None])
+                            )[..., 0]
+
+
 def _embed_tokens(p: Params, tokens: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    return p["embed"][tokens].to(compute_dtype(cfg))
+    return _lookup(p["embed"], tokens).to(compute_dtype(cfg))
 
 
 def _embed_batch(p: Params, batch: Dict[str, torch.Tensor],
@@ -281,8 +313,9 @@ def _head(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         w = p.get("embed_head")
         if w is None or w.dtype != x.dtype:
             w = p["embed"].to(x.dtype)
-        return torch.matmul(x, w.T)
-    return L.dense(p["lm_head"], x, _wspec(cfg), dtype=x.dtype)
+        return constrain(_tied_logits(x, w), "logits")
+    return constrain(L.dense(p["lm_head"], x, _wspec(cfg), dtype=x.dtype),
+                     "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +398,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    gold = _gold(lf, batch["labels"])
     ce = (lse - gold).mean()
     return ce + 0.01 * aux
 

@@ -28,8 +28,9 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.lm import (_stacked_views, _wspec, _aspec,
-                                   compute_dtype, with_head_copy)
+from repro_torch.models.lm import (_aspec, _gold, _lookup, _stacked_views,
+                                   _tied_logits, _wspec, compute_dtype,
+                                   with_head_copy)
 
 __all__ = ["init_params", "encode", "decode", "forward", "loss_fn",
            "prefill", "init_cache", "build_cross_cache", "decode_step",
@@ -133,7 +134,7 @@ def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
     w = params.get("embed_head")
     if w is None or w.dtype != x.dtype:
         w = params["embed"].to(x.dtype)
-    return torch.matmul(x, w.T)
+    return _tied_logits(x, w)
 
 
 def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -144,7 +145,7 @@ def decode(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     ``jax.lax.dynamic_slice_in_dim`` clamps it."""
     cd = compute_dtype(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cd)
+    x = _lookup(params["embed"], tokens).to(cd)
     start = min(max(int(position_offset), 0), params["pos_dec"].shape[0] - S)
     x = x + params["pos_dec"][start:start + S].to(cd)[None]
     positions = (torch.arange(S, dtype=torch.int32, device=x.device)[None]
@@ -170,7 +171,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     (``embed_head``) is ignored, as in ``lm.loss_fn``."""
     params = {k: v for k, v in params.items() if k != "embed_head"}
     lf = forward(params, batch, cfg)[0].to(torch.float32)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    gold = _gold(lf, batch["labels"])
     return (torch.logsumexp(lf, dim=-1) - gold).mean()
 
 
@@ -226,7 +227,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
     sc, cc = cache["self"], cache["cross"]
     idx = sc["len"][0]
     row = idx.clamp(0, params["pos_dec"].shape[0] - 1).reshape(1)
-    x = params["embed"][tokens].to(cd) \
+    x = _lookup(params["embed"], tokens).to(cd) \
         + params["pos_dec"].index_select(0, row).to(cd)[None]
     positions = idx.expand(B, 1)
     for i, bp in enumerate(_stacked_views(params["dec_blocks"])):

@@ -19,8 +19,11 @@ The port's copies of the JAX package's ``obs/{tracer,metrics,export}.py``
   reference's summarizer; compile builds add ``compile.build`` /
   ``compile.pass`` spans to the same files).
 
-The reference's HLO analysis (``obs/hlo.py``, ``obs/diagnose.py``) reads
-XLA artifacts and is not ported yet.  A process-global default tracer
+* :mod:`repro_torch.obs.hlo` and ``python -m repro_torch.obs.diagnose``
+  — per-device dots and collectives of the dry run's sharded steps, read
+  from a recorded dispatch log (the reference reads compiled HLO).
+
+A process-global default tracer
 (disabled until :func:`configure` attaches an exporter) lets components
 instrument unconditionally at near-zero cost when nobody is looking.
 """

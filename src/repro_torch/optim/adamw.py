@@ -27,7 +27,9 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Any, moment_dtype=torch.float32) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        # zeros_like keeps a DTensor leaf's layout (and a meta leaf meta)
+        return torch.zeros_like(p, dtype=moment_dtype,
+                                memory_format=torch.contiguous_format)
 
     leaves, _ = tree_flatten(params)
     dev = leaves[0].device if leaves else None

@@ -242,7 +242,8 @@ def sharded_tenant_registry(devices: Optional[List] = None,
                             device: DeviceLike = None) -> TenantRegistry:
     """A :class:`TenantRegistry` whose per-tenant stores classify through
     one shared :class:`ShardedNCMHead` — on one device the exact serial
-    head (more than one raises ``not_ported``).  ``device`` places the
+    head; over more, its prototype rows split across the ranks of the
+    caller's process group (every rank classifies alike).  ``device`` places the
     stores as :class:`TenantRegistry` does (default: each backbone's own
     device)."""
     head = ShardedNCMHead(devices)

@@ -1,21 +1,24 @@
-"""Sharded NCM head — prototype rows spread across devices, backbone
+"""Sharded NCM head — prototype rows spread across ranks, backbone
 replicated.
 
 Counterpart of the JAX package's ``serve/cluster/sharded.py``.  At "many
 tenants × many classes" scale the (Q, C) similarity against the prototype
 matrix is the part of serving that grows without bound, and the reference
-splits the prototype ROWS over a 1-D device mesh: every device computes
-its (Q, C/ndev) block against the replicated queries, each similarity one
-dot product over the full feature dim, so the sharded head equals the
+splits the prototype ROWS over a 1-D device mesh.  Here the mesh is one of
+ranks (:func:`repro_torch.dist.sharding.serve_mesh` over the caller's
+process group): the queries are replicated (every rank passes the same
+ones), the prototype rows are padded to a multiple of ``HEAD_COLS x
+n_dev``, each rank runs :func:`~repro_torch.serve.store.head_sims` on its
+own row block, and the blocks are gathered along the class axis and the
+padding sliced off.  Every similarity is still one dot product over the
+full feature dim, in a tile of the serial head's shape in a batched
+product of the serial head's batch count, so the sharded head equals the
 serial one bit for bit.
 
-The port runs on one card, where :func:`repro_torch.dist.sharding.serve_mesh`
-returns ``None`` and the head is the serial computation the
-:class:`~repro_torch.serve.store.PrototypeStore` does,
-:func:`~repro_torch.serve.store.head_sims` (``ncm._l2(q) @ means.T`` over
-fixed blocks of query rows): the same function, bit for bit.  More than
-one device raises ``not_ported``: the head across cards is not ported
-yet.
+On one device ``serve_mesh`` returns ``None`` and the head is the serial
+computation the :class:`~repro_torch.serve.store.PrototypeStore` does.  A
+sharded head is SPMD: every rank of the mesh calls :meth:`ShardedNCMHead.sims`
+(or its store's ``classify``) with the same arguments, in the same order.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
 from repro_torch.dist import act_sharding
 from repro_torch.dist.sharding import serve_mesh
-from repro_torch.serve.store import PrototypeStore, head_sims
+from repro_torch.serve.store import HEAD_COLS, PrototypeStore, head_sims
 
 __all__ = ["ShardedNCMHead", "ShardedStore"]
 
@@ -41,12 +45,11 @@ def _f32(x: Any, device: Optional[torch.device] = None) -> torch.Tensor:
 
 class ShardedNCMHead:
     """Batched NCM similarity with class/tenant prototype rows split across
-    devices — on one device, the serial head.
+    the ranks of a 1-D ``("model",)`` mesh — on one device, the serial
+    head.
 
-    ``sims(queries, means)`` constrains the queries through the
-    ``"serve/query_rows"`` act-sharding point (the identity on one device)
-    and returns the (Q, C) cosine similarities as a tensor on the queries'
-    device.
+    ``sims(queries, means)`` returns the (Q, C) cosine similarities as a
+    tensor on the queries' device, the same on every rank.
     """
 
     AXIS = "model"
@@ -54,15 +57,26 @@ class ShardedNCMHead:
 
     def __init__(self, devices: Optional[List] = None):
         self.mesh = serve_mesh(devices, self.AXIS)    # None: one device
-        self.n_dev = 1
+        self.n_dev = 1 if self.mesh is None else self.mesh.size()
 
     def sims(self, query_features, means) -> torch.Tensor:
         """(Q, D) queries × (C, D) prototype means -> (Q, C) cosine sims,
         bit for bit the serial store's :func:`head_sims`."""
-        q = _f32(query_features)
+        q = act_sharding.constrain(_f32(query_features), self.QUERY_RULE)
         m = _f32(means, q.device)
-        q = act_sharding.constrain(q, self.QUERY_RULE)
-        return head_sims(q, m)
+        c = m.shape[0]
+        if self.mesh is None or c == 0:
+            return head_sims(q, m)
+        pad = (-c) % (HEAD_COLS * self.n_dev)
+        if pad:
+            m = torch.cat([m, m.new_zeros((pad, m.shape[1]))])
+        rows = m.shape[0] // self.n_dev
+        rank = self.mesh.get_local_rank(self.AXIS)
+        block = head_sims(q, m[rank * rows:(rank + 1) * rows])
+        parts = [torch.empty_like(block) for _ in range(self.n_dev)]
+        dist.all_gather(parts, block.contiguous(),
+                        group=self.mesh.get_group(self.AXIS))
+        return torch.cat(parts, dim=1)[:, :c]
 
 
 class ShardedStore(PrototypeStore):

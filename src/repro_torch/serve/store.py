@@ -26,7 +26,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fsl import ncm
 
-__all__ = ["HEAD_ROWS", "PrototypeStore", "head_sims"]
+__all__ = ["HEAD_COLS", "HEAD_ROWS", "HEAD_TILES", "PrototypeStore",
+           "head_sims"]
 
 # Query rows of every NCM head call: a classify's rows run in blocks of
 # exactly this many (the last zero-padded).  On the card PyTorch picks a row
@@ -35,18 +36,39 @@ __all__ = ["HEAD_ROWS", "PrototypeStore", "head_sims"]
 # block shape a query's similarities never depend on its batch neighbours
 # (a cluster replica and a single engine answer it bit for bit alike).
 HEAD_ROWS = 64
+# Prototype rows of every product tile, likewise (the last tile
+# zero-padded): cuBLAS also picks its kernel from N, so a class's
+# similarities never depend on how many classes stand beside it, nor on
+# which rank's block of a sharded head holds it.
+HEAD_COLS = 64
+# Tiles of every batched product (the last group zero-padded): the batched
+# kernel is picked from the batch count too (on the H100 a batch of one
+# tile gave other bits than a batch of several, and 8 tiles ran another,
+# slower kernel than 16 or 64), so every launch is a batch of exactly this
+# many, whatever the class count or the split.
+HEAD_TILES = 16
+
+
+def _pad_rows(t: torch.Tensor, unit: int) -> torch.Tensor:
+    pad = max(1, -(-t.shape[0] // unit)) * unit - t.shape[0]
+    return torch.cat([t, t.new_zeros((pad, t.shape[1]))]) if pad else t
 
 
 def head_sims(q: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
     """(n, D) queries × (C, D) unit prototype rows -> (n, C) cosine
-    similarities, ``ncm._l2(q) @ means.T`` over blocks of
-    :data:`HEAD_ROWS` rows."""
-    n = q.shape[0]
-    pad = max(1, -(-n // HEAD_ROWS)) * HEAD_ROWS - n
-    if pad:
-        q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
-    return torch.cat([ncm._l2(b) @ means.T
-                      for b in q.split(HEAD_ROWS)])[:n]
+    similarities, ``ncm._l2(q) @ means.T``: each block of
+    :data:`HEAD_ROWS` query rows against the (:data:`HEAD_COLS`, D)
+    tiles of the prototypes, :data:`HEAD_TILES` tiles a ``torch.bmm``."""
+    n, c = q.shape[0], means.shape[0]
+    if c == 0:
+        return q.new_zeros((n, 0))
+    groups = _pad_rows(means, HEAD_COLS * HEAD_TILES).reshape(
+        -1, HEAD_TILES, HEAD_COLS, means.shape[1]).transpose(2, 3)
+    return torch.cat([
+        torch.cat([torch.bmm(b.expand(HEAD_TILES, *b.shape), g)
+                   for g in groups]).transpose(0, 1).reshape(HEAD_ROWS, -1)
+        for b in map(ncm._l2, _pad_rows(q, HEAD_ROWS).split(HEAD_ROWS))
+    ])[:n, :c]
 
 
 class PrototypeStore:

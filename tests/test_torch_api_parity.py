@@ -255,3 +255,50 @@ def test_profile_default_counts_the_matmul_flops(datapath):
         r["flops"] for r in prof["nodes"]
         if r["op"] in ("matmul", "matmul_int", "mvau", "mvau_int"))
     assert dm.profile(x, xla=False)["xla"] is None
+
+
+_DIST_NAMES = {
+    "dist": ["act_sharding", "compress_int8", "decompress_int8",
+             "ef_compress_tree", "init_residuals", "prototype_spec",
+             "serve_mesh", "set_fsdp_axes", "set_moe_expert_axis",
+             "tree_batch_shardings", "tree_cache_shardings",
+             "tree_opt_shardings", "tree_param_shardings",
+             "StragglerMonitor"],
+    "dist.pipeline": ["pipeline_apply"],
+    "dist.act_sharding": ["rules", "get_rule", "constrain"],
+    "launch.mesh": ["make_production_mesh", "make_debug_mesh"],
+    "launch.specs": ["SHAPES", "cell_supported", "batch_specs",
+                     "cache_specs", "param_specs"],
+    "launch.dryrun": ["apply_variant", "lower_cell", "artifact_path",
+                      "run_cell", "main", "ARTIFACT_DIR"],
+    "launch.hlo_analysis": ["analyze", "top_collectives", "top_dots"],
+    "launch.diagnose": ["lower_and_text", "main"],
+    "obs.hlo": ["analyze", "top_collectives", "top_dots"],
+    "obs.diagnose": ["lower_and_text", "main"],
+    "launch.steps": ["make_train_step", "make_prefill_step",
+                     "make_decode_step", "train_dtype_policy"],
+    "ckpt": ["restore_resharded"],
+    "serve.cluster": ["ShardedNCMHead", "ShardedStore",
+                      "sharded_tenant_registry"],
+}
+
+
+@pytest.mark.parametrize("mod", sorted(_DIST_NAMES))
+def test_distribution_names_in_both_packages(mod):
+    """Every public name of the distribution slice imports from both
+    packages.  The reference's dry run sets ``XLA_FLAGS`` at import; the
+    variable is restored so later subprocesses see what they saw."""
+    import os
+
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        ref = importlib.import_module(f"repro.{mod}")
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    port = importlib.import_module(f"repro_torch.{mod}")
+    for name in _DIST_NAMES[mod]:
+        assert hasattr(ref, name), (mod, name)
+        assert hasattr(port, name), (mod, name)

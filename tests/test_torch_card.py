@@ -1589,3 +1589,49 @@ def test_qmatmul_at_whisper_encoder_rows_and_expert_rows(card, m, k, n,
     half = torch.full((n,), 0.5, device=card)
     assert torch.equal(KQ.qmatmul(xi, w, half, bits),
                        KQ.qmatmul_plain(xi, w, half, bits))
+
+
+# ---------------------------------------------------------------------------
+# distribution: one rank over NCCL, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+def _dist_smoke(tmp_path, *args):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    out = tmp_path / "ds"
+    r = subprocess.run([sys.executable, str(root / "tools" / "dist_smoke.py"),
+                        *args, "--out", str(out)], capture_output=True,
+                       text=True, timeout=600)
+    summary = json.loads((out / "summary.json").read_text())
+    assert r.returncode == 0 and summary["ok"], (summary["failed"],
+                                                 r.stderr[-3000:])
+    return summary
+
+
+@pytest.mark.cuda
+def test_dist_one_rank_nccl(card, tmp_path):
+    """One rank over NCCL: the 1x1 mesh, the sharded train step and the
+    w8 and w4 decode bit for bit the plain ones, restore_resharded (the
+    checks need no collective of two ranks, so none is deferred)."""
+    s = _dist_smoke(tmp_path, "--spawn", "1", "--backend", "nccl")
+    assert s["world"] == 1 and not s["deferred"]
+    assert s["checks"]["train"]["meshes"]["1x1_acc"]["bitforbit"]
+    assert all(r["logit_err"] == 0 for r in
+               s["checks"]["decode"]["bits"].values())
+    assert s["checks"]["restore"]["ok"]
+    assert s["launches"]["qmatmul"] > 0
+
+
+@pytest.mark.cuda
+def test_dist_two_ranks_one_card_gloo(card, tmp_path):
+    """Two ranks spawned on the one card over gloo: the sharded head over
+    the int artifact bit for bit, the checks gloo can run on CUDA tensors,
+    and the kernels on the sharded runs."""
+    s = _dist_smoke(tmp_path, "--spawn", "2", "--backend", "gloo")
+    assert s["world"] == 2 and s["checks"]["head"]["ok"]
+    assert s["launches"]["mvau_int"] > 0 and s["launches"]["mvau_int_gap"] > 0
+    if "decode" not in s["deferred"]:
+        assert s["launches"]["qmatmul"] > 0

@@ -179,15 +179,39 @@ def test_named_checkpoint_rejects_unsafe_names(tmp_path, bad):
 def test_compile_cache_and_resharding_wait_for_their_slices(tmp_path):
     """The compile cache has been ported (its contracts:
     ``tests/test_torch_compile_cache.py``): it opens over a checkpoint
-    directory and stores named entries there.  Elastic resharding still
-    waits for the distribution slice."""
+    directory and stores named entries there.  Elastic resharding is
+    ported too: on a one-rank mesh each leaf comes back a DTensor of the
+    layout ``sharding_fn`` gives, bit for bit (onto a 2x2 mesh:
+    ``tests/test_torch_dist_ranks.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.sharding import NamedSharding
+
     cache = CompileCache(str(tmp_path))
     key = cache.key(kind="ckpt-test")
     cache.store(key, {"x": np.arange(3, dtype=np.uint8)})
     assert cache.mgr.all_named() == [key]
     assert CheckpointManager(str(tmp_path)).has_named(key)
-    with pytest.raises(NotImplementedError, match="resharding"):
-        restore_resharded(CheckpointManager(str(tmp_path)), {}, None)
+    tree = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4)}
+    mgr = CheckpointManager(str(tmp_path / "steps"))
+    mgr.save(1, tree)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        seen = []
+
+        def fn(path, shape):
+            seen.append((path, shape))
+            return NamedSharding(mesh, (None, "model"))
+
+        got = restore_resharded(mgr, tree, fn)
+        assert seen == [("w", (3, 4))]
+        assert torch.equal(got["w"].full_tensor(), tree["w"])
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

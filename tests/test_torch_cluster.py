@@ -227,11 +227,14 @@ def test_sharded_tenant_registry_shares_one_head():
 
 @pytest.mark.parametrize("devices", [["cuda:0", "cuda:1"], list(range(4))])
 def test_more_than_one_device_is_not_ported(devices):
-    with pytest.raises(NotImplementedError, match="head across cards"):
+    """More than one device needs the caller's process group of as many
+    ranks: without one, the head raises rather than starting a group (the
+    head over ranks: tests/test_torch_dist_ranks.py)."""
+    with pytest.raises(RuntimeError, match="initialized process group"):
         serve_mesh(devices)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         ShardedNCMHead(devices)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         sharded_tenant_registry(devices)
 
 

@@ -30,7 +30,13 @@ assert {"repro_torch.kernels.qmatmul", "repro_torch.models.lm",
         "repro_torch.serve.cluster.sharded",
         "repro_torch.serve.cluster.tenancy", "repro_torch.dist.sharding",
         "repro_torch.dist.act_sharding", "repro_torch.obs.summarize",
-        "repro_torch.configs.resnet9_paper"} <= set(mods)
+        "repro_torch.configs.resnet9_paper", "repro_torch.dist.dtensor",
+        "repro_torch.dist.pipeline", "repro_torch.launch.mesh",
+        "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+        "repro_torch.launch.hlo_analysis", "repro_torch.launch.diagnose",
+        "repro_torch.obs.hlo", "repro_torch.obs.diagnose"} <= set(mods)
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port started a group"
 from repro_torch.models.common import get_config
 get_config("qwen2.5-3b"), get_config("lm-tiny"), get_config("resnet9-paper")
 from repro_torch.fsl import FSLPipeline
@@ -62,7 +68,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tools/dist_smoke.py", "tools/time_head.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), f"{path} imports jax or repro"
@@ -78,3 +84,17 @@ def test_kernel_build_is_lazy():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "True", out.stderr
+
+
+def test_dryrun_import_starts_no_process_group():
+    """The fake group of the dry run is started by ``main()`` alone:
+    importing the dry run, its analysis and the meshes starts no group
+    and builds no mesh."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import repro_torch.launch.dryrun, repro_torch.obs.diagnose, "
+         "repro_torch.launch.mesh, repro_torch.launch.diagnose; "
+         "import torch.distributed as d; print(d.is_initialized())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stderr

@@ -313,8 +313,12 @@ def test_train_step_contract():
     _, tc = _cfgs("qwen2.5-3b", grad_accum=2)
     _, tp = _params(_cfgs("qwen2.5-3b")[0], 7)
     _, tb = _batch(7, tc.vocab, batch=4, n_micro=2)
-    with pytest.raises(NotImplementedError, match="acc_shardings"):
-        TS.make_train_step(tc, acc_shardings={})
+    # on plain tensors (one device) acc_shardings picks no layout: the
+    # same step, bit for bit (the sharded buffer: test_torch_dist_ranks.py)
+    _, _, plain = TS.make_train_step(tc)(tp, adamw_init(tp), tb)
+    _, _, hinted = TS.make_train_step(tc, acc_shardings={})(
+        tp, adamw_init(tp), tb)
+    assert torch.equal(plain, hinted)
     with pytest.raises(ValueError, match="embed_head"):
         TS.make_train_step(tc)(
             TL.with_head_copy(tp, dataclasses.replace(
