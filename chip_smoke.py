@@ -30,6 +30,16 @@ ends the run with a non-zero exit if it fails:
    MVAUs in conv form and in GEMM form on pre-built patches; the int32-code
    route in conv form; r2b's tail fused, unfused (conv, add, GAP) and the
    conv alone.
+2a. differential fuzz (path ``fuzz``): the random hardware-mapped graphs
+   of ``repro_torch.core.fuzz`` -- the reference's corpus
+   (``random_hw_graph``, ``REFERENCE_SEEDS``) and the wide one at the
+   kernels' tile edges (``wide_hw_graph``, ``WIDE_SEEDS``) -- each through
+   ``check_differential`` on the card (interpreter == f32 == unfused int ==
+   fused int, bit for bit), then on the CPU: every card output equals its
+   CPU counterpart and the CPU interpreter's.  The float MVAU, the integer
+   MVAU on both routes, the fused GAP tail and the GAP kernel must each
+   launch; the seeds, failures (none allowed), seconds and, per route, the
+   MVAU shapes that reached it are logged.
 2b. CUDA graphs on the FSL path: the width-64 int and f32 artifacts and
    their flip ensembles warmed at every bucket 1-64, each bucket captured
    as one CUDA graph; every replay equals the eager run of the same
@@ -221,7 +231,8 @@ ends the run with a non-zero exit if it fails:
    the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are set to 0 just before each path (phases 3-4, the
+Launch counters are set to 0 just before each path (the card runs of
+phase 2a, phases 3-4, the
 engine's traffic, the cluster's traffic, the counted forwards of phase 5,
 the eager and the captured ``generate`` runs of phases 6, 6a and 6c
 (with whisper's ``encode`` and ``build_cross_cache``), the
@@ -243,6 +254,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1337,6 +1349,97 @@ def unfused_lowering(dm):
 
     return dataclasses.replace(
         dm, apply=lower_graph(dm.graph, "cuda", fold_pools=False))
+
+
+# ---------------------------------------------------------------------------
+# Phase 2a: the differential fuzz on the card
+# ---------------------------------------------------------------------------
+FUZZ_OUTPUTS = ("interpreter", "f32", "int_unfused", "int")
+
+
+def fuzz_path(torch, np, B):
+    """Phase 2a (path ``fuzz``): every graph of ``core.fuzz``'s two card
+    ranges (the reference's corpus, ``REFERENCE_SEEDS``, and the wide one,
+    ``WIDE_SEEDS``) through ``check_differential`` on the card, then on the
+    CPU; each card output equals its CPU counterpart and the CPU
+    interpreter's output.  The launch counts cover the card runs only.
+    Returns the path's counts and, per route, the MVAU shapes that reached
+    it."""
+    from repro_torch.core import fuzz
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    graphs = [(name, seed, gen(seed)[:2])
+              for name, gen, seeds in (
+                  ("reference", fuzz.random_hw_graph, fuzz.REFERENCE_SEEDS),
+                  ("wide", fuzz.wide_hw_graph, fuzz.WIDE_SEEDS))
+              for seed in seeds]
+    failures, card = [], {}
+    B.reset_launch_counts()
+    t_card = time.perf_counter()
+    for name, seed, (g, x) in graphs:
+        try:
+            card[name, seed] = fuzz.check_differential(g, x)
+        except Exception:                 # noqa: BLE001 -- logged, then fails
+            failures.append(f"{name} {seed} card: "
+                            f"{traceback.format_exc(limit=-4)}")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t_card
+    counts = dict(B.launch_counts)
+    routes: dict = {}
+    tails = residuals = float_adds = 0
+    for name, seed, (g, x) in graphs:
+        if (name, seed) not in card:
+            continue
+        got = card[name, seed]
+        try:
+            cpu = fuzz.check_differential(g, x, "cpu")
+        except Exception:                 # noqa: BLE001 -- logged, then fails
+            failures.append(f"{name} {seed} cpu: "
+                            f"{traceback.format_exc(limit=-4)}")
+            continue
+        for key in FUZZ_OUTPUTS:
+            for other in (key, "interpreter"):
+                if not fuzz.same_output(got[key], cpu[other]):
+                    failures.append(f"{name} {seed}: card {key} != cpu "
+                                    f"{other}")
+        for art in ("f32", "int"):
+            summary = fuzz.lowering_summary(got["artifacts"][art], x, sms)
+            for n in summary["mvau"]:
+                routes.setdefault(n["route"], set()).add(
+                    (n["m"], n["k"], n["n"], n["levels"], n["splits"]))
+            if art == "int":
+                tails += summary["gap_tails"]
+                residuals += summary["residual_gaps"]
+                float_adds += summary["float_adds"]
+    seconds = time.perf_counter() - t_phase
+    by_corpus = {c: [s for n, s, _ in graphs if n == c]
+                 for c in ("reference", "wide")}
+    log(f"fuzz: reference seeds {min(by_corpus['reference'])}-"
+        f"{max(by_corpus['reference'])}, wide seeds "
+        f"{min(by_corpus['wide'])}-{max(by_corpus['wide'])}: "
+        f"{len(graphs)} graphs x 4 engines on the card and on the CPU; "
+        f"failures {len(failures)}; card runs {t_card:.2f} s, phase "
+        f"{seconds:.2f} s")
+    for f in failures:
+        log(f"  fuzz FAILED {f}")
+    for route, shapes in sorted(routes.items()):
+        m, k, n, lv = (max(s[i] for s in shapes) for i in range(4))
+        log(f"  fuzz route {route}: {len(shapes)} distinct (M, K, N, L); "
+            f"up to M {m}, K {k}, N {n}, L {lv}; M > 128 with a ragged "
+            f"tile {sum(s[0] > 128 and s[0] % 128 > 0 for s in shapes)}, "
+            f"N > 128 {sum(s[2] > 128 for s in shapes)}, L > 64 "
+            f"{sum(s[3] > 64 for s in shapes)}; K split (M, K, N, L, "
+            f"splits) {sorted(s for s in shapes if s[4] > 1)}")
+    log(f"  fuzz int artifacts: {tails} fused GAP tails, {residuals} "
+        f"residual GAPs, {float_adds} float adds; launches {counts}")
+    check(not failures, f"fuzz: {len(failures)} failures: {failures[:5]}")
+    check(counts["mvau"] > 0 and counts["mvau_int_gap"] > 0
+          and counts["gap"] > 0 and counts["mvau_int_wide"] > 0
+          and counts["mvau_int"] - counts["mvau_int_wide"] > 0,
+          f"fuzz path: a kernel never ran: {counts}")
+    return counts, {"seconds": seconds, "card_seconds": t_card,
+                    "graphs": len(graphs), "failures": len(failures)}
 
 
 # ---------------------------------------------------------------------------
@@ -4752,6 +4855,7 @@ def main() -> int:
 
     err = check_kernels(torch, Q, KM, KG, ref)
     kernels = time_kernels(torch, Q, KM, KG, ref, err)
+    fuzz_counts, _ = fuzz_path(torch, np, B)
 
     graph_state = fsl_graph_path(torch, np, B)
     B.reset_launch_counts()
@@ -4781,7 +4885,8 @@ def main() -> int:
     dse_counts = dse_path(torch, np, B)
     lm_train_counts = lm_train_path(torch, np, B)
     dist_counts, _ = dist_path(torch, np, B)
-    paths = {"fsl": fsl_counts, "fsl_wide_codes": wide_counts,
+    paths = {"fuzz": fuzz_counts, "fsl": fsl_counts,
+             "fsl_wide_codes": wide_counts,
              "fsl_serve": serve_counts, "cluster": cluster_counts,
              "lm_decode": lm_counts,
              "lm_decode_graph": lm_graph_counts,
@@ -4829,6 +4934,13 @@ def main() -> int:
         check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
               f"mvau_int's {route} route never ran on the training or the "
               f"DSE path: {by_path}")
+    # the differential fuzz: both integer routes, the float MVAU, the fused
+    # GAP tail and the GAP kernel (checked in fuzz_path, read here again)
+    check(all(mv["launches_by_route"][r]["fuzz"] > 0 for r in
+              ("int8_wgmma", "cuda_core"))
+          and all(paths["fuzz"][n] > 0 for n in ("mvau", "mvau_int_gap",
+                                                   "gap")),
+          f"fuzz path: launches {paths['fuzz']}")
     # the cluster's traffic: the int backbone's 8 mvau_int launches a forward
     # on the int8 wgmma route, r2b's with the GAP epilogue (replays only)
     cl = paths["cluster"]

@@ -496,6 +496,30 @@ def test_main_path_card_equals_cpu(card):
     assert len(dm.apply.folded) == 10
 
 
+FUZZ_CARD_CASES = ([("reference", s) for s in (0, 1, 2, 3)]
+                   + [("wide", s) for s in (7, 13, 23, 40, 42)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus,seed", FUZZ_CARD_CASES)
+def test_fuzz_graphs_card_equal_cpu(card, corpus, seed):
+    """Random hardware-mapped graphs of ``core.fuzz`` through the four
+    engines on the card (``check_differential``: interpreter == f32 ==
+    unfused int == fused int), each output equal to its CPU counterpart and
+    the CPU interpreter's bit for bit.  The wide seeds hold a fused GAP
+    tail (7, 40), a float residual add (13), a CUDA-core MVAU whose K the
+    planner splits (23) and one with 255 levels (42)."""
+    from repro_torch.core import fuzz
+
+    gen = fuzz.random_hw_graph if corpus == "reference" else fuzz.wide_hw_graph
+    g, x, _ = gen(seed)
+    got = fuzz.check_differential(g, x, card)
+    want = fuzz.check_differential(g, x, "cpu")
+    for key in ("interpreter", "f32", "int_unfused", "int"):
+        assert fuzz.same_output(got[key], want[key]), key
+        assert fuzz.same_output(got[key], want["interpreter"]), key
+
+
 @pytest.mark.cuda
 def test_store_head_on_the_card(card):
     """The store's default device is the card; its prototypes and
