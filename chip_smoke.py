@@ -32,14 +32,17 @@ ends the run with a non-zero exit if it fails:
    conv alone.
 2a. differential fuzz (path ``fuzz``): the random hardware-mapped graphs
    of ``repro_torch.core.fuzz`` -- the reference's corpus
-   (``random_hw_graph``, ``REFERENCE_SEEDS``) and the wide one at the
-   kernels' tile edges (``wide_hw_graph``, ``WIDE_SEEDS``) -- each through
-   ``check_differential`` on the card (interpreter == f32 == unfused int ==
-   fused int, bit for bit), then on the CPU: every card output equals its
-   CPU counterpart and the CPU interpreter's.  The float MVAU, the integer
-   MVAU on both routes, the fused GAP tail and the GAP kernel must each
-   launch; the seeds, failures (none allowed), seconds and, per route, the
-   MVAU shapes that reached it are logged.
+   (``random_hw_graph``, ``REFERENCE_SEEDS``), the wide one at the
+   kernels' tile edges (``wide_hw_graph``, ``WIDE_SEEDS``) and the dense
+   one at decode and small-batch GEMM shapes (``gemm_hw_graph``,
+   ``GEMM_SEEDS``) -- each through ``check_differential`` on the card
+   (interpreter == f32 == unfused int == fused int, bit for bit), then on
+   the CPU: every card output equals its CPU counterpart and the CPU
+   interpreter's.  The float MVAU, the integer MVAU on its three routes
+   (int8 ``wgmma``, the small-M kernel, the CUDA cores), the int8 GEMM
+   form past the small-M limit, the fused GAP tail and the GAP kernel must
+   each run; the seeds, failures (none allowed), seconds and, per route,
+   the MVAU shapes that reached it are logged.
 2b. CUDA graphs on the FSL path: the width-64 int and f32 artifacts and
    their flip ensembles warmed at every bucket 1-64, each bucket captured
    as one CUDA graph; every replay equals the eager run of the same
@@ -149,19 +152,23 @@ ends the run with a non-zero exit if it fails:
    encoder output and cross k/v.
 6b. compiled LM decode (paths ``lm_tiny_decode``, ``lm_tiny_serve``):
    the int8 MVAU in GEMM form at lm-tiny's ``w_down`` (M 1, 3 and 8, K 96,
-   N 64, 255 levels; a table shared by every column and one per column)
-   against its plain version, timed at M 1 and 8 beside ``torch._int_mm``
-   + count and its bound; lm-tiny at full size (seed 0, drawn on the card)
-   through ``build_decode_artifact`` to int and f32 artifacts (golden-IO
-   checked bit for bit); eager steps through ``DecodeArtifact`` before
-   warmup (2 ``mvau_int`` launches per int step, tokens == eager
-   ``decode_step_ref``); one CUDA graph per bucket (1, 2, 4, 8) x capacity
+   N 64, 255 levels; a table shared by every column and one per column:
+   the small-M kernel) against its plain version, timed at M 1 and 8
+   beside ``torch._int_mm`` + count, the wgmma kernel on the same inputs,
+   an empty launch and its bound; lm-tiny at full size (seed 0, drawn on
+   the card) through ``build_decode_artifact`` to int and f32 artifacts
+   (golden-IO checked bit for bit); eager steps through ``DecodeArtifact``
+   before warmup (2 ``mvau_int`` launches per int step, both on the
+   small-M kernel, tokens == eager ``decode_step_ref``); one CUDA graph
+   per bucket (1, 2, 4, 8) x capacity
    (32, 64): int replay == int eager == f32 == interpreter ==
    ``decode_step_ref``, bit for bit, at every pair, and each row of a
    bucket-8 step == that row at bucket 1; card against CPU on the same
    params (logits within 0.0625, greedy tokens equal where the CPU's top-2
    margin exceeds 0.125); step latency replayed and eager at batch 1 and
-   8, the replayed int step profiled (2 ``mvau_conv_kernel`` a step);
+   8, the replayed int step profiled (exactly 2 ``mvau_small_m_kernel``
+   and 0 ``mvau_conv_kernel`` a step) beside the f32 step (the kernels the
+   int step spends more device time on);
    ``ServeEngine`` serving both artifacts through ``DecodeAdapter``: 16
    sequences from 4 threads through ``greedy_generate`` (20-40 new tokens,
    most crossing capacity 32), tokens == eager ``decode_step_ref`` and int
@@ -227,7 +234,8 @@ ends the run with a non-zero exit if it fails:
    is their sum and must show ``mvau_int``, ``mvau_int_gap`` and
    ``qmatmul``.
 11. a JSON line of every kernel with its launches on its paths (the integer
-   MVAU's also by route: int8 ``wgmma`` and CUDA cores) and its numbers,
+   MVAU's also by route: int8 ``wgmma``, the small-M kernel and CUDA
+   cores; the small-M kernel also as an entry of its own) and its numbers,
    the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -349,7 +357,8 @@ def check_kernels(torch, Q, KM, KG, ref):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64
                              ).to(torch.int32)
 
-    err = {"mvau_int": 0.0, "mvau_int_gap": 0.0, "mvau": 0.0, "gap": 0.0}
+    err = {"mvau_int": 0.0, "mvau_int_gap": 0.0, "mvau": 0.0, "gap": 0.0,
+           "mvau_int_small_m": 0.0}
     # L > 64 takes the kernels' binary-search epilogue (sorted tables)
     cases = [(7, 36, 8, 15), (16, 130, 129, 15), (5, 64, 32, 255),
              (130, 200, 96, 512), (1000, 27, 64, 15), (300, 4608, 512, 15),
@@ -1164,11 +1173,11 @@ def main_path(torch, np, B):
 
     f_int, d = delta(lambda: dm_int(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                "mvau": 0, "gap": 0, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0},
           f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau": 8, "gap": 1, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 8, "gap": 1, "qmatmul": 0},
           f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
@@ -1193,7 +1202,7 @@ def main_path(torch, np, B):
     unfused = unfused_lowering(dm_int)
     f_unf, d = delta(lambda: unfused(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau": 0, "gap": 1, "qmatmul": 0}
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 1, "qmatmul": 0}
           and torch.equal(f_unf, f_int),
           f"unfused int forward: launches {d}, or features differ")
     B.launch_counts.update(saved)
@@ -1202,11 +1211,12 @@ def main_path(torch, np, B):
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
     check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau_int_wide": 0,
-                "mvau": 0, "gap": 0, "qmatmul": 0}, f"flip ensemble {d}")
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0},
+          f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau": 16, "gap": 2, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 16, "gap": 2, "qmatmul": 0},
           f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
@@ -1358,13 +1368,13 @@ FUZZ_OUTPUTS = ("interpreter", "f32", "int_unfused", "int")
 
 
 def fuzz_path(torch, np, B):
-    """Phase 2a (path ``fuzz``): every graph of ``core.fuzz``'s two card
-    ranges (the reference's corpus, ``REFERENCE_SEEDS``, and the wide one,
-    ``WIDE_SEEDS``) through ``check_differential`` on the card, then on the
-    CPU; each card output equals its CPU counterpart and the CPU
-    interpreter's output.  The launch counts cover the card runs only.
-    Returns the path's counts and, per route, the MVAU shapes that reached
-    it."""
+    """Phase 2a (path ``fuzz``): every graph of ``core.fuzz``'s three card
+    ranges (the reference's corpus, ``REFERENCE_SEEDS``, the wide one,
+    ``WIDE_SEEDS``, and the dense one, ``GEMM_SEEDS``) through
+    ``check_differential`` on the card, then on the CPU; each card output
+    equals its CPU counterpart and the CPU interpreter's output.  The
+    launch counts cover the card runs only.  Returns the path's counts and
+    the phase's numbers."""
     from repro_torch.core import fuzz
 
     t_phase = time.perf_counter()
@@ -1372,7 +1382,8 @@ def fuzz_path(torch, np, B):
     graphs = [(name, seed, gen(seed)[:2])
               for name, gen, seeds in (
                   ("reference", fuzz.random_hw_graph, fuzz.REFERENCE_SEEDS),
-                  ("wide", fuzz.wide_hw_graph, fuzz.WIDE_SEEDS))
+                  ("wide", fuzz.wide_hw_graph, fuzz.WIDE_SEEDS),
+                  ("gemm", fuzz.gemm_hw_graph, fuzz.GEMM_SEEDS))
               for seed in seeds]
     failures, card = [], {}
     B.reset_launch_counts()
@@ -1387,6 +1398,7 @@ def fuzz_path(torch, np, B):
     t_card = time.perf_counter() - t_card
     counts = dict(B.launch_counts)
     routes: dict = {}
+    gemm_wgmma: set = set()
     tails = residuals = float_adds = 0
     for name, seed, (g, x) in graphs:
         if (name, seed) not in card:
@@ -1408,16 +1420,19 @@ def fuzz_path(torch, np, B):
             for n in summary["mvau"]:
                 routes.setdefault(n["route"], set()).add(
                     (n["m"], n["k"], n["n"], n["levels"], n["splits"]))
+                if n["route"] == "int8" and n["form"] == "gemm":
+                    gemm_wgmma.add((n["m"], n["k"], n["n"], n["levels"]))
             if art == "int":
                 tails += summary["gap_tails"]
                 residuals += summary["residual_gaps"]
                 float_adds += summary["float_adds"]
     seconds = time.perf_counter() - t_phase
     by_corpus = {c: [s for n, s, _ in graphs if n == c]
-                 for c in ("reference", "wide")}
+                 for c in ("reference", "wide", "gemm")}
     log(f"fuzz: reference seeds {min(by_corpus['reference'])}-"
         f"{max(by_corpus['reference'])}, wide seeds "
-        f"{min(by_corpus['wide'])}-{max(by_corpus['wide'])}: "
+        f"{min(by_corpus['wide'])}-{max(by_corpus['wide'])}, dense seeds "
+        f"{min(by_corpus['gemm'])}-{max(by_corpus['gemm'])}: "
         f"{len(graphs)} graphs x 4 engines on the card and on the CPU; "
         f"failures {len(failures)}; card runs {t_card:.2f} s, phase "
         f"{seconds:.2f} s")
@@ -1431,13 +1446,20 @@ def fuzz_path(torch, np, B):
             f"N > 128 {sum(s[2] > 128 for s in shapes)}, L > 64 "
             f"{sum(s[3] > 64 for s in shapes)}; K split (M, K, N, L, "
             f"splits) {sorted(s for s in shapes if s[4] > 1)}")
+    rows = sorted(s[0] for s in gemm_wgmma) or ["-"]
+    log(f"  fuzz int8 GEMM form past the small-M limit (wgmma): "
+        f"{len(gemm_wgmma)} distinct (M, K, N, L), M {rows[0]}-{rows[-1]}")
     log(f"  fuzz int artifacts: {tails} fused GAP tails, {residuals} "
         f"residual GAPs, {float_adds} float adds; launches {counts}")
     check(not failures, f"fuzz: {len(failures)} failures: {failures[:5]}")
     check(counts["mvau"] > 0 and counts["mvau_int_gap"] > 0
           and counts["gap"] > 0 and counts["mvau_int_wide"] > 0
-          and counts["mvau_int"] - counts["mvau_int_wide"] > 0,
+          and counts["mvau_int_small_m"] > 0
+          and counts["mvau_int"] - counts["mvau_int_wide"]
+          - counts["mvau_int_small_m"] > 0,
           f"fuzz path: a kernel never ran: {counts}")
+    check(bool(gemm_wgmma) and bool(routes.get("int8_small_m")),
+          "fuzz path: the int8 GEMM form did not reach both its routes")
     return counts, {"seconds": seconds, "card_seconds": t_card,
                     "graphs": len(graphs), "failures": len(failures)}
 
@@ -2336,7 +2358,8 @@ def wide_code_path(torch, np, B):
         torch.cuda.synchronize()
         run = dict(B.launch_counts)
         check(run == {"mvau_int": 8, "mvau_int_gap": int(int8),
-                      "mvau_int_wide": 8 * (1 - int(int8)), "mvau": 0,
+                      "mvau_int_wide": 8 * (1 - int(int8)),
+                      "mvau_int_small_m": 0, "mvau": 0,
                       "gap": 1 - int(int8), "qmatmul": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
@@ -3812,15 +3835,23 @@ LM_TINY_CPU_STEPS = 40
 LM_TINY_LEVELS = 255
 
 
-def time_mvau_int_lm_shape(torch, KM, ref, err):
-    """The int8 ``wgmma`` kernel in GEMM form at lm-tiny's ``w_down``: M =
-    the batch bucket (1 and 8, and 3 for the odd case), K 96, N 64, 255
-    levels (the binary-search branch), one table shared by every column as
-    the lowering expands it, and a random sorted one per column.  Each held
-    against the plain version; timed at M = 1 and 8 beside the plain
-    version, ``torch._int_mm`` + count (M padded to 32: ``_int_mm`` refuses
-    M <= 16 on the card) and the bound."""
+def time_mvau_int_lm_shape(torch, KM, B, ref, err):
+    """The int8 GEMM form at lm-tiny's ``w_down``: M = the batch bucket (1
+    and 8, and 3 for the odd case), K 96, N 64, 255 levels (searched), one
+    table shared by every column as the lowering expands it, and a random
+    sorted one per column.  ``KM.mvau_int`` takes the small-M route there
+    (``mvau_small_m_kernel``); each launch is held against the plain
+    version.  Timed at M = 1 and 8 beside the plain version, ``torch._int_mm``
+    + count (M padded to 32: ``_int_mm`` refuses M <= 16 on the card), the
+    wgmma kernel on the same inputs (the route before the small-M kernel,
+    launched through the library directly), an empty launch of the same
+    grid (the floor of any launch) and the bound; and, for the epilogue's
+    share, the small-M kernel with a 15-level table and with 128 rows."""
+    check(KM.int8_gemm_route(8, LM_TINY_LEVELS) == "small_m",
+          "lm-tiny's w_down is not on the small-M route")
     gen = torch.Generator().manual_seed(11)
+    lib = B.library()
+    stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for m in (1, 3, 8):
         x = torch.randint(-128, 128, (m, 96), generator=gen).to(torch.int8)
@@ -3834,27 +3865,43 @@ def time_mvau_int_lm_shape(torch, KM, ref, err):
         x, w = x.cuda(), w.cuda()
         for kind, t in tables.items():
             t = t.to(torch.int32).contiguous().cuda()
+            before = B.launch_counts["mvau_int_small_m"]
             got, want = KM.mvau_int(x, w, t, -128), KM.mvau_int_plain(
                 x, w, t, -128)
+            check(B.launch_counts["mvau_int_small_m"] == before + 1,
+                  f"mvau_int at lm-tiny's shape (M {m}) did not launch the "
+                  "small-M kernel")
             d = (got - want).abs().max().item()
-            err["mvau_int"] = max(err["mvau_int"], float(d))
+            err["mvau_int_small_m"] = max(err["mvau_int_small_m"], float(d))
             check(torch.equal(got, want), f"mvau_int at lm-tiny's shape "
                   f"(M {m}, {kind} table) differs from plain by {d}")
         if m == 3:
             continue
         t = tables["shared"].to(torch.int32).contiguous().cuda()
-        # beside it, what the epilogue costs: a 15-level table (staged in
-        # shared memory, counted densely) and 128 rows at 255 levels
+        # beside it, what the epilogue costs: a 15-level table (counted
+        # densely) and 128 rows at 255 levels
         t15 = torch.sort(t[:, ::17], dim=1).values.contiguous()
         x128 = x.repeat(-(-128 // m), 1)[:128].contiguous()
         xpad = torch.nn.functional.pad(x, (0, 0, 0, 32 - m))
+        old = torch.empty((m, 64), dtype=torch.int32, device="cuda")
 
-        def lib():
+        def lib_call():
             acc = torch._int_mm(xpad, w)[:m]
             return -128 + ref.threshold_counts_fast(acc, t, True)
 
-        check(torch.equal(lib().to(torch.int32), KM.mvau_int_plain(
+        def wgmma():
+            B.check(lib.mvau_int(x.data_ptr(), w.data_ptr(), 0, t.data_ptr(),
+                                 old.data_ptr(), m, 96, 64, LM_TINY_LEVELS,
+                                 -128, 1, None, None, stream), "mvau_int")
+
+        def empty():
+            B.check(lib.empty_launch(4, 128, stream), "empty")
+
+        check(torch.equal(lib_call().to(torch.int32), KM.mvau_int_plain(
             x, w, t, -128)), "the _int_mm yardstick computes another function")
+        wgmma()
+        check(torch.equal(old, KM.mvau_int_plain(x, w, t, -128)),
+              "the wgmma route differs from plain at lm-tiny's shape")
         nbytes = x.numel() + w.numel() + 4 * t.numel() + 4 * m * 64
         ops = 2 * m * 96 * 64
         b_ms, o_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
@@ -3862,7 +3909,9 @@ def time_mvau_int_lm_shape(torch, KM, ref, err):
             "ms": cuda_ms(torch, lambda: KM.mvau_int(x, w, t, -128)),
             "plain_ms": cuda_ms(torch, lambda: KM.mvau_int_plain(
                 x, w, t, -128)),
-            "library_ms": cuda_ms(torch, lib),
+            "library_ms": cuda_ms(torch, lib_call),
+            "wgmma_ms": cuda_ms(torch, wgmma),
+            "empty_launch_ms": cuda_ms(torch, empty),
             "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "ms_15_levels": cuda_ms(torch, lambda: KM.mvau_int(
@@ -3870,12 +3919,14 @@ def time_mvau_int_lm_shape(torch, KM, ref, err):
             "ms_m128": cuda_ms(torch, lambda: KM.mvau_int(x128, w, t, -128))}
         r = out[f"M{m}"]
         log(f"kernel mvau_int GEMM form at lm-tiny's w_down M={m} K=96 N=64 "
-            f"L={LM_TINY_LEVELS}: kernel_ms={r['ms']:.5f} plain_ms="
+            f"L={LM_TINY_LEVELS}: small-M kernel_ms={r['ms']:.5f} plain_ms="
             f"{r['plain_ms']:.5f} library_ms={r['library_ms']:.5f} "
-            f"(torch._int_mm on M padded to 32 + count) bound_ms="
-            f"{r['bound_ms']:.7f} ({r['bound_by']}: {nbytes} bytes, {ops} "
-            f"operations); the same launch with 15 levels "
-            f"{r['ms_15_levels']:.5f} ms, with 128 rows {r['ms_m128']:.5f} ms")
+            f"(torch._int_mm on M padded to 32 + count) wgmma kernel_ms="
+            f"{r['wgmma_ms']:.5f} empty launch_ms={r['empty_launch_ms']:.5f} "
+            f"bound_ms={r['bound_ms']:.7f} ({r['bound_by']}: {nbytes} bytes, "
+            f"{ops} operations); the small-M kernel with 15 levels "
+            f"{r['ms_15_levels']:.5f} ms, with 128 rows {r['ms_m128']:.5f} "
+            f"ms ({KM.int8_gemm_route(128, LM_TINY_LEVELS)} route)")
     return out
 
 
@@ -3897,7 +3948,7 @@ def lm_tiny_path(torch, np, B, KM, ref, err):
 
     t_phase = time.perf_counter()
     cfg = get_config("lm-tiny")
-    mv_lm = time_mvau_int_lm_shape(torch, KM, ref, err)
+    mv_lm = time_mvau_int_lm_shape(torch, KM, B, ref, err)
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     arts, build_s = {}, {}
     for dp in ("int", "f32"):
@@ -3961,16 +4012,18 @@ def lm_tiny_path(torch, np, B, KM, ref, err):
     for i in got:
         art.release(f"e{i}")
     check(decode_counts["mvau_int"] == 2 * launches
+          and decode_counts["mvau_int_small_m"] == decode_counts["mvau_int"]
           and decode_counts["mvau_int_wide"] == 0,
           f"lm_tiny eager: {decode_counts['mvau_int']} mvau_int launches "
-          f"for {launches} int steps")
+          f"({decode_counts['mvau_int_small_m']} small-M) for {launches} int "
+          "steps")
     for i, p in enumerate(eager_prompts):
         check(got[i] == eager_greedy(p, 10, LM_TINY_CAPS[0]),
               f"lm_tiny eager sequence {i}: tokens != decode_step_ref")
     log(f"lm_tiny eager steps: {len(eager_prompts)} sequences, {launches} "
         f"launches of the int decode model in {eager_s:.3f} s (no graph), "
-        f"mvau_int {decode_counts['mvau_int']} = 2 per step; tokens == "
-        "eager decode_step_ref greedy")
+        f"mvau_int {decode_counts['mvau_int']} = 2 per step, every one on "
+        "the small-M kernel; tokens == eager decode_step_ref greedy")
 
     # -- one CUDA graph per (bucket x capacity) ------------------------------
     warm_s = {}
@@ -4077,16 +4130,43 @@ def lm_tiny_path(torch, np, B, KM, ref, err):
         torch, "lm_tiny int step replay (batch 8, capacity 32)",
         lambda: arts["int"].dm(*xs), reps)
     if busy is not None:
-        mv_k = [e for e in kern if "mvau_conv_kernel" in e.key]
+        mv_k = [e for e in kern if "mvau_small_m_kernel" in e.key]
         n_mv = sum(e.count for e in mv_k) / reps
+        n_conv = sum(e.count for e in kern
+                     if "mvau_conv_kernel" in e.key) / reps
         per_step = sum(e.count for e in kern) / reps
-        check(n_mv == 2, f"lm_tiny: {n_mv} mvau_conv_kernel per replayed "
-              "int step, expected 2")
+        check(n_mv == 2 and n_conv == 0, f"lm_tiny: {n_mv} "
+              f"mvau_small_m_kernel and {n_conv} mvau_conv_kernel per "
+              "replayed int step, expected 2 and 0")
         log(f"profile lm_tiny int step: {per_step:.0f} kernels/step, "
-            f"mvau_conv_kernel {n_mv:.0f}/step taking "
+            f"mvau_small_m_kernel {n_mv:.0f}/step taking "
             f"{sum(e.device_time_total for e in mv_k) / reps / 1e3:.5f} "
-            f"ms/step of device time; device busy {busy:.4f} ms of the "
-            f"untraced replay's {step[('int', 8, 'replay')]:.4f} ms")
+            f"ms/step of device time, mvau_conv_kernel {n_conv:.0f}; device "
+            f"busy {busy:.4f} ms of the untraced replay's "
+            f"{step[('int', 8, 'replay')]:.4f} ms")
+        # the f32 step on the same feeds: which kernels the int step runs
+        # beyond it
+        busy32, _, kern32 = profile_decode(
+            torch, "lm_tiny f32 step replay (batch 8, capacity 32)",
+            lambda: arts["f32"].dm(*xs), reps)
+        if busy32 is not None:
+            def by_key(ks):
+                out = {}
+                for e in ks:
+                    n, us = out.get(e.key[:70], (0, 0.0))
+                    out[e.key[:70]] = (n + e.count / reps,
+                                       us + e.device_time_total / reps)
+                return out
+            ki, kf = by_key(kern), by_key(kern32)
+            diff = sorted(((ki.get(k, (0, 0.0))[1] - kf.get(k, (0, 0.0))[1],
+                            ki.get(k, (0, 0.0))[0] - kf.get(k, (0, 0.0))[0],
+                            k) for k in set(ki) | set(kf)), reverse=True)
+            log(f"profile lm_tiny int - f32 step (batch 8): busy {busy:.4f} "
+                f"- {busy32:.4f} ms, kernels {per_step:.0f} - "
+                f"{sum(e.count for e in kern32) / reps:.0f} a step; the "
+                "kernels the int step spends more on:")
+            for us, n, k in diff[:8]:
+                log(f"  {us / 1e3:+8.4f} ms/step {n:+6.1f}x  {k}")
 
     # -- the engine ------------------------------------------------------------
     reg = ArtifactRegistry()
@@ -4152,7 +4232,8 @@ def lm_tiny_path(torch, np, B, KM, ref, err):
     check(traces == base, f"lm_tiny: captures after warmup {traces} != {base}")
     check(serve_counts == replayed, f"lm_tiny engine launches {serve_counts} "
           f"!= graph replays {replayed}")
-    check(serve_counts["mvau_int"] > 0 and serve_counts["mvau_int_wide"] == 0,
+    check(serve_counts["mvau_int"] > 0 and serve_counts["mvau_int_wide"] == 0
+          and serve_counts["mvau_int_small_m"] == serve_counts["mvau_int"],
           f"lm_tiny engine: mvau_int launches {serve_counts}")
     n_tok = 0
     for tid in range(LM_TINY_THREADS):
@@ -4878,8 +4959,8 @@ def main() -> int:
         torch, np, B, Q, KQ)
     mma_counts, mma_graph_counts, qmm["moe_mla_audio"] = moe_mla_audio_path(
         torch, np, B, Q, KQ)
-    mv["lm_tiny_gemm_form"], tiny_counts, tiny_serve_counts = lm_tiny_path(
-        torch, np, B, KM, ref, err)
+    mv_lm, tiny_counts, tiny_serve_counts = lm_tiny_path(torch, np, B, KM,
+                                                         ref, err)
     mv["max_abs_err"] = max(mv["max_abs_err"], err["mvau_int"])
     train_counts = train_path(torch, np, B)
     dse_counts = dse_path(torch, np, B)
@@ -4923,21 +5004,48 @@ def main() -> int:
         k = next(k for k in kernels if k["name"] == name)
         check(k["launches_by_path"]["dist"] > 0,
               f"kernel {name} never ran on the dist path")
-    # the integer MVAU's two routes: int8 wgmma, and the CUDA cores for
-    # wider codes (grid_point(8, 8), the 16-bit Table II row)
+    # the integer MVAU's routes: int8 wgmma, the int8 GEMM form at decode
+    # shapes (mvau_small_m_kernel), and the CUDA cores for wider codes
+    # (grid_point(8, 8), the 16-bit Table II row)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
     mv["launches_by_route"] = {
         "int8_wgmma": {p: c["mvau_int"] - c["mvau_int_wide"]
-                       for p, c in paths.items()},
+                       - c["mvau_int_small_m"] for p, c in paths.items()},
+        "int8_small_m": {p: c["mvau_int_small_m"] for p, c in paths.items()},
         "cuda_core": {p: c["mvau_int_wide"] for p, c in paths.items()}}
-    for route, by_path in mv["launches_by_route"].items():
+    for route in ("int8_wgmma", "cuda_core"):
+        by_path = mv["launches_by_route"][route]
         check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
               f"mvau_int's {route} route never ran on the training or the "
               f"DSE path: {by_path}")
-    # the differential fuzz: both integer routes, the float MVAU, the fused
-    # GAP tail and the GAP kernel (checked in fuzz_path, read here again)
+    # the small-M kernel: its own entry, its launches those of lm-tiny's
+    # eager int steps (its main path), the replays and the fuzz beside them
+    r1 = mv_lm["M1"]
+    small = {"name": "mvau_int_small_m", "route": "cuda",
+             "source": "src/repro_torch/csrc/mvau.cu",
+             "replaces": "src/repro/kernels/mvau.py:195",
+             "launches_by_path": mv["launches_by_route"]["int8_small_m"],
+             "launches": mv["launches_by_route"]["int8_small_m"][
+                 "lm_tiny_decode"],
+             "max_abs_err": err["mvau_int_small_m"], "ms": r1["ms"],
+             "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
+             "bound_by": r1["bound_by"], "library_ms": r1["library_ms"],
+             "form": "GEMM form at lm-tiny's w_down, M 1 (M 8: at_m8), K 96, "
+                     f"N 64, {LM_TINY_LEVELS} levels, mma.sync swap-AB",
+             "wgmma_ms": r1["wgmma_ms"],
+             "empty_launch_ms": r1["empty_launch_ms"],
+             "ms_15_levels": r1["ms_15_levels"], "ms_m128": r1["ms_m128"],
+             "at_m8": mv_lm["M8"]}
+    check(all(small["launches_by_path"][p] > 0 for p in
+              ("lm_tiny_decode", "lm_tiny_serve", "fuzz")),
+          f"the small-M kernel never ran on its paths: "
+          f"{small['launches_by_path']}")
+    kernels.append(small)
+    # the differential fuzz: every integer route, the float MVAU, the
+    # fused GAP tail and the GAP kernel (checked in fuzz_path, read here
+    # again)
     check(all(mv["launches_by_route"][r]["fuzz"] > 0 for r in
-              ("int8_wgmma", "cuda_core"))
+              ("int8_wgmma", "int8_small_m", "cuda_core"))
           and all(paths["fuzz"][n] > 0 for n in ("mvau", "mvau_int_gap",
                                                    "gap")),
           f"fuzz path: launches {paths['fuzz']}")
@@ -4948,10 +5056,11 @@ def main() -> int:
           and mv["launches_by_route"]["cuda_core"]["cluster"] == 0
           and cl["mvau_int"] == 8 * cl["mvau_int_gap"],
           f"cluster path: launches {cl}")
-    # the compiled LM decode: every mvau_int launch on the int8 wgmma route
+    # the compiled LM decode: every mvau_int launch on the small-M kernel
     for p in ("lm_tiny_decode", "lm_tiny_serve"):
         check(paths[p]["mvau_int"] > 0
-              and mv["launches_by_route"]["cuda_core"][p] == 0,
+              and mv["launches_by_route"]["int8_small_m"][p]
+              == paths[p]["mvau_int"],
               f"lm-tiny path {p}: mvau_int launches {paths[p]}")
     log("kernels " + " ".join(f"{k['name']}={k['launches_by_path']}"
                               for k in kernels))

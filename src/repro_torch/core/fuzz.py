@@ -43,9 +43,10 @@ from repro_torch.core.recipes import BuildRecipe
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["FUZZ_RECIPE", "FuzzMismatch", "random_hw_graph", "wide_hw_graph",
-           "check_differential", "same_output", "lowering_summary",
-           "REFERENCE_SEEDS",
-           "WIDE_SEEDS", "WIDE_CHANNELS", "WIDE_IMAGES", "H100_SMS"]
+           "gemm_hw_graph", "check_differential", "same_output",
+           "lowering_summary", "REFERENCE_SEEDS", "WIDE_SEEDS", "GEMM_SEEDS",
+           "GEMM_ROWS", "GEMM_DEPTHS", "WIDE_CHANNELS", "WIDE_IMAGES",
+           "H100_SMS"]
 
 # Graphs are generated pre-streamlined (already HW-mapped): the recipe is
 # the empty pass list, so compile() only appends the datatype-inference and
@@ -63,10 +64,18 @@ WIDE_CHANNELS = (1, 2, 3, 4, 5, 6, 7, 8, 63, 64, 65, 127, 128, 129, 160)
 WIDE_IMAGES = (4, 5, 8, 11, 17)
 # the wide corpus's own seed stream: np.random.default_rng((WIDE_STREAM, s))
 WIDE_STREAM = 0x51DE
+# the dense corpus's rows, depths and seed stream: decode and small-batch
+# GEMM shapes on both sides of the int8 GEMM form's route limit
+GEMM_ROWS = (1, 2, 3, 5, 8, 13, 16, 31, 33, 63, 64, 65, 100, 128, 129, 255,
+             256, 257, 511, 513, 1000, 2049)
+GEMM_DEPTHS = (1, 4, 17, 63, 64, 96, 129, 255, 256, 511, 1024, 1440)
+GEMM_STREAM = 0x6E33
 # the seeds the card runs (chip_smoke.py's fuzz phase); the CPU tests check
-# that the wide range reaches every route and tile edge listed above
+# that the wide and dense ranges reach every route and tile edge listed
+# above
 REFERENCE_SEEDS = range(158)
 WIDE_SEEDS = range(256)
+GEMM_SEEDS = range(96)
 # streaming multiprocessors of an H100 SXM: what the kernels' K-split
 # planner sees there (kernels.mvau.tc_splits / core_splits)
 H100_SMS = 132
@@ -113,14 +122,19 @@ def _rand_thresholds(rng, aspec: FixedPointSpec, cout: int) -> np.ndarray:
 def _block(nodes, inits, dtypes, b, src, w, t, wspec, aspec, fused,
            kernel) -> str:
     """Append conv block ``b`` (im2col, then an mvau or a matmul and a
-    standalone multithreshold) reading ``src``; returns its output."""
+    standalone multithreshold) reading ``src``; returns its output.  With
+    ``kernel`` None the block is a dense layer on (M, K) ``src``: no
+    im2col."""
     inits[f"b{b}_w"] = w
     inits[f"b{b}_t"] = t
     dtypes[f"b{b}_w"] = wspec
     dtypes[f"b{b}_t"] = None
-    col = f"b{b}_col"
-    nodes.append(Node("im2col", [src], [col],
-                      {"kernel": kernel, "stride": 1, "pad": kernel // 2}))
+    col = src
+    if kernel is not None:
+        col = f"b{b}_col"
+        nodes.append(Node("im2col", [src], [col],
+                          {"kernel": kernel, "stride": 1,
+                           "pad": kernel // 2}))
     if fused:
         nodes.append(Node("mvau", [col, f"b{b}_w", f"b{b}_t"],
                           [f"b{b}_act"],
@@ -317,6 +331,52 @@ def wide_hw_graph(seed: int) -> Tuple[Graph, np.ndarray, Dict[str, Any]]:
     return g, _fq(x, in_spec), info
 
 
+def gemm_hw_graph(seed: int) -> Tuple[Graph, np.ndarray, Dict[str, Any]]:
+    """A random chain of 1-2 dense layers on an (M, K) input, the shapes a
+    decode step or a small batch gives the GEMM form:
+    ``np.random.default_rng((GEMM_STREAM, seed))``.
+
+    M from :data:`GEMM_ROWS` (1 to 2,049, on both sides of the int8 GEMM
+    form's route limits), K from :data:`GEMM_DEPTHS` (up to 1,440), N from
+    :data:`WIDE_CHANNELS`; weights of 2-6 bits, activations of 2-8 bits
+    (3-255 levels, per-tensor or per-channel tables), each layer an
+    ``mvau`` or, for a quarter of the graphs, a matmul and a standalone
+    multithreshold.  Every float sum is exact in float32, as in
+    :func:`wide_hw_graph`.
+
+    Returns ``(graph, x, info)``; ``info`` records ``fused`` and per layer
+    M x K x N and the levels L."""
+    rng = np.random.default_rng((GEMM_STREAM, seed))
+    m = int(rng.choice(GEMM_ROWS))
+    c0 = int(rng.choice(GEMM_DEPTHS))
+    in_spec = _rand_act_spec(rng, 8)
+    fused = bool(rng.random() < 0.75)
+
+    nodes, inits, dtypes = [], {}, {"x": in_spec}
+    src, c_in, spec, layers = "x", c0, in_spec, []
+    for b in range(int(rng.integers(1, 3))):
+        wspec = _rand_weight_spec(rng)
+        aspec = _rand_act_spec(rng, 8)
+        cout = int(rng.choice(WIDE_CHANNELS))
+        if c_in * 2 ** (wspec.total_bits - 1) * spec.qmax >= F32_EXACT:
+            raise AssertionError(f"gemm seed {seed} layer {b}: float32 "
+                                 "sums would round")
+        w = _fq(rng.normal(size=(c_in, cout)).astype(np.float32), wspec)
+        t = _rand_thresholds(rng, aspec, cout)
+        src = _block(nodes, inits, dtypes, b, src, w, t, wspec, aspec,
+                     fused, None)
+        layers.append({"m": m, "k": c_in, "n": cout, "levels": aspec.qmax,
+                       "in_bits": spec.total_bits})
+        c_in, spec = cout, aspec
+
+    g = Graph(nodes, ["x"], [src], inits, name=f"fuzz_gemm_{seed}")
+    g.dtypes.update(dtypes)
+    x = rng.uniform(0.0, max(in_spec.max_value, in_spec.scale),
+                    size=(m, c0)).astype(np.float32)
+    return g, _fq(x, in_spec), {"seed": seed, "fused": fused,
+                                "layers": layers}
+
+
 # ---------------------------------------------------------------------------
 # The four engines
 # ---------------------------------------------------------------------------
@@ -385,8 +445,10 @@ def check_differential(graph: Graph, x: np.ndarray,
 def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
                      ) -> Dict[str, Any]:
     """What the card's kernels get from artifact ``dm`` on input ``x``: per
-    MVAU node its route (``int8`` wgmma, ``core`` for integer codes that
-    do not fit int8, ``f32`` for the float MVAU), GEMM shape M x K x N,
+    MVAU node its route (``int8`` wgmma, ``int8_small_m`` for the int8
+    GEMM form the small-M kernel takes, ``core`` for integer codes that do
+    not fit int8, ``f32`` for the float MVAU), its form (``conv``: its
+    ``im2col`` folded in, or ``gemm``), GEMM shape M x K x N,
     levels L and the K splits the planner gives it on ``sms``
     multiprocessors; and the counts of fused GAP tails, residual GAPs and
     ``add`` nodes that stay float.  Shapes come from running the graph on
@@ -398,6 +460,7 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
     g = dm.graph.copy()
     batch, image = np.shape(x)[0], tuple(np.shape(x)[1:])
     g.infer_shapes({g.inputs[0]: np.zeros((1,) + image, np.float32)})
+    conv = kops.conv_pairs(g.nodes, g.outputs)
     nodes = []
     for n in g.nodes:
         if n.op not in ("mvau", "mvau_int"):
@@ -407,11 +470,18 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
         nn, levels = g.shapes[n.outputs[0]][-1], g.shapes[n.inputs[2]][-1]
         if n.op == "mvau":
             route = "f32"
+        elif not n.attrs.get("int8_ok"):
+            route = "core"
+        elif (n.inputs[0] not in conv
+              and kmvau.int8_gemm_route(m, int(levels)) == "small_m"):
+            route = "int8_small_m"
         else:
-            route = "int8" if n.attrs.get("int8_ok") else "core"
-        planner = kmvau.tc_splits if route == "int8" else kmvau.core_splits
-        nodes.append({"tensor": n.outputs[0], "route": route, "m": m, "k": k,
-                      "n": int(nn), "levels": int(levels),
+            route = "int8"
+        planner = {"int8": kmvau.tc_splits,
+                   "int8_small_m": lambda *_: 1}.get(route, kmvau.core_splits)
+        nodes.append({"tensor": n.outputs[0], "route": route,
+                      "form": "conv" if n.inputs[0] in conv else "gemm",
+                      "m": m, "k": k, "n": int(nn), "levels": int(levels),
                       "splits": planner(m, int(nn), k, sms)})
     tails = kops.gap_tails(g.nodes, g.outputs)
     float_adds = [n for n in g.nodes if n.op == "add" and any(

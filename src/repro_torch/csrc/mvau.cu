@@ -26,7 +26,13 @@
 // so the residual add and the spatial sum after the last conv run in its
 // registers, and the (B, OH, OW, N) codes are never written.
 //
-// Two kernels:
+// Three kernels:
+// * mvau_small_m_kernel -- the GEMM form of the int8 route at decode and
+//   small-batch shapes (lm-tiny's w_down at M 1-8; up to 512 rows, where
+//   it stops beating mvau_conv_kernel on the H100), mma.sync m16n8k32 in
+//   swap-AB form, the 16 output columns of a block on the MMA's 16 side,
+//   the block's threshold rows searched in shared memory.  The Python
+//   wrapper routes a launch here where M is at most its limit.
 // * mvau_conv_kernel -- int8 activation codes x int8 (or packed int4)
 //   weights on the tensor cores (every layer of the w6a4 int artifact):
 //   cp.async A loads with zero-fill halos, a 4-stage ring in the 64-byte
@@ -54,10 +60,14 @@
 // chip_smoke.py computes each kernel's bound from each run's shapes.
 // The epilogues count short tables (L <= 64, every layer of the w6a4
 // artifact: L = 15) densely from shared memory.  Longer tables (8- to
-// 16-bit activations, L = 255 to 65535) are binary-searched per output in
-// global memory, where the block's rows stay in L1/L2: ceil(log2(L + 1))
-// loads instead of L compares.  That needs each row sorted ascending, which
-// the integer lowering guarantees for every mvau_int table (``t_sorted``);
+// 16-bit activations, L = 255 to 65535) are binary-searched: by the
+// small-M kernel in shared memory, where its block's rows are staged at
+// the start (L <= 2048), several searches a thread in lockstep; by the
+// other two per output in global memory, where the block's rows stay in
+// L1/L2 (mvau_conv_kernel's for rows < M only).  Either way about
+// ceil(log2(L + 1)) loads instead of L compares.  That needs each row
+// sorted ascending, which the integer lowering guarantees for every
+// mvau_int table (``t_sorted``);
 // the float MVAU's tables carry no such guarantee, so it always counts
 // densely.  Ragged M, N and K edges are masked in the kernels; nothing is
 // padded with sentinel thresholds.
@@ -686,12 +696,17 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
 #pragma unroll
       for (int i = 0; i < TC_MI; ++i) cnt[i][0] = cnt[i][1] = 0;
       if (bsearch) {
+        // rows past M (a ragged last tile) search no level; a select on
+        // the length, since a branch around each search made every
+        // launch's dense count 16% slower on the H100
         const int32_t* row = t + static_cast<size_t>(gn) * L;
+        const int rows = M - (m0 + wm + gq);
 #pragma unroll
         for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr)
-            cnt[i][rr] = count_sorted(row, L, acc[i][j][2 * rr + cc]);
+            cnt[i][rr] = count_sorted(row, 64 * i + 8 * rr < rows ? L : 0,
+                                      acc[i][j][2 * rr + cc]);
       } else if (staged) {
         const int32_t* row = Ts + col * LS;
 #pragma unroll 5
@@ -939,6 +954,283 @@ Epilogue int_epilogue(int out_base, const int32_t* skip = nullptr,
 ConvGeom gemm_geom(int M, int K) {
   return ConvGeom{M, 1, std::max(K, 1), 1, 1, 1, 0, M, 1};
 }
+
+// ---------------------------------------------------------------------------
+// The GEMM form at decode shapes: int8 x int8 (or packed int4) for M of a
+// few rows (up to 512), mvau_small_m_kernel.
+//
+// At M <= 8 the wgmma kernel's 128-row tile is 1/128 used, and its long-
+// table epilogue searched every accumulator of the tile, each search a
+// chain of dependent global loads: one launch at lm-tiny's w_down (K 96,
+// N 64, 255 levels) took as long at M = 1 as at M = 128.  Here:
+// * Swap-AB on mma.sync m16n8k32 (s8.s8.s32): the block's 16 output
+//   columns are the MMA's 16-row side (A = W^T), the block's rows of x its
+//   8-wide side (B = x^T), up to 4 such tiles for 32 rows; an 8-row tile
+//   with no row < M is not multiplied, and no row >= M is counted.
+// * K is split over the block's 4 warps (32-byte steps, round robin) and
+//   their sums added in warp order in shared memory: no atomics, no
+//   scratch, no tile counters, so a CUDA graph captures the launch as it
+//   is.  Passes of 512 bytes of K stage W (transposed to K-major columns
+//   with byte permutes, packed int4 unpacked on the way) and x in shared
+//   memory.
+// * The block's threshold rows (16 x L words, contiguous in t) are copied
+//   into shared memory by cp.async at the start and land while W and x
+//   load and multiply.  Tables of up to 64 levels are counted densely;
+//   longer ones are searched (count_sorted_smem), every search of a thread
+//   in lockstep so their loads overlap.
+// Grid: N / 16 x M / 32 blocks of 128 threads.  Bound by bytes, dominated
+// by the thresholds (N L words); at these sizes a launch's latency is
+// what the card pays (chip_smoke.py times an empty launch beside it).
+// ---------------------------------------------------------------------------
+constexpr int SM_BN = 16;       // output columns a block: the MMA's 16 side
+constexpr int SM_BM = 32;       // rows of x a block: 4 MMA tiles of 8
+constexpr int SM_WARPS = 4;
+constexpr int SM_THREADS = 32 * SM_WARPS;
+constexpr int SM_KC = 512;      // K bytes staged per pass: 4 rows a thread
+// Words per staged column of W and row of x: 4 mod 32, so the fragment
+// reads of a warp (8 columns or rows x 4 words) hit 32 distinct banks.
+constexpr int SM_KW = SM_KC / 4 + 4;
+constexpr int SM_MAX_L = 2048;  // levels that fit shared memory (16 L words)
+static_assert(SM_KC == 4 * SM_THREADS, "a W pass is 4 K-rows a thread");
+
+// D (16 x 8, s32) += A (16 x 32, s8, row) B (32 x 8, s8, col)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// #{ l : a[i] >= row[l] } for the first nv of the R accumulators of a
+// thread, in a row sorted ascending, in ceil(log2(L + 1)) steps: the answer
+// lies in [lo, lo + n); it is at least lo + h exactly when a >= row[lo + h
+// - 1]; both outcomes keep n - h candidates, so every search of the thread
+// takes the same steps and their loads go out together.  (kernels/ref.py's
+// count_sorted_steps mirrors this arithmetic.)
+template <int R>
+__device__ __forceinline__ void count_sorted_smem(const int32_t* row, int L,
+                                                  const int (&a)[R], int nv,
+                                                  int (&lo)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) lo[i] = 0;
+  for (int n = L + 1; n > 1;) {
+    const int h = n >> 1;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (i < nv) lo[i] += a[i] >= row[lo[i] + h - 1] ? h : 0;
+    n -= h;
+  }
+}
+
+template <int WK>
+__global__ void __launch_bounds__(SM_THREADS)
+mvau_small_m_kernel(const int8_t* __restrict__ x,
+                    const void* __restrict__ w,
+                    const int32_t* __restrict__ t, int32_t* __restrict__ out,
+                    int M, int K, int N, int L, int out_base, bool x_vec,
+                    bool w_vec, bool t_vec) {
+  extern __shared__ __align__(16) int32_t sm_t[];   // 16 rows x L levels
+  __shared__ __align__(16) uint32_t Wt[SM_BN * SM_KW];  // column-major W
+  __shared__ __align__(16) uint32_t Xs[SM_BM * SM_KW];  // row-major x
+  __shared__ int red[SM_WARPS][SM_BM * SM_BN];          // per warp's sums
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int n0 = blockIdx.x * SM_BN;
+  const int m0 = blockIdx.y * SM_BM;
+  const int nb = min(SM_BN, N - n0);       // columns of the block
+  const int mb = min(SM_BM, M - m0);       // rows of the block
+  const int tiles = (mb + 7) >> 3;         // 8-row MMA tiles with a row < M
+
+  // ---- thresholds: rows n0 .. n0 + nb - 1 are nb L contiguous words ----
+  {
+    const int32_t* src = t + static_cast<size_t>(n0) * L;
+    const int words = nb * L;
+    const int vecs = t_vec ? words >> 2 : 0;
+    for (int e = tid; e < vecs; e += SM_THREADS)
+      cp_async16(smem_u32(sm_t + 4 * e), src + 4 * e, true);
+    for (int e = 4 * vecs + tid; e < words; e += SM_THREADS)
+      cp_async4(smem_u32(sm_t + e), src + e, true);
+    cp_async_commit();
+  }
+
+  // acc[j][r]: column n0 + g + 8 (r >> 1), row m0 + 8 j + 2 q + (r & 1)
+  int acc[SM_BM / 8][4];
+#pragma unroll
+  for (int j = 0; j < SM_BM / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += SM_KC) {
+    const int steps = (min(SM_KC, K - k0) + 31) >> 5;   // 32-byte K steps
+    if (k0 > 0) __syncthreads();          // every warp done with the last pass
+    // ---- W: rows k0 + 4 tid .. + 3 of the block's 16 columns, transposed
+    // to 16 words (4 rows of one column each), 0 past K and N
+    {
+      uint32_t rw[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kk = k0 + 4 * tid + r;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) rw[r][h] = 0u;
+        if (kk >= K) continue;
+        if (w_vec && nb == SM_BN) {
+          if constexpr (WK == W_PACKED4) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+                static_cast<const uint8_t*>(w) +
+                static_cast<size_t>(kk) * (N >> 1) + (n0 >> 1)));
+            unpack_int4x8(v.x, rw[r][0], rw[r][1]);
+            unpack_int4x8(v.y, rw[r][2], rw[r][3]);
+          } else {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+                static_cast<const int8_t*>(w) + static_cast<size_t>(kk) * N +
+                n0));
+            rw[r][0] = v.x;
+            rw[r][1] = v.y;
+            rw[r][2] = v.z;
+            rw[r][3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < SM_BN; ++c)
+            if (c < nb)
+              rw[r][c >> 2] |=
+                  static_cast<uint32_t>(static_cast<uint8_t>(
+                      load_w<int, WK>(w, kk, n0 + c, N)))
+                  << (8 * (c & 3));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint32_t t01 = __byte_perm(rw[0][h], rw[1][h], 0x5140);
+        const uint32_t t23 = __byte_perm(rw[2][h], rw[3][h], 0x5140);
+        const uint32_t u01 = __byte_perm(rw[0][h], rw[1][h], 0x7362);
+        const uint32_t u23 = __byte_perm(rw[2][h], rw[3][h], 0x7362);
+        Wt[(4 * h + 0) * SM_KW + tid] = __byte_perm(t01, t23, 0x5410);
+        Wt[(4 * h + 1) * SM_KW + tid] = __byte_perm(t01, t23, 0x7632);
+        Wt[(4 * h + 2) * SM_KW + tid] = __byte_perm(u01, u23, 0x5410);
+        Wt[(4 * h + 3) * SM_KW + tid] = __byte_perm(u01, u23, 0x7632);
+      }
+    }
+    // ---- x: the block's rows < M, the pass's steps, 4 bytes a word -------
+    {
+      const int kw = 8 * steps;              // words a row in this pass
+      for (int e = tid; e < mb * kw; e += SM_THREADS) {
+        const int row = e / kw;
+        const int c = e - row * kw;
+        const int kk = k0 + 4 * c;
+        const int8_t* src = x + static_cast<size_t>(m0 + row) * K + kk;
+        uint32_t v = 0u;
+        if (x_vec) {
+          if (kk < K) v = __ldg(reinterpret_cast<const uint32_t*>(src));
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (kk + b < K)
+              v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + b)))
+                   << (8 * b);
+        }
+        Xs[row * SM_KW + c] = v;
+      }
+    }
+    __syncthreads();
+    // ---- the products: step s of the pass on warp s % 4 ------------------
+    for (int s = warp; s < steps; s += SM_WARPS) {
+      const int kq = 8 * s;
+      uint32_t a[4];
+      a[0] = Wt[g * SM_KW + kq + q];
+      a[1] = Wt[(g + 8) * SM_KW + kq + q];
+      a[2] = Wt[g * SM_KW + kq + 4 + q];
+      a[3] = Wt[(g + 8) * SM_KW + kq + 4 + q];
+#pragma unroll
+      for (int j = 0; j < SM_BM / 8; ++j)
+        if (j < tiles)
+          mma_s8(acc[j], a, Xs[(8 * j + g) * SM_KW + kq + q],
+                 Xs[(8 * j + g) * SM_KW + kq + 4 + q]);
+    }
+  }
+
+  // ---- the warps' sums, added in warp order -------------------------------
+#pragma unroll
+  for (int j = 0; j < SM_BM / 8; ++j)
+    if (j < tiles)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        red[warp][(8 * j + 2 * q + (r & 1)) * SM_BN + g + 8 * (r >> 1)] =
+            acc[j][r];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- epilogue: column c, rows r0 + 8 i (i < nv: the rows < M) -----------
+  constexpr int R = SM_BM * SM_BN / SM_THREADS;        // 4 outputs a thread
+  constexpr int RS = SM_THREADS / SM_BN;               // 8 rows apart
+  const int c = tid & (SM_BN - 1);
+  const int r0 = tid / SM_BN;
+  if (c >= nb || r0 >= mb) return;
+  const int nv = (mb - r0 + RS - 1) / RS;
+  int v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    v[i] = 0;
+    if (i < nv)
+#pragma unroll
+      for (int wp = 0; wp < SM_WARPS; ++wp)
+        v[i] += red[wp][(r0 + RS * i) * SM_BN + c];
+  }
+  const int32_t* row_t = sm_t + c * L;
+  int cnt[R];
+  if (L <= DENSE_MAX_L) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) cnt[i] = 0;
+    for (int l = 0; l < L; ++l) {
+      const int tv = row_t[l];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (i < nv) cnt[i] = count_ge(cnt[i], v[i], tv);
+    }
+  } else {
+    count_sorted_smem<R>(row_t, L, v, nv, cnt);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (i < nv)
+      out[static_cast<size_t>(m0 + r0 + RS * i) * N + n0 + c] =
+          out_base + cnt[i];
+}
+
+template <int WK>
+int launch_small_m(const void* x, const void* w, const int32_t* t,
+                   int32_t* out, int M, int K, int N, int L, int out_base,
+                   cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  auto kern = mvau_small_m_kernel<WK>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SM_BN * SM_MAX_L * 4);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const bool x_vec = K % 4 == 0 && xa % 4 == 0;
+  const bool w_vec = N % SM_BN == 0 && wa % (WK == W_PACKED4 ? 8 : 16) == 0;
+  const bool t_vec = reinterpret_cast<uintptr_t>(t) % 16 == 0;
+  dim3 grid((N + SM_BN - 1) / SM_BN, (M + SM_BM - 1) / SM_BM);
+  kern<<<grid, SM_THREADS, SM_BN * L * 4, stream>>>(
+      static_cast<const int8_t*>(x), w, t, out, M, K, N, L, out_base, x_vec,
+      w_vec, t_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the practical floor of a launch: nothing but the launch itself
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
 // Everything else on the CUDA cores: the conv-form (implicit-GEMM) MVAU in
@@ -1495,6 +1787,32 @@ extern "C" int repro_mvau_int(const void* x, const void* w, int w_kind,
                                                ws, tile_counts, M, K, N, L, bs,
                                                splits, e, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same integer MVAU in GEMM form at decode shapes (mvau_small_m_kernel):
+// operands as for repro_mvau_int; L at most 2048 (the block's threshold
+// rows fit shared memory), each row sorted ascending when L > 64.  No K
+// split, no scratch.  kernels/mvau.py sends a launch here where M is at
+// most its route limit.  Returns cudaGetLastError.
+extern "C" int repro_mvau_int_small_m(const void* x, const void* w,
+                                      int w_kind, const int32_t* t,
+                                      int32_t* out, int M, int K, int N,
+                                      int L, int out_base, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L < 0 || L > SM_MAX_L || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w_kind == W_I8)
+    return launch_small_m<W_I8>(x, w, t, out, M, K, N, L, out_base, s);
+  if (w_kind == W_PACKED4)
+    return launch_small_m<W_PACKED4>(x, w, t, out, M, K, N, L, out_base, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// An empty kernel on blocks x threads: what a launch costs with no work, the
+// floor beside which chip_smoke.py reads the small-M kernel's time.
+extern "C" int repro_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 namespace {

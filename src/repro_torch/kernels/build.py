@@ -37,14 +37,16 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # launches its kernel and nowhere else (chip_smoke.py reads these to show
 # the main path went through the kernels).  ``mvau_int_gap`` counts the
 # launches of the integer conv MVAU that carry the GlobalAccPool epilogue
-# (``mvau.mvau_int_conv_gap``) and ``mvau_int_wide`` those that run on the
-# CUDA-core route (integer codes wider than int8); each of them is an
-# ``mvau_int`` launch too.  A launch made while a CUDA graph captures is recorded in that graph
-# instead (:class:`GraphState`), and every replay of the graph adds its
-# record here: the counts stay "kernels that ran".
+# (``mvau.mvau_int_conv_gap``), ``mvau_int_wide`` those that run on the
+# CUDA-core route (integer codes wider than int8) and ``mvau_int_small_m``
+# those of the GEMM form at decode shapes (``mvau_small_m_kernel``); each
+# of them is an ``mvau_int`` launch too.  A launch made while a CUDA graph
+# captures is recorded in that graph instead (:class:`GraphState`), and
+# every replay of the graph adds its record here: the counts stay "kernels
+# that ran".
 launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0,
-                                  "mvau_int_wide": 0, "mvau": 0, "gap": 0,
-                                  "qmatmul": 0}
+                                  "mvau_int_wide": 0, "mvau_int_small_m": 0,
+                                  "mvau": 0, "gap": 0, "qmatmul": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -229,6 +231,10 @@ class KernelLibrary:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.mvau_int = lib.repro_mvau_int
         self.mvau_int.argtypes = [p, p, i, p, p] + [i] * 6 + [p, p, p]
+        self.mvau_int_small_m = lib.repro_mvau_int_small_m
+        self.mvau_int_small_m.argtypes = [p, p, i, p, p] + [i] * 5 + [p]
+        self.empty_launch = lib.repro_empty_launch
+        self.empty_launch.argtypes = [i, i, p]
         self.mvau_int_conv = lib.repro_mvau_int_conv
         self.mvau_int_conv.argtypes = [p, p, i, p, p] + [i] * 11 + [p, p, p]
         self.mvau_int_conv_gap = lib.repro_mvau_int_conv_gap
@@ -243,7 +249,8 @@ class KernelLibrary:
         self.gap.argtypes = [p, p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
         self.qmatmul.argtypes = [p, i, p, i, p, p, p, p] + [i] * 7 + [p]
-        for fn in (self.mvau_int, self.mvau_int_conv, self.mvau_int_conv_gap,
+        for fn in (self.mvau_int, self.mvau_int_small_m, self.empty_launch,
+                   self.mvau_int_conv, self.mvau_int_conv_gap,
                    self.mvau_core_conv, self.mvau_i8, self.gap, self.qmatmul):
             fn.restype = ctypes.c_int
         self._lib = lib

@@ -2,18 +2,23 @@
 (``csrc/mvau.cu``), each beside its plain PyTorch version.
 
 Counterpart of the JAX package's ``kernels/mvau.py`` (``mvau_int_pallas``,
-``mvau_pallas``).  Two kernels serve every MVAU on the card:
+``mvau_pallas``).  Three kernels serve every MVAU on the card:
 
 * int8 activation codes x int8 (or packed int4) weight codes run the
-  tensor-core kernel (``mvau_conv_kernel``, int8 ``wgmma``);
+  tensor-core kernel (``mvau_conv_kernel``, int8 ``wgmma``) -- except the
+  GEMM form at decode shapes (M at most :data:`SMALL_M_ROWS`, tables of at
+  most :data:`SMALL_M_MAX_LEVELS` levels: :func:`int8_gemm_route`), which
+  runs ``mvau_small_m_kernel`` (``mma.sync`` with the output columns on the
+  MMA's 16-wide side, the threshold rows searched in shared memory);
 * everything else -- the float MVAU, and integer codes that do not fit
   int8 (8-bit unsigned activations, 9- to 16-bit weights) -- runs the
   CUDA-core kernel (``mvau_core_kernel``: float32 FMA, or exact int32
   multiply-add).
 
-Both read conv patch rows straight from the NHWC activation
-(:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col`` before them
-folded into their loads); the GEMM form (M, K) is their 1 x 1 case.  The
+The wgmma and CUDA-core kernels read conv patch rows straight from the
+NHWC activation (:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col``
+before them folded into their loads); the GEMM form (M, K) is their 1 x 1
+case.  The
 tensor-core kernel also folds a residual ``add`` and the GlobalAccPool
 after it into its epilogue (:func:`mvau_int_conv_gap`).  A
 wrapper takes the plain version only for tensors that lie on the CPU; for
@@ -41,7 +46,8 @@ from repro_torch.kernels import ref
 
 __all__ = ["mvau_int", "mvau_int_conv", "mvau_int_conv_gap", "mvau", "mvau_conv",
            "mvau_int_plain", "mvau_int_conv_plain", "mvau_int_conv_gap_plain",
-           "mvau_plain", "mvau_conv_plain", "tc_splits", "core_splits"]
+           "mvau_plain", "mvau_conv_plain", "tc_splits", "core_splits",
+           "int8_gemm_route", "SMALL_M_ROWS", "SMALL_M_MAX_LEVELS"]
 
 # weight kinds of csrc/mvau.cu
 _W_KIND = {torch.int8: 0, torch.int32: 1, torch.int16: 4}
@@ -91,6 +97,27 @@ def tc_splits(m: int, n: int, k: int, sms: int) -> int:
     H100).  The split changes no bit (integer sums)."""
     bm, bn, bk = TC_TILE
     return _plan(-(-m // bm) * -(-n // bn), -(-k // bk), sms)
+
+
+# The int8 GEMM form's route: rows of x up to which mvau_small_m_kernel is
+# no slower than the wgmma kernel at every shape tools/probe_mvau_conv.py
+# --only gemm sweeps on the H100 (the least crossover: K 1,152 x N 512 at
+# 15 levels, 0.0279 against 0.0300 ms at 512 rows, slower at 768; at
+# lm-tiny's w_down it never crosses up to 8,192), and the longest table
+# whose 16 rows a block stages in shared memory (csrc/mvau.cu SM_MAX_L).
+SMALL_M_ROWS = 512
+SMALL_M_MAX_LEVELS = 2048
+
+
+def int8_gemm_route(m: int, levels: int) -> str:
+    """Which kernel runs an int8 GEMM-form MVAU of ``m`` rows against
+    tables of ``levels`` levels: ``"small_m"`` (``mvau_small_m_kernel``)
+    where ``m <= SMALL_M_ROWS`` and the table fits its shared memory,
+    else ``"wgmma"`` (``mvau_conv_kernel``).  A pure function of the
+    shapes; either route gives the same bits (integer sums)."""
+    if m <= SMALL_M_ROWS and levels <= SMALL_M_MAX_LEVELS:
+        return "small_m"
+    return "wgmma"
 
 
 def core_splits(m: int, n: int, k: int, sms: int) -> int:
@@ -195,8 +222,11 @@ def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     thresholds -> (M, N) int32 codes.  Each threshold row is sorted
     ascending, as the integer lowering leaves every ``mvau_int`` table: the
     kernels binary-search tables longer than 64 levels.  int8 x int8 (or
-    packed int4) runs on the tensor cores; other codes run the CUDA-core
-    kernel on int32 activation codes (int8 codes are widened first)."""
+    packed int4) runs on the tensor cores: ``mvau_small_m_kernel`` where
+    :func:`int8_gemm_route` says ``"small_m"`` (counted as ``mvau_int`` and
+    ``mvau_int_small_m``), else the ``wgmma`` kernel; other codes run the
+    CUDA-core kernel on int32 activation codes (int8 codes are widened
+    first)."""
     if not x.is_cuda:
         return mvau_int_plain(x, w, thresholds, out_base, w_packed)
     dev = x.device
@@ -215,10 +245,18 @@ def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                      (1, m, 1, k, 1, 1, 0), n, out_base,
                      name="mvau_int").reshape(m, n)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    levels = thresholds.shape[1]
+    if int8_gemm_route(m, levels) == "small_m":
+        rc = B.library().mvau_int_small_m(
+            x.data_ptr(), w.data_ptr(), w_kind, thresholds.data_ptr(),
+            out.data_ptr(), m, k, n, levels, int(out_base), _stream())
+        B.check(rc, "mvau_int_small_m")
+        B.count_launch("mvau_int", "mvau_int_small_m")
+        return out
     splits, ws, counts = _split_scratch(m, n, k, dev, None)
     rc = B.library().mvau_int(x.data_ptr(), w.data_ptr(), w_kind,
                               thresholds.data_ptr(), out.data_ptr(), m, k, n,
-                              thresholds.shape[1], int(out_base), splits, ws,
+                              levels, int(out_base), splits, ws,
                               counts, _stream())
     B.check(rc, "mvau_int")
     B.count_launch("mvau_int")

@@ -109,6 +109,29 @@ def threshold_counts_fast(acc: torch.Tensor, thresholds_int: torch.Tensor,
     return quant.threshold_counts(acc, thresholds_int, sorted_levels)
 
 
+def count_sorted_steps(acc: torch.Tensor, thresholds: torch.Tensor
+                       ) -> torch.Tensor:
+    """``Σᵢ 1[acc ≥ Tᵢ]`` over (M, N) int32 accumulators and (N, L) tables
+    sorted ascending, by the step arithmetic of ``csrc/mvau.cu``'s
+    ``count_sorted_smem`` (the small-M kernel's search), for tests to hold
+    against the dense count: the answer lies in [lo, lo + n), n = L + 1
+    at the start; a step probes T[lo + h - 1], h = n // 2, adds h to lo
+    where acc reaches it, and keeps n - h candidates either way, so every
+    search takes ceil(log2(L + 1)) steps.  Nothing on the card's path
+    calls this."""
+    m = acc.shape[0]
+    t = thresholds.to(acc.device).to(torch.int32)
+    lo = torch.zeros(acc.shape, dtype=torch.int64, device=acc.device)
+    n = t.shape[-1] + 1
+    rows = t.unsqueeze(0).expand(m, *t.shape)
+    while n > 1:
+        h = n // 2
+        probe = torch.gather(rows, 2, (lo + h - 1).unsqueeze(-1)).squeeze(-1)
+        lo = lo + torch.where(acc >= probe, h, 0)
+        n -= h
+    return lo.to(torch.int32)
+
+
 def mvau_int_fast(x_codes: torch.Tensor, w_codes: torch.Tensor,
                   thresholds_int: torch.Tensor, out_base: int = 0,
                   acc_f32_exact: bool = False) -> torch.Tensor:

@@ -442,7 +442,8 @@ def test_skip_that_broadcasts_or_is_float_on_the_card(card, int8_ok, skip):
     (got,) = lower_graph(g, card)(_t(x, card), _t(s, card))
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused),
-                     "mvau_int_wide": int(not int8_ok), "mvau": 0,
+                     "mvau_int_wide": int(not int8_ok),
+                     "mvau_int_small_m": 0, "mvau": 0,
                      "gap": 1 - int(fused), "qmatmul": 0}
     (want,) = lower_graph(g, "cpu")(_t(x, "cpu"), _t(s, "cpu"))
     assert torch.equal(got.cpu(), want)
@@ -465,7 +466,7 @@ def test_w6a4_width64_fuses_the_tail_on_the_card(card):
     f = dm(x)
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                     "mvau": 0, "gap": 0, "qmatmul": 0}
+                     "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0}
     assert torch.equal(f.cpu(), dm_cpu(x))
 
 
@@ -497,7 +498,8 @@ def test_main_path_card_equals_cpu(card):
 
 
 FUZZ_CARD_CASES = ([("reference", s) for s in (0, 1, 2, 3)]
-                   + [("wide", s) for s in (7, 13, 23, 40, 42)])
+                   + [("wide", s) for s in (7, 13, 23, 40, 42)]
+                   + [("gemm", s) for s in (2, 11, 17, 19)])
 
 
 @pytest.mark.cuda
@@ -508,10 +510,14 @@ def test_fuzz_graphs_card_equal_cpu(card, corpus, seed):
     unfused int == fused int), each output equal to its CPU counterpart and
     the CPU interpreter's bit for bit.  The wide seeds hold a fused GAP
     tail (7, 40), a float residual add (13), a CUDA-core MVAU whose K the
-    planner splits (23) and one with 255 levels (42)."""
+    planner splits (23) and one with 255 levels (42); the dense seeds hold
+    int8 GEMM-form MVAUs on the small-M kernel (17: K 1,440; 19: 255
+    levels) and past its limit on the wgmma kernel (2: M 2,049; 11: K
+    1,440)."""
     from repro_torch.core import fuzz
 
-    gen = fuzz.random_hw_graph if corpus == "reference" else fuzz.wide_hw_graph
+    gen = {"reference": fuzz.random_hw_graph, "wide": fuzz.wide_hw_graph,
+           "gemm": fuzz.gemm_hw_graph}[corpus]
     g, x, _ = gen(seed)
     got = fuzz.check_differential(g, x, card)
     want = fuzz.check_differential(g, x, "cpu")
@@ -1320,26 +1326,94 @@ def test_lm_tiny_row_is_bucket_invariant(lm_tiny):
             assert torch.equal(a[b:b + 1], c)
 
 
+def _levels(acc, n, levels, shared, rng):
+    """(n, levels) int32 tables sorted ascending over the range of ``acc``
+    (an (M, n) int64 product): a third of the levels copied from the
+    accumulators themselves (so some land exactly on a level), runs of
+    equal levels, and, where there is room, the int32 extremes; one row
+    shared by every column, or one per column."""
+    lo, hi = int(acc.min()) - 3, int(acc.max()) + 3
+    rows = 1 if shared else n
+    t = rng.integers(lo, hi + 1, size=(rows, levels))
+    flat = acc.reshape(-1)
+    for r in range(rows):
+        on = rng.integers(0, levels, size=levels // 3)
+        t[r, on] = flat[rng.integers(0, flat.size, size=on.size)]
+        if levels >= 8:
+            t[r, :4] = t[r, 4]                   # a run of equal levels
+            t[r, -2] = np.iinfo(np.int32).max
+            t[r, 0] = np.iinfo(np.int32).min
+    t = np.sort(t, axis=1).astype(np.int32)
+    return np.broadcast_to(t, (n, levels)).copy() if shared else t
+
+
+# (K, N, packed int4 weights) at each M: lm-tiny's w_down, its int4 form,
+# a ragged N, and a long K with N past one 128-column tile
+LM_SHAPE_CASES = ((96, 64, False), (96, 64, True), (96, 20, False),
+                  (1440, 160, False), (1440, 160, True))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", sorted({1, 3, 8, KM.SMALL_M_ROWS,
+                                      KM.SMALL_M_ROWS + 1, 64}))
+@pytest.mark.parametrize("levels", [15, 64, 65, 255])
 @pytest.mark.parametrize("shared", [True, False])
-def test_mvau_int_at_the_lm_shape_equals_plain(card, m, shared):
-    """The int8 kernel in GEMM form at lm-tiny's w_down: K 96, N 64, 255
-    levels (binary search), with one table shared by every column (as the
-    lowering expands it) and with a random sorted table per column."""
-    g = torch.Generator().manual_seed(m)
-    x = torch.randint(-128, 128, (m, 96), generator=g).to(torch.int8)
-    w = torch.randint(-128, 128, (96, 64), generator=g).to(torch.int8)
-    if shared:
-        row = torch.sort(torch.randint(-60000, 60000, (255,), generator=g)
-                         ).values
-        t = row[None].expand(64, 255)
-    else:
-        t = torch.sort(torch.randint(-60000, 60000, (64, 255), generator=g),
-                       dim=1).values
-    x, w, t = (v.to(card) for v in (x, w, t.to(torch.int32).contiguous()))
-    assert torch.equal(KM.mvau_int(x, w, t, -128),
-                       KM.mvau_int_plain(x, w, t, -128))
+def test_mvau_int_at_the_lm_shape_equals_plain(card, m, levels, shared):
+    """The int8 GEMM form on both sides of the route limit (the small-M
+    kernel up to ``SMALL_M_ROWS`` rows, the wgmma kernel past it) at
+    lm-tiny's w_down (K 96, N 64) and its packed-int4 form, a ragged N of
+    20 and K 1,440 x N 160: dense (15, 64) and searched (65, 255) tables,
+    one shared by every column (as the lowering expands it) or one per
+    column, with accumulators on a level, runs of equal levels and the
+    int32 extremes; bit for bit against the plain version, one launch of
+    the route the shapes pick."""
+    rng = np.random.default_rng(1000 * m + levels + int(shared))
+    route = KM.int8_gemm_route(m, levels)
+    for k, n, packed in LM_SHAPE_CASES:
+        lim = 8 if packed else 128
+        x = rng.integers(-128, 128, size=(m, k))
+        w = rng.integers(-lim, lim, size=(k, n))
+        t = _levels(x @ w, n, levels, shared, rng)
+        wt = (Q.pack_int4(torch.from_numpy(w.astype(np.int32))) if packed
+              else torch.from_numpy(w.astype(np.int8))).to(card)
+        xc, tc = _t(x.astype(np.int8), card), _t(t, card)
+        before = dict(B.launch_counts)
+        got = KM.mvau_int(xc, wt, tc, -128, packed)
+        delta = {k: B.launch_counts[k] - before[k] for k in before}
+        assert delta["mvau_int"] == 1
+        assert delta["mvau_int_small_m"] == int(route == "small_m")
+        assert torch.equal(got, KM.mvau_int_plain(xc, wt, tc, -128, packed)), \
+            (k, n, packed)
+
+
+@pytest.mark.cuda
+def test_mvau_int_small_m_is_bucket_invariant_and_captures(card):
+    """Rows of x give the same bits at M 1, 8, the route limit and one row
+    past it (the wgmma route); a launch of the small-M route captured in a
+    CUDA graph replays what an eager launch computes, on new inputs."""
+    from repro_torch.core.cudagraph import CapturedGraph
+
+    rng = np.random.default_rng(7)
+    mx = KM.SMALL_M_ROWS + 1
+    x = _t(rng.integers(-128, 128, size=(mx, 96)).astype(np.int8), card)
+    w = _t(rng.integers(-128, 128, size=(96, 64)).astype(np.int8), card)
+    acc = x.cpu().numpy().astype(np.int64) @ w.cpu().numpy().astype(np.int64)
+    t = _t(_levels(acc, 64, 255, True, rng), card)
+    full = KM.mvau_int(x, w, t, -128)
+    for m in (1, 8, KM.SMALL_M_ROWS):
+        assert torch.equal(KM.mvau_int(x[:m].contiguous(), w, t, -128),
+                           full[:m])
+    xs = x[:8].contiguous()
+    g = CapturedGraph(lambda v: KM.mvau_int(v, w, t, -128), (xs,),
+                      pool=torch.cuda.graph_pool_handle(),
+                      stream=torch.cuda.Stream(card))
+    assert g.launches == {"mvau_int": 1, "mvau_int_small_m": 1}
+    xs.copy_(x[8:16])
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.outputs[0], KM.mvau_int(x[8:16].contiguous(), w, t,
+                                                 -128))
+    assert torch.equal(g.outputs[0], full[8:16])
 
 
 # ---------------------------------------------------------------------------

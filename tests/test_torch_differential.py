@@ -261,3 +261,86 @@ def test_check_differential_catches_a_wrong_engine(monkeypatch):
     monkeypatch.setattr(kops, "mvau_int_node", off_by_one)
     with pytest.raises(F.FuzzMismatch, match="interpreter != int"):
         F.check_differential(g, x, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the dense corpus: the GEMM form at decode and small-batch shapes
+# ---------------------------------------------------------------------------
+# dense seeds held against the JAX interpreter: int8 GEMM-form MVAUs on the
+# small-M route (16; 17 at K 1,440; 19 at 255 levels beside a CUDA-core
+# one) and past its limit (11: M 128 at K 1,440), standalone pairs (2)
+GEMM_JAX_SEEDS = (2, 11, 16, 17, 19)
+
+
+@pytest.mark.parametrize("seed", GEMM_JAX_SEEDS)
+def test_gemm_corpus_equals_jax_interpreter(ref, seed):
+    """The port's four engines equal the JAX interpreter on the same dense
+    graph, bit for bit, and the reference's fused int artifact too, whose
+    dispatch labels the port's equal."""
+    g, x, info = F.gemm_hw_graph(seed)
+    jg = _ref_graph(ref, g)
+    want = np.asarray(ref["G"].execute(jg, {"x": x})[0])
+    result = F.check_differential(g, x, "cpu")
+    _equal_jax(result, want, f"gemm seed {seed} {info}")
+    dj = ref["compile"](jg.copy(), recipe=ref["recipe"], datapath="int")
+    np.testing.assert_array_equal(np.asarray(dj(x)), want,
+                                  err_msg="the reference's fused int artifact")
+    assert result["dispatch"]["int"] == dj.dispatch_table()
+
+
+def test_gemm_generator_is_seeded_and_on_grid():
+    """Same seed, same bits; the input on its grid with M and K from the
+    corpus's sets; every layer inside the float32-exact bound."""
+    from repro_torch.core.quant import fake_quant
+
+    for seed in range(16):
+        g, x, info = F.gemm_hw_graph(seed)
+        g2, x2, info2 = F.gemm_hw_graph(seed)
+        assert info == info2 and np.array_equal(_bits(x), _bits(x2))
+        for k, a in g.initializers.items():
+            assert np.array_equal(_bits(a), _bits(g2.initializers[k]))
+        assert not any(n.op == "im2col" for n in g.nodes)
+        spec = g.dtypes["x"]
+        assert np.array_equal(_bits(fake_quant(torch.from_numpy(x),
+                                               spec).numpy()), _bits(x))
+        assert x.shape[0] in F.GEMM_ROWS and x.shape[1] in F.GEMM_DEPTHS
+        for layer in info["layers"]:
+            assert layer["n"] in F.WIDE_CHANNELS
+            assert 3 <= layer["levels"] <= 255
+
+
+def test_gemm_corpus_covers_both_int8_routes():
+    """Over the card's dense range the int8 GEMM form reaches the small-M
+    kernel (with tables past 64 levels, K past 1,000, a ragged N and M on
+    the limit) and the wgmma kernel past the limit; the CUDA-core route
+    and the float MVAU run there too.  Every node is GEMM form."""
+    from repro_torch.kernels import mvau as KM
+
+    seen = {k: [] for k in ("small_m", "small_m_l64", "small_m_deep",
+                            "small_m_ragged_n", "small_m_at_limit",
+                            "wgmma", "core", "f32")}
+    for seed in F.GEMM_SEEDS:
+        g, x, _ = F.gemm_hw_graph(seed)
+        for dp in ("f32", "int"):
+            dm = repro_torch.compile(g.copy(), recipe=F.FUZZ_RECIPE,
+                                     datapath=dp, device="cpu")
+            for n in F.lowering_summary(dm, x)["mvau"]:
+                assert n["form"] == "gemm"
+                if n["route"] == "int8_small_m":
+                    assert n["m"] <= KM.SMALL_M_ROWS and n["splits"] == 1
+                    seen["small_m"].append(seed)
+                    if n["levels"] > 64:
+                        seen["small_m_l64"].append(seed)
+                    if n["k"] > 1000:
+                        seen["small_m_deep"].append(seed)
+                    if n["n"] % 16:
+                        seen["small_m_ragged_n"].append(seed)
+                    if n["m"] > KM.SMALL_M_ROWS // 2:
+                        seen["small_m_at_limit"].append(seed)
+                elif n["route"] == "int8":
+                    assert n["m"] > KM.SMALL_M_ROWS
+                    seen["wgmma"].append(seed)
+                else:
+                    seen[n["route"]].append(seed)
+    missing = [k for k, v in seen.items() if not v]
+    assert not missing, f"the dense card range misses {missing}"

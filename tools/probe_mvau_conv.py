@@ -29,11 +29,23 @@ core``), float32 activations on the fixed-point grid:
 
 and the committed kernel with L = 0 levels, on forced K splits, beside
 ``torch.matmul`` + count on pre-built patches (the library yardstick) and
-``torch.matmul`` alone.  The variants compute wrong values; only the
-committed kernels are held against their plain versions.  Run on the
-machine with the card::
+``torch.matmul`` alone.
 
-    PYTHONPATH=src python3 tools/probe_mvau_conv.py [--only int8|core]
+The int8 GEMM form's two routes (``--only gemm``, the committed library
+only): ``mvau_small_m_kernel`` and the wgmma kernel on the same inputs for
+M from 1 to 8,192 rows at lm-tiny's ``w_down`` (K 96, N 64, 255 levels,
+and 15, and with packed int4 weights), at K 1,440 x N 160 with 255 levels
+and at K 1,152 x N 512 with 15 (a ResNet-9 layer's widths), each launch
+held against the plain version, beside ``torch._int_mm`` + count (M
+padded to a multiple of 32) and an empty launch of the small-M kernel's
+grid.  It prints, per shape, the largest M up to which the small-M kernel
+is never slower; the least of them sets ``kernels/mvau.py``'s
+``SMALL_M_ROWS``.
+
+The variants compute wrong values; only the committed kernels are held
+against their plain versions.  Run on the machine with the card::
+
+    PYTHONPATH=src python3 tools/probe_mvau_conv.py [--only int8|core|gemm]
 
 The variants are text edits of the source: an edit that no longer applies
 stops the run, naming the text it looked for.
@@ -115,8 +127,8 @@ def variants() -> dict:
               "(unsigned long long)d[q]);\n"
               "    atomicAdd(&g_phase[5], 1ull);\n"
               "    atomicAdd(&g_phase[6], (unsigned long long)nkt);\n  }\n")
-    ph = edit(ph, "}\n\ntemplate <int VEC, int WK, bool FLOAT_OUT>\nint launch_conv(",
-              stamps + "}\n\ntemplate <int VEC, int WK, bool FLOAT_OUT>\n"
+    ph = edit(ph, "}\n\ntemplate <int VEC, int WK, int EPI>\nint launch_conv(",
+              stamps + "}\n\ntemplate <int VEC, int WK, int EPI>\n"
               "int launch_conv(")
     return {"kernel": SRC, "no_mma": no_mma, "no_loads": no_loads,
             "phases": ph + DBG}
@@ -347,9 +359,95 @@ def probe_core(libs: dict, sms: int) -> None:
               ", ".join(f"{s}: {v:.4f}" for s, v in row.items()))
 
 
+GEMM_ROWS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+             384, 512, 768, 1024, 1536, 2048, 3072, 4096, 6144, 8192)
+# (label, K, N, levels, packed int4 weights)
+GEMM_SHAPES = (("w_down L255", 96, 64, 255, False),
+               ("w_down L15", 96, 64, 15, False),
+               ("w_down L255 int4", 96, 64, 255, True),
+               ("K1440 N160 L255", 1440, 160, 255, False),
+               ("K1152 N512 L15", 1152, 512, 15, False))
+
+
+def probe_gemm(sms: int) -> None:
+    """The int8 GEMM form's routes against each other over M."""
+    from repro_torch.core import quant as Q
+
+    lib = B.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(2)
+    print("int8 GEMM form (ms a launch, CUDA events): small-M kernel / "
+          "wgmma kernel / torch._int_mm + count (M padded to a multiple of "
+          "32) / empty "
+          "launch of the small-M grid")
+    for label, k, n, levels, packed in GEMM_SHAPES:
+        lim = 8 if packed else 128
+        wv = torch.randint(-lim, lim, (k, n), generator=gen)
+        w = (Q.pack_int4(wv) if packed else wv.to(torch.int8)).cuda()
+        w8 = wv.to(torch.int8).cuda()
+        row = torch.sort(torch.randint(-3000, 3000, (levels,),
+                                       generator=gen)).values
+        t = row[None].expand(n, levels).to(torch.int32).contiguous().cuda()
+        rows, best, prev = [], None, 0
+        for m in GEMM_ROWS:
+            x = torch.randint(-128, 128, (m, k), generator=gen
+                              ).to(torch.int8).cuda()
+            out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+            splits, ws, counts = KM._split_scratch(m, n, k, x.device, None)
+            kind = KM.W_PACKED4 if packed else 0
+
+            def small():
+                rc = lib.mvau_int_small_m(x.data_ptr(), w.data_ptr(), kind,
+                                          t.data_ptr(), out.data_ptr(), m, k,
+                                          n, levels, 0, stream)
+                if rc:
+                    raise RuntimeError(f"small-M launch failed: {rc}")
+
+            def wgmma():
+                rc = lib.mvau_int(x.data_ptr(), w.data_ptr(), kind,
+                                  t.data_ptr(), out.data_ptr(), m, k, n,
+                                  levels, 0, splits, ws, counts, stream)
+                if rc:
+                    raise RuntimeError(f"wgmma launch failed: {rc}")
+
+            def empty():
+                lib.empty_launch(-(-n // 16) * -(-m // 32), 128, stream)
+
+            xpad = torch.nn.functional.pad(x, (0, 0, 0,
+                                               -(-m // 32) * 32 - m))
+
+            def library():
+                acc = torch._int_mm(xpad, w8)[:m]
+                return ref.threshold_counts_fast(acc, t, True)
+
+            want = KM.mvau_int_plain(x, w, t, 0, packed)
+            for fn, name in ((small, "small-M"), (wgmma, "wgmma")):
+                out.zero_()
+                fn()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise SystemExit(f"{label} M {m}: the {name} kernel "
+                                     "differs from the plain version")
+            r = (cuda_ms(small, 50), cuda_ms(wgmma, 50), cuda_ms(library, 50),
+                 cuda_ms(empty, 50))
+            rows.append((m, r))
+            if best is None and r[0] > r[1]:
+                best = prev
+            prev = m
+        print(f"  {label} (K {k}, N {n}, {levels} levels"
+              f"{', packed int4' if packed else ''}):")
+        for m, r in rows:
+            print(f"    M {m:4d}: small-M {r[0]:.5f}  wgmma {r[1]:.5f}  "
+                  f"library {r[2]:.5f}  empty {r[3]:.5f}")
+        print(f"  {label}: small-M no slower up to M = "
+              f"{best if best is not None else GEMM_ROWS[-1]}"
+              f"{'' if best is not None else ' (the whole sweep)'}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("int8", "core"), default=None)
+    ap.add_argument("--only", choices=("int8", "core", "gemm"),
+                    default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("probe_mvau_conv: needs the card\n")
@@ -365,13 +463,15 @@ def main() -> int:
     if args.only in (None, "core"):
         srcs.update({f"core_{k}": v for k, v in core_variants().items()})
     t0 = time.perf_counter()
-    libs = build_all(srcs)
+    libs = build_all(srcs) if srcs else {}
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
     for prefix, probe in (("int8_", probe_int8), ("core_", probe_core)):
         sub = {k[len(prefix):]: v for k, v in libs.items()
                if k.startswith(prefix)}
         if sub:
             probe(sub, sms)
+    if args.only in (None, "gemm"):
+        probe_gemm(sms)
     print(smi)
     return 0
 
