@@ -104,8 +104,11 @@ ends the run with a non-zero exit if it fails:
 6. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
    shapes, the 7 decode projections at batch 4, a prefill shape, forced K
-   splits at both column-tile widths; w8 and w4; bit for bit on integer
-   inputs; two launches bit for bit), then timed over one decode step's
+   splits at both column-tile widths, the many-row kernel forced at every
+   tile height on both sides of the crossover; w8 and w4; bit for bit on
+   integer inputs on both kernels; two launches bit for bit; each call on
+   the kernel its route names, both routes reached), then timed over one
+   decode step's
    252 launches beside its bound and cuBLAS on pre-cast codes, with GB/s
    of codes per projection and the w4/w8 ratio; ``generate`` at w8 and w4
    (batch 4, prompt 8, 16 new tokens, twice each: identical tokens) with
@@ -131,12 +134,15 @@ ends the run with a non-zero exit if it fails:
    pool and weight bytes, ms a step eager and replayed, one profiled
    replay (kernels a step, device busy); a full-width copy of mamba2's
    first 2 slots and zamba2's first 6 (5 Mamba2 blocks and the shared
-   block) decoded on the card and on the CPU at w8.
+   block) decoded on the card and on the CPU at w8; qwen2-vl's forward
+   over its 256-patch prefix (272 rows: every product on the many-row
+   kernel) card vs CPU.
 6c. MoE, MLA and the audio encoder-decoder (paths ``lm_moe_mla_audio``
    eager, ``lm_moe_mla_audio_graph`` replays): ``qmatmul`` held against
    its plain version at the four configs' 25 (M, K, N) (in phase 6's
    kernel check; whisper's encoder rows at M 6,000 bit for bit on integer
-   inputs too) and timed there, w8 and w4, beside its bound and cuBLAS;
+   inputs too) and timed there, w8 and w4, beside its bound and cuBLAS
+   (the plain version too at M 6,000, on the many-row kernel);
    grok-1-314b (4 of 64 layers) and arctic-480b (2 of 35) at full width,
    their expert banks drawn on the card one expert at a time into codes,
    minicpm3-4b and whisper-tiny at full size, each at w8 and w4 through
@@ -145,7 +151,8 @@ ends the run with a non-zero exit if it fails:
    step (113, 783, 435, 32), weight and graph pool bytes, ms a step eager
    and replayed, one profiled replay; whisper decodes an utterance's
    cross k/v from ``encode`` (24 launches at M 6,000) and
-   ``build_cross_cache`` (8), copied into the captured cross leaves; card
+   ``build_cross_cache`` (8), all 32 on ``qmm_rows_kernel``, copied into
+   the captured cross leaves; card
    against CPU at w8: 2 layers of grok and minicpm3, 1 of arctic (the
    routed experts equal wherever the router's k-th and (k+1)-th
    probabilities differ by more than 1e-3), whisper in full with its
@@ -235,7 +242,9 @@ ends the run with a non-zero exit if it fails:
    ``qmatmul``.
 11. a JSON line of every kernel with its launches on its paths (the integer
    MVAU's also by route: int8 ``wgmma``, the small-M kernel and CUDA
-   cores; the small-M kernel also as an entry of its own) and its numbers,
+   cores; the small-M kernel also as an entry of its own; ``qmatmul``'s by
+   route, decode and rows, the many-row kernel also as an entry of its
+   own over whisper's 32 launches) and its numbers,
    the card's name and power limit, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1173,11 +1182,13 @@ def main_path(torch, np, B):
 
     f_int, d = delta(lambda: dm_int(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0,
+                "qmatmul_rows": 0},
           f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 8, "gap": 1, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 8, "gap": 1, "qmatmul": 0,
+                "qmatmul_rows": 0},
           f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
@@ -1202,7 +1213,8 @@ def main_path(torch, np, B):
     unfused = unfused_lowering(dm_int)
     f_unf, d = delta(lambda: unfused(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 1, "qmatmul": 0}
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 1, "qmatmul": 0,
+                "qmatmul_rows": 0}
           and torch.equal(f_unf, f_int),
           f"unfused int forward: launches {d}, or features differ")
     B.launch_counts.update(saved)
@@ -1211,12 +1223,14 @@ def main_path(torch, np, B):
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
     check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0,
+                "qmatmul_rows": 0},
           f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 16, "gap": 2, "qmatmul": 0},
+                "mvau_int_small_m": 0, "mvau": 16, "gap": 2, "qmatmul": 0,
+                "qmatmul_rows": 0},
           f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
@@ -2360,7 +2374,8 @@ def wide_code_path(torch, np, B):
         check(run == {"mvau_int": 8, "mvau_int_gap": int(int8),
                       "mvau_int_wide": 8 * (1 - int(int8)),
                       "mvau_int_small_m": 0, "mvau": 0,
-                      "gap": 1 - int(int8), "qmatmul": 0},
+                      "gap": 1 - int(int8), "qmatmul": 0,
+                      "qmatmul_rows": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
             counts[k] += v
@@ -2473,30 +2488,39 @@ def _leaf(blocks, name):
     return blocks["mlp" if name.startswith("w_") else "attn"][name]
 
 
-def check_qmatmul(torch, Q, KQ, cfg, extra=()):
+def check_qmatmul(torch, Q, KQ, B, cfg, extra=()):
     """qmatmul against its plain version on the card: ragged M, N, K (the
     scalar and the vector weight loads), the decode shapes at batch 4, the
-    (M, K, N) of ``extra`` (their codes drawn on the card) and one prefill
-    shape (batch 4 x prompt 8), f32 and bf16 x, w8 and w4.  The ``extra``
-    shapes with M above 1,000 (whisper's encoder) are held bit for bit on
-    integer inputs too.
+    (M, K, N) of ``extra`` (their codes drawn on the card), one prefill
+    shape (batch 4 x prompt 8) and ragged many-row shapes, f32 and bf16 x,
+    w8 and w4; each call launches the kernel its route names (``qmm_route``:
+    ``qmm_kernel``, or ``qmm_rows_kernel`` counted in ``qmatmul_rows``),
+    and both routes are reached.  The many-row kernel is also forced at
+    every tile height on ragged shapes on both sides of the crossover.  The
+    ``extra`` shapes with M above 1,000 (whisper's encoder) are held bit
+    for bit on integer inputs too.
     Tolerance: only the order of the float32 sum differs, so the error is
     held within 2e-5 of S = sum_k |bf16(x)| |code| scale (plus one bf16
     rounding of the output for bf16 x).  On integer-valued x with small
-    codes every partial sum is an integer below 2^24: bit for bit."""
+    codes every partial sum is an integer below 2^24: bit for bit.
+    Returns the largest errors at the decode shapes and on the rows
+    route."""
     dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(4321)
     on_card = torch.Generator(device=dev).manual_seed(4321)
     shapes = [(1, 32, 16), (5, 130, 66), (3, 37, 12), (9, 515, 264),
-              (70, 300, 130)]
+              (70, 300, 130), (130, 37, 66), (1000, 300, 264),
+              (257, 1536, 1536)]
     shapes += [(LM_BATCH, k, n) for _, k, n in _projections(cfg)]
     shapes.append((LM_BATCH * LM_PROMPT, cfg.d_model, cfg.d_ff))
     wide = list(dict.fromkeys(extra))
     shapes += wide
     decode = {(LM_BATCH, k, n) for _, k, n in _projections(cfg)} | set(wide)
     worst = {"abs": 0.0, "of_tol": 0.0, "rel_f32": 0.0, "abs_decode": 0.0,
-             "abs_extra": 0.0}
+             "abs_extra": 0.0, "abs_rows": 0.0}
     n_checked = 0
+    routes = {"decode": 0, "rows": 0}
     for bits in (8, 4):
         lim = 8 if bits == 4 else 128
         for m, k, n in shapes:
@@ -2507,10 +2531,18 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
                  else codes.to(torch.int8)).to(dev)
             s = (torch.rand((n,), generator=g, device=g.device) * 0.02
                  + 0.001).to(dev)
+            route = KQ.qmm_route(m, k, n, sms, bits)
             for xdt in (torch.float32, torch.bfloat16):
                 x = (torch.rand((m, k), generator=g, device=g.device) * 2
                      - 1).to(xdt).to(dev)
+                rows0 = B.launch_counts["qmatmul_rows"]
                 got = KQ.qmatmul(x, w, s, bits)
+                check(B.launch_counts["qmatmul_rows"] - rows0
+                      == int(route == "rows"),
+                      f"qmatmul {m}x{k}x{n} w{bits}: route {route} but "
+                      f"{B.launch_counts['qmatmul_rows'] - rows0} launches "
+                      "of the rows kernel")
+                routes[route] += 1
                 want = KQ.qmatmul_plain(x, w, s, bits)
                 torch.cuda.synchronize()
                 check(got.dtype == xdt and got.shape == want.shape,
@@ -2540,7 +2572,38 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
                 if (m, k, n) in wide:
                     worst["abs_extra"] = max(worst["abs_extra"],
                                              d.max().item())
+                if route == "rows":
+                    worst["abs_rows"] = max(worst["abs_rows"],
+                                            d.max().item())
                 n_checked += 1
+        # the many-row kernel forced at every tile height, on both sides of
+        # the crossover (9 x 264 and 63 x 264 below ROWS_MN)
+        for m, k, n in ((9, 300, 264), (63, 1536, 264), (65, 37, 66),
+                        (130, 300, 1536), (1000, 1536, 66)):
+            codes = torch.randint(-lim, lim, (k, n), generator=gen)
+            w = (Q.pack_int4(codes.to(torch.int32)) if bits == 4
+                 else codes.to(torch.int8)).to(dev)
+            s = (torch.rand((n,), generator=gen) * 0.02 + 0.001).to(dev)
+            for xdt in (torch.float32, torch.bfloat16):
+                x = (torch.rand((m, k), generator=gen) * 2 - 1).to(xdt).to(dev)
+                want = KQ.qmatmul_plain(x, w, s, bits).float()
+                tol = 2e-5 * (x.to(torch.bfloat16).float().abs()
+                              @ codes.to(dev).float().abs()) * s
+                if xdt == torch.bfloat16:
+                    tol = tol + want.abs() * 2.0 ** -7
+                for bm in KQ.ROWS_BMS:
+                    got = KQ.qmatmul(x, w, s, bits, route="rows", bm=bm)
+                    d = (got.float() - want).abs()
+                    check(bool((d <= tol).all()),
+                          f"qmatmul rows kernel {m}x{k}x{n} w{bits} {xdt} "
+                          f"bm {bm} differs by {d.max().item():.3g}")
+                    check(torch.equal(got, KQ.qmatmul(
+                        x, w, s, bits, route="rows", bm=bm)),
+                          f"qmatmul rows kernel {m}x{k}x{n} w{bits}: two "
+                          "launches differ")
+                    worst["abs_rows"] = max(worst["abs_rows"],
+                                            d.max().item())
+                    n_checked += 1
         lim = 8 if bits == 4 else 32
         for m, k, n in ((LM_BATCH, cfg.d_model, 256), (LM_BATCH, cfg.d_ff,
                                                        cfg.d_model), (7, 100, 18),
@@ -2550,10 +2613,15 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
                  else codes.to(torch.int8)).to(dev)
             x = torch.randint(-16, 17, (m, k), generator=gen).float().to(dev)
             s = torch.full((n,), 0.5, device=dev)
-            check(torch.equal(KQ.qmatmul(x, w, s, bits),
-                              KQ.qmatmul_plain(x, w, s, bits)),
+            want = KQ.qmatmul_plain(x, w, s, bits)
+            check(torch.equal(KQ.qmatmul(x, w, s, bits), want),
                   f"qmatmul {m}x{k}x{n} w{bits} on integers is not bit "
                   "for bit")
+            if m > 1:
+                check(torch.equal(KQ.qmatmul(x, w, s, bits, route="rows"),
+                                  want),
+                      f"qmatmul rows kernel {m}x{k}x{n} w{bits} on integers "
+                      "is not bit for bit")
             n_checked += 1
         # every forced K split, a ragged one (5) included, both tile widths
         m, k, n = LM_BATCH, cfg.d_model, 320
@@ -2572,9 +2640,17 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
                 check(bool(((got.float() - want).abs() <= tol).all()),
                       f"qmatmul w{bits} bn {bn} splits {splits} differs")
                 n_checked += 1
+    check(routes["decode"] > 0 and routes["rows"] > 0,
+          f"qmatmul's check reached only {routes}")
     log(f"kernel check qmatmul: {n_checked} cases, w8 and w4, f32 and bf16 "
-        f"x, forced splits 1/2/4/8/5 at both tile widths; max abs err "
-        f"{worst['abs']:.3g} (decode shapes {worst['abs_decode']:.3g}); "
+        f"x, {routes['decode']} calls on the decode route and "
+        f"{routes['rows']} on the rows route (ROWS_M {KQ.ROWS_M}, ROWS_MN "
+        f"{KQ.ROWS_MN}), each "
+        "launching its route's kernel; the rows kernel forced at every tile "
+        "height on 5 ragged shapes (M 9 to 1,000); forced splits 1/2/4/8/5 "
+        f"at both tile widths; max abs err "
+        f"{worst['abs']:.3g} (decode shapes {worst['abs_decode']:.3g}, rows "
+        f"route {worst['abs_rows']:.3g}); "
         f"max err / applied tolerance {worst['of_tol']:.3g} (passes at <= 1; "
         f"the tolerance is 2e-5 sum|bf16(x)||code|scale, plus one bf16 "
         f"rounding of the output for bf16 x); for f32 x, max err / "
@@ -2585,8 +2661,9 @@ def check_qmatmul(torch, Q, KQ, cfg, extra=()):
         log(f"kernel check qmatmul at the LM families' {len(wide)} (M, K, N) "
             f"({', '.join(f'{m}x{k}x{n}' for m, k, n in wide)}), w8 and w4, "
             f"f32 and bf16 x: max abs err {worst['abs_extra']:.3g}; two "
-            "launches bit for bit; integer inputs bit for bit at M > 1000")
-    return worst["abs_decode"]
+            "launches bit for bit; integer inputs bit for bit at M > 1000 "
+            "on both kernels")
+    return worst["abs_decode"], worst["abs_rows"]
 
 
 def _dense_bytes(tree):
@@ -2934,8 +3011,9 @@ def lm_path(torch, np, B, Q, KQ):
     from repro_torch.tree import tree_flatten, tree_map
 
     cfg = get_config(LM_ARCH)
-    err = check_qmatmul(torch, Q, KQ, cfg,
-                        extra=family_shapes() + mma_shapes())
+    err, err_rows = check_qmatmul(torch, Q, KQ, B, cfg,
+                                  extra=family_shapes() + mma_shapes()
+                                  + vlm_prefix_shapes())
 
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -2991,6 +3069,8 @@ def lm_path(torch, np, B, Q, KQ):
           f"{QMM_LAUNCHES_PER_STEP}")
     check(counts["mvau_int"] == counts["mvau_int_gap"] == counts["mvau"]
           == counts["gap"] == 0, f"LM path launched FSL kernels: {counts}")
+    check(counts["qmatmul_rows"] == 0, f"decode steps launched the rows "
+          f"kernel: {counts}")
     for bits in (8, 4):
         w = min(walls[bits])
         log(f"lm generate w{bits} eager step: batch {LM_BATCH}, prompt "
@@ -3148,6 +3228,7 @@ def lm_path(torch, np, B, Q, KQ):
              "source": "src/repro_torch/csrc/qmatmul.cu",
              "replaces": "src/repro/kernels/qmatmul.py:64",
              "launches": counts["qmatmul"], "max_abs_err": err,
+             "max_abs_err_rows": err_rows,
              "ms": w8["ms"], "plain_ms": w8["plain_ms"],
              "bound_ms": w8["bound_ms"], "bound_by": w8["bound_by"],
              "library_ms": w8["library_ms"],
@@ -3218,6 +3299,16 @@ def family_shapes():
     return shapes
 
 
+def vlm_prefix_shapes():
+    """The (M, K, N) of qwen2-vl's forward over its patch prefix and
+    FAMILY_VLM_TEXT text tokens (:func:`vlm_card_vs_cpu`): every product
+    on the many-row route."""
+    cfg = family_config("qwen2-vl-7b")
+    m = cfg.vision_patches + FAMILY_VLM_TEXT
+    return list(dict.fromkeys((m, k, n) for _, k, n, _ in
+                              family_products(cfg)))
+
+
 def time_family_qmatmul(torch, Q, KQ, shapes):
     """qmatmul at each (M, K, N) of ``shapes``, bf16 x, w8 and w4 (held
     against its plain version at these shapes in :func:`check_qmatmul`):
@@ -3226,9 +3317,12 @@ def time_family_qmatmul(torch, Q, KQ, shapes):
     beside the bound (the larger of codes + scales + x + out bytes at
     3.35 TB/s and 2MKN at the bf16 peak) and the library yardstick, cuBLAS
     bf16 on codes cast to bf16 before the timing, times the scale.
-    Returns {(bits, M, K, N): {"ms", "bound_ms", "bound_by",
-    "library_ms"}}."""
+    On the many-row route the plain version is timed too.  Returns
+    {(bits, M, K, N): {"ms", "bound_ms", "bound_by", "library_ms",
+    "plain_ms" (None on the decode route), "route", "tile", "bytes_ms",
+    "ops_ms"}}."""
     dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(23)
     out = {}
     for bits in (8, 4):
@@ -3253,15 +3347,31 @@ def time_family_qmatmul(torch, Q, KQ, shapes):
             lib = cuda_ms(torch, lambda: [(torch.matmul(x, w) * s).to(
                 torch.bfloat16) for w in w16], reps=3,
                 sleep_cycles=QMM_SLEEP_CYCLES) / copies
+            route = KQ.qmm_route(m, k, n, sms, bits)
+            tile = (KQ.rows_plan(m, k, n, sms, bits)[:2] if route == "rows"
+                    else KQ.split_plan(m, k, n, sms, bits)[:2])
+            plain = None
+            if route == "rows":
+                plain = cuda_ms(torch, lambda: [KQ.qmatmul_plain(x, c, s, bits)
+                                                for c in codes], reps=1,
+                                sleep_cycles=QMM_SLEEP_CYCLES) / copies
             b_ms = (nbytes + 4 * n + 2 * m * (k + n)) / PEAK_BYTES_PER_S * 1e3
             o_ms = 2 * m * k * n / PEAK_BF16_OPS * 1e3
             by = "bytes" if b_ms >= o_ms else "operations"
             out[(bits, m, k, n)] = {"ms": ms, "bound_ms": max(b_ms, o_ms),
-                                    "bound_by": by, "library_ms": lib}
-            log(f"kernel qmatmul w{bits} M={m:5d} K={k:5d} N={n:6d}: "
-                f"kernel_ms={ms:.4f} library_ms={lib:.4f} bound_ms="
+                                    "bound_by": by, "library_ms": lib,
+                                    "plain_ms": plain, "route": route,
+                                    "tile": list(tile), "bytes_ms": b_ms,
+                                    "ops_ms": o_ms}
+            log(f"kernel qmatmul w{bits} M={m:5d} K={k:5d} N={n:6d} "
+                f"({'qmm_rows_kernel' if route == 'rows' else 'qmm_kernel'}, "
+                f"tiles of {tile[0]} rows x {tile[1]} columns): "
+                f"kernel_ms={ms:.4f} "
+                + ("" if plain is None else f"plain_ms={plain:.4f} ")
+                + f"library_ms={lib:.4f} bound_ms="
                 f"{max(b_ms, o_ms):.4f} ({by}; {max(b_ms, o_ms) / ms:.1%} of "
-                f"the bound's rate; {nbytes / ms / 1e6:.0f} GB/s of codes, "
+                f"the bound's rate; {lib / ms:.2f}x the library's speed; "
+                f"{nbytes / ms / 1e6:.0f} GB/s of codes, "
                 f"{copies} copies streamed)")
             del codes, w16
     torch.cuda.empty_cache()
@@ -3396,8 +3506,16 @@ def vlm_card_vs_cpu(torch, np, cfg, tree):
             cfg)
         return out[..., :cfg.vocab].float().cpu()
 
+    from repro_torch.kernels import build as B
+
     t0 = time.perf_counter()
+    before = dict(B.launch_counts)
     lg = logits(tree, "cuda", pos3)
+    rows = {k: B.launch_counts[k] - before[k] for k in ("qmatmul",
+                                                       "qmatmul_rows")}
+    check(rows["qmatmul"] > 0 and rows["qmatmul_rows"] == rows["qmatmul"],
+          f"{cfg.name}: the {P + T}-row forward's qmatmul launches {rows}, "
+          "expected all on the rows kernel")
     plain = logits(tree, "cuda", flat)
     lc = logits(tree_map(lambda t: t.cpu(), tree), "cpu", pos3)
     check(tuple(lg.shape) == (1, P + T, cfg.vocab)
@@ -3411,7 +3529,8 @@ def vlm_card_vs_cpu(torch, np, cfg, tree):
           "as plain RoPE's")
     log(f"lm_families {cfg.name} card vs CPU forward ({cfg.n_layers} layers,"
         f" full width, w8, {P} patch embeddings in rows of {side} + {T}"
-        f" text tokens, distinct t/h/w streams; "
+        f" text tokens, distinct t/h/w streams, {rows['qmatmul_rows']} "
+        f"qmatmul launches at M {P + T}, all on qmm_rows_kernel; "
         f"{time.perf_counter() - t0:.1f} s): logits within {worst:.4g} "
         f"(tolerance {CPU_CHECK_TOL}); plain RoPE's logits differ from them "
         f"by up to {moved:.4g}")
@@ -3622,14 +3741,16 @@ def whisper_encode(torch, np, B, cfg, tree, sums):
         device="cuda")
     B.reset_launch_counts()
     enc = whisper.encode(tree, frames, cfg)
-    n_enc = B.launch_counts["qmatmul"]
+    n_enc = dict(B.launch_counts)
     cross = whisper.build_cross_cache(tree, enc, cfg)
     torch.cuda.synchronize()
     counts = dict(B.launch_counts)
-    check(n_enc == WHISPER_ENC_QMM
-          and counts == {**{k: 0 for k in counts},
-                         "qmatmul": WHISPER_ENC_QMM + WHISPER_CROSS_QMM},
-          f"whisper encode + cross cache launches {counts} (encode {n_enc})")
+    n = WHISPER_ENC_QMM + WHISPER_CROSS_QMM
+    check(n_enc["qmatmul"] == n_enc["qmatmul_rows"] == WHISPER_ENC_QMM
+          and counts == {**{k: 0 for k in counts}, "qmatmul": n,
+                         "qmatmul_rows": n},
+          f"whisper encode + cross cache launches {counts} (encode "
+          f"{n_enc})")
     for k, v in counts.items():
         sums[MMA_PATHS[0]][k] += v
     shape = (cfg.n_layers, LM_BATCH, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
@@ -3645,9 +3766,11 @@ def whisper_encode(torch, np, B, cfg, tree, sums):
                tree, enc, cfg), reps=5)}
     log(f"{MMA_PATHS[0]} whisper encode: {LM_BATCH} x {cfg.enc_seq} frames, "
         f"{cfg.enc_layers} layers, {WHISPER_ENC_QMM} qmatmul launches at M "
-        f"{LM_BATCH * cfg.enc_seq}: {res['encode_ms']:.3f} ms; cross k/v of "
-        f"{cfg.n_layers} layers, {WHISPER_CROSS_QMM} launches: "
-        f"{res['cross_ms']:.3f} ms")
+        f"{LM_BATCH * cfg.enc_seq}, all {n_enc['qmatmul_rows']} on "
+        f"qmm_rows_kernel (0 on qmm_kernel): {res['encode_ms']:.4f} ms; "
+        f"cross k/v of {cfg.n_layers} layers, {WHISPER_CROSS_QMM} launches, "
+        f"{counts['qmatmul_rows'] - n_enc['qmatmul_rows']} on "
+        f"qmm_rows_kernel: {res['cross_ms']:.4f} ms")
     return frames, cross, res
 
 
@@ -3809,9 +3932,13 @@ def moe_mla_audio_path(torch, np, B, Q, KQ):
         gc.collect()
         torch.cuda.empty_cache()
         report[name] = rep
+    # the rows kernel only in whisper's encode and cross cache (eager)
     for p, c in sums.items():
-        check(c["qmatmul"] > 0 and all(v == 0 for k, v in c.items()
-                                       if k != "qmatmul"),
+        rows = 2 * (WHISPER_ENC_QMM + WHISPER_CROSS_QMM) if p == MMA_PATHS[0] \
+            else 0
+        check(c["qmatmul"] > 0 and c["qmatmul_rows"] == rows
+              and all(v == 0 for k, v in c.items()
+                      if k not in ("qmatmul", "qmatmul_rows")),
               f"path {p}: launches {c}")
     log(f"{MMA_PATHS[0]}: launches eager {sums[MMA_PATHS[0]]}, replayed "
         f"{sums[MMA_PATHS[1]]}; phase {time.perf_counter() - t_phase:.1f} s")
@@ -4998,6 +5125,60 @@ def main() -> int:
                                                "lm_families_graph",
                                                *MMA_PATHS)),
                   f"qmatmul never ran on the LM families' paths: {by_path}")
+    # qmatmul's routes: the decode kernel on every decode step, the
+    # many-row kernel on whisper's encode and cross cache (its main path)
+    qk = next(k for k in kernels if k["name"] == "qmatmul")
+    qk["launches_by_route"] = {
+        "decode": {p: c["qmatmul"] - c["qmatmul_rows"]
+                   for p, c in paths.items()},
+        "rows": {p: c["qmatmul_rows"] for p, c in paths.items()}}
+    by_rows = qk["launches_by_route"]["rows"]
+    check(all(v == 0 for p, v in by_rows.items() if p != MMA_PATHS[0])
+          and by_rows[MMA_PATHS[0]] == 2 * (WHISPER_ENC_QMM
+                                            + WHISPER_CROSS_QMM)
+          and qk["launches_by_route"]["decode"]["lm_decode"]
+          == qk["launches"],
+          f"qmatmul's routes by path: {qk['launches_by_route']}")
+    wcfg = mma_config("whisper-tiny")
+    shapes = qmm["moe_mla_audio"]["shapes"]
+    wrep = qmm["moe_mla_audio"]["whisper-tiny"]
+
+    def whisper_rows(bits):
+        prods = [(shapes[f"w{bits} {m}x{k}x{n}"], c)
+                 for _, m, k, n, c in whisper_encoder_products(wcfg)]
+        check(all(v["route"] == "rows" for v, _ in prods),
+              "a whisper encoder product is not on the rows route")
+        tot = {key: sum(v[key] * c for v, c in prods) for key in
+               ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+        tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                           else "operations")
+        tot["encode_ms"] = wrep[f"w{bits}"]["encode_ms"]
+        tot["cross_ms"] = wrep[f"w{bits}"]["cross_ms"]
+        return tot
+
+    w8r, w4r = whisper_rows(8), whisper_rows(4)
+    kernels.append({
+        "name": "qmatmul_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:64",
+        "launches_by_path": by_rows, "launches": by_rows[MMA_PATHS[0]],
+        "max_abs_err": qk.pop("max_abs_err_rows"),
+        **{k: w8r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "per": f"whisper-tiny's {WHISPER_ENC_QMM} encode and "
+               f"{WHISPER_CROSS_QMM} cross-cache launches at M "
+               f"{LM_BATCH * wcfg.enc_seq}, w8, from the per-shape times",
+        "w4": {k: w4r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+        "encode_ms": {"w8": w8r["encode_ms"], "w4": w4r["encode_ms"]},
+        "cross_ms": {"w8": w8r["cross_ms"], "w4": w4r["cross_ms"]}})
+    log(f"kernel qmatmul_rows over whisper's {WHISPER_ENC_QMM} + "
+        f"{WHISPER_CROSS_QMM} launches: w8 kernel_ms={w8r['ms']:.4f} "
+        f"library_ms={w8r['library_ms']:.4f} bound_ms={w8r['bound_ms']:.4f}"
+        f"; w4 kernel_ms={w4r['ms']:.4f} library_ms={w4r['library_ms']:.4f} "
+        f"bound_ms={w4r['bound_ms']:.4f}; encode {w8r['encode_ms']:.4f} / "
+        f"{w4r['encode_ms']:.4f} ms (w8 / w4)")
     # the distribution path: the sharded head's int artifact and the
     # column-sharded decode projections ran the kernels on the ranks
     for name in ("mvau_int", "mvau_int_gap", "qmatmul"):

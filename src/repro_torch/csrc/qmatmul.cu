@@ -12,14 +12,31 @@
 // bits), so the kernel and the plain version differ only in the order in
 // which the float32 sum is taken.
 //
-// What bounds it on this card: in LM decode M is the batch (1 to 8 rows)
-// and K, N are in the thousands, so each weight byte serves M rows: about
-// 2M operations per byte at w8, far below the ridge of any unit.  An ideal
-// kernel is bound by the bytes of the codes: 2.77 GB per Qwen2.5-3B decode
-// step at w8 (0.83 ms at 3.35 TB/s), half that at w4.
+// Two kernels compute it, one per regime; the wrapper
+// (kernels/qmatmul.py, qmm_route) picks one per shape.
 //
-// What this design does about it: it keeps enough weight bytes in flight
-// to cover the DRAM latency, and spends few instructions per code.
+// Decode (qmm_kernel).  What bounds it on this card: in LM decode M is the
+// batch (1 to 8 rows) and K, N are in the thousands, so each weight byte
+// serves M rows: about 2M operations per byte at w8, far below the ridge
+// of any unit.  An ideal kernel is bound by the bytes of the codes: 2.77 GB
+// per Qwen2.5-3B decode step at w8 (0.83 ms at 3.35 TB/s), half that at w4.
+//
+// Many rows (qmm_rows_kernel, below qmm_kernel).  What bounds it: at
+// whisper's encoder (M 6,000, K and N 384 or 1,536) each code serves
+// thousands of rows and each x row hundreds of columns, so the work is
+// 2MKN operations on the bf16 tensor cores (7.1 GFLOP, 7.2 us at 989
+// TFLOP/s, for K 384 x N 1,536) and the bytes of x and out (4.6 MB each
+// at N 384, 2.8 us); the decode kernel, re-streaming and re-decoding every
+// code for each 8 rows, ran at 4-7% of that.  What the design does about
+// it: tiles of 128 output columns by 128 (or 64) rows of x on bf16 wgmma,
+// each code read from shared memory and decoded once per tile, straight
+// into the A operand's registers (swap-AB, x the B operand from shared
+// memory), the decode of one K step overlapping the tensor cores' work on
+// the previous one; see its section.
+//
+// What the decode design does about its bound: it keeps enough weight
+// bytes in flight to cover the DRAM latency, and spends few instructions
+// per code.
 // * A block (256 threads, 8 warps) owns BN = 64 or 128 output columns, up
 //   to 8 rows of x and a K slice.  Its column tile streams through a ring
 //   of STAGES = 3 shared-memory stages of 16 KB of codes each (KS rows of
@@ -63,9 +80,11 @@
 // projections that share x (q/k/v, gate/up).
 //
 // Measurement builds: -DQMM_NO_MMA drops the tensor-core MMAs and
-// -DQMM_NO_COPY the weight copies (both compute wrong values), and
-// -DQMM_CLOCK sums each block's clock64 cycles per phase (thread 0); only
-// tools/sweep_qmatmul_splits.py builds them.
+// -DQMM_NO_COPY the weight copies of both kernels, -DQMR_NO_XCOPY the x
+// copies and -DQMR_NO_DECODE the code decode of the many-row kernel (all
+// compute wrong values), and -DQMM_CLOCK sums each decode block's clock64
+// cycles per phase (thread 0); only tools/sweep_qmatmul_splits.py builds
+// them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -554,6 +573,512 @@ int launch_bn(const void* x, const int8_t* w, const float* scale, void* out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// The many-row route: qmm_rows_kernel
+// ---------------------------------------------------------------------------
+// Swap-AB on wgmma, as the decode kernel is on mma.sync: the codes are the
+// A operand, decoded into registers, and x is the B operand, read by the
+// tensor cores from shared memory.  A block owns RBN = 128 output columns
+// (two consumer warpgroups of 64, the wgmma's M) and BMX = 64, 80, 96 or
+// 128 rows of x (the wgmma's N), and walks K in RBK = 64-row steps through
+// a ring of RSTAGES = 4 stages: the x tile (bf16, 128-byte rows, the
+// 128-byte swizzle of a K-major wgmma operand: 16-byte chunk c of row r at
+// slot c ^ (r & 7)) and the raw code tile (RBN bytes a row at w8, RBN / 2
+// at w4, padded by 16 bytes so the fragment reads below hit distinct
+// banks).
+// Each code is read from shared memory once and decoded once per block,
+// into the registers of the one thread whose A fragment holds it; nothing
+// decoded is written back.  Per step that is the x tile copied in and read
+// twice by the tensor cores (once per warpgroup) and the raw codes copied
+// in and read once: 64 KB of shared-memory traffic for 128 x 128 x 64
+// products at w8, where a decoded bf16 B tile (written, then read by both
+// warpgroups) took 96 KB and held the kernel to the shared memory's rate.
+// A warpgroup's M row 16 w + g (warp w, lane group g) is output column
+// 16 w + 2 g of its 64, and row 16 w + g + 8 column 16 w + 2 g + 1, so a
+// thread's two columns are adjacent: one 16-bit read (w8) or one byte (w4)
+// gives both columns of a K row.  Step it + 1's fragments are decoded while
+// step it's wgmma runs (but on the byte-copy path, for want of registers);
+// one barrier a step.  Two blocks fit on an SM.
+
+constexpr int RBN = 128;                 // output columns a block owns
+constexpr int RBK = 64;                  // rows of K a ring stage holds
+constexpr int RTHREADS = 256;            // two warpgroups
+#ifndef QMR_STAGES
+#define QMR_STAGES 4
+#endif
+constexpr int RSTAGES = QMR_STAGES;      // 3 at least: two steps ahead
+constexpr int RALIGN = 1024;             // a swizzle atom
+
+template <int BITS, int BMX>
+struct RTile {
+  static constexpr int A_BYTES = BMX * RBK * 2;          // x tile in bf16
+  static constexpr int RAW_ROW = RBN * BITS / 8;         // code bytes a row
+  static constexpr int RS = RAW_ROW + 16;                // staged row stride
+  static constexpr int RAW_BYTES = RBK * RS;
+  static constexpr int STAGE = A_BYTES + RAW_BYTES;
+  static constexpr int CH = RAW_ROW / 16;                // 16-byte copies a row
+  static constexpr int NJ = BMX / 8;                     // 8-row groups of x
+  static constexpr int SMEM = RALIGN + RSTAGES * STAGE;
+  static_assert(STAGE % RALIGN == 0, "every stage's x tile on a swizzle atom");
+  static_assert(RSTAGES >= 3, "steps it and it + 1 landed, one in flight");
+};
+
+// 16-byte chunk `c` of row `r` of a tile of 128-byte rows (128-byte swizzle)
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + (((c ^ r) & 7) << 4);
+}
+
+// wgmma shared-memory descriptor of the K-major x tile: 128-byte rows in
+// the 128-byte swizzle, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_x(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |            // leading offset (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// keep the compiler from moving accumulator registers across wgmma
+template <int NJ>
+__device__ __forceinline__ void acc_fence(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(acc[j][r])::"memory");
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, in registers) B (16 x 64, bf16,
+// K-major in shared memory, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[8][4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db)
+      : "memory");
+}
+
+// D (64 x 80, f32) += A (64 x 16, bf16, in registers) B (16 x 80, bf16,
+// K-major in shared memory, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_m64n80k16(float (&d)[10][4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db)
+      : "memory");
+}
+
+// D (64 x 96, f32) += A (64 x 16, bf16, in registers) B (16 x 96, bf16,
+// K-major in shared memory, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_m64n96k16(float (&d)[12][4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db)
+      : "memory");
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16, in registers) B (16 x 128, bf16,
+// K-major in shared memory, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[16][4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db)
+      : "memory");
+}
+
+template <int BMX>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BMX / 8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+#ifndef QMM_NO_MMA
+  if constexpr (BMX == 128)
+    wgmma_rs_m64n128k16(d, a, db);
+  else if constexpr (BMX == 96)
+    wgmma_rs_m64n96k16(d, a, db);
+  else if constexpr (BMX == 80)
+    wgmma_rs_m64n80k16(d, a, db);
+  else
+    wgmma_rs_m64n64k16(d, a, db);
+#endif
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The A fragments of one K step (4 slices of 16) of a thread's two adjacent
+// columns, from the raw codes at `raw` (the thread's first column's byte,
+// w8, or the byte of both, w4): slice s, register 0 holds column c0 at K
+// rows 2t, 2t + 1, register 1 column c0 + 1 there, registers 2 and 3 the
+// same at rows 2t + 8, 2t + 9 (mma's m16n8k16 A layout, M row g = column
+// c0, row g + 8 = column c0 + 1).
+template <int BITS, int RS>
+__device__ __forceinline__ void a_fragments_rows(const uint8_t* raw, int t,
+                                                 uint32_t (&a)[4][4]) {
+#ifdef QMR_NO_DECODE
+  return;
+#endif
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {        // rows 2t, 2t + 1 (h = 0); + 8
+      const uint8_t* p = raw + (16 * s + 2 * t + 8 * h) * RS;
+      if constexpr (BITS == 8) {
+        // bytes: row k col c0, row k col c0 + 1, row k + 1 col c0, ...
+        const uint32_t w = *reinterpret_cast<const uint16_t*>(p) |
+                           static_cast<uint32_t>(
+                               *reinterpret_cast<const uint16_t*>(p + RS))
+                               << 16;
+        a[s][2 * h] = i8x2_to_bf16x2(w);            // bytes 0, 2
+        a[s][2 * h + 1] = i8x2_to_bf16x2(w >> 8);   // bytes 1, 3
+      } else {
+        // nibbles: low = column c0, high = c0 + 1, of rows k and k + 1
+        const uint32_t w = static_cast<uint32_t>(p[0]) |
+                           (static_cast<uint32_t>(p[RS]) << 16);
+        a[s][2 * h] = i4x2_to_bf16x2(w);
+        a[s][2 * h + 1] = i4x2_to_bf16x2(w >> 4);
+      }
+    }
+  }
+}
+
+template <int BITS, typename XT, int BMX, bool VEC, bool VECX>
+__global__ void __launch_bounds__(RTHREADS, 2)
+    qmm_rows_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, XT* __restrict__ out,
+                    int M, int K, int N) {
+  using T = RTile<BITS, BMX>;
+  // the next step's fragments decoded while this step's wgmma runs; the
+  // byte-copy path for codes (N not a multiple of 16 bytes) has not the
+  // registers for both sets, and decodes after the wait
+  constexpr bool AHEAD = VEC;
+  extern __shared__ __align__(16) uint8_t rsmem[];
+  uint8_t* const base =
+      rsmem + ((RALIGN - (smem_u32(rsmem) & (RALIGN - 1))) & (RALIGN - 1));
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int warp = (tid & 127) >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * RBN;
+  const int m0 = blockIdx.y * BMX;
+  const int nk = (K + RBK - 1) / RBK;
+  const int NB = N * BITS / 8;              // code bytes of a row of w
+  const uint8_t* const wb = reinterpret_cast<const uint8_t*>(w);
+  const int nb0 = n0 * BITS / 8;
+  // this thread's two adjacent output columns, from the block's first
+  const int c0 = 64 * wg + 16 * warp + 2 * g;
+
+  // A thread copies the same chunk column of rows r0, r0 + RS, ... of
+  // every step: fixed sources advanced by a step's K, fixed shared-memory
+  // slots (the swizzle sees r0 & 7 only, the row step being a multiple of
+  // 8), a handful of instructions a copy.
+  // x, 16-byte copies: chunk xc of rows xr0 + 32 j
+  constexpr int XRS = RTHREADS / 8;
+  const int xr0 = tid / 8;
+  const int xc = tid % 8;
+  const XT* const xsrc = x + static_cast<size_t>(m0 + xr0) * K + xc * 8;
+  const size_t xstride = static_cast<size_t>(XRS) * K;
+  const uint32_t xdst = smem_u32(base) + swz128(xr0, xc);
+  // x converted on the way in: pair kp of rows pr0 + 8 j
+  constexpr int PRS = RTHREADS / (RBK / 2);
+  const int pr0 = tid / (RBK / 2);
+  const int kp = tid % (RBK / 2);
+  const XT* const psrc = x + static_cast<size_t>(m0 + pr0) * K + 2 * kp;
+  const size_t pstride = static_cast<size_t>(PRS) * K;
+  uint8_t* const pdst = base + swz128(pr0, kp >> 2) + (kp & 3) * 4;
+  // codes, 16-byte pieces: piece cb of rows cr0 + CRS i
+  constexpr int CRS = RTHREADS / T::CH;
+  constexpr int CJ = (RBK + CRS - 1) / CRS;
+  const int cr0 = tid / T::CH;
+  const int cb = (tid % T::CH) * 16;
+  const bool ccol = nb0 + cb < NB;
+  const uint8_t* const csrc =
+      wb + (ccol ? static_cast<size_t>(cr0) * NB + nb0 + cb : 0);
+  uint8_t* const cdst = base + T::A_BYTES + cr0 * T::RS + cb;
+
+  // K step s into ring stage st: the x tile (rows past M and columns past
+  // K zero) and the raw codes (rows past K and columns past N zero)
+  auto load_step = [&](int s, int st) {
+    const int k0 = s * RBK;
+#ifndef QMR_NO_XCOPY
+    if constexpr (VECX) {
+      const bool kok = k0 + xc * 8 < K;
+      const XT* src = xsrc + k0;
+#pragma unroll
+      for (int j = 0; j < (BMX + XRS - 1) / XRS; ++j) {
+        if (BMX % XRS != 0 && xr0 + XRS * j >= BMX) break;
+        const bool ok = kok && m0 + xr0 + XRS * j < M;
+        cp_async16(xdst + st * T::STAGE + XRS * j * 128,
+                   ok ? src + xstride * j : x, ok);
+      }
+    } else {
+      const int kk = k0 + 2 * kp;
+      const XT* src = psrc + k0;
+#pragma unroll 4
+      for (int j = 0; j < BMX / PRS; ++j) {
+        const bool row = m0 + pr0 + PRS * j < M;
+        const XT* e = src + pstride * j;
+        __nv_bfloat162 v;
+        v.x = row && kk < K ? to_bf16(e[0]) : __float2bfloat16_rn(0.f);
+        v.y = row && kk + 1 < K ? to_bf16(e[1]) : __float2bfloat16_rn(0.f);
+        *reinterpret_cast<__nv_bfloat162*>(pdst + st * T::STAGE +
+                                           PRS * j * 128) = v;
+      }
+    }
+#endif
+#ifndef QMM_NO_COPY
+    const uint8_t* src = csrc + static_cast<size_t>(k0) * NB;
+    uint8_t* const raw = cdst + st * T::STAGE;
+#pragma unroll
+    for (int i = 0; i < CJ; ++i) {
+      if (CRS * CJ > RBK && cr0 + CRS * i >= RBK) break;
+      const bool ok = ccol && k0 + cr0 + CRS * i < K;
+      const uint8_t* e = ok ? src + static_cast<size_t>(CRS * i) * NB : wb;
+      if constexpr (VEC) {
+        cp_async16(smem_u32(raw + CRS * i * T::RS), e, ok);
+      } else {
+        // byte by byte: N not a multiple of 16 bytes (few registers live)
+        for (int b = 0; b < 16; ++b)
+          raw[CRS * i * T::RS + b] =
+              ok && nb0 + cb + b < NB ? __ldg(e + b) : uint8_t{0};
+      }
+    }
+#endif
+  };
+
+  float acc[T::NJ][4];
+#pragma unroll
+  for (int j = 0; j < T::NJ; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+  const uint8_t* const fsrc =
+      base + T::A_BYTES + (BITS == 8 ? c0 : c0 / 2);   // + stage, + row
+  const uint32_t xs = smem_u32(base);
+
+  // ---- prologue: RSTAGES - 1 steps in flight; step 0's fragments ----
+#pragma unroll
+  for (int s = 0; s < RSTAGES - 1; ++s) {
+    if (s < nk) load_step(s, s);
+    cp_async_commit();
+  }
+  uint32_t a[4][4];
+  cp_async_wait<RSTAGES - 2>();
+  __syncthreads();
+  a_fragments_rows<BITS, T::RS>(fsrc, t, a);
+
+  // ---- mainloop: step it's wgmma runs while step it + 1's fragments are
+  // read and decoded ----
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % RSTAGES;
+    // steps it and it + 1 landed (every thread's copies; x seen by the
+    // tensor cores); every warpgroup's wgmma of step it - 1 done
+    cp_async_wait<RSTAGES - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    acc_fence<T::NJ>(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_rs<BMX>(acc, a[s], desc_x(xs + st * T::STAGE + 32 * s));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // into the stage of step it - 1
+    if (it + RSTAGES - 1 < nk)
+      load_step(it + RSTAGES - 1, (it + RSTAGES - 1) % RSTAGES);
+    cp_async_commit();
+    const uint8_t* const next = fsrc + ((it + 1) % RSTAGES) * T::STAGE;
+    if constexpr (AHEAD) {
+      uint32_t an[4][4];
+      if (it + 1 < nk) a_fragments_rows<BITS, T::RS>(next, t, an);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      acc_fence<T::NJ>(acc);
+      // the tensor cores read `a` until the wait: keep it live to here, so
+      // the next step's fragments never take its registers
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          asm volatile("" : "+r"(a[s][r])::"memory");
+          a[s][r] = an[s][r];
+        }
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      acc_fence<T::NJ>(acc);
+      if (it + 1 < nk) a_fragments_rows<BITS, T::RS>(next, t, a);
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- epilogue: scaled and cast into shared memory (the ring's space),
+  // then stored as 16-byte pieces of whole rows.  acc[j][2 h + c] is M row
+  // g + 8 h of the warp's 16 (output column c0 + h), N column 8 j + 2 t + c
+  // (row 8 j + 2 t + c of x's tile); rows past M are not stored ----
+  constexpr int OS = RBN * static_cast<int>(sizeof(XT)) + 16;  // row stride
+  constexpr int EPC = 16 / static_cast<int>(sizeof(XT));       // a piece
+  static_assert(BMX * OS <= RSTAGES * T::STAGE, "the tile fits the ring");
+  __syncthreads();       // every warpgroup is done with the ring
+  const float s0 = n0 + c0 < N ? __ldg(scale + n0 + c0) : 0.f;
+  const float s1 = n0 + c0 + 1 < N ? __ldg(scale + n0 + c0 + 1) : 0.f;
+#pragma unroll
+  for (int j = 0; j < T::NJ; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      XT* o = reinterpret_cast<XT*>(base + (8 * j + 2 * t + c) * OS) + c0;
+      o[0] = from_f32<XT>(__fmul_rn(acc[j][c], s0));
+      o[1] = from_f32<XT>(__fmul_rn(acc[j][2 + c], s1));
+    }
+  }
+  __syncthreads();
+  const bool vec_out = (N * sizeof(XT)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int c = tid; c < BMX * (RBN / EPC); c += RTHREADS) {
+    const int r = c / (RBN / EPC);
+    const int n = n0 + (c % (RBN / EPC)) * EPC;
+    if (m0 + r >= M || n >= N) continue;
+    const uint8_t* src = base + r * OS + (c % (RBN / EPC)) * 16;
+    XT* o = out + static_cast<size_t>(m0 + r) * N + n;
+    if (vec_out && n + EPC <= N) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const XT* e = reinterpret_cast<const XT*>(src);
+      for (int i = 0; i < EPC && n + i < N; ++i) o[i] = e[i];
+    }
+  }
+}
+
+template <int BITS, typename XT, int BMX, bool VEC, bool VECX>
+int launch_rows_one(const void* x, const int8_t* w, const float* scale,
+                    void* out, int M, int K, int N, cudaStream_t s) {
+  using T = RTile<BITS, BMX>;
+  auto kern = qmm_rows_kernel<BITS, XT, BMX, VEC, VECX>;
+  static bool granted = false;
+  if (!granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted = true;
+  }
+  const dim3 grid((N + RBN - 1) / RBN, (M + BMX - 1) / BMX);
+  kern<<<grid, RTHREADS, T::SMEM, s>>>(static_cast<const XT*>(x), w, scale,
+                                       static_cast<XT*>(out), M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS, typename XT, int BMX>
+int launch_rows(const void* x, const int8_t* w, const float* scale, void* out,
+                int M, int K, int N, cudaStream_t s) {
+  const bool vec = (N * BITS / 8) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vecx = sizeof(XT) == 2 && K % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+#define QMR_LAUNCH(V, VX) \
+  return launch_rows_one<BITS, XT, BMX, V, VX>(x, w, scale, out, M, K, N, s)
+  if constexpr (sizeof(XT) == 2) {
+    if (vec && vecx) QMR_LAUNCH(true, true);
+    if (vecx) QMR_LAUNCH(false, true);
+  }
+  if (vec) QMR_LAUNCH(true, false);
+  QMR_LAUNCH(false, false);
+#undef QMR_LAUNCH
+}
+
+template <int BITS, typename XT>
+int launch_rows_bm(const void* x, const int8_t* w, const float* scale,
+                   void* out, int M, int K, int N, int bm, cudaStream_t s) {
+  if (bm == 128)
+    return launch_rows<BITS, XT, 128>(x, w, scale, out, M, K, N, s);
+  if (bm == 96)
+    return launch_rows<BITS, XT, 96>(x, w, scale, out, M, K, N, s);
+  if (bm == 80)
+    return launch_rows<BITS, XT, 80>(x, w, scale, out, M, K, N, s);
+  if (bm == 64)
+    return launch_rows<BITS, XT, 64>(x, w, scale, out, M, K, N, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
 }  // namespace
 
 // x (M, K) float32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w (K, N) int8 codes
@@ -590,6 +1115,31 @@ extern "C" int repro_qmatmul(const void* x, int x_bf16, const int8_t* w,
   if (bits == 4 && x_bf16 == 1)
     return launch_bn<4, __nv_bfloat16>(x, w, scale, out, ws, counts, M, K, N,
                                        mt, bn, splits, k_per_split, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The many-row route: x (M, K) float32 (x_bf16 = 0) or bf16 (x_bf16 = 1);
+// w, scale and out as for repro_qmatmul.  A block takes bm (64, 80, 96
+// or 128) rows of x and 128 columns and walks all of K; no scratch, no
+// counters.
+// Returns cudaGetLastError() (or the error of raising the kernel's
+// shared-memory limit).
+extern "C" int repro_qmatmul_rows(const void* x, int x_bf16, const int8_t* w,
+                                  int bits, const float* scale, void* out,
+                                  int M, int K, int N, int bm, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 ||
+      (bm != 64 && bm != 80 && bm != 96 && bm != 128) ||
+      (M + bm - 1) / bm > 65535 || (bits == 4 && N % 2 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bits == 8 && x_bf16 == 0)
+    return launch_rows_bm<8, float>(x, w, scale, out, M, K, N, bm, s);
+  if (bits == 8 && x_bf16 == 1)
+    return launch_rows_bm<8, __nv_bfloat16>(x, w, scale, out, M, K, N, bm, s);
+  if (bits == 4 && x_bf16 == 0)
+    return launch_rows_bm<4, float>(x, w, scale, out, M, K, N, bm, s);
+  if (bits == 4 && x_bf16 == 1)
+    return launch_rows_bm<4, __nv_bfloat16>(x, w, scale, out, M, K, N, bm, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

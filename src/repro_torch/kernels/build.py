@@ -40,13 +40,16 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # (``mvau.mvau_int_conv_gap``), ``mvau_int_wide`` those that run on the
 # CUDA-core route (integer codes wider than int8) and ``mvau_int_small_m``
 # those of the GEMM form at decode shapes (``mvau_small_m_kernel``); each
-# of them is an ``mvau_int`` launch too.  A launch made while a CUDA graph
+# of them is an ``mvau_int`` launch too.  ``qmatmul_rows`` counts the
+# launches of qmatmul's many-row route (``qmm_rows_kernel``), each of them
+# a ``qmatmul`` launch too.  A launch made while a CUDA graph
 # captures is recorded in that graph instead (:class:`GraphState`), and
 # every replay of the graph adds its record here: the counts stay "kernels
 # that ran".
 launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0,
                                   "mvau_int_wide": 0, "mvau_int_small_m": 0,
-                                  "mvau": 0, "gap": 0, "qmatmul": 0}
+                                  "mvau": 0, "gap": 0, "qmatmul": 0,
+                                  "qmatmul_rows": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -249,9 +252,12 @@ class KernelLibrary:
         self.gap.argtypes = [p, p, i, p, i, i, i, p]
         self.qmatmul = lib.repro_qmatmul
         self.qmatmul.argtypes = [p, i, p, i, p, p, p, p] + [i] * 7 + [p]
+        self.qmatmul_rows = lib.repro_qmatmul_rows
+        self.qmatmul_rows.argtypes = [p, i, p, i, p, p] + [i] * 4 + [p]
         for fn in (self.mvau_int, self.mvau_int_small_m, self.empty_launch,
                    self.mvau_int_conv, self.mvau_int_conv_gap,
-                   self.mvau_core_conv, self.mvau_i8, self.gap, self.qmatmul):
+                   self.mvau_core_conv, self.mvau_i8, self.gap, self.qmatmul,
+                   self.qmatmul_rows):
             fn.restype = ctypes.c_int
         self._lib = lib
 

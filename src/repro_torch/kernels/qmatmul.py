@@ -1,5 +1,5 @@
 """Weight-only quantized matmul on the card: the wrapper around the
-hand-written CUDA kernel (``csrc/qmatmul.cu``) beside its plain version.
+hand-written CUDA kernels (``csrc/qmatmul.cu``) beside their plain version.
 
 Counterpart of the JAX package's ``kernels/qmatmul.py``
 (``qmatmul_pallas``): ``bf16(x) @ codes`` with float32 accumulation, times
@@ -9,10 +9,16 @@ version only for tensors that lie on the CPU; for CUDA tensors it launches
 the kernel or raises.  It allocates the output (and, when K is split, the
 float32 scratch of the splits' sums) with ``torch.empty``, launches on
 PyTorch's current stream, checks ``cudaGetLastError`` and counts the
-launch.  How the work is cut into blocks (:func:`split_plan`) is decided
-here, in Python, so the CPU tests reach it.  When K is split, the kernel
-adds the splits itself (one launch per call): the wrapper hands it float32
-scratch from the caching allocator and the device's tile counters.
+launch.  Two kernels share the function, and :func:`qmm_route` picks one
+per shape: ``qmm_kernel`` for decode shapes (up to 8 rows a block, the
+codes streamed once per row tile, K split over the card), and
+``qmm_rows_kernel`` for many rows (tiles of 128 columns by 64 to 128 rows
+on bf16 ``wgmma``, each code decoded once per tile into the registers of
+the A operand).  How the work is cut into blocks
+(:func:`split_plan`, :func:`rows_plan`) is decided here, in Python, so the
+CPU tests reach it.  When K is split, the decode kernel adds the splits
+itself (one launch per call): the wrapper hands it float32 scratch from the
+caching allocator and the device's tile counters.
 
 Called while a CUDA graph captures (the decode step of
 ``launch.steps.GraphedDecodeStep``), the same code is captured: the output
@@ -32,13 +38,32 @@ import torch
 from repro_torch.kernels import build as B
 from repro_torch.kernels import ref
 
-__all__ = ["qmatmul", "qmatmul_plain", "split_plan"]
+__all__ = ["qmatmul", "qmatmul_plain", "qmm_route", "rows_plan",
+           "split_plan"]
 
 STAGE_BYTES = 16384    # codes per ring stage (csrc/qmatmul.cu)
 MAX_SPLITS = 16        # more never measured faster at the decode shapes
 RESIDENT_PER_SM = 2    # blocks of 256 threads an SM holds at once
 X_SMEM_MAX = 64 * 1024  # staged x of a block, bytes
 _X_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = ("decode", "rows")
+
+# The many-row kernel (csrc/qmatmul.cu, qmm_rows_kernel): a block of 256
+# threads owns ROWS_BMS rows of x and ROWS_BN columns and walks K in
+# ROWS_BK-row steps through a ring of ROWS_STAGES stages.
+ROWS_M = 16              # the rows route from this many rows of x on,
+ROWS_MN = 1 << 17        # and an output of at least this many elements
+ROWS_BN, ROWS_BK, ROWS_STAGES = 128, 64, 4
+ROWS_BMS = (64, 80, 96, 128)  # tile rows the kernel is built for
+# A K step of a tile costs about ROWS_STEP_ROWS + tile rows rows' worth of
+# tensor-core time: the decode, the copies and the barrier are paid per
+# tile, whatever its rows (tools/sweep_qmatmul_splits.py --rows)
+ROWS_STEP_ROWS = 128
+ROWS_THREADS, ROWS_REGS = 256, 128   # __launch_bounds__(256, 2)
+SMEM_PER_SM = 233472     # bytes an SM holds for blocks (228 KB)
+SMEM_PER_BLOCK = 232448  # bytes one block may use (227 KB)
+SMEM_RESERVED = 1024     # bytes the card keeps for each resident block
+REGS_PER_SM = 65536
 
 
 def stage_rows(bits: int, bn: int) -> int:
@@ -117,6 +142,59 @@ def split_plan(m: int, k: int, n: int, sms: int,
     return mt, bn, splits, kps
 
 
+def rows_smem(bits: int, bm: int) -> int:
+    """Dynamic shared memory of a many-row block of ``bm`` rows of x: 1 KB
+    to align the ring to a swizzle atom, and ROWS_STAGES x (x tile in bf16
+    + raw code tile, its rows padded by 16 bytes) (csrc/qmatmul.cu,
+    RTile::SMEM)."""
+    return 1024 + ROWS_STAGES * (bm * ROWS_BK * 2
+                                 + ROWS_BK * (ROWS_BN * bits // 8 + 16))
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(m: int, k: int, n: int, sms: int,
+              bits: int = 8) -> Tuple[int, int, int, int, int]:
+    """(tile rows, tile columns, stages, resident blocks per SM, shared
+    memory bytes) of the many-row kernel for an (m, k) x (k, n) product on
+    a card with ``sms`` multiprocessors.
+
+    A tile is ROWS_BN = 128 columns by 64, 80, 96 or 128 rows of x: the
+    height whose busiest SM has the least to do, its tiles (rounded up)
+    times ROWS_STEP_ROWS + the height, the tallest on a tie.  At whisper's
+    N 384 and M 6,000 that is 80: 225 tiles, 2 of 80 rows on the busiest
+    SM, against 189 of 96 (2 of 96), 141 of 128 (2 of 128 on 9 SMs) and
+    282 of 64 (3).  Two blocks fit on an SM at once (shared memory and 128
+    registers a thread), so a second tile on an SM runs beside the
+    first."""
+    cols = -(-max(n, 1) // ROWS_BN)
+
+    def busiest(bm):
+        return -(-(-(-max(m, 1) // bm) * cols) // sms) * (ROWS_STEP_ROWS + bm)
+
+    bm = min(reversed(ROWS_BMS), key=busiest)
+    smem = rows_smem(bits, bm)
+    resident = min(SMEM_PER_SM // (smem + SMEM_RESERVED),
+                   REGS_PER_SM // (ROWS_THREADS * ROWS_REGS))
+    return bm, ROWS_BN, ROWS_STAGES, resident, smem
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_route(m: int, k: int, n: int, sms: int, bits: int = 8) -> str:
+    """``"decode"`` (``qmm_kernel``) or ``"rows"`` (``qmm_rows_kernel``)
+    for an (m, k) x (k, n) product on a card with ``sms`` multiprocessors.
+
+    The rows route from ``ROWS_M`` rows of x and ``ROWS_MN`` output
+    elements on.  Below that the many-row kernel has few tiles, each
+    walking all of K alone (22 us at K 2,048 whatever the rows), while the
+    decode kernel splits K over the card; above it the decode kernel,
+    which streams and decodes every code once per 8 rows, loses.  On the
+    H100 (``tools/sweep_qmatmul_splits.py --rows``, 14 shapes x 15 sizes
+    from M 16) this rule costs 1.2% over the faster route in geometric
+    mean; the crossover itself runs from M 16 (N 11,008) to M 1,024 (N
+    256).  A decode batch (M <= 8) always takes the decode kernel."""
+    return "rows" if m >= ROWS_M and m * n >= ROWS_MN else "decode"
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -135,12 +213,15 @@ def qmatmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
 
 def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
             bits: int = 8, *, splits: Optional[int] = None,
-            bn: Optional[int] = None) -> torch.Tensor:
+            bn: Optional[int] = None, bm: Optional[int] = None,
+            route: Optional[str] = None) -> torch.Tensor:
     """(M, K) float32/bf16 x (K, N) int8 codes (bits 8) or (K, N/2) packed
     int4 (bits 4), per-channel (N,) float32 scale -> (M, N) of x's dtype.
 
-    ``splits`` and ``bn`` override the K splits and the column-tile width
-    of :func:`split_plan`, for measurement and tests; the result differs
+    ``route`` overrides :func:`qmm_route`; ``bn`` and ``splits`` override
+    the decode kernel's column-tile width and K splits
+    (:func:`split_plan`), ``bm`` the many-row kernel's tile rows
+    (:func:`rows_plan`), for measurement and tests.  The result differs
     from the plain version only in the order of the float32 sum."""
     if not x.is_cuda:
         return qmatmul_plain(x, w_codes, scale, bits)
@@ -162,7 +243,25 @@ def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    mt, tbn, sp, kps = split_plan(m, k, n, _sms(dev.index or 0), bits)
+    sms = _sms(dev.index or 0)
+    if route is None:
+        route = qmm_route(m, k, n, sms, bits)
+    _require(route in _ROUTES, f"route must be one of {_ROUTES}, got {route!r}")
+    if route == "rows":
+        _require(splits is None and bn is None,
+                 "the rows route takes neither splits nor bn")
+        _require(bm is None or bm in ROWS_BMS,
+                 f"bm must be one of {ROWS_BMS}, got {bm}")
+        tbm = rows_plan(m, k, n, sms, bits)[0] if bm is None else bm
+        rc = B.library().qmatmul_rows(x.data_ptr(), _X_BF16[x.dtype],
+                                      w_codes.data_ptr(), bits,
+                                      scale.data_ptr(), out.data_ptr(),
+                                      m, k, n, tbm, _stream())
+        B.check(rc, "qmatmul_rows")
+        B.count_launch("qmatmul", "qmatmul_rows")
+        return out
+    _require(bm is None, "the decode route takes no bm")
+    mt, tbn, sp, kps = split_plan(m, k, n, sms, bits)
     if bn is not None:
         _require(bn in (64, 128), f"bn must be 64 or 128, got {bn}")
         tbn = bn

@@ -444,7 +444,8 @@ def test_skip_that_broadcasts_or_is_float_on_the_card(card, int8_ok, skip):
     assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused),
                      "mvau_int_wide": int(not int8_ok),
                      "mvau_int_small_m": 0, "mvau": 0,
-                     "gap": 1 - int(fused), "qmatmul": 0}
+                     "gap": 1 - int(fused), "qmatmul": 0,
+                     "qmatmul_rows": 0}
     (want,) = lower_graph(g, "cpu")(_t(x, "cpu"), _t(s, "cpu"))
     assert torch.equal(got.cpu(), want)
 
@@ -466,7 +467,8 @@ def test_w6a4_width64_fuses_the_tail_on_the_card(card):
     f = dm(x)
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                     "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0}
+                     "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0,
+                     "qmatmul_rows": 0}
     assert torch.equal(f.cpu(), dm_cpu(x))
 
 
@@ -1667,16 +1669,18 @@ def test_moe_mla_whisper_decode_graph_equals_eager(card, arch, per_step,
 def test_qmatmul_at_whisper_encoder_rows_and_expert_rows(card, m, k, n,
                                                          bits):
     """whisper's encoder and cross-cache products (M = 4 utterances x
-    1,500 frames: 750 row tiles of 8) and an arctic expert's at its
-    capacity of one row: against the plain version at the tolerance of
-    ``test_qmatmul_kernel_equals_plain``, bit for bit on integer inputs
-    (every partial sum an integer below 2^24), two launches bit for
-    bit."""
+    1,500 frames, on the many-row kernel) and an arctic expert's at its
+    capacity of one row (on the decode kernel): against the plain version
+    at the tolerance of ``test_qmatmul_kernel_equals_plain``, bit for bit
+    on integer inputs (every partial sum an integer below 2^24), two
+    launches bit for bit."""
     from repro_torch.kernels import qmatmul as KQ
 
     x, w, s, codes = _qmm_inputs(m, k, n, bits, torch.bfloat16, card,
                                  m + k + n)
+    before = B.launch_counts["qmatmul_rows"]
     got = KQ.qmatmul(x, w, s, bits)
+    assert B.launch_counts["qmatmul_rows"] == before + int(m > 1)
     want = KQ.qmatmul_plain(x, w, s, bits)
     scale = (x.float().abs() @ codes.float().abs()) * s
     tol = 2e-5 * scale + want.float().abs() * 2.0 ** -7
@@ -1687,6 +1691,117 @@ def test_qmatmul_at_whisper_encoder_rows_and_expert_rows(card, m, k, n,
     half = torch.full((n,), 0.5, device=card)
     assert torch.equal(KQ.qmatmul(xi, w, half, bits),
                        KQ.qmatmul_plain(xi, w, half, bits))
+
+
+# ---------------------------------------------------------------------------
+# qmatmul's many-row route: qmm_rows_kernel
+# ---------------------------------------------------------------------------
+_ROWS_SHAPES = [(65, 37, 66), (130, 300, 264), (1000, 1536, 66),
+                (6000, 300, 1536), (9, 300, 264), (63, 1536, 264),
+                (1000, 37, 1536), (6000, 1536, 264), (200, 384, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", _ROWS_SHAPES)
+def test_qmatmul_rows_kernel_equals_plain(card, m, k, n, bits, xdt):
+    """The many-row kernel, forced and at every tile height, on ragged M, K
+    and N on both sides of the crossover (9 x 264, 63 x 264 and 200 x 384
+    below ``ROWS_MN``):
+    within ``check_qmatmul``'s tolerance, 2e-5 of sum_k |bf16(x)| |code|
+    scale, plus one bf16 rounding of the output for bf16 x.  K 37 and 300
+    take the converting x copies, N 66 at w8 the byte copies of codes."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    dt = getattr(torch, xdt)
+    x, w, s, codes = _qmm_inputs(m, k, n, bits, dt, card, m * k + n + bits)
+    want = KQ.qmatmul_plain(x, w, s, bits)
+    tol = _qmm_tolerance(x, codes, s, want)
+    for bm in (None, *KQ.ROWS_BMS):
+        before = dict(B.launch_counts)
+        got = KQ.qmatmul(x, w, s, bits, route="rows", bm=bm)
+        assert B.launch_counts["qmatmul_rows"] == before["qmatmul_rows"] + 1
+        assert B.launch_counts["qmatmul"] == before["qmatmul"] + 1
+        assert got.dtype == dt and got.shape == want.shape
+        assert bool(((got.float() - want.float()).abs() <= tol).all()), bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_qmatmul_rows_kernel_exact_on_integers(card, bits, xdt):
+    """Integer-valued x and small codes: every partial sum is an integer
+    below 2^24, so the many-row kernel equals the plain version bit for
+    bit, at every tile height."""
+    from repro_torch.kernels import qmatmul as KQ
+
+    dt = getattr(torch, xdt)
+    for m, k, n in ((65, 37, 66), (1000, 1536, 264), (6000, 384, 1536),
+                    (257, 2048, 256)):
+        x, w, s, _ = _qmm_inputs(m, k, n, bits, dt, card, k + n,
+                                 exact=True)
+        s = torch.full_like(s, 0.5)
+        want = KQ.qmatmul_plain(x, w, s, bits)
+        for bm in KQ.ROWS_BMS:
+            assert torch.equal(KQ.qmatmul(x, w, s, bits, route="rows",
+                                          bm=bm), want), (m, k, n, bm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_rows_repeats_and_replays_bit_for_bit(card, bits):
+    """No atomics and a fixed order of every sum: two launches give
+    identical bits, and a captured graph's replay (the output allocated
+    inside the capture) equals the eager call."""
+    from repro_torch.core.cudagraph import CapturedGraph
+    from repro_torch.kernels import qmatmul as KQ
+
+    x, w, s, _ = _qmm_inputs(6000, 384, 1536, bits, torch.bfloat16, card, 7)
+    first = KQ.qmatmul(x, w, s, bits)
+    assert torch.equal(first, KQ.qmatmul(x, w, s, bits))
+    g = CapturedGraph(lambda v: KQ.qmatmul(v, w, s, bits), (x.clone(),),
+                      pool=None, stream=torch.cuda.Stream(card))
+    assert g.launches == {"qmatmul": 1, "qmatmul_rows": 1}
+    before = B.launch_counts["qmatmul_rows"]
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.outputs[0], first)
+    assert B.launch_counts["qmatmul_rows"] == before + 1
+
+
+@pytest.mark.cuda
+def test_qmatmul_routes_count_their_launches(card):
+    """Above the crossover every call launches the many-row kernel once
+    (``qmatmul_rows`` and ``qmatmul`` each move by 1), at decode shapes the
+    decode kernel (``qmatmul`` alone moves by 1); the profiler sees one
+    kernel of the route's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import qmatmul as KQ
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    m_rows = -(-KQ.ROWS_MN // 2048)           # the first rows shape, N 2048
+    for m, k, n, kernel in ((4, 2048, 256, "qmm_kernel"),
+                            (8, 2048, 11008, "qmm_kernel"),
+                            (m_rows - 1, 2048, 2048, "qmm_kernel"),
+                            (m_rows, 2048, 2048, "qmm_rows_kernel"),
+                            (6000, 1536, 384, "qmm_rows_kernel")):
+        rows = kernel == "qmm_rows_kernel"
+        assert KQ.qmm_route(m, k, n, sms, 8) == ("rows" if rows
+                                                 else "decode")
+        x, w, s, _ = _qmm_inputs(m, k, n, 8, torch.bfloat16, card, m)
+        KQ.qmatmul(x, w, s, 8)
+        torch.cuda.synchronize()
+        before = dict(B.launch_counts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            KQ.qmatmul(x, w, s, 8)
+            torch.cuda.synchronize()
+        assert B.launch_counts["qmatmul"] == before["qmatmul"] + 1
+        assert (B.launch_counts["qmatmul_rows"]
+                == before["qmatmul_rows"] + int(rows))
+        names = [e.key for e in prof.key_averages() if "qmm" in e.key]
+        assert len(names) == 1 and (kernel + "<") in names[0], names
 
 
 # ---------------------------------------------------------------------------
