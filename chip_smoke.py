@@ -55,7 +55,10 @@ ends the run with a non-zero exit if it fails:
    artifacts folded into its conv-form MVAU, the int artifact's last
    residual add and GAP into r2b's epilogue, the f32 artifact's add into
    the GAP kernel; int == f32 == interpreter and card == CPU, bit for bit;
-   weight bytes; launches per forward; compile time, latency and
+   the HW graph of ``build_dataflow(export_graph(...),
+   RESNET9_BUILD_STEPS)`` through the interpreter on the card (8 ``mvau``
+   launches, counted in the path) == the f32 artifact == its CPU run, bit
+   for bit; weight bytes; launches per forward; compile time, latency and
    throughput, beside the int artifact lowered with its tail unfused.
 4. few-shot requests: support shots registered into a PrototypeStore on
    the card and queries classified through the deployed int artifact;
@@ -119,7 +122,11 @@ ends the run with a non-zero exit if it fails:
    by kernel and busy share, eager and replayed (252 qmatmul kernels per
    step, none a separate split-K reduce); then a 2-layer
    full-width copy decodes on the card and on the CPU, and their logits
-   and greedy tokens are compared.
+   and greedy tokens are compared.  Last, a long prompt through the
+   chunked attention, card against CPU within the same 0.0625 and timed:
+   lm-tiny's float ``lm.forward`` at S 4,096 (chunk 8: one group of 512
+   query blocks) and one full-width Qwen2.5-3B attention layer at S 4,096
+   (chunk 1,024: groups of one block); no port kernel runs there.
 6a. the recurrent-state and vision-language LM families (paths
    ``lm_families`` eager, ``lm_families_graph`` replays): ``qmatmul``
    held against its plain version at each (K, N) of the five configs'
@@ -1121,6 +1128,7 @@ def profile_forward(torch, label: str, fn, reps: int = 5,
 # ---------------------------------------------------------------------------
 def main_path(torch, np, B):
     import repro_torch
+    from repro_torch.core.build import RESNET9_BUILD_STEPS, build_dataflow
     from repro_torch.core.graph import execute
     from repro_torch.core.quant import QuantConfig, fake_quant
     from repro_torch.data.synthetic import SyntheticImages
@@ -1192,6 +1200,16 @@ def main_path(torch, np, B):
           f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
+    # the paper's customized build-step list (the deprecated shim over the
+    # pass manager): its HW graph through the interpreter, every MVAU a
+    # launch of the float kernel
+    hw = build_dataflow(resnet9.export_graph(params, qcfg, width=WIDTH),
+                        RESNET9_BUILD_STEPS)
+    (f_hw,), d = delta(lambda: execute(hw, {"x": x_q}))
+    check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
+                "mvau_int_small_m": 0, "mvau": 8, "gap": 0, "qmatmul": 0,
+                "qmatmul_rows": 0},
+          f"build_dataflow graph launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
     check(f_int.dtype == torch.float32 and tuple(f_int.shape) == (BATCH, 512),
           f"features {f_int.dtype} {tuple(f_int.shape)}")
@@ -1204,6 +1222,12 @@ def main_path(torch, np, B):
                                  datapath="int", device="cpu")
     f_cpu = dm_cpu(x_np)
     check(torch.equal(f_int.cpu(), f_cpu), "card features != CPU features")
+    (f_hw_cpu,) = execute(hw, {"x": x_q.cpu()})
+    check(torch.equal(f_hw, f_f32) and torch.equal(f_hw.cpu(), f_hw_cpu),
+          "build_dataflow's HW graph on the card != the recipe artifact or "
+          "!= its CPU run")
+    log("build_dataflow(RESNET9_BUILD_STEPS): HW graph on the card == the "
+        "recipe artifact == its CPU run, bit for bit (8 mvau launches)")
     log("main path: int == f32 == interpreter on the card, card == CPU, "
         "bit for bit")
     # the int artifact lowered without either GAP fold (the add and the GAP
@@ -2474,6 +2498,10 @@ CPU_CHECK_TOL = 0.0625
 # card vs CPU with MoE: the routed experts must agree wherever the CPU
 # router's k-th and (k+1)-th probabilities are further apart than this
 MOE_ROUTE_MARGIN = 1e-3
+# a long prompt through the chunked attention (``layers._chunked_sdpa``):
+# lm-tiny's chunk of 8 makes one group of all 512 query blocks, the Qwen
+# layer's chunk of 1,024 four groups of one block each
+LONG_PREFILL_S = 4096
 
 
 def _projections(cfg):
@@ -3222,6 +3250,7 @@ def lm_path(torch, np, B, Q, KQ):
         cfg, n_layers=CPU_CHECK_LAYERS), dict(params, blocks=tree_map(
             lambda t: t[:CPU_CHECK_LAYERS].contiguous(), params["blocks"])),
         prompt, CPU_CHECK_STEPS)
+    long_prefill(torch, np)
 
     w8, w4 = timing[8], timing[4]
     entry = {"name": "qmatmul", "route": "cuda",
@@ -3237,6 +3266,81 @@ def lm_path(torch, np, B, Q, KQ):
              "w4": {k: w4[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}}
     return entry, counts, graph_counts
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
+def long_prefill(torch, np):
+    """The chunked attention at a long prompt, card against CPU: lm-tiny's
+    float ``lm.forward`` (``quant=None``) at S 4,096, its chunk of 8 one
+    group of 512 query blocks, and one attention layer of Qwen2.5-3B at
+    full width at S 4,096, its chunk of 1,024 groups of one block.  Each
+    output within ``CPU_CHECK_TOL`` of the CPU's (the LM rule), finite,
+    and timed on the card.  No port kernel runs here."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+    from repro_torch.tree import tree_map
+
+    S = LONG_PREFILL_S
+    card = card_line()
+    gen = np.random.default_rng(0)
+
+    def compare(label, fn_cpu, fn_card, groups):
+        t0 = time.perf_counter()
+        want = fn_cpu()
+        cpu_s = time.perf_counter() - t0
+        got = fn_card()
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(got).all()),
+              f"{label}: shape {tuple(got.shape)} or non-finite values")
+        worst = float((got.float().cpu() - want.float()).abs().max())
+        check(worst <= CPU_CHECK_TOL, f"{label}: card vs CPU {worst} > "
+              f"{CPU_CHECK_TOL}")
+        ms = wall_ms(torch, fn_card, reps=3)
+        log(f"long prefill {label} at S {S} ({groups}): card vs CPU "
+            f"{worst:.4g} (<= {CPU_CHECK_TOL}; output max "
+            f"{float(want.float().abs().max()):.3g}), {ms:.3f} ms on the "
+            f"card ({card}), CPU {cpu_s:.2f} s")
+
+    cfg = dataclasses.replace(get_config("lm-tiny"), quant=None)
+    chunk = cfg.prefill_chunk
+    g = L._group_blocks(S // chunk, chunk)
+    check(g == S // chunk, f"lm-tiny: a group of {g} blocks at S {S}")
+    p_cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    p_dev = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab, (1, S))
+                            .astype(np.int32))
+    toks_dev = toks.cuda()
+    compare("lm-tiny float lm.forward",
+            lambda: lm.forward(p_cpu, {"tokens": toks}, cfg)[0],
+            lambda: lm.forward(p_dev, {"tokens": toks_dev}, cfg)[0],
+            f"chunk {chunk}, one group of {g} blocks")
+
+    cfg = get_config(LM_ARCH)
+    chunk = cfg.prefill_chunk
+    g = L._group_blocks(S // chunk, chunk)
+    check(g == 1, f"{LM_ARCH}: a group of {g} blocks at chunk {chunk}")
+    dt = getattr(torch, cfg.compute_dtype)
+    a_cpu = L.attn_init(torch.Generator().manual_seed(0), cfg)
+    a_dev = tree_map(lambda t: t.cuda(), a_cpu)
+    x = torch.from_numpy(gen.standard_normal((1, S, cfg.d_model))
+                         .astype(np.float32)).to(dt)
+    x_dev, pos = x.cuda(), torch.arange(S)[None]
+    pos_dev = pos.cuda()
+    compare(f"{LM_ARCH} attention layer",
+            lambda: L.attention(a_cpu, x, cfg, pos)[0],
+            lambda: L.attention(a_dev, x_dev, cfg, pos_dev)[0],
+            f"chunk {chunk}, {S // chunk} groups of 1 block, {dt}")
 
 
 # ---------------------------------------------------------------------------
@@ -5035,10 +5139,7 @@ def main() -> int:
     from repro_torch.kernels import ref
 
     resolve_device(None)               # TF32 off for every f32 product
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    smi_line = card_line()
     log(f"card: {smi_line}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")

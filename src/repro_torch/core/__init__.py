@@ -7,8 +7,8 @@ passes (PassManager + registry)  →  recipes (per-arch orderings)  →
 datatypes (integer lowering)  →  deploy (``compile`` → ``DeployedModel``)
 
 The names the JAX package's ``repro.core`` re-exports resolve lazily (PEP
-562): ``import repro_torch.core`` imports no submodule.  The reference's
-deprecated ``core/build.py`` shims are not ported.
+562): ``import repro_torch.core`` imports no submodule.  The deprecated
+build-step shims (``core/build.py``) are among them, as in the reference.
 """
 
 _EXPORTS = {
@@ -39,6 +39,9 @@ _EXPORTS = {
     "DeployedModel": ("deploy", "DeployedModel"),
     "lower_graph": ("deploy", "lower_graph"),
     "compile_graph": ("deploy", "compile"),
+    "DEFAULT_MLP_STEPS": ("build", "DEFAULT_MLP_STEPS"),
+    "RESNET9_BUILD_STEPS": ("build", "RESNET9_BUILD_STEPS"),
+    "build_dataflow": ("build", "build_dataflow"),
 }
 
 __all__ = sorted(_EXPORTS)

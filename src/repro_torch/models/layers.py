@@ -292,16 +292,31 @@ def _sdpa_heads(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     return _gqa_mix(w, v).to(q.dtype)
 
 
-def _chunked_sdpa(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
-    """Flash-style online-softmax attention, O(chunk x Sk) memory: q blocks
-    of ``chunk`` rows in turn, each over the kv blocks with a running
-    (max, denominator, accumulator) in float32, as the reference's scans.
+# The largest score tile, per batch row and head, that a group of query
+# blocks takes in one step of :func:`_chunked_heads`: the tile one block of
+# 1,024 rows (every real config's ``prefill_chunk``) takes alone.
+_GROUP_TILE = 1024 * 1024
 
-    The reference scans every kv block and keeps the carry of those past
-    the diagonal (``_causal_kv_scan``'s ``where(keep, new, old)``); the
-    port stops at the diagonal block, which gives the same values."""
+
+def _chunked_sdpa(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
+    """Flash-style online-softmax attention: q blocks of ``chunk`` rows,
+    each over the kv blocks with a running (max, denominator, accumulator)
+    in float32, as the reference's scans.
+
+    The q blocks advance in groups of ``g``, the most whose score tile
+    ``g·chunk²`` stays within ``_GROUP_TILE`` (``g`` is 1 at a chunk of
+    1,024), so a short chunk takes one step per kv block, not per block
+    pair.  Every row still takes kv blocks 0 up to its own diagonal in
+    order with the same ops; rows of a group past their diagonal keep their
+    carry (``_causal_kv_scan``'s ``where(keep, new, old)``), and no kv
+    block past the group's last diagonal is computed."""
     return D.by_heads(lambda q, k, v: _chunked_heads(q, k, v, chunk, causal),
                       q, k, v)
+
+
+def _group_blocks(nq: int, chunk: int) -> int:
+    """Query blocks a group of :func:`_chunked_heads` takes."""
+    return max(1, min(nq, _GROUP_TILE // (chunk * chunk)))
 
 
 def _chunked_heads(q, k, v, chunk: int, causal: bool) -> torch.Tensor:
@@ -309,38 +324,48 @@ def _chunked_heads(q, k, v, chunk: int, causal: bool) -> torch.Tensor:
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
     nq, nk = Sq // chunk, Sk // chunk
+    g = _group_blocks(nq, chunk)
     qb = D.reshape(q, B, nq, chunk, KV, rep, hd)
     kb = D.reshape(k, B, nk, chunk, KV, hd)
     vb = D.reshape(v, B, nk, chunk, KV, hd)
     scale = 1.0 / math.sqrt(hd)
-    rows = torch.arange(chunk, device=q.device)
-    blocks = []
-    for iq in range(nq):
-        qi = constrain(qb[:, iq].to(torch.float32), "attn_chunk_q")
-        m = torch.full((B, KV, rep, chunk), -math.inf, dtype=torch.float32,
-                       device=q.device)
-        den = torch.zeros((B, KV, rep, chunk), dtype=torch.float32,
+    cols = torch.arange(chunk, device=q.device)
+    groups = []
+    for q0 in range(0, nq, g):
+        n = min(g, nq - q0)
+        rows = q0 * chunk + torch.arange(n * chunk, device=q.device)
+        qi = constrain(D.reshape(qb[:, q0:q0 + n], B, n * chunk, KV, rep, hd)
+                       .to(torch.float32), "attn_chunk_q")
+        m = torch.full((B, KV, rep, n * chunk), -math.inf,
+                       dtype=torch.float32, device=q.device)
+        den = torch.zeros((B, KV, rep, n * chunk), dtype=torch.float32,
                           device=q.device)
-        acc = torch.zeros((B, chunk, KV, rep, hd), dtype=torch.float32,
+        acc = torch.zeros((B, n * chunk, KV, rep, hd), dtype=torch.float32,
                           device=q.device)
-        for ik in range(min(iq + 1, nk) if causal else nk):
+        for ik in range(min(q0 + n, nk) if causal else nk):
             kj = kb[:, ik].to(torch.float32)
             vj = vb[:, ik].to(torch.float32)
             s = torch.einsum("bqgrh,bkgh->bgrqk", qi, kj) * scale
             if causal:
-                keep = ((ik * chunk + rows)[None, :]
-                        <= (iq * chunk + rows)[:, None])
+                keep = (ik * chunk + cols)[None, :] <= rows[:, None]
                 s = torch.where(keep, s, -math.inf)
             m_new = torch.maximum(m, s.amax(-1))
             pr = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
-            den = den * corr + pr.sum(-1)
-            acc = (acc * corr.permute(0, 3, 1, 2)[..., None]
-                   + torch.einsum("bgrqk,bkgh->bqgrh", pr, vj))
-            m = m_new
+            den_new = den * corr + pr.sum(-1)
+            acc_new = (acc * corr.permute(0, 3, 1, 2)[..., None]
+                       + torch.einsum("bgrqk,bkgh->bqgrh", pr, vj))
+            if causal and ik > q0:
+                # the group's rows of blocks before ik are past their
+                # diagonal: they keep their carry
+                live = rows >= ik * chunk
+                m_new = torch.where(live, m_new, m)
+                den_new = torch.where(live, den_new, den)
+                acc_new = torch.where(live[:, None, None, None], acc_new, acc)
+            m, den, acc = m_new, den_new, acc_new
         out = acc / den.permute(0, 3, 1, 2)[..., None]
-        blocks.append(out.to(q.dtype))
-    return D.reshape(torch.stack(blocks, dim=1), B, Sq, H, hd)
+        groups.append(out.to(q.dtype))
+    return D.reshape(torch.cat(groups, dim=1), B, Sq, H, hd)
 
 
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,

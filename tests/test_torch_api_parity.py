@@ -1,7 +1,8 @@
 """Public names the JAX package offers, imported from both packages.
 
 Code written against the reference must find each of these in the port
-too: the lazy package re-exports of ``repro.fsl`` and ``repro.core``, the
+too: the lazy package re-exports of ``repro.fsl`` and ``repro.core`` (the
+build-step lists compared by their members' names), the
 ``resnet9-paper`` config, ``resnet9.l2_features``,
 ``graph.set_index_enabled`` and the deprecated aliases.  Each is imported
 from both packages and, where it computes, compared on the same inputs.
@@ -34,7 +35,8 @@ REEXPORTS = [
         "GraphPass", "PassManager", "PassOrderError",
         "PassVerificationError", "PassTrace", "register_pass",
         "BuildRecipe", "list_recipes", "recipe", "register_lazy_recipe",
-        "register_recipe", "DeployedModel", "lower_graph", "compile_graph")
+        "register_recipe", "DeployedModel", "lower_graph", "compile_graph",
+        "build_dataflow")
 ]
 
 
@@ -45,6 +47,15 @@ def test_package_reexports_resolve(pkg, name):
     assert callable(port) and port.__name__ == ref.__name__
     assert port.__module__.startswith("repro_torch.")
     exec(f"from repro_torch.{pkg} import {name}", {})
+
+
+@pytest.mark.parametrize("name", ["DEFAULT_MLP_STEPS", "RESNET9_BUILD_STEPS"])
+def test_build_step_lists_reexported(name):
+    ref = getattr(importlib.import_module("repro.core"), name)
+    port = getattr(importlib.import_module("repro_torch.core"), name)
+    assert [f.__name__ for f in port] == [f.__name__ for f in ref]
+    assert all(f.__module__ == "repro_torch.core.transforms" for f in port)
+    exec(f"from repro_torch.core import {name}", {})
 
 
 def test_compile_graph_is_the_compile_entry_point():

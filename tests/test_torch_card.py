@@ -499,6 +499,30 @@ def test_main_path_card_equals_cpu(card):
     assert len(dm.apply.folded) == 10
 
 
+@pytest.mark.cuda
+def test_build_dataflow_graph_on_the_card_equals_the_recipe(card):
+    """The paper's customized build-step list at width 8: its HW graph
+    through the interpreter on the card (8 float ``mvau`` launches) equals
+    the recipe artifact and the CPU run of the same graph, bit for bit."""
+    from repro_torch.core import RESNET9_BUILD_STEPS, build_dataflow
+    from repro_torch.core.graph import execute
+
+    qcfg = repro_torch.QuantConfig.paper_w6a4()
+    params = resnet9.init_params(torch.Generator().manual_seed(0), 8,
+                                 device=card)
+    hw = build_dataflow(resnet9.export_graph(params, qcfg, width=8),
+                        RESNET9_BUILD_STEPS)
+    x = np.random.default_rng(1).random((3, 32, 32, 3)).astype(np.float32)
+    xq = Q.fake_quant(_t(x, card), qcfg.act)
+    before = dict(B.launch_counts)
+    (f,) = execute(hw, {"x": xq})
+    assert B.launch_counts["mvau"] - before["mvau"] == 8
+    dm = repro_torch.compile(params, qcfg, recipe="resnet9")
+    assert f.is_cuda and torch.equal(f, dm(xq))
+    (f_cpu,) = execute(hw, {"x": xq.cpu()})
+    assert torch.equal(f.cpu(), f_cpu)
+
+
 FUZZ_CARD_CASES = ([("reference", s) for s in (0, 1, 2, 3)]
                    + [("wide", s) for s in (7, 13, 23, 40, 42)]
                    + [("gemm", s) for s in (2, 11, 17, 19)])
@@ -736,6 +760,45 @@ def test_full_width_decode_card_equals_cpu(card):
         top2 = torch.topk(lc, 2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
         assert torch.equal(lg.argmax(-1)[sure], lc.argmax(-1)[sure])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lm-tiny", "qwen2.5-3b"])
+def test_long_prefill_card_equals_cpu(card, arch):
+    """A prompt of 4,096 through the chunked attention, card against CPU
+    within 0.0625 (the LM rule): lm-tiny's float ``lm.forward`` (chunk 8,
+    one group of 512 query blocks) and one Qwen2.5-3B attention layer at
+    full width (chunk 1,024, groups of one block)."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_config
+
+    S = 4096
+    rng = np.random.default_rng(0)
+    if arch == "lm-tiny":
+        cfg = dataclasses.replace(get_config(arch), quant=None)
+        assert L._group_blocks(S // 8, 8) == S // 8
+        cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
+                                .astype(np.int32))
+        want = lm.forward(cpu, {"tokens": toks}, cfg)[0]
+        got = lm.forward(_tree_map(lambda t: t.to(card), cpu),
+                         {"tokens": toks.to(card)}, cfg)[0]
+    else:
+        cfg = get_config(arch)
+        assert L._group_blocks(S // 1024, 1024) == 1
+        cpu = L.attn_init(torch.Generator().manual_seed(0), cfg)
+        x = torch.from_numpy(rng.standard_normal((1, S, cfg.d_model))
+                             .astype(np.float32)).to(torch.bfloat16)
+        pos = torch.arange(S)[None]
+        want = L.attention(cpu, x, cfg, pos)[0]
+        got = L.attention(_tree_map(lambda t: t.to(card), cpu), x.to(card),
+                          cfg, pos.to(card))[0]
+    assert got.is_cuda and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float().cpu() - want.float()).abs().max()) <= 0.0625
 
 
 def _tree_map(fn, tree):
