@@ -232,9 +232,12 @@ ends the run with a non-zero exit if it fails:
    spawned twice from here (the kernel library built above is only
    loaded by the ranks): (a) one rank over NCCL: the int artifact behind a
    ``ShardedStore`` bit for bit the serial store, GPipe at one stage, the
-   sharded train step of reduced ``qwen2.5-3b`` (DTensor params, moments
-   and batch on the 1x1 debug mesh, ``acc_shardings``) against the plain
-   step, the w8 and w4 decode of ``qwen3-14b`` at full width cut to 2
+   sharded train steps of reduced ``qwen2.5-3b`` and of reduced
+   ``grok-1-314b`` (MoE at capacity factor 1.25: the expert-parallel
+   dispatch, its buffers and kept masks == the serial dispatch's, and an
+   overflowing routing through dispatch and combine) (DTensor params,
+   moments and batch on the 1x1 debug mesh, ``acc_shardings``) against
+   the plain step, the w8 and w4 decode of ``qwen3-14b`` at full width cut to 2
    layers (every projection ``qmatmul`` on the rank's columns) against the
    serial decode of the same codes, both bit for bit (nothing is split on
    1x1), ``restore_resharded`` bit for bit; (b) two ranks on this one card over ``gloo`` (NCCL takes no
@@ -5111,6 +5114,14 @@ def dist_path(torch, np, B):
                                     "launches")}
     check(counts["mvau_int"] > 0 and counts["mvau_int_gap"] > 0
           and counts["qmatmul"] > 0, f"dist path: launches {counts}")
+    moe = report["nccl1"]["checks"]["train"].get("archs", {}).get(
+        "grok-1-314b", {}).get("meshes", {}).get("1x1_acc", {})
+    check(moe.get("bitforbit") and moe.get("dispatch_bitforbit"),
+          f"dist: the MoE train step on 1x1 is not the plain step's bits: "
+          f"{moe}")
+    log(f"dist: MoE train step 1x1 sharded {moe.get('ms_sharded')} ms, "
+        f"serial {moe.get('ms_serial')} ms, collective bytes a step "
+        f"{moe.get('collective_bytes')}")
     check(report["nccl1"]["checks"]["train"]["ok"]
           and report["nccl1"]["checks"]["decode"]["ok"]
           and report["nccl1"]["checks"]["restore"]["ok"]

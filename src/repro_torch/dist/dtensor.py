@@ -16,6 +16,11 @@ needs it, and are handled here by hand:
 * :func:`index_copy_` — in-place row writes into a cache (the k/v rows at
   ``len``, MLA's latent rows): run on each rank's local shard, the rows
   redistributed to the cache's layout.
+* :func:`grad_as_value` — a product's output whose gradient DTensor
+  would hand back in another layout (the attention output projection's
+  came back split along the sequence, and its weight gradient was then
+  computed whole on every ``"model"`` rank): the gradient is put back in
+  the output's layout first.
 * :func:`columns_on` — the tied head's transposed table: only the
   ``"model"`` axis keeps sharding its vocab columns, every other axis
   gathered, so the logits stay sharded by batch and vocab (left to
@@ -29,8 +34,15 @@ needs it, and are handled here by hand:
   2.11) and the loss's gold-logit gather over vocab-sharded logits: their
   masked partial results are reduced at once (a later reshape of the
   pending value breaks the mask).
-* :func:`index_put` — MoE's scatter of routed tokens into the expert
-  buffer (``index_put`` has no strategy): the tokens, ids and slots are
+* :class:`ExpertDispatch` — MoE's dispatch and combine on the float
+  banks (expert parallelism): each rank gives its own tokens their
+  global slots (the ranks' per-expert counts all-gathered, an exclusive
+  prefix in token order), scatters them into a buffer of its own, and an
+  all-to-all over the expert axis brings each expert its rows; the
+  combine is the inverse all-to-all.  :func:`experts_on` puts a bank in
+  the buffer's expert layout.
+* :func:`index_put` — the same scatter where the banks are served codes
+  (``index_put`` has no strategy): the tokens, ids and slots are
   replicated (all-gathered) and every rank scatters the whole buffer on
   its local tensors; autograd flows through ``to_local``/``from_local``.
 * :func:`like` — a value added in place into a buffer of another layout
@@ -55,8 +67,9 @@ import torch
 
 from repro_torch.tree import tree_flatten
 
-__all__ = ["any_dtensor", "by_heads", "columns_on", "implicit",
-           "index_copy_", "index_put", "is_dtensor", "like", "local_columns",
+__all__ = ["ExpertDispatch", "any_dtensor", "by_heads", "columns_on",
+           "experts_on", "grad_as_value", "implicit", "index_copy_",
+           "index_put", "is_dtensor", "like", "local_columns",
            "reduce_partial", "reshape", "unshard"]
 
 
@@ -110,6 +123,20 @@ def unshard(x: Any, dims: Tuple[int, ...]) -> Any:
         return x
     dims = tuple(d % x.ndim for d in dims)
     return _replicate_where(x, lambda i, p: _shards(p, dims, x.ndim))
+
+
+def grad_as_value(y: Any) -> Any:
+    """``y`` whose gradient is redistributed to ``y``'s own placements on
+    its way back (DTensor may hand it back in another layout, and a
+    product then computes its weight's gradient whole); a plain tensor as
+    it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(y.to_local(), y.device_mesh, y.placements,
+                              run_check=False, shape=y.shape,
+                              stride=y.stride())
 
 
 def columns_on(w: Any, axis: str = "model") -> Any:
@@ -196,6 +223,189 @@ def index_put(dst: torch.Tensor, indices: Tuple[torch.Tensor, ...],
     out = torch.index_put(local(dst), tuple(local(i) for i in indices),
                           local(values))
     return DTensor.from_local(out, mesh, rep, run_check=False)
+
+
+def experts_on(w: Any, ea: Any) -> Any:
+    """An expert bank (E, d_in, d_out) in the dispatch buffer's layout:
+    its expert dim sharded over mesh dim ``ea`` (None: replicated), its
+    output columns kept where another axis shards them, every other dim
+    whole; a plain tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(0) if i == ea else p if _shards(p, (2,), 3) else Replicate()
+          for i, p in enumerate(w.placements)]
+    return w if tuple(pl) == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pl)
+
+
+class ExpertDispatch:
+    """MoE's dispatch over ranks (expert parallelism), the reference's
+    GSPMD all-to-all written out.  ``flat`` (T, d) and ``ids`` (Tk,) are
+    DTensors whose tokens shard over some mesh axes (the token axes, in
+    mesh order: the serial token order); ``axis`` names the expert axis.
+
+    * Slots: each rank counts its entries per expert (E integers), the
+      counts are all-gathered over the token axes, and an exclusive prefix
+      over the ranks in token order is added to each entry's local rank
+      (``slots(ids, E, C, base)``), so every kept and dropped entry is the
+      serial step's.  ``owner`` (E, C) names the token rank that fills
+      each slot (a rank's slots of an expert are one run).
+    * Dispatch: each rank scatters its own tokens into a zero (E, C, d)
+      buffer; stacked over the token ranks, the buffers go by DTensor's
+      redistribute (an all-to-all over each axis that splits the buffer)
+      to the ranks that hold each block of the buffer, which keep each
+      slot's row from its owner: ``buf`` (E, C, d), equal to the serial
+      buffer bit for bit.
+    * Combine (:meth:`combine`): the inverse; each rank sends each token
+      rank the rows of its block that rank owns (zeros elsewhere), and
+      each rank sums its tokens' k weighted rows.
+
+    The expert axis splits the buffer's experts where its size divides E
+    (:attr:`experts_axis`), else its slots; every other token axis splits
+    the slots, so no two ranks run the same expert on the same slots.
+    Where the slot axes' sizes do not divide C nothing is split: each
+    rank gathers the whole buffer.  Gradients flow back through the same
+    exchanges.
+    """
+
+    def __init__(self, flat, ids, E: int, C: int, axis: str,
+                 slots: Callable):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = flat.device_mesh
+        self.mesh, self.E = mesh, E
+        flat = _replicate_where(flat, lambda i, p: not _shards(p, (0,), 2))
+        ta = tuple(i for i, p in enumerate(flat.placements)
+                   if _shards(p, (0,), 2))
+        names = mesh.mesh_dim_names or ()
+        # mesh dim -> the buffer dim it splits (0 experts, 1 slots)
+        block = {i: 1 for i in ta if mesh.size(i) > 1}
+        ea = names.index(axis) if axis in names else None
+        if ea is not None and mesh.size(ea) > 1:
+            block[ea] = 0 if E % mesh.size(ea) == 0 else 1
+        n_e = n_c = 1
+        for i, dim in block.items():
+            n_e, n_c = (n_e * mesh.size(i), n_c) if dim == 0 else (
+                n_e, n_c * mesh.size(i))
+        if C % n_c:
+            block = {}
+        self.ta, self.block = ta, block
+        # this rank's block of the buffer: experts e0:e1, slots c0:c1
+        self.e0, self.e1, self.c0, self.c1 = 0, E, 0, C
+        j_c = 0
+        for i in sorted(block):          # mesh order: outer axis first
+            if block[i] == 0:
+                n = E // mesh.size(i)
+                self.e0, self.e1 = (mesh.get_local_rank(i) * n,
+                                    (mesh.get_local_rank(i) + 1) * n)
+            else:
+                j_c = j_c * mesh.size(i) + mesh.get_local_rank(i)
+        if block:
+            self.c0, self.c1 = j_c * C // n_c, (j_c + 1) * C // n_c
+        self.tok_pl = [Shard(0) if i in ta else Replicate()
+                       for i in range(mesh.ndim)]
+        ids = like(ids, flat)
+        self.ids = ids.to_local()
+        self.r, self.R = 0, 1            # this rank's token block, of R
+        for i in ta:
+            self.r = self.r * mesh.size(i) + mesh.get_local_rank(i)
+            self.R *= mesh.size(i)
+        ex = torch.arange(E, device=self.ids.device)
+        cnt = (self.ids[:, None] == ex).sum(0).to(torch.int32)
+        counts = DTensor.from_local(cnt[None], mesh, self.tok_pl,
+                                    run_check=False).full_tensor()  # (R, E)
+        self.keep_l, self.slot = slots(self.ids, E, C,
+                                       counts[:self.r].sum(0))
+        ends = torch.cumsum(counts, 0).T                          # (E, R)
+        c = torch.arange(C, device=ends.device)
+        self.owner = (ends[:, :, None] <= c).sum(1).clamp_max(
+            self.R - 1)                                           # (E, C)
+
+        x = flat.to_local()
+        T, d = x.shape
+        k = self.ids.shape[0] // T
+        tok = torch.arange(T, device=x.device)[:, None].expand(T, k)
+        src = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device
+                          ).index_put_((self.ids, self.slot),
+                                       x[tok.reshape(-1)]
+                                       * self.keep_l[:, None].to(x.dtype))
+        stack = DTensor.from_local(src[None, :, :C], mesh, self.tok_pl,
+                                   run_check=False)            # (R, E, C, d)
+        got = stack.redistribute(mesh, self._at(1)).to_local()
+        own = self._own()
+        self.buf = DTensor.from_local(
+            got.gather(0, own[None, :, :, None].expand(1, *own.shape, d))[0],
+            mesh, self._at(0), run_check=False)
+        self.keep = DTensor.from_local(self.keep_l, mesh, self.tok_pl,
+                                       run_check=False)
+
+    @property
+    def experts_axis(self):
+        """The mesh dim that splits the buffer's experts, or None."""
+        return next((i for i, dim in self.block.items() if dim == 0), None)
+
+    def _at(self, lead: int) -> list:
+        """The buffer's placements, after ``lead`` leading dims."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        return [Shard(lead + self.block[i]) if i in self.block
+                else Replicate() for i in range(self.mesh.ndim)]
+
+    def _own(self):
+        return self.owner[self.e0:self.e1, self.c0:self.c1]
+
+    def combine(self, out, gates):
+        """(T, d): each token's k rows of ``out`` (E, C, d), each times
+        its gate (``gates`` (T, k)), summed; d sharded as ``out``'s."""
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+
+        mesh, ta, block = self.mesh, self.ta, self.block
+        at = self._at(0)
+        pl = [at[i] if i in block else p
+              if i not in ta and _shards(p, (2,), 3) else Replicate()
+              for i, p in enumerate(out.placements)]
+        dax = tuple(i for i, p in enumerate(pl) if i not in block
+                    and _shards(p, (2,), 3))
+        if tuple(pl) != tuple(out.placements):
+            out = out.redistribute(mesh, pl)
+        # a token rank that holds the whole buffer reads only its own
+        # rows: partial gradients there
+        x = out.to_local(grad_placements=[
+            Partial() if i in ta and not block else p
+            for i, p in enumerate(pl)])                   # (n_e, n_c, d')
+        # the rows each token rank owns: every rank's with a split buffer
+        ranks = (torch.arange(self.R, device=x.device) if block
+                 else torch.full((1,), self.r, device=x.device))
+        mask = self._own()[None] == ranks[:, None, None]  # (R, n_e, n_c)
+        pieces = torch.where(mask[..., None], x[None],
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+        at = self._at(1)
+        stack = DTensor.from_local(pieces, mesh, [
+            at[i] if i in block else Shard(0) if i in ta else
+            Shard(3) if i in dax else Replicate()
+            for i in range(mesh.ndim)], run_check=False)
+        mine = stack.redistribute(mesh, [
+            Shard(0) if i in ta else Shard(3) if i in dax else Replicate()
+            for i in range(mesh.ndim)]).to_local()[0]     # (E, C, d')
+        E, d = self.E, mine.shape[-1]
+        cd = mine.dtype
+        mine = torch.cat([mine, torch.zeros((E, 1, d), dtype=cd,
+                                            device=mine.device)], dim=1)
+        if tuple(gates.placements) != tuple(self.tok_pl):
+            gates = gates.redistribute(mesh, self.tok_pl)
+        # the gates' gradient sums over d: partial where d is sharded
+        g = gates.to_local(grad_placements=[
+            Partial() if i in dax else p for i, p in enumerate(self.tok_pl)])
+        T, k = g.shape
+        weighted = mine[self.ids, self.slot] * (
+            g.reshape(T * k, 1).to(cd) * self.keep_l[:, None].to(cd))
+        y = weighted.reshape(T, k, d).sum(1)
+        return DTensor.from_local(y, mesh, [
+            Shard(0) if i in ta else Shard(1) if i in dax else Replicate()
+            for i in range(mesh.ndim)], run_check=False)
 
 
 def _head_plan(q, k, v, hdim: int):

@@ -42,6 +42,7 @@ __all__ = [
     "NamedSharding",
     "RowSplit",
     "mesh_shape",
+    "moe_expert_axis",
     "prototype_spec",
     "serve_mesh",
     "set_fsdp_axes",
@@ -69,6 +70,13 @@ def set_fsdp_axes(axes: Sequence[str]) -> None:
 def set_moe_expert_axis(axis: str) -> None:
     global _EXPERT_AXIS
     _EXPERT_AXIS = axis
+
+
+def moe_expert_axis() -> str:
+    """The mesh axis that is "home" for MoE experts (the axis
+    :func:`set_moe_expert_axis` set): the expert banks' leading dim and
+    the MoE dispatch buffer shard over it."""
+    return _EXPERT_AXIS
 
 
 def mesh_shape(mesh: Any) -> Dict[str, int]:

@@ -38,6 +38,7 @@ from repro_torch.core.quant import (FixedPointSpec, fake_quant, pack_int4,
                                     unpack_int4)
 from repro_torch.dist import dtensor as D
 from repro_torch.dist.act_sharding import constrain
+from repro_torch.dist.sharding import moe_expert_axis
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -135,7 +136,8 @@ def dense(p: Params, x: torch.Tensor, wspec: Optional[FixedPointSpec] = None,
             # FSDP gathers the weight's input dim, and x is made whole along
             # it: no contraction is split over ranks (no partial sums)
             w, x = D.unshard(w, (-2,)), D.unshard(x, (-1,))
-        y = torch.matmul(x.to(dtype), w.to(dtype))
+        # the gradient in the output's layout: W's gradient stays split
+        y = D.grad_as_value(torch.matmul(x.to(dtype), w.to(dtype)))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -719,21 +721,87 @@ def _expert(bank: Params, e: int) -> Params:
     return {"w_codes": bank["w_codes"][e], "w_scale": bank["w_scale"][e]}
 
 
+def moe_slots(ids: torch.Tensor, E: int, C: int,
+              base: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep, slot) of each (token, choice) entry of ``ids`` (Tk,): its
+    rank within its expert from a one-hot cumulative sum, plus ``base``
+    (E,) of its expert where given (the entries of earlier ranks); ranks
+    past the capacity ``C`` are dropped to the overflow slot ``C``."""
+    one = (ids[:, None] == torch.arange(E, device=ids.device)
+           ).to(torch.int32)                                    # (Tk, E)
+    pos = ((torch.cumsum(one, 0) - one) * one).sum(-1)          # rank
+    if base is not None:
+        pos = pos + base[ids]
+    keep = pos < C
+    return keep, torch.where(keep, pos, C)                      # C: overflow
+
+
+def moe_dispatch(flat: torch.Tensor, ids: torch.Tensor, E: int, C: int,
+                 expert_parallel: bool = True):
+    """(buf (E, C, d), keep (Tk,), route): each kept (token, choice) row of
+    ``flat`` (T, d) in its expert's slot of the buffer, the rest zeros.
+
+    On plain tensors (and on DTensors with ``expert_parallel`` off: the
+    served banks of codes) ``route`` holds the slots for
+    :func:`moe_combine`; with DTensors the scatter runs on replicated
+    copies (:func:`repro_torch.dist.dtensor.index_put`).  Otherwise
+    ``route`` is a :class:`repro_torch.dist.dtensor.ExpertDispatch`: each
+    rank scatters its own tokens and an all-to-all over the expert axis
+    (:func:`~repro_torch.dist.sharding.moe_expert_axis`) brings each
+    expert its rows, in the same slots.
+    """
+    if expert_parallel and D.is_dtensor(flat):
+        route = D.ExpertDispatch(flat, ids, E, C, moe_expert_axis(),
+                                 moe_slots)
+        return route.buf, route.keep, route
+    T, d = flat.shape
+    k = ids.shape[0] // T
+    keep, pos_c = moe_slots(ids, E, C)
+    tok = torch.arange(T, device=flat.device)[:, None].expand(T, k).reshape(-1)
+    cd = flat.dtype
+    buf = D.index_put(torch.zeros((E, C + 1, d), dtype=cd, device=flat.device),
+                      (ids, pos_c), flat[tok] * keep[:, None].to(cd))
+    return buf[:, :C], keep, (ids, pos_c, keep)
+
+
+def moe_combine(out_buf: torch.Tensor, gates: torch.Tensor, route
+                ) -> torch.Tensor:
+    """(T, d): the sum of each token's k rows of ``out_buf`` (E, C, d),
+    each weighted by its gate (``gates`` (T, k)), dropped entries 0."""
+    if isinstance(route, D.ExpertDispatch):
+        return route.combine(out_buf, gates)
+    ids, pos_c, keep = route
+    E, _, d = out_buf.shape
+    T, k = gates.shape
+    cd = out_buf.dtype
+    out_buf = torch.cat([out_buf, torch.zeros((E, 1, d), dtype=cd,
+                                              device=out_buf.device)], dim=1)
+    weighted = out_buf[ids, pos_c] * (gates.reshape(T * k, 1).to(cd)
+                                      * keep[:, None].to(cd))
+    return D.reshape(weighted, T, k, d).sum(1)
+
+
 def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, the Switch load-balance aux loss).
 
-    Sort-free capacity dispatch, as the reference: each (token, choice)
-    gets its rank within its expert from a one-hot cumulative sum; ranks
-    past the capacity ``C = max(int(capacity_factor * T * k / E), 1)`` (a
-    Python int fixed by the shape) go to the overflow row ``C`` as zeros
-    and are sliced away, so their writes may land in any order.  No step
-    reads a value on the host, so a CUDA graph captures it.
+    Sort-free capacity dispatch, as the reference (:func:`moe_slots`):
+    each (token, choice) gets its rank within its expert from a one-hot
+    cumulative sum; ranks past the capacity ``C = max(int(capacity_factor
+    * T * k / E), 1)`` (a Python int fixed by the shape) go to the
+    overflow row ``C`` as zeros and are sliced away, so their writes may
+    land in any order.  No step reads a value on the host, so a CUDA graph
+    captures it.
 
     Float banks (bits 0, training) run the experts as batched einsums;
     banks of serving codes run each expert's three products through
     :func:`dense` on its codes (``qmatmul`` in bf16, the float32 codes
-    product in float32).
+    product in float32).  On DTensors the float banks run expert-parallel
+    (:func:`moe_dispatch`): each bank moves to the buffer's expert layout
+    with its input dim whole (FSDP's gather) and its output columns kept,
+    and ``h`` is made whole along ``f`` before ``w_down``, so no
+    contraction is split over ranks.
     """
     B, S, d = x.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
@@ -741,23 +809,21 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
     C = max(int(cfg.moe_capacity_factor * T * k / E), 1)
     flat = D.reshape(x, T, d)
     cd = x.dtype
+    codes = isinstance(p["w_gate"], dict)
+    if not codes:
+        # the router and the dispatch read the tokens whole along d
+        flat = D.unshard(flat, (1,))
 
     probs, gates, idx = moe_route(p, flat, cfg)
     experts = torch.arange(E, device=x.device)
     me = (idx[:, :1] == experts).to(torch.float32).mean(0)
     aux = E * torch.sum(me * probs.mean(0))
 
-    ids = idx.reshape(T * k)
-    one = (ids[:, None] == experts).to(torch.int32)             # (Tk, E)
-    pos = ((torch.cumsum(one, 0) - one) * one).sum(-1)          # rank
-    keep = pos < C
-    pos_c = torch.where(keep, pos, C)                           # C: overflow
-    tok = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
-    buf = D.index_put(torch.zeros((E, C + 1, d), dtype=cd, device=x.device),
-                      (ids, pos_c), flat[tok] * keep[:, None].to(cd))
-    buf = constrain(buf[:, :C], "moe_dispatch")     # EP all-to-all boundary
+    buf, _, route = moe_dispatch(flat, idx.reshape(T * k), E, C,
+                                 expert_parallel=not codes)
+    buf = constrain(buf, "moe_dispatch")            # EP all-to-all boundary
 
-    if isinstance(p["w_gate"], dict):               # serving codes
+    if codes:                                       # serving codes
         outs = []
         for e in range(E):
             be = buf[e]
@@ -767,17 +833,16 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
                               dtype=cd))
         out_buf = torch.stack(outs)
     else:
-        wg, wu, wd = (fake_quant(p[n], wspec) if wspec else p[n]
+        ea = (route.experts_axis if isinstance(route, D.ExpertDispatch)
+              else None)
+        wg, wu, wd = (D.experts_on((fake_quant(p[n], wspec) if wspec
+                                    else p[n]).to(cd), ea)
                       for n in ("w_gate", "w_up", "w_down"))
-        h = silu(torch.einsum("ecd,edf->ecf", buf, wg.to(cd))) \
-            * torch.einsum("ecd,edf->ecf", buf, wu.to(cd))
-        out_buf = torch.einsum("ecf,efd->ecd", fake_quant(h, aspec),
-                               wd.to(cd))
-    out_buf = torch.cat([out_buf, torch.zeros((E, 1, d), dtype=cd,
-                                              device=x.device)], dim=1)
-    weighted = out_buf[ids, pos_c] * (gates.reshape(T * k, 1).to(cd)
-                                      * keep[:, None].to(cd))
-    y = D.reshape(weighted, T, k, d).sum(1)
+        h = silu(torch.einsum("ecd,edf->ecf", buf, wg)) \
+            * torch.einsum("ecd,edf->ecf", buf, wu)
+        out_buf = torch.einsum("ecf,efd->ecd",
+                               D.unshard(fake_quant(h, aspec), (2,)), wd)
+    y = moe_combine(out_buf, gates, route)
     if "dense_mlp" in p:            # arctic's parallel dense residual branch
         y = y + mlp(p["dense_mlp"], flat, cfg.act, wspec, aspec)
     return D.reshape(y, B, S, d), aux

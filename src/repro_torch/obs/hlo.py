@@ -17,7 +17,10 @@ device, as the reference's:
    mapped from the c10d ops (functional and eager): ``all-reduce``,
    ``all-gather``, ``reduce-scatter``, ``all-to-all`` and
    ``collective-permute`` (point-to-point sends), each the bytes of its
-   result (of the sent tensor for a send).
+   result (of the sent tensor for a send).  DTensor's shard-to-shard
+   redistribution (``shard_dim_alltoall``) is one ``all-to-all`` of its
+   input's bytes, as the card runs it; on a CPU mesh DTensor falls back to
+   an all-gather and a chunk there, which is not recorded.
 
 The log is a list of :class:`Event`; a loop runs its ops once per
 iteration, so the log's totals are already trip-count aware.  Elementwise
@@ -58,6 +61,7 @@ _COLLECTIVE_OPS = {
     "c10d.alltoall_base_": "all-to-all",
     "c10d.alltoall_": "all-to-all",
     "c10d.send": "collective-permute",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
 }
 
 
@@ -96,6 +100,35 @@ class DispatchRecord(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.events: List[Event] = []
+        self._inside = 0          # in a recorded all-to-all: record nothing
+
+    def __enter__(self):
+        from torch.distributed.tensor import placement_types as PT
+
+        self._alltoall = getattr(PT, "shard_dim_alltoall", None)
+        if self._alltoall is None:    # no Python entry: the op alone
+            return super().__enter__()
+
+        def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            self.events.append(Event("all-to-all",
+                                     "_dtensor.shard_dim_alltoall",
+                                     _sig(input), _nbytes([input])))
+            self._inside += 1
+            try:
+                return self._alltoall(input, gather_dim, shard_dim, mesh,
+                                      mesh_dim)
+            finally:
+                self._inside -= 1
+
+        PT.shard_dim_alltoall = alltoall
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import placement_types as PT
+
+        if self._alltoall is not None:
+            PT.shard_dim_alltoall = self._alltoall
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -105,6 +138,8 @@ class DispatchRecord(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self._inside:
+            return out
         from torch._subclasses.fake_tensor import FakeTensor
 
         if any(issubclass(t, FakeTensor) for t in types):

@@ -12,12 +12,21 @@ where JAX can run, against the JAX package:
   ``ShardedStore.classify`` == ``PrototypeStore.classify``;
 * GPipe over 4 stages against the sequential apply, the port's and JAX's:
   forward rtol 2e-5, gradients rtol 1e-4 (the reference's tolerances);
-* ``make_train_step`` on reduced ``qwen2.5-3b`` (grad_accum 2) on a 2x2
-  mesh, with and without ``acc_shardings``, and on 1x4 (one query head a
-  rank, its k/v group cut from the replicated k/v, whose gradient is then
-  a partial sum): the loss within rtol 2e-4 of the one-rank step, the
-  loss after the update within rtol 5e-3 (the reference's
-  ``test_sharded_train_step_runs_and_matches_single_device``);
+* ``make_train_step`` on reduced ``qwen2.5-3b`` and reduced
+  ``grok-1-314b`` (4 experts top-2 at capacity factor 1.25; both at
+  grad_accum 2) on a 2x2 mesh, with and without ``acc_shardings``, and on
+  1x4 (one query head a rank, its k/v group cut from the replicated k/v,
+  whose gradient is then a partial sum): the loss within rtol 2e-4 of the
+  one-rank step, the loss after the update within rtol 5e-3 (the
+  reference's ``test_sharded_train_step_runs_and_matches_single_device``),
+  the moments sharded;
+* the MoE step's expert-parallel dispatch (each rank's tokens in their
+  global slots, an all-to-all over ``"data"`` on 2x2): every dispatch
+  buffer and kept mask of the step, made whole, equal the serial dispatch
+  of the same tokens bit for bit (its batches overflow the capacity), and
+  so do the buffer, kept mask and combined rows of a routing that sends
+  half the entries to one expert, with 4 experts (split over ``"data"``)
+  and with 3 (``"data"`` does not divide them: their slots split);
 * reduced ``qwen3-14b`` float32 decode at float weights and served at w8
   and w4 (column-sharded codes: each rank's columns with its slice of the
   scale), 2 steps on 2x2 then 2 re-placed on 1x4 (the k/v cut again):
@@ -112,14 +121,46 @@ def test_pipeline_rejects_a_mismatched_axis(ranks):
         _check(ranks, "pipeline")["axis_error"]
 
 
-@pytest.mark.parametrize("tag", ["plain", "acc", "1x4"])
+TRAIN_MESHES = {"plain": "2x2", "acc": "2x2_acc", "1x4": "1x4_acc"}
+
+
+def _train(ranks, tag):
+    arch, _, mesh = tag.rpartition("-")
+    return _check(ranks, "train")["archs"][arch or "qwen2.5-3b"]["meshes"][
+        TRAIN_MESHES[mesh]]
+
+
+@pytest.mark.parametrize("tag", [
+    "plain", "acc", "1x4",
+    "grok-1-314b-plain", "grok-1-314b-acc", "grok-1-314b-1x4"])
 def test_sharded_train_step_matches_single_rank(ranks, tag):
-    r = _check(ranks, "train")["meshes"][
-        {"plain": "2x2", "acc": "2x2_acc", "1x4": "1x4_acc"}[tag]]
+    r = _train(ranks, tag)
     assert np.isfinite(r["loss2"])
     np.testing.assert_allclose(r["loss2"], r["loss1"], rtol=2e-4)
     np.testing.assert_allclose(r["after2"], r["after1"], rtol=5e-3)
     assert r["moments_sharded"]
+
+
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+def test_moe_dispatch_bitforbit_in_the_step(ranks, mesh):
+    """Each of the step's 4 dispatches (2 layers x 2 microbatches): the
+    buffer and kept mask equal the serial dispatch's, with drops."""
+    r = _train(ranks, f"grok-1-314b-{mesh}")
+    assert r["dispatches"] == 4 and r["dispatch_bitforbit"]
+    assert r["dropped"] > 0
+
+
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+def test_moe_dispatch_and_combine_bitforbit_on_overflow(ranks, mesh):
+    """4 experts (split over ``"data"`` on 2x2) and 3 (their slots split
+    there); ``"data"`` is 1 wide on 1x4: nothing is split."""
+    cases = _train(ranks, f"grok-1-314b-{mesh}")["overflow"]
+    want = {"1x4": [{}, {}]}.get(mesh, [{"data": "experts"},
+                                        {"data": "slots"}])
+    assert [c["split"] for c in cases] == want
+    for r in cases:
+        assert r["dropped"] > 0
+        assert r["dispatch_bitforbit"] and r["combine_bitforbit"]
 
 
 def _decode_matches_serial(r):

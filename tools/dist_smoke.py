@@ -30,10 +30,16 @@ Spawned ranks meet through a ``FileStore`` under ``DIR``; under
   1e-4 against the sequential apply (rank 0 writes both to
   ``pipeline.npz``), and the ``ValueError`` of a stage count that does not
   match the axis;
-* ``train`` — reduced ``qwen2.5-3b`` (grad_accum 2) on each mesh of the
-  world's size (1x1; 2x1 and 1x2; 2x2 without and with ``acc_shardings``
-  and 1x4): loss rtol 2e-4 and loss after the update rtol 5e-3 against
-  the one-rank step, the moments DTensors; bit for bit on 1x1;
+* ``train`` — reduced ``qwen2.5-3b`` and reduced ``grok-1-314b`` (MoE,
+  capacity factor 1.25; both grad_accum 2, :data:`TRAIN_ARCHS`) on each
+  mesh of the world's size (1x1; 2x1 and 1x2; 2x2 without and with
+  ``acc_shardings`` and 1x4): loss rtol 2e-4 and loss after the update
+  rtol 5e-3 against the one-rank step, the moments DTensors; bit for bit
+  on 1x1.  The MoE step's expert-parallel dispatches (an all-to-all over
+  ``"data"``): each buffer and kept mask, made whole, bit for bit the
+  serial dispatch of the same tokens, and a routing that overflows the
+  capacity through dispatch and combine against the serial ones; with
+  ``--time`` also one step's collective bytes per rank, by kind;
 * ``decode`` — ``qwen3-14b`` at each of the sizes' weight bits, from the
   same codes as the serial decode, on a mesh with a model axis (1xN; at
   4 ranks two steps on 2x2 and two re-placed on 1x4): column-sharded
@@ -308,6 +314,13 @@ def check_pipeline(torch, dist, dev, sizes, counted, timed, out_dir):
     return out
 
 
+# the sharded train step's configs, each reduced (``reduce_config``) with
+# these overrides: a dense decoder and an MoE one (4 experts top-2 at
+# capacity factor 1.25, the dry run's mini cell: some experts overflow)
+TRAIN_ARCHS = {"qwen2.5-3b": dict(grad_accum=2),
+               "grok-1-314b": dict(grad_accum=2, moe_capacity_factor=1.25)}
+
+
 def _train_cases(world):
     """(name, mesh shape, with ``acc_shardings``) of each sharded step."""
     return {1: [("1x1_acc", (1, 1), True)],
@@ -323,7 +336,90 @@ def _place(tree, shardings):
     return tree_map(lambda t, s: s.place(t), tree, shardings)
 
 
-def check_train(torch, dist, dev, sizes, counted, timed, out_dir):
+@contextlib.contextmanager
+def _dispatches(torch, calls):
+    """Record each expert-parallel ``layers.moe_dispatch`` of the enclosed
+    block in ``calls``: its tokens, ids, buffer and kept mask made whole
+    (``full_tensor``), for :func:`_dispatch_equal`."""
+    from repro_torch.dist import dtensor as D
+    from repro_torch.models import layers as L
+
+    inner = L.moe_dispatch
+
+    def recorded(flat, ids, E, C, expert_parallel=True):
+        buf, keep, route = inner(flat, ids, E, C, expert_parallel)
+        if D.is_dtensor(flat) and isinstance(route, D.ExpertDispatch):
+            with torch.no_grad():
+                calls.append([t.full_tensor() for t in (flat, ids, buf,
+                                                        keep)] + [E, C])
+        return buf, keep, route
+
+    L.moe_dispatch = recorded
+    try:
+        yield
+    finally:
+        L.moe_dispatch = inner
+
+
+def _dispatch_equal(torch, calls) -> dict:
+    """The recorded sharded dispatches against the serial one of the same
+    tokens: buffers and kept masks bit for bit."""
+    from repro_torch.models import layers as L
+
+    same, dropped = True, 0
+    for flat, ids, buf, keep, E, C in calls:
+        with torch.no_grad():
+            sbuf, skeep, _ = L.moe_dispatch(flat, ids, E, C)
+        same = same and torch.equal(buf, sbuf) and torch.equal(keep, skeep)
+        dropped += int((~skeep).sum())
+    return {"dispatches": len(calls), "dispatch_bitforbit": bool(same),
+            "dropped": dropped}
+
+
+def check_dispatch(torch, dev, mesh, E, T) -> dict:
+    """The MoE dispatch and combine over ``mesh`` of T tokens to E experts
+    (top-2) on routing that overflows the capacity (half the entries on
+    expert 0), against the serial ones: buffer, kept mask and combined
+    rows bit for bit.  Where ``"data"`` does not divide E the buffer
+    splits its slots over it."""
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.models import layers as L
+
+    k, d = 2, 16
+    C = int(1.25 * T * k / E)
+    g = torch.Generator(dev).manual_seed(4)
+    flat = torch.randn(T, d, generator=g, device=dev)
+    ids = torch.randint(0, E, (T * k,), generator=g, device=dev)
+    ids = torch.where(torch.rand(T * k, generator=g, device=dev) < 0.5, 0,
+                      ids)
+    gates = torch.rand(T, k, generator=g, device=dev)
+    out = torch.randn(E, C, d, generator=g, device=dev)
+    rows = NamedSharding(mesh, ("data", None))
+    ids_d = NamedSharding(mesh, ("data",)).place(ids)
+    buf, keep, route = L.moe_dispatch(rows.place(flat), ids_d, E, C)
+    y = L.moe_combine(NamedSharding(mesh, ("data", None, None)).place(out),
+                      rows.place(gates), route)
+    sbuf, skeep, sroute = L.moe_dispatch(flat, ids, E, C)
+    sy = L.moe_combine(out, gates, sroute)
+    names = mesh.mesh_dim_names
+    return {"E": E, "T": T,
+            "split": {names[i]: ("experts", "slots")[dim]
+                      for i, dim in route.block.items()},
+            "dropped": int((~skeep).sum()),
+            "dispatch_bitforbit": bool(torch.equal(buf.full_tensor(), sbuf)
+                                       and torch.equal(keep.full_tensor(),
+                                                       skeep)),
+            "combine_bitforbit": bool(torch.equal(y.full_tensor(), sy))}
+
+
+# (E, T) of the direct dispatch checks: experts split over "data" at 2
+# or 4 ranks, and slots split (3 experts at 2 ranks; C = 40)
+DISPATCH_CASES = ((4, 64), (3, 48))
+
+
+def train_arch(torch, dist, dev, arch, counted, timed):
+    """``arch``'s sharded train step on each mesh of the world's size
+    against the one-rank step."""
     from repro_torch.dist import dtensor as D
     from repro_torch.dist.sharding import (tree_batch_shardings,
                                            tree_opt_shardings,
@@ -333,10 +429,11 @@ def check_train(torch, dist, dev, sizes, counted, timed, out_dir):
     from repro_torch.models import lm
     from repro_torch.models.common import get_config
     from repro_torch.models.testing import reduce_config
+    from repro_torch.obs import hlo
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_flatten, tree_map
 
-    cfg = reduce_config(get_config("qwen2.5-3b"), grad_accum=2)
+    cfg = reduce_config(get_config(arch), **TRAIN_ARCHS[arch])
     params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
     toks = torch.randint(0, cfg.vocab, (2, 4, 16), dtype=torch.int32,
                          device=dev, generator=torch.Generator(dev)
@@ -354,7 +451,8 @@ def check_train(torch, dist, dev, sizes, counted, timed, out_dir):
         sharded = make_train_step(
             cfg, acc_shardings=tree_opt_shardings(params, mesh)
             if acc else None)
-        with counted.on():
+        calls = []
+        with counted.on(), _dispatches(torch, calls):
             p2, o2, loss2 = sharded(dp, adamw_init(dp), db)
         after2 = float(lm.loss_fn(tree_map(
             lambda t: t.full_tensor() if D.is_dtensor(t) else t, p2),
@@ -369,13 +467,35 @@ def check_train(torch, dist, dev, sizes, counted, timed, out_dir):
             r["bitforbit"] if shape == (1, 1) else
             abs(r["loss2"] - r["loss1"]) <= 2e-4 * abs(r["loss1"])
             and abs(after2 - after1) <= 5e-3 * abs(after1))
+        if cfg.moe_experts:
+            r.update(_dispatch_equal(torch, calls))
+            r["overflow"] = [check_dispatch(torch, dev, mesh, E, T)
+                             for E, T in DISPATCH_CASES]
+            r["ok"] = (r["ok"] and r["dispatches"] == 2 * cfg.n_layers
+                       and r["dispatch_bitforbit"] and all(
+                           o["dropped"] > 0 and o["dispatch_bitforbit"]
+                           and o["combine_bitforbit"]
+                           for o in r["overflow"]))
         if timed:
             r["ms_sharded"] = _ms(torch, lambda: sharded(
                 dp, adamw_init(dp), db), reps=3)
             r["ms_serial"] = _ms(torch, lambda: step(
                 params, adamw_init(params), batch), reps=3)
+            # what one step sends, per rank, by kind (all-to-all: the MoE
+            # buffer's exchanges and DTensor's shard-to-shard moves)
+            with hlo.DispatchRecord() as rec:
+                sharded(dp, adamw_init(dp), db)
+            r["collective_bytes"] = hlo.analyze(rec.events)[
+                "collective_bytes"]
         out["meshes"][name] = r
         out["ok"] = out["ok"] and r["ok"]
+    return out
+
+
+def check_train(torch, dist, dev, sizes, counted, timed, out_dir):
+    out = {"archs": {a: train_arch(torch, dist, dev, a, counted, timed)
+                     for a in TRAIN_ARCHS}}
+    out["ok"] = all(r["ok"] for r in out["archs"].values())
     return out
 
 
