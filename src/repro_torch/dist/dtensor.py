@@ -265,9 +265,8 @@ class ExpertDispatch:
     The expert axis splits the buffer's experts where its size divides E
     (:attr:`experts_axis`), else its slots; every other token axis splits
     the slots, so no two ranks run the same expert on the same slots.
-    Where the slot axes' sizes do not divide C nothing is split: each
-    rank gathers the whole buffer.  Gradients flow back through the same
-    exchanges.
+    The slot axes' sizes must divide C (a ``ValueError`` otherwise).
+    Gradients flow back through the same exchanges.
     """
 
     def __init__(self, flat, ids, E: int, C: int, axis: str,
@@ -290,11 +289,12 @@ class ExpertDispatch:
             n_e, n_c = (n_e * mesh.size(i), n_c) if dim == 0 else (
                 n_e, n_c * mesh.size(i))
         if C % n_c:
-            block = {}
+            raise ValueError(
+                f"MoE capacity {C} does not split over the {n_c} ranks of "
+                f"mesh axes {[names[i] for i, b in block.items() if b]}")
         self.ta, self.block = ta, block
         # this rank's block of the buffer: experts e0:e1, slots c0:c1
-        self.e0, self.e1, self.c0, self.c1 = 0, E, 0, C
-        j_c = 0
+        self.e0, self.e1, j_c = 0, E, 0
         for i in sorted(block):          # mesh order: outer axis first
             if block[i] == 0:
                 n = E // mesh.size(i)
@@ -302,8 +302,7 @@ class ExpertDispatch:
                                     (mesh.get_local_rank(i) + 1) * n)
             else:
                 j_c = j_c * mesh.size(i) + mesh.get_local_rank(i)
-        if block:
-            self.c0, self.c1 = j_c * C // n_c, (j_c + 1) * C // n_c
+        self.c0, self.c1 = j_c * C // n_c, (j_c + 1) * C // n_c
         self.tok_pl = [Shard(0) if i in ta else Replicate()
                        for i in range(mesh.ndim)]
         ids = like(ids, flat)
@@ -371,14 +370,9 @@ class ExpertDispatch:
                     and _shards(p, (2,), 3))
         if tuple(pl) != tuple(out.placements):
             out = out.redistribute(mesh, pl)
-        # a token rank that holds the whole buffer reads only its own
-        # rows: partial gradients there
-        x = out.to_local(grad_placements=[
-            Partial() if i in ta and not block else p
-            for i, p in enumerate(pl)])                   # (n_e, n_c, d')
-        # the rows each token rank owns: every rank's with a split buffer
-        ranks = (torch.arange(self.R, device=x.device) if block
-                 else torch.full((1,), self.r, device=x.device))
+        x = out.to_local(grad_placements=pl)              # (n_e, n_c, d')
+        # the rows each token rank owns
+        ranks = torch.arange(self.R, device=x.device)
         mask = self._own()[None] == ranks[:, None, None]  # (R, n_e, n_c)
         pieces = torch.where(mask[..., None], x[None],
                              torch.zeros((), dtype=x.dtype, device=x.device))

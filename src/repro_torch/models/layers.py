@@ -739,22 +739,22 @@ def moe_slots(ids: torch.Tensor, E: int, C: int,
 
 def moe_dispatch(flat: torch.Tensor, ids: torch.Tensor, E: int, C: int,
                  expert_parallel: bool = True):
-    """(buf (E, C, d), keep (Tk,), route): each kept (token, choice) row of
-    ``flat`` (T, d) in its expert's slot of the buffer, the rest zeros.
+    """(buf (E, C, d), route): each kept (token, choice) row of ``flat``
+    (T, d) in its expert's slot of the buffer, the rest zeros.
 
     On plain tensors (and on DTensors with ``expert_parallel`` off: the
-    served banks of codes) ``route`` holds the slots for
+    served banks of codes) ``route`` is (ids, slots, keep) for
     :func:`moe_combine`; with DTensors the scatter runs on replicated
     copies (:func:`repro_torch.dist.dtensor.index_put`).  Otherwise
     ``route`` is a :class:`repro_torch.dist.dtensor.ExpertDispatch`: each
     rank scatters its own tokens and an all-to-all over the expert axis
     (:func:`~repro_torch.dist.sharding.moe_expert_axis`) brings each
-    expert its rows, in the same slots.
+    expert its rows, in the same slots; its ``keep`` is the kept mask.
     """
     if expert_parallel and D.is_dtensor(flat):
         route = D.ExpertDispatch(flat, ids, E, C, moe_expert_axis(),
                                  moe_slots)
-        return route.buf, route.keep, route
+        return route.buf, route
     T, d = flat.shape
     k = ids.shape[0] // T
     keep, pos_c = moe_slots(ids, E, C)
@@ -762,7 +762,7 @@ def moe_dispatch(flat: torch.Tensor, ids: torch.Tensor, E: int, C: int,
     cd = flat.dtype
     buf = D.index_put(torch.zeros((E, C + 1, d), dtype=cd, device=flat.device),
                       (ids, pos_c), flat[tok] * keep[:, None].to(cd))
-    return buf[:, :C], keep, (ids, pos_c, keep)
+    return buf[:, :C], (ids, pos_c, keep)
 
 
 def moe_combine(out_buf: torch.Tensor, gates: torch.Tensor, route
@@ -819,8 +819,8 @@ def moe(p: Params, x: torch.Tensor, cfg, wspec=None, aspec=None
     me = (idx[:, :1] == experts).to(torch.float32).mean(0)
     aux = E * torch.sum(me * probs.mean(0))
 
-    buf, _, route = moe_dispatch(flat, idx.reshape(T * k), E, C,
-                                 expert_parallel=not codes)
+    buf, route = moe_dispatch(flat, idx.reshape(T * k), E, C,
+                              expert_parallel=not codes)
     buf = constrain(buf, "moe_dispatch")            # EP all-to-all boundary
 
     if codes:                                       # serving codes

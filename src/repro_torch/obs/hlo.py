@@ -61,7 +61,6 @@ _COLLECTIVE_OPS = {
     "c10d.alltoall_base_": "all-to-all",
     "c10d.alltoall_": "all-to-all",
     "c10d.send": "collective-permute",
-    "_dtensor.shard_dim_alltoall": "all-to-all",
 }
 
 
@@ -105,9 +104,7 @@ class DispatchRecord(TorchDispatchMode):
     def __enter__(self):
         from torch.distributed.tensor import placement_types as PT
 
-        self._alltoall = getattr(PT, "shard_dim_alltoall", None)
-        if self._alltoall is None:    # no Python entry: the op alone
-            return super().__enter__()
+        self._alltoall = PT.shard_dim_alltoall
 
         def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
             self.events.append(Event("all-to-all",
@@ -126,8 +123,7 @@ class DispatchRecord(TorchDispatchMode):
     def __exit__(self, *exc):
         from torch.distributed.tensor import placement_types as PT
 
-        if self._alltoall is not None:
-            PT.shard_dim_alltoall = self._alltoall
+        PT.shard_dim_alltoall = self._alltoall
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

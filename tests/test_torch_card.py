@@ -1889,12 +1889,20 @@ def _dist_smoke(tmp_path, *args):
 
 @pytest.mark.cuda
 def test_dist_one_rank_nccl(card, tmp_path):
-    """One rank over NCCL: the 1x1 mesh, the sharded train step and the
-    w8 and w4 decode bit for bit the plain ones, restore_resharded (the
-    checks need no collective of two ranks, so none is deferred)."""
+    """One rank over NCCL: the 1x1 mesh, the sharded train steps (reduced
+    qwen2.5-3b and the MoE grok-1-314b, its dispatches too) and the w8
+    and w4 decode bit for bit the plain ones, restore_resharded (the
+    checks need no collective of two ranks, so none is deferred).  The
+    MoE step's first moments within 1e-4 of each leaf's largest: the
+    DTensor lookup's ``embedding`` backward sums a repeated token's rows
+    in another order than the plain ``table[tokens]``'s."""
     s = _dist_smoke(tmp_path, "--spawn", "1", "--backend", "nccl")
     assert s["world"] == 1 and not s["deferred"]
-    assert s["checks"]["train"]["meshes"]["1x1_acc"]["bitforbit"]
+    archs = s["checks"]["train"]["archs"]
+    assert archs["qwen2.5-3b"]["meshes"]["1x1_acc"]["bitforbit"]
+    moe = archs["grok-1-314b"]["meshes"]["1x1_acc"]
+    assert moe["bitforbit"] and moe["dispatch_bitforbit"]
+    assert max(moe["m_err"].values()) <= 1e-4, moe["m_err"]
     assert all(r["logit_err"] == 0 for r in
                s["checks"]["decode"]["bits"].values())
     assert s["checks"]["restore"]["ok"]

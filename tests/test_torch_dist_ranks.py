@@ -19,14 +19,17 @@ where JAX can run, against the JAX package:
   whose gradient is then a partial sum): the loss within rtol 2e-4 of the
   one-rank step, the loss after the update within rtol 5e-3 (the
   reference's ``test_sharded_train_step_runs_and_matches_single_device``),
-  the moments sharded;
+  the moments sharded; for the MoE step (with ``acc_shardings``) the first
+  moments leaf by leaf within 1e-4 of each leaf's largest, both steps
+  with float32 projections;
 * the MoE step's expert-parallel dispatch (each rank's tokens in their
   global slots, an all-to-all over ``"data"`` on 2x2): every dispatch
   buffer and kept mask of the step, made whole, equal the serial dispatch
   of the same tokens bit for bit (its batches overflow the capacity), and
   so do the buffer, kept mask and combined rows of a routing that sends
   half the entries to one expert, with 4 experts (split over ``"data"``)
-  and with 3 (``"data"`` does not divide them: their slots split);
+  and with 3 (``"data"`` does not divide them: their slots split); a
+  capacity that the slot axes do not divide raises ``ValueError``;
 * reduced ``qwen3-14b`` float32 decode at float weights and served at w8
   and w4 (column-sharded codes: each rank's columns with its slice of the
   scale), 2 steps on 2x2 then 2 re-placed on 1x4 (the k/v cut again):
@@ -141,6 +144,21 @@ def test_sharded_train_step_matches_single_rank(ranks, tag):
     assert r["moments_sharded"]
 
 
+@pytest.mark.parametrize("mesh", ["acc", "1x4"])
+def test_moe_step_first_moments_match_single_rank(ranks, mesh):
+    """The backward of the expert-parallel step, leaf by leaf: the first
+    moments after one step ((1 - b1) times the gradient), both steps with
+    float32 projections, within 1e-4 of each leaf's largest value (the
+    sums in another order differ by about 1e-6).  The losses alone would
+    pass a gradient scaled by a positive factor: AdamW's first update is
+    about sign(g)."""
+    err = _train(ranks, f"grok-1-314b-{mesh}")["m_err"]
+    for leaf in ("blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down",
+                 "blocks/moe/router/w", "blocks/attn/wo/w", "embed"):
+        assert leaf in err
+    assert max(err.values()) <= 1e-4, err
+
+
 @pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
 def test_moe_dispatch_bitforbit_in_the_step(ranks, mesh):
     """Each of the step's 4 dispatches (2 layers x 2 microbatches): the
@@ -161,6 +179,19 @@ def test_moe_dispatch_and_combine_bitforbit_on_overflow(ranks, mesh):
     for r in cases:
         assert r["dropped"] > 0
         assert r["dispatch_bitforbit"] and r["combine_bitforbit"]
+
+
+@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+def test_moe_dispatch_rejects_an_undivided_capacity(ranks, mesh):
+    """3 experts over a 2-wide ``"data"`` split their slots, and C = 41
+    does not split: every rank raises before any exchange.  ``"data"`` is
+    1 wide on 1x4: nothing is split."""
+    msg = _train(ranks, f"grok-1-314b-{mesh}")["undivided"]
+    if mesh == "1x4":
+        assert msg is None
+    else:
+        assert msg == ("MoE capacity 41 does not split over the 2 ranks "
+                       "of mesh axes ['data']")
 
 
 def _decode_matches_serial(r):

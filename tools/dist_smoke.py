@@ -35,10 +35,12 @@ Spawned ranks meet through a ``FileStore`` under ``DIR``; under
   mesh of the world's size (1x1; 2x1 and 1x2; 2x2 without and with
   ``acc_shardings`` and 1x4): loss rtol 2e-4 and loss after the update
   rtol 5e-3 against the one-rank step, the moments DTensors; bit for bit
-  on 1x1.  The MoE step's expert-parallel dispatches (an all-to-all over
+  on 1x1.  For the MoE step with ``acc_shardings`` also the first moments
+  leaf by leaf (both steps with float32 projections; :data:`M_TOL`).  The MoE step's expert-parallel dispatches (an all-to-all over
   ``"data"``): each buffer and kept mask, made whole, bit for bit the
-  serial dispatch of the same tokens, and a routing that overflows the
-  capacity through dispatch and combine against the serial ones; with
+  serial dispatch of the same tokens, a routing that overflows the
+  capacity through dispatch and combine against the serial ones, and the
+  ``ValueError`` of a capacity the slot axes do not divide; with
   ``--time`` also one step's collective bytes per rank, by kind;
 * ``decode`` — ``qwen3-14b`` at each of the sizes' weight bits, from the
   same codes as the serial decode, on a mesh with a model axis (1xN; at
@@ -321,6 +323,29 @@ TRAIN_ARCHS = {"qwen2.5-3b": dict(grad_accum=2),
                "grok-1-314b": dict(grad_accum=2, moe_capacity_factor=1.25)}
 
 
+# the first moments' largest difference from the one-rank step's, over
+# each leaf's largest, with float32 projections (their sums in another
+# order differ by about 1e-6; with the bf16 projections by up to 1.3e-2).
+# Not 0 on 1x1: on the card the DTensor lookup's ``embedding`` backward
+# sums a repeated token's rows in another order than ``table[tokens]``'s
+M_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def _f32_projections(torch):
+    """``layers.dense`` in float32 unless a caller names a dtype (bf16
+    otherwise, as the reference's projections), so that two steps differ
+    only in the order of float32 sums."""
+    from repro_torch.models import layers as L
+
+    saved = L.dense.__defaults__
+    L.dense.__defaults__ = (None, torch.float32)
+    try:
+        yield
+    finally:
+        L.dense.__defaults__ = saved
+
+
 def _train_cases(world):
     """(name, mesh shape, with ``acc_shardings``) of each sharded step."""
     return {1: [("1x1_acc", (1, 1), True)],
@@ -347,12 +372,13 @@ def _dispatches(torch, calls):
     inner = L.moe_dispatch
 
     def recorded(flat, ids, E, C, expert_parallel=True):
-        buf, keep, route = inner(flat, ids, E, C, expert_parallel)
+        buf, route = inner(flat, ids, E, C, expert_parallel)
         if D.is_dtensor(flat) and isinstance(route, D.ExpertDispatch):
             with torch.no_grad():
                 calls.append([t.full_tensor() for t in (flat, ids, buf,
-                                                        keep)] + [E, C])
-        return buf, keep, route
+                                                        route.keep)]
+                             + [E, C])
+        return buf, route
 
     L.moe_dispatch = recorded
     try:
@@ -369,7 +395,7 @@ def _dispatch_equal(torch, calls) -> dict:
     same, dropped = True, 0
     for flat, ids, buf, keep, E, C in calls:
         with torch.no_grad():
-            sbuf, skeep, _ = L.moe_dispatch(flat, ids, E, C)
+            sbuf, (_, _, skeep) = L.moe_dispatch(flat, ids, E, C)
         same = same and torch.equal(buf, sbuf) and torch.equal(keep, skeep)
         dropped += int((~skeep).sum())
     return {"dispatches": len(calls), "dispatch_bitforbit": bool(same),
@@ -396,10 +422,11 @@ def check_dispatch(torch, dev, mesh, E, T) -> dict:
     out = torch.randn(E, C, d, generator=g, device=dev)
     rows = NamedSharding(mesh, ("data", None))
     ids_d = NamedSharding(mesh, ("data",)).place(ids)
-    buf, keep, route = L.moe_dispatch(rows.place(flat), ids_d, E, C)
+    buf, route = L.moe_dispatch(rows.place(flat), ids_d, E, C)
     y = L.moe_combine(NamedSharding(mesh, ("data", None, None)).place(out),
                       rows.place(gates), route)
-    sbuf, skeep, sroute = L.moe_dispatch(flat, ids, E, C)
+    sbuf, sroute = L.moe_dispatch(flat, ids, E, C)
+    keep, skeep = route.keep, sroute[2]
     sy = L.moe_combine(out, gates, sroute)
     names = mesh.mesh_dim_names
     return {"E": E, "T": T,
@@ -417,6 +444,26 @@ def check_dispatch(torch, dev, mesh, E, T) -> dict:
 DISPATCH_CASES = ((4, 64), (3, 48))
 
 
+def check_undivided(torch, dev, mesh):
+    """The ``ValueError`` of a capacity that the slot axes do not divide
+    (3 experts over a 2-wide ``"data"`` split their slots; C = 41), or
+    None where nothing splits the slots."""
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.models import layers as L
+
+    T, E, d = 50, 3, 16
+    C = int(1.25 * T * 2 / E)
+    flat = NamedSharding(mesh, ("data", None)).place(
+        torch.zeros(T, d, device=dev))
+    ids = NamedSharding(mesh, ("data",)).place(
+        torch.arange(T * 2, device=dev) % E)
+    try:
+        L.moe_dispatch(flat, ids, E, C)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def train_arch(torch, dist, dev, arch, counted, timed):
     """``arch``'s sharded train step on each mesh of the world's size
     against the one-rank step."""
@@ -431,7 +478,7 @@ def train_arch(torch, dist, dev, arch, counted, timed):
     from repro_torch.models.testing import reduce_config
     from repro_torch.obs import hlo
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_flatten, tree_map
+    from repro_torch.tree import tree_flatten, tree_map, tree_paths
 
     cfg = reduce_config(get_config(arch), **TRAIN_ARCHS[arch])
     params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
@@ -441,6 +488,10 @@ def train_arch(torch, dist, dev, arch, counted, timed):
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
     step = make_train_step(cfg)
     p1, _, loss1 = step(params, adamw_init(params), batch)
+    if cfg.moe_experts:
+        with _f32_projections(torch):
+            _, o1, _ = step(params, adamw_init(params), batch)
+        names, m1 = tree_paths(o1.m), tree_flatten(o1.m)[0]
     mb = tree_map(lambda t: t[0], batch)
     after1 = float(lm.loss_fn(p1, mb, cfg))
     out = {"ok": True, "meshes": {}}
@@ -467,11 +518,26 @@ def train_arch(torch, dist, dev, arch, counted, timed):
             r["bitforbit"] if shape == (1, 1) else
             abs(r["loss2"] - r["loss1"]) <= 2e-4 * abs(r["loss1"])
             and abs(after2 - after1) <= 5e-3 * abs(after1))
+        if cfg.moe_experts and acc:
+            # the first moments ((1 - b1) times the gradient) leaf by
+            # leaf, each leaf's largest difference over its largest value,
+            # both steps with float32 projections: AdamW's first update is
+            # about sign(g), so the losses would not see a gradient scaled
+            # by a positive factor
+            with _f32_projections(torch):
+                _, o2f, _ = sharded(dp, adamw_init(dp), db)
+            r["m_err"] = {n: float((a.full_tensor() - b).abs().max()
+                                   / b.abs().max().clamp_min(1e-30))
+                          for n, a, b in zip(names, tree_flatten(o2f.m)[0],
+                                             m1)}
+            r["ok"] = r["ok"] and max(r["m_err"].values()) <= M_TOL
         if cfg.moe_experts:
             r.update(_dispatch_equal(torch, calls))
             r["overflow"] = [check_dispatch(torch, dev, mesh, E, T)
                              for E, T in DISPATCH_CASES]
+            r["undivided"] = check_undivided(torch, dev, mesh)
             r["ok"] = (r["ok"] and r["dispatches"] == 2 * cfg.n_layers
+                       and (r["undivided"] is None) == (shape[0] == 1)
                        and r["dispatch_bitforbit"] and all(
                            o["dropped"] > 0 and o["dispatch_bitforbit"]
                            and o["combine_bitforbit"]
