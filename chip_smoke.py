@@ -18,8 +18,10 @@ ends the run with a non-zero exit if it fails:
    (odd shapes, int8/int16/int32 codes, packed int4, L from 15 to 65535,
    grid and off-grid floats; the conv forms on every kernel / stride / pad
    the im2col node takes, with forced K splits: the int8 tensor-core
-   kernel, the float MVAU and the wide-code integer route on the CUDA-core
-   kernel; the int8 kernel with its GlobalAccPool epilogue at r2b's shape
+   kernel, its plane route (uint8 codes, and int16 codes as byte planes,
+   at their extremes; with the GAP epilogue too), the float MVAU and the
+   int32-code integer route on the CUDA-core kernel; the int8 kernel with
+   its GlobalAccPool epilogue at r2b's shape
    at batch 1 and 64, forced splits 1/2/8, repeated launches and a skip
    that wraps the int32 sums; the GAP kernel with and without a residual
    operand); then each held against it again and timed at the FSL path's
@@ -29,7 +31,9 @@ ends the run with a non-zero exit if it fails:
    im2col a PyTorch user would write, ``torch.add`` + ``torch.sum``); the
    MVAUs in conv form and in GEMM form on pre-built patches; the int32-code
    route in conv form; r2b's tail fused, unfused (conv, add, GAP) and the
-   conv alone.
+   conv alone; the plane route with 16-bit codes (four products) and
+   uint8 codes (one) beside ``torch.matmul`` in float64 + count and the
+   CUDA-core kernel on the same codes.
 2a. differential fuzz (path ``fuzz``): the random hardware-mapped graphs
    of ``repro_torch.core.fuzz`` -- the reference's corpus
    (``random_hw_graph``, ``REFERENCE_SEEDS``), the wide one at the
@@ -38,8 +42,8 @@ ends the run with a non-zero exit if it fails:
    ``GEMM_SEEDS``) -- each through ``check_differential`` on the card
    (interpreter == f32 == unfused int == fused int, bit for bit), then on
    the CPU: every card output equals its CPU counterpart and the CPU
-   interpreter's.  The float MVAU, the integer MVAU on its three routes
-   (int8 ``wgmma``, the small-M kernel, the CUDA cores), the int8 GEMM
+   interpreter's.  The float MVAU, the integer MVAU on its tensor-core
+   routes (int8 ``wgmma``, the small-M kernel, the plane route), the int8 GEMM
    form past the small-M limit, the fused GAP tail and the GAP kernel must
    each run; the seeds, failures (none allowed), seconds and, per route,
    the MVAU shapes that reached it are logged.
@@ -99,11 +103,13 @@ ends the run with a non-zero exit if it fails:
    first replay's digest equal to its record, answers bit for bit the
    first cluster's, ``add_replica`` warm with no lookup and no capture;
    warm seconds per bucket, miss against hit.
-5. wide codes: ``grid_point(8, 8)`` and ``paper_w16a16()`` int artifacts
-   (and w6a4 beside them) compiled on the card at the widest width their
-   lowering admits, every MVAU on the CUDA-core kernel with its im2col
-   folded in; card == CPU bit for bit on the timed batch-64 forward;
-   batch-64 latency.
+5. wide codes (path ``fsl_wide_codes``): ``grid_point(8, 8)`` and
+   ``paper_w16a16()`` int artifacts (and w6a4 beside them) compiled on the
+   card at the widest width their lowering admits, every MVAU on the
+   route its codes name (the plane route up to 16 bits, the 17-bit c2 of
+   the 16-bit baseline on the CUDA-core kernel) with its im2col folded in
+   and r2b with the GAP epilogue; card == CPU bit for bit at batch 2 and
+   on the timed batch-64 forward; batch-64 latency.
 6. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
    shapes, the 7 decode projections at batch 4, a prefill shape, forced K
@@ -251,8 +257,9 @@ ends the run with a non-zero exit if it fails:
    is their sum and must show ``mvau_int``, ``mvau_int_gap`` and
    ``qmatmul``.
 11. a JSON line of every kernel with its launches on its paths (the integer
-   MVAU's also by route: int8 ``wgmma``, the small-M kernel and CUDA
-   cores; the small-M kernel also as an entry of its own; ``qmatmul``'s by
+   MVAU's also by route: int8 ``wgmma``, the small-M kernel, the plane
+   route and CUDA cores; the small-M kernel and the plane route also as
+   entries of their own; ``qmatmul``'s by
    route, decode and rows, the many-row kernel also as an entry of its
    own over whisper's 32 launches) and its numbers,
    the card's name and power limit, and a last line
@@ -377,7 +384,7 @@ def check_kernels(torch, Q, KM, KG, ref):
                              ).to(torch.int32)
 
     err = {"mvau_int": 0.0, "mvau_int_gap": 0.0, "mvau": 0.0, "gap": 0.0,
-           "mvau_int_small_m": 0.0}
+           "mvau_int_small_m": 0.0, "mvau_int_planes": 0.0}
     # L > 64 takes the kernels' binary-search epilogue (sorted tables)
     cases = [(7, 36, 8, 15), (16, 130, 129, 15), (5, 64, 32, 255),
              (130, 200, 96, 512), (1000, 27, 64, 15), (300, 4608, 512, 15),
@@ -464,6 +471,14 @@ def check_kernels(torch, Q, KM, KG, ref):
         "(int32 codes up to 16 bits; int8, int16, int32 and packed int4 "
         "weights; 15, 255 and 65535 levels; conv form on every kernel/stride/"
         "pad with K split planned, 2 and 3, and the GEMM form)")
+
+    n_planes = check_plane_kernel(torch, KM, gen, err)
+    log(f"kernel check mvau_int plane route (int8 tensor cores): {n_planes} "
+        "cases bit for bit (uint8 codes x int8 weights; int16 codes, signed "
+        "and unsigned to 65535, x int16 weights' byte planes; codes at their "
+        "extremes half the time; 15 and 255 levels; conv form on every "
+        "kernel/stride/pad, C 3, 16, 24, N 8, 72, 136, K split planned, 2 "
+        "and 3; the GEMM form; the GAP epilogue at OH·OW 16 and 4)")
 
     n_fused = check_fused_gap(torch, Q, KM, ri, err)
     log(f"kernel check mvau_int with the GAP epilogue: {n_fused} cases bit "
@@ -716,6 +731,93 @@ def check_core_int_kernel(torch, Q, KM, gen, err):
     return n_cases
 
 
+# the plane route's operand forms: (activation dtype, code range, weight
+# range); "u16" codes are int16 tensors read as unsigned
+PLANE_KINDS = (("u8", (0, 256), (-128, 128)),
+               ("s16", (-32768, 32768), (-32768, 32768)),
+               ("u16", (0, 65536), (-32768, 32768)))
+
+
+def plane_operands(torch, KM, kind, xi, wi):
+    """Codes ``xi`` (NHWC) and weights ``wi`` (K, N) as the plane route
+    takes them: uint8 codes and int8 weights, or int16 codes (a wrapping
+    cast of the low 16 bits) and the weights' byte planes."""
+    if kind == "u8":
+        return xi.to(torch.uint8).cuda(), wi.to(torch.int8).cuda()
+    return (xi.to(torch.int32).to(torch.int16).cuda(),
+            KM.weight_planes(wi.to(torch.int16)).cuda())
+
+
+def extreme_codes(torch, gen, lo, hi, shape):
+    """Codes in [lo, hi): half of them at an end of the range."""
+    v = torch.randint(lo, hi, shape, generator=gen)
+    ends = torch.where(torch.rand(shape, generator=gen) < 0.5, lo, hi - 1)
+    return torch.where(torch.rand(shape, generator=gen) < 0.5, ends, v)
+
+
+def check_plane_kernel(torch, KM, gen, err):
+    """The plane route of ``mvau_conv_kernel`` against its plain version:
+    uint8 codes x int8 weights (one u8.s8 product) and int16 codes x the
+    byte planes of int16 weights (four products; the codes signed, and
+    unsigned up to 65535), codes at their extremes half the time, so that
+    int16 sums leave int32 and wrap alike in both; 15 and 255 levels; the
+    conv form on every kernel/stride/pad with K split planned, 2 and 3, the
+    GEMM form, and the GAP epilogue.  Bit for bit."""
+    n_cases = 0
+
+    def one(got, want, label):
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item() if want.numel() else 0
+        err["mvau_int_planes"] = max(err["mvau_int_planes"], float(d))
+        check(torch.equal(got, want), f"mvau_int plane route {label} "
+              f"differs by {d}")
+
+    for kind, (xlo, xhi), (wlo, whi) in PLANE_KINDS:
+        xu = kind == "u16"
+        for levels in (15, 255):
+            for kernel, stride, pad in KSP:
+                for c, n in ((3, 8), (16, 72), (24, 136)):
+                    k = kernel * kernel * c
+                    xi = extreme_codes(torch, gen, xlo, xhi, (3, 9, 9, c))
+                    wi = extreme_codes(torch, gen, wlo, whi, (k, n))
+                    x, w = plane_operands(torch, KM, kind, xi, wi)
+                    t = torch.sort(torch.randint(-2**31, 2**31 - 1,
+                                                 (n, levels), generator=gen),
+                                   dim=1).values.to(torch.int32).cuda()
+                    want = KM.mvau_int_conv_plain(x, w, t, kernel, stride,
+                                                  pad, -3, x_unsigned=xu)
+                    label = (f"{kind} L={levels} C={c} N={n} k/s/p="
+                             f"{kernel}/{stride}/{pad}")
+                    for splits in (None, 2, 3):
+                        one(KM.mvau_int_conv(x, w, t, kernel, stride, pad, -3,
+                                             x_unsigned=xu, splits=splits),
+                            want, f"{label} splits={splits}")
+                        n_cases += 1
+                    x2, w2 = plane_operands(torch, KM, kind,
+                                            xi.reshape(-1, c), wi[:c])
+                    one(KM.mvau_int(x2, w2, t, 5, x_unsigned=xu),
+                        KM.mvau_int_plain(x2, w2, t, 5, x_unsigned=xu),
+                        f"{label} GEMM form")
+                    n_cases += 1
+        for side, c, n in ((4, 16, 24), (2, 24, 72)):
+            xi = extreme_codes(torch, gen, xlo, xhi, (5, side, side, c))
+            wi = extreme_codes(torch, gen, wlo, whi, (9 * c, n))
+            x, w = plane_operands(torch, KM, kind, xi, wi)
+            t = torch.sort(torch.randint(-2**31, 2**31 - 1, (n, 15),
+                                         generator=gen), dim=1
+                           ).values.to(torch.int32).cuda()
+            skip = torch.randint(-2**20, 2**20, (5, side, side, n),
+                                 generator=gen).to(torch.int32).cuda()
+            want = KM.mvau_int_conv_gap_plain(x, w, t, skip, 3, 1, 1, 2,
+                                              x_unsigned=xu)
+            for splits in (None, 2):
+                one(KM.mvau_int_conv_gap(x, w, t, skip, 3, 1, 1, 2,
+                                         x_unsigned=xu, splits=splits),
+                    want, f"{kind} GAP epilogue {side}x{side}x{c} N={n}")
+                n_cases += 1
+    return n_cases
+
+
 def im2col_unfold(torch, x, kernel, stride, pad):
     """The patch rows as a PyTorch user would build them: pad, unfold,
     permute to patch order (kh, kw, c), copy."""
@@ -934,6 +1036,7 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         f"kernel_ms={g1_ms:.4f} library_ms={g1_lib:.4f} (torch.sum) bound_ms="
         f"{(4 * xg.numel() + 4 * BATCH * 8 * WIDTH) / PEAK_BYTES_PER_S * 1e3:.5f}")
     fused = time_fused_gap(torch, KM, KG, ref, gen, err)
+    planes = time_plane_kernels(torch, KM, ref, gen, err)
 
     def entry(name, source, replaces, t, ops_peak, **extra):
         ms, plain, lib, nbytes, ops = t
@@ -970,7 +1073,116 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         entry("mvau_int_gap", "src/repro_torch/csrc/mvau.cu",
               "src/repro/kernels/gap.py:41", fused.pop("t"), PEAK_INT8_OPS,
               **fused),
+        entry("mvau_int_planes", "src/repro_torch/csrc/mvau.cu",
+              "src/repro/kernels/mvau.py:195", planes.pop("t"),
+              PEAK_INT8_OPS, **planes),
     ]
+
+
+def time_plane_kernels(torch, KM, ref, gen, err):
+    """The plane route at the main path's 8 layer shapes at batch 64, 15
+    levels: 16-bit codes (unsigned to 65535) x 16-bit weights as byte
+    planes (the entry's numbers: four wgmma products a K-step), and uint8
+    codes x int8 weights (one u8.s8 product: ``u8_*``).  Each layer is
+    held against its plain version bit for bit twice: on codes at their
+    extremes (int32 sums that wrap, alike in both), and on the timed codes,
+    whose weights are bounded so that every sum fits int32 and the library
+    yardstick (``torch.matmul`` in float64 on pre-built patches, exact
+    below 2^53, then the threshold count) computes the same function.
+    Beside each: the CUDA-core kernel on the same codes as int32
+    (``core_ms``).  The bound counts each operand read once (int16 codes,
+    both weight planes, the tables) and the int32 codes written once,
+    against the int8 tensor-core rate over the products' operations."""
+    dev = "cuda"
+    L = 15
+    tot = {"16": [0.0, 0.0, 0.0, 0, 0], "u8": [0.0, 0.0, 0.0, 0, 0]}
+    core = {"16": 0.0, "u8": 0.0}
+    layers = []
+    for name, hw, cin, n in layer_shapes(WIDTH, BATCH, IMG):
+        m, k = BATCH * hw * hw, 9 * cin
+        row = {"layer": name}
+        for kind, (xlo, xhi), (wlo, whi) in (PLANE_KINDS[2], PLANE_KINDS[0]):
+            key = "u8" if kind == "u8" else "16"
+            xu = kind == "u16"
+            # extremes: wrapped sums, kernel == plain
+            xe = extreme_codes(torch, gen, xlo, xhi, (BATCH, hw, hw, cin))
+            we = extreme_codes(torch, gen, wlo, whi, (k, n))
+            x, w = plane_operands(torch, KM, kind, xe, we)
+            te = torch.sort(torch.randint(-2**31, 2**31 - 1, (n, L),
+                                          generator=gen), dim=1
+                            ).values.to(torch.int32).to(dev)
+            got = KM.mvau_int_conv(x, w, te, 3, 1, 1, x_unsigned=xu)
+            want = KM.mvau_int_conv_plain(x, w, te, 3, 1, 1, x_unsigned=xu)
+            torch.cuda.synchronize()
+            d = (got - want).abs().max().item()
+            err["mvau_int_planes"] = max(err["mvau_int_planes"], float(d))
+            check(torch.equal(got, want), f"mvau_int plane route {kind} "
+                  f"{name} at its extremes differs by {d}")
+            # the timed codes: every sum inside int32
+            wlim = min(whi, max(1, (2**31 - 1) // (k * (xhi - 1))))
+            xi = torch.randint(xlo, xhi, (BATCH, hw, hw, cin), generator=gen)
+            wi = torch.randint(-wlim, wlim, (k, n), generator=gen)
+            x, w = plane_operands(torch, KM, kind, xi, wi)
+            tr = (xhi - 1) * wlim * math.isqrt(k)
+            t = torch.sort(torch.randint(-tr, tr, (n, L), generator=gen),
+                           dim=1).values.to(torch.int32).to(dev)
+            x32 = xi.to(torch.int32).to(dev)
+            w_core = wi.to(torch.int8 if kind == "u8" else torch.int16
+                           ).to(dev)
+            xp = ref.im2col(x32, 3, 1, 1).reshape(m, k).to(torch.float64)
+            wd = wi.to(torch.float64).to(dev)
+
+            def lib():
+                acc = torch.matmul(xp, wd).to(torch.int32)
+                return ref.threshold_counts_fast(acc, t)
+
+            got = KM.mvau_int_conv(x, w, t, 3, 1, 1, x_unsigned=xu)
+            want = KM.mvau_int_conv_plain(x, w, t, 3, 1, 1, x_unsigned=xu)
+            check(torch.equal(got, want)
+                  and torch.equal(got.reshape(m, n), lib())
+                  and torch.equal(got, KM.mvau_int_conv(x32, w_core, t, 3, 1,
+                                                        1)),
+                  f"mvau_int plane route {kind} {name}: kernel, plain, "
+                  "library and CUDA-core route disagree")
+            ms = cuda_ms(torch, lambda: KM.mvau_int_conv(x, w, t, 3, 1, 1,
+                                                         x_unsigned=xu))
+            plain = cuda_ms(torch, lambda: KM.mvau_int_conv_plain(
+                x, w, t, 3, 1, 1, x_unsigned=xu), reps=3)
+            lib_ms = cuda_ms(torch, lib, reps=5)
+            core_ms = cuda_ms(torch, lambda: KM.mvau_int_conv(
+                x32, w_core, t, 3, 1, 1))
+            prods = 1 if kind == "u8" else 4
+            nbytes = (x.element_size() * x.numel() + w.numel()
+                      + 4 * t.numel() + 4 * m * n)
+            ops = prods * 2 * m * k * n
+            for i, v in enumerate((ms, plain, lib_ms, nbytes, ops)):
+                tot[key][i] += v
+            core[key] += core_ms
+            bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3
+            row[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                        "bound_ms": bound, "core_ms": core_ms}
+            log(f"kernel mvau_int_planes {kind:3s} {name:4s} M={m:6d} "
+                f"K={k:5d} N={n:4d}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+                f"({prods} products) cuda_core_ms={core_ms:.4f}")
+        layers.append(row)
+    u8 = tot["u8"]
+    u8_b = max(u8[3] / PEAK_BYTES_PER_S, u8[4] / PEAK_INT8_OPS) * 1e3
+    b16 = max(tot["16"][3] / PEAK_BYTES_PER_S,
+              tot["16"][4] / PEAK_INT8_OPS) * 1e3
+    log(f"kernel mvau_int_planes sum over the 8 layers at batch {BATCH}: "
+        f"16-bit byte planes {tot['16'][0]:.4f} ms (bound {b16:.4f} ms, "
+        f"library {tot['16'][2]:.4f} ms, CUDA-core kernel on the same codes "
+        f"{core['16']:.4f} ms); uint8 one plane {u8[0]:.4f} ms (bound "
+        f"{u8_b:.4f} ms, library {u8[2]:.4f} ms, CUDA-core kernel "
+        f"{core['u8']:.4f} ms)")
+    return {"t": tot["16"],
+            "form": "conv, 16-bit codes as byte planes (4 wgmma products "
+                    "a K-step), 15 levels; u8_*: uint8 codes x int8 "
+                    "weights, one u8.s8 product",
+            "cuda_core_ms": core["16"], "u8_ms": u8[0], "u8_plain_ms": u8[1],
+            "u8_library_ms": u8[2], "u8_bound_ms": u8_b,
+            "u8_cuda_core_ms": core["u8"], "layer_ms": layers}
 
 
 def time_fused_gap(torch, KM, KG, ref, gen, err):
@@ -1193,13 +1405,13 @@ def main_path(torch, np, B):
 
     f_int, d = delta(lambda: dm_int(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0,
-                "qmatmul_rows": 0},
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 8, "gap": 1, "qmatmul": 0,
-                "qmatmul_rows": 0},
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 8,
+                "gap": 1, "qmatmul": 0, "qmatmul_rows": 0},
           f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
     check(d["mvau"] == 8, f"interpreter launches {d}")
@@ -1210,8 +1422,8 @@ def main_path(torch, np, B):
                         RESNET9_BUILD_STEPS)
     (f_hw,), d = delta(lambda: execute(hw, {"x": x_q}))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 8, "gap": 0, "qmatmul": 0,
-                "qmatmul_rows": 0},
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 8,
+                "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"build_dataflow graph launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
     check(f_int.dtype == torch.float32 and tuple(f_int.shape) == (BATCH, 512),
@@ -1240,8 +1452,8 @@ def main_path(torch, np, B):
     unfused = unfused_lowering(dm_int)
     f_unf, d = delta(lambda: unfused(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 1, "qmatmul": 0,
-                "qmatmul_rows": 0}
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "gap": 1, "qmatmul": 0, "qmatmul_rows": 0}
           and torch.equal(f_unf, f_int),
           f"unfused int forward: launches {d}, or features differ")
     B.launch_counts.update(saved)
@@ -1250,14 +1462,14 @@ def main_path(torch, np, B):
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
     check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 0, "gap": 0, "qmatmul": 0,
-                "qmatmul_rows": 0},
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_small_m": 0, "mvau": 16, "gap": 2, "qmatmul": 0,
-                "qmatmul_rows": 0},
+                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 16,
+                "gap": 2, "qmatmul": 0, "qmatmul_rows": 0},
           f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
     check(torch.equal(f_flip, pipe.features(params, x)),
@@ -1493,11 +1705,15 @@ def fuzz_path(torch, np, B):
     log(f"  fuzz int artifacts: {tails} fused GAP tails, {residuals} "
         f"residual GAPs, {float_adds} float adds; launches {counts}")
     check(not failures, f"fuzz: {len(failures)} failures: {failures[:5]}")
+    # the corpora's codes fit 16 bits: the integer MVAUs run the int8
+    # wgmma, small-M and plane routes (the CUDA-core integer route is held
+    # by the kernel phase's int32 codes)
     check(counts["mvau"] > 0 and counts["mvau_int_gap"] > 0
-          and counts["gap"] > 0 and counts["mvau_int_wide"] > 0
+          and counts["gap"] > 0 and counts["mvau_int_planes"] > 0
           and counts["mvau_int_small_m"] > 0
           and counts["mvau_int"] - counts["mvau_int_wide"]
-          - counts["mvau_int_small_m"] > 0,
+          - counts["mvau_int_small_m"] - counts["mvau_int_planes"] > 0
+          and bool(routes.get("planes")),
           f"fuzz path: a kernel never ran: {counts}")
     check(bool(gemm_wgmma) and bool(routes.get("int8_small_m")),
           "fuzz path: the int8 GEMM form did not reach both its routes")
@@ -2337,17 +2553,22 @@ def _cluster_run(torch, np, B, cache_dir):
 
 def wide_code_path(torch, np, B):
     """The int artifacts whose codes do not fit int8 -- ``grid_point(8, 8)``
-    (8-bit unsigned activations) and the paper's 16-bit baseline
-    ``paper_w16a16()`` (16-bit weights stored as int16) -- compiled on the
-    card at the widest of widths 64, 32, 16, 8 that the integer lowering
-    admits (it refuses a layer whose reachable sums leave int32), every
-    MVAU on the CUDA-core kernel with its im2col folded in: card == CPU bit
-    for bit on a small batch, launches per forward, batch-64 latency beside
-    w6a4's.  Returns the launch counts of the counted forwards."""
+    (8-bit unsigned activations; 9-bit at c2, whose input is a residual
+    sum) and the paper's 16-bit baseline ``paper_w16a16()`` (16-bit codes;
+    17-bit at c2) -- compiled on the card at the widest of widths 64, 32,
+    16, 8 that the integer lowering admits (it refuses a layer whose
+    reachable sums leave int32): every MVAU whose codes fit 16 bits on the
+    tensor cores' plane route (uint8 codes as one u8.s8 product, wider ones
+    as byte planes), the 17-bit one on the CUDA-core kernel, each with its
+    im2col folded in and r2b with the GAP epilogue: card == CPU bit for bit
+    on a small batch and at batch 64, launches per forward, batch-64
+    latency beside w6a4's.  Returns the launch counts of the counted
+    forwards."""
     import repro_torch
     from repro_torch.core.graph import GraphBuildError
     from repro_torch.core.quant import QuantConfig
     from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import resnet9
 
     data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
@@ -2357,6 +2578,8 @@ def wide_code_path(torch, np, B):
     x = torch.from_numpy(x_np).cuda()
     counts = {k: 0 for k in B.launch_counts}
     lat = {}
+    labels = {"int8": "fused-cuda", "planes": "fused-cuda-planes",
+              "core": "fused-cuda-core"}
     for label, qcfg in (("grid_point(8, 8)", QuantConfig.grid_point(8, 8)),
                         ("paper_w16a16()", QuantConfig.paper_w16a16()),
                         ("paper_w6a4()", QuantConfig.paper_w6a4())):
@@ -2375,17 +2598,25 @@ def wide_code_path(torch, np, B):
         else:
             raise SmokeFailure(f"{label}: no width compiles")
         secs = time.perf_counter() - t0
-        layers = [(n.outputs[0].split("_")[0], r["kernel"],
-                   str(dm.graph.initializers[n.inputs[1]].dtype))
-                  for n, r in zip(dm.graph.nodes, dm.dispatch_table())
-                  if n.op == "mvau_int"]
+        g = dm.graph
+        routes = {n.outputs[0]: kops.int_route_of(n, g)
+                  for n in g.nodes if n.op == "mvau_int"}
+        table = {r["tensor"]: r["kernel"] for r in dm.dispatch_table()}
+        layers = [(n.outputs[0].split("_")[0], table[n.outputs[0]],
+                   f"{g.dtypes[n.inputs[0]].total_bits}-bit codes",
+                   f"{routes[n.outputs[0]][2]} products",
+                   str(g.initializers[n.inputs[1]].dtype))
+                  for n in g.nodes if n.op == "mvau_int"]
         int8 = label == "paper_w6a4()"
-        want = "fused-cuda" if int8 else "fused-cuda-core"
-        # the int8 route folds r2b's add and GAP into its MVAU, the
-        # CUDA-core route the add into the GAP kernel
-        check(all(r["kernel"] == want for r in dm.dispatch_table()
-                  if r["op"] in ("mvau_int", "im2col"))
-              and len(dm.apply.folded) == (10 if int8 else 9)
+        # every MVAU on the tensor cores but one whose codes pass 16 bits
+        want = {t: ("int8" if int8 else "planes"
+                    if g.dtypes[n.inputs[0]].total_bits <= 16 else "core")
+                for n in g.nodes if n.op == "mvau_int"
+                for t in [n.outputs[0]]}
+        wide = sum(r == "core" for r in want.values())
+        check({t: r[0] for t, r in routes.items()} == want
+              and all(table[t] == labels[r] for t, r in want.items())
+              and len(dm.apply.folded) == 10
               and "r2b_res" in dm.apply.folded,
               f"{label}: {layers}, folded {dm.apply.folded}")
         params_cpu = {k: {kk: v.cpu() for kk, v in blk.items()}
@@ -2398,11 +2629,10 @@ def wide_code_path(torch, np, B):
         f = dm(x[:2])
         torch.cuda.synchronize()
         run = dict(B.launch_counts)
-        check(run == {"mvau_int": 8, "mvau_int_gap": int(int8),
-                      "mvau_int_wide": 8 * (1 - int(int8)),
-                      "mvau_int_small_m": 0, "mvau": 0,
-                      "gap": 1 - int(int8), "qmatmul": 0,
-                      "qmatmul_rows": 0},
+        check(run == {"mvau_int": 8, "mvau_int_gap": 1,
+                      "mvau_int_planes": 0 if int8 else 8 - wide,
+                      "mvau_int_wide": wide, "mvau_int_small_m": 0,
+                      "mvau": 0, "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
             counts[k] += v
@@ -2416,11 +2646,10 @@ def wide_code_path(torch, np, B):
         lat[label] = wall_ms(torch, lambda: dm(x), reps=5)
         log(f"{label} int artifact at width {width} (compiled on the card in "
             f"{secs:.2f} s, weight bytes {dm.weight_bytes()}): card == CPU "
-            f"bit for bit at batch 2 and {BATCH}; 8 mvau_int "
-            f"({int(int8)} with the GAP epilogue) + {1 - int(int8)} gap "
-            f"launches a forward; batch "
-            f"{BATCH} {lat[label]:.3f} ms ({BATCH / lat[label] * 1e3:.1f} "
-            f"images/s); layers (name, kernel, weight codes): {layers}")
+            f"bit for bit at batch 2 and {BATCH}; launches a forward {run}; "
+            f"batch {BATCH} {lat[label]:.3f} ms ({BATCH / lat[label] * 1e3:.1f}"
+            f" images/s); layers (name, kernel, codes, products, weight "
+            f"codes): {layers}")
         del dm, dm_cpu, params, params_cpu
     log(f"latency at batch {BATCH}: paper_w16a16() "
         f"{lat['paper_w16a16()']:.3f} ms, grid_point(8, 8) "
@@ -5216,6 +5445,8 @@ def main() -> int:
              "lm_tiny_decode": tiny_counts, "lm_tiny_serve": tiny_serve_counts,
              "fsl_train": train_counts, "dse": dse_counts,
              "lm_train": lm_train_counts, "dist": dist_counts}
+    planes = next(k for k in kernels if k["name"] == "mvau_int_planes")
+    kernels.remove(planes)
     for k in kernels:
         by_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches_by_path"] = by_path
@@ -5298,19 +5529,33 @@ def main() -> int:
         check(k["launches_by_path"]["dist"] > 0,
               f"kernel {name} never ran on the dist path")
     # the integer MVAU's routes: int8 wgmma, the int8 GEMM form at decode
-    # shapes (mvau_small_m_kernel), and the CUDA cores for wider codes
-    # (grid_point(8, 8), the 16-bit Table II row)
+    # shapes (mvau_small_m_kernel), the plane route of the tensor cores for
+    # codes of up to 16 bits (grid_point(8, 8), the 8- and 16-bit Table II
+    # rows, paper_w16a16()), and the CUDA cores for wider codes (the 16-bit
+    # artifacts' c2, whose input is a 17-bit residual sum)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
     mv["launches_by_route"] = {
         "int8_wgmma": {p: c["mvau_int"] - c["mvau_int_wide"]
-                       - c["mvau_int_small_m"] for p, c in paths.items()},
+                       - c["mvau_int_small_m"] - c["mvau_int_planes"]
+                       for p, c in paths.items()},
         "int8_small_m": {p: c["mvau_int_small_m"] for p, c in paths.items()},
+        "planes": {p: c["mvau_int_planes"] for p, c in paths.items()},
         "cuda_core": {p: c["mvau_int_wide"] for p, c in paths.items()}}
-    for route in ("int8_wgmma", "cuda_core"):
+    for route in ("int8_wgmma", "planes"):
         by_path = mv["launches_by_route"][route]
         check(by_path["fsl_train"] > 0 and by_path["dse"] > 0,
               f"mvau_int's {route} route never ran on the training or the "
               f"DSE path: {by_path}")
+    # the plane route: its own entry, its launches those of the wide-code
+    # artifacts' counted forwards (its main path), training, the DSE and
+    # the fuzz beside them
+    planes["launches_by_path"] = mv["launches_by_route"]["planes"]
+    planes["launches"] = planes["launches_by_path"]["fsl_wide_codes"]
+    check(all(planes["launches_by_path"][p] > 0 for p in
+              ("fsl_wide_codes", "fsl_train", "dse", "fuzz")),
+          f"the plane route never ran on its paths: "
+          f"{planes['launches_by_path']}")
+    kernels.append(planes)
     # the small-M kernel: its own entry, its launches those of lm-tiny's
     # eager int steps (its main path), the replays and the fuzz beside them
     r1 = mv_lm["M1"]
@@ -5338,7 +5583,7 @@ def main() -> int:
     # fused GAP tail and the GAP kernel (checked in fuzz_path, read here
     # again)
     check(all(mv["launches_by_route"][r]["fuzz"] > 0 for r in
-              ("int8_wgmma", "int8_small_m", "cuda_core"))
+              ("int8_wgmma", "int8_small_m", "planes"))
           and all(paths["fuzz"][n] > 0 for n in ("mvau", "mvau_int_gap",
                                                    "gap")),
           f"fuzz path: launches {paths['fuzz']}")

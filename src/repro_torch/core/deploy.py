@@ -55,14 +55,18 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
       im2col node's input, so the patch tensor never exists;
     * each tail ``im2col -> mvau_int -> add -> global_acc_pool`` that
       :func:`repro_torch.kernels.ops.gap_tails` matches: one call of the
-      int8 conv MVAU with the residual add and the pool in its epilogue,
-      run where the pool stands (every operand of the chain exists there);
+      tensor-core conv MVAU with the residual add and the pool in its
+      epilogue, run where the pool stands (every operand of the chain
+      exists there);
     * each other ``add -> global_acc_pool`` pair
       (:func:`repro_torch.kernels.ops.residual_gaps`): one GAP call on both
       operands of the add.
 
-    Threshold tables that are initializers are prepared once here
-    (:func:`repro_torch.kernels.ops.prepare_tables`), not on every call.
+    Threshold tables that are initializers, each ``mvau_int`` node's card
+    route (from the specs in ``graph.dtypes``) and the weights its route
+    reads are prepared once here
+    (:func:`repro_torch.kernels.ops.prepare_tables`), not on every call; a
+    step of a node with prepared weights reads them as its last operand.
 
     ``fold_pools=False`` folds only the ``im2col`` nodes, so each ``add``
     and ``global_acc_pool`` runs as a step of its own: the lowering the
@@ -83,7 +87,7 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
                               f"implementation for ops {missing}")
     consts = {k: as_tensor(v, dev) for k, v in graph.initializers.items()}
     nodes = [n.copy() for n in graph.nodes]       # freeze against later edits
-    kops.prepare_tables(nodes, graph.initializers, consts)
+    kops.prepare_tables(nodes, graph.initializers, consts, graph.dtypes)
     input_names = tuple(graph.inputs)
     output_names = tuple(graph.outputs)
     pairs = kops.conv_pairs(nodes, output_names)
@@ -96,6 +100,10 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
         folded |= {mv.outputs[0], add.outputs[0]}
     folded |= {add.outputs[0] for add in residuals.values()}
     steps = []                                    # (fn, input names, outputs)
+    def prepared(n):
+        return ((n.attrs["w_kernel"],) if n.op == "mvau_int"
+                and "w_kernel" in n.attrs else ())
+
     for node in nodes:
         out = node.outputs[0]
         if out in folded:
@@ -108,7 +116,8 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
             steps.append((functools.partial(kops.conv_mvau_int_gap_node,
                                             convs[mv.inputs[0]], mv, node),
                           (convs[mv.inputs[0]].inputs[0],)
-                          + tuple(mv.inputs[1:]) + (skip,), node.outputs))
+                          + tuple(mv.inputs[1:]) + (skip,) + prepared(mv),
+                          node.outputs))
         elif out in residuals:
             steps.append((functools.partial(impls[node.op], node),
                           tuple(residuals[out].inputs), node.outputs))
@@ -116,11 +125,12 @@ def lower_graph(graph: Graph, device: DeviceLike = None,
             run = (kops.conv_mvau_int_node if node.op == "mvau_int"
                    else kops.conv_mvau_node)
             steps.append((functools.partial(run, conv, node),
-                          (conv.inputs[0],) + tuple(node.inputs[1:]),
-                          node.outputs))
+                          (conv.inputs[0],) + tuple(node.inputs[1:])
+                          + prepared(node), node.outputs))
         else:
             steps.append((functools.partial(impls[node.op], node),
-                          tuple(node.inputs), node.outputs))
+                          tuple(node.inputs) + prepared(node),
+                          node.outputs))
 
     def apply_fn(*inputs):
         if len(inputs) != len(input_names):
@@ -369,12 +379,13 @@ class DeployedModel:
         from repro_torch.kernels import ops as kops
 
         emulated = self.device.type != "cuda"
-        folded = kops.folded_into(self.graph.nodes, self.graph.outputs)
+        g = self.graph
+        folded = kops.folded_into(g.nodes, g.outputs, g)
         rows = []
-        for n in self.graph.nodes:
+        for n in g.nodes:
             rows.append({"tensor": n.outputs[0], "op": n.op,
                          "kernel": kops.kernel_dispatch(
-                             n, emulated, folded.get(n.outputs[0]))})
+                             n, emulated, folded.get(n.outputs[0]), g)})
         return rows
 
     def profile(self, example, *, xla: bool = True,

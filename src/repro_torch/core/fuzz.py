@@ -446,8 +446,9 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
                      ) -> Dict[str, Any]:
     """What the card's kernels get from artifact ``dm`` on input ``x``: per
     MVAU node its route (``int8`` wgmma, ``int8_small_m`` for the int8
-    GEMM form the small-M kernel takes, ``core`` for integer codes that do
-    not fit int8, ``f32`` for the float MVAU), its form (``conv``: its
+    GEMM form the small-M kernel takes, ``planes`` for codes of up to 16
+    bits on the same tensor cores, ``core`` for wider codes on the CUDA
+    cores, ``f32`` for the float MVAU), its form (``conv``: its
     ``im2col`` folded in, or ``gemm``), GEMM shape M x K x N,
     levels L and the K splits the planner gives it on ``sms``
     multiprocessors; and the counts of fused GAP tails, residual GAPs and
@@ -470,25 +471,23 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
         nn, levels = g.shapes[n.outputs[0]][-1], g.shapes[n.inputs[2]][-1]
         if n.op == "mvau":
             route = "f32"
-        elif not n.attrs.get("int8_ok"):
-            route = "core"
-        elif (n.inputs[0] not in conv
-              and kmvau.int8_gemm_route(m, int(levels)) == "small_m"):
-            route = "int8_small_m"
         else:
-            route = "int8"
-        planner = {"int8": kmvau.tc_splits,
+            route = kops.int_route_of(n, g)[0]
+            if (route == "int8" and n.inputs[0] not in conv
+                    and kmvau.int8_gemm_route(m, int(levels)) == "small_m"):
+                route = "int8_small_m"
+        planner = {"int8": kmvau.tc_splits, "planes": kmvau.tc_splits,
                    "int8_small_m": lambda *_: 1}.get(route, kmvau.core_splits)
         nodes.append({"tensor": n.outputs[0], "route": route,
                       "form": "conv" if n.inputs[0] in conv else "gemm",
                       "m": m, "k": k, "n": int(nn), "levels": int(levels),
                       "splits": planner(m, int(nn), k, sms)})
-    tails = kops.gap_tails(g.nodes, g.outputs)
+    tails = kops.gap_tails(g.nodes, g.outputs, g)
     float_adds = [n for n in g.nodes if n.op == "add" and any(
         (p := g.producer(i)) is not None and p.op == "dequantize"
         for i in n.inputs)]
     return {"mvau": nodes, "gap_tails": len(tails),
             "residual_gaps": len(kops.residual_gaps(g.nodes, g.outputs,
-                                                    tails)),
+                                                    tails, g)),
             "float_adds": len(float_adds)}
 

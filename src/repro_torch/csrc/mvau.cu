@@ -41,12 +41,16 @@
 //   float epilogue.  Bound by bytes on this card (about 116 MB at the w6a4
 //   ResNet-9's shapes at batch 64, 0.035 ms at 3.35 TB/s); measured on the
 //   H100 (PERF.md) it is held by instruction issue: the dense threshold
-//   count, the B transposes, each tile's prologue.
+//   count, the B transposes, each tile's prologue.  Its plane route takes
+//   integer codes of up to 16 bits on the same tensor cores: uint8 codes
+//   (0..255, the a8 configs) as one wgmma u8.s8, and codes of 9 to 16 bits
+//   (w16a16 and the like) as byte planes, four wgmma products recombined
+//   exactly (see the notes above the kernel).
 // * mvau_core_kernel -- everything else on the CUDA cores: the float MVAU
-//   (float32 FMA, never TF32), and integer codes that do not fit int8
-//   (int32 activation codes x int8, int16, int32 or packed int4 weights,
-//   exact int32 multiply-add): the 8-bit unsigned activations of a8
-//   configs and the 9- to 16-bit weights of w16a16 and the like.  A 128 x
+//   (float32 FMA, never TF32), and integer codes wider than 16 bits, or
+//   whose K is past the byte planes' int32 limit (int32 activation codes
+//   x int8, int16, int32 or packed int4 weights, exact int32 multiply-add:
+//   the 17-bit residual sums that feed w16a16's c2).  A 128 x
 //   128 (or 128 x 64) block tile of 8 x 8 register-tiled accumulators a
 //   thread, a 4-stage cp.async ring of 16-k stages, split K in one launch.
 //   Bound by operations (the float ResNet-9 at batch 64: 96.6 GFLOP, 0.72
@@ -62,9 +66,10 @@
 // artifact: L = 15) densely from shared memory.  Longer tables (8- to
 // 16-bit activations, L = 255 to 65535) are binary-searched: by the
 // small-M kernel in shared memory, where its block's rows are staged at
-// the start (L <= 2048), several searches a thread in lockstep; by the
-// other two per output in global memory, where the block's rows stay in
-// L1/L2 (mvau_conv_kernel's for rows < M only).  Either way about
+// the start (L <= 2048), several searches a thread in lockstep; by
+// mvau_conv_kernel in global memory, a thread's 8 searches in lockstep,
+// the block's rows staying in L1/L2; by mvau_core_kernel per output in
+// global memory.  Either way about
 // ceil(log2(L + 1)) loads instead of L compares.  That needs each row
 // sorted ascending, which the integer lowering guarantees for every
 // mvau_int table (``t_sorted``);
@@ -173,6 +178,34 @@ static_assert(TC_BM * TC_BN * 4 <= TC_RING,
 constexpr int TC_MI = 2;   // 64-row wgmma blocks a thread's accumulators span
 constexpr int TC_NJ = 8;   // 8-column accumulator tiles of a warpgroup
 
+// What the A and B tiles of one launch hold (see the byte-plane notes above
+// mvau_conv_kernel).
+enum PlaneKind {
+  PL_S8 = 0,      // int8 x int8 (or packed int4): s8.s8
+  PL_U8 = 1,      // uint8 codes (0..255) x int8: u8.s8
+  PL_BYTES = 2,   // 16-bit codes x 16-bit weights as byte planes, four
+                  // products; the codes' high byte signed (s8)
+  PL_BYTES_U = 3, // the same, the codes' high byte unsigned (u8): 16-bit
+                  // unsigned codes up to 65535
+};
+// Shared memory of the byte-plane route: a ring of raw 16-bit A tiles (rows
+// of 144 bytes: a warp's 16-byte reads of 8 rows x 4 segments then fill the
+// banks once), a ring of B tiles of both weight planes, two buffers of A's
+// byte planes (written one tile ahead of the wgmma that reads them), then
+// the threshold rows.  Every tile starts on a multiple of 1,024 bytes.
+constexpr int PB_RAW_STRIDE = 2 * TC_BK + 16;
+constexpr int PB_RAW_STAGE = TC_BM * PB_RAW_STRIDE;                // 18,432 B
+constexpr int PB_B_OFF = TC_STAGES * PB_RAW_STAGE;                 // 73,728 B
+constexpr int PB_A_OFF = PB_B_OFF + TC_STAGES * 2 * TC_BN * TC_BK;  // 139,264
+constexpr int PB_RING = PB_A_OFF + 2 * 2 * TC_BM * TC_BK;           // 172,032
+constexpr int PB_SMEM_MAX = PB_RING + TC_BN * 65 * 4;              // 205,312
+// The longest K whose byte-plane sums stay inside int32: a k adds at most
+// 255 * 255 (ll), 255 * 128 + 255 * 255 < 2 * 255 * 255 (mid) or 255 * 128
+// (hh) to a plane's sum.
+constexpr int PLANE_MAX_K = 2147483647 / (2 * 255 * 255);          // 16,512
+static_assert(TC_BM * TC_BN * 4 <= PB_RAW_STAGE * TC_STAGES,
+              "the GAP epilogue stages its skip tile in the raw ring");
+
 struct ConvGeom {
   int H, W, C;             // activation image and channels
   int KH, KW, stride, pad;
@@ -235,25 +268,41 @@ __device__ __forceinline__ void warpgroup_fence(int (&acc)[MI][NJ][4]) {
       for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(acc[i][j][r])::"memory");
 }
 
-// D (64 x 64, s32) += A (64 x 32, s8) B (32 x 64, s8), both from shared memory
+// D (64 x 64, s32) += A (64 x 32) B (32 x 64), both from shared memory, the
+// operands 8-bit codes: signed (.s8) or unsigned (.u8, AU / BU).  No
+// .satfinite: the sums are exact int32 (see the byte-plane route below).
+#define REPRO_WGMMA_D(d)                                                     \
+  "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),               \
+      "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),           \
+      "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),           \
+      "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),           \
+      "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),           \
+      "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),           \
+      "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),           \
+      "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+#define REPRO_WGMMA(types)                                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32." types " "                \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"                               \
+      : REPRO_WGMMA_D(d)                                                     \
+      : "l"(da), "l"(db)                                                     \
+      : "memory")
+
+template <bool AU = false, bool BU = false>
 __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[8][4], uint64_t da,
                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p;\n}\n"
-      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
-        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
-        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
-        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
-        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
-        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
-        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
-        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
-      : "l"(da), "l"(db)
-      : "memory");
+  if constexpr (!AU && !BU) {
+    REPRO_WGMMA("s8.s8");
+  } else if constexpr (AU && !BU) {
+    REPRO_WGMMA("u8.s8");
+  } else if constexpr (!AU && BU) {
+    REPRO_WGMMA("s8.u8");
+  } else {
+    REPRO_WGMMA("u8.u8");
+  }
 }
 
 // Row stride, in words, of the staged threshold block: odd, so that the 4
@@ -353,14 +402,44 @@ struct Epilogue {
   int pool;              // output rows per image (OH * OW, dividing 16), or 0
 };
 
-template <int VEC, int WK, int EPI>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
+// Byte planes (PL_BYTES, PL_BYTES_U): integer codes of 9 to 16 bits on
+// either side of the product, exact on the int8 tensor cores.  A code is
+// c = 256 hi + lo with lo = c & 255 in [0, 255] (u8) and hi = c >> 8 in
+// the code's own sign (s8, or u8 for unsigned codes up to 65535), so
+//   sum_k x w = ll + 256 mid + 65536 hh,   ll = sum xl wl,
+//   mid = sum (xl wh + xh wl),   hh = sum xh wh,
+// each product one wgmma with its own operand types (u8.u8, u8.s8, s8.u8
+// or u8.u8, s8.s8 or u8.s8).  The three sums are three accumulator sets of
+// the same 128 x 128 tile, 192 registers a thread, so the route runs one
+// block an SM (__launch_bounds__(256, 1)) rather than split the tile: the
+// tile keeps its 16 wgmma a warpgroup per K-tile, and the split-K and
+// GlobalAccPool epilogues stay as they are.  While K <= PLANE_MAX_K each
+// sum stays inside int32 (no .satfinite, nothing wraps); the three are
+// added as uint32 (hh << 16) + (mid << 8) + ll, which is the exact sum
+// modulo 2^32, and that sum lies in int32: the integer lowering refuses any
+// layer whose reachable partial sums leave it.
+// * A: the (B, H, W, C) int16 codes (the low 16 bits of each code) by
+//   16-byte cp.async into a ring of raw tiles; after the wait each thread
+//   splits the codes it loaded with byte permutes into the lo and hi
+//   planes of one of two A buffers (64-byte swizzle), then the block syncs
+//   and the tensor cores read both planes.  Odd C: 2-byte loads.
+// * B: the weights' two byte planes, prepared once when the graph is
+//   lowered as (2, N, Kp) int8, K-major and K padded to a multiple of 16
+//   with zeros, so each plane's tile is a 16-byte cp.async copy with no
+//   transpose.
+// PL_U8 (8-bit unsigned codes, 0..255, against int8 weights: the DSE's
+// (8, 8) point) is the int8 kernel with a u8 A operand.
+template <int VEC, int WK, int EPI, int PL>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  PL >= PL_BYTES ? 1 : 2)
+mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
                  const void* __restrict__ w, bool w_vec,
                  const int32_t* __restrict__ t, void* __restrict__ out,
                  int32_t* __restrict__ ws, int* __restrict__ tile_counts,
                  int M, int K, int N, int L, bool bsearch, int kt_per_split,
                  Epilogue e) {
+  constexpr bool PB = PL >= PL_BYTES;
+  const int8_t* __restrict__ x = static_cast<const int8_t*>(xv);
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ int s_last;
   uint8_t* const As = smem;
@@ -551,15 +630,128 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
     }
   };
 
+  // ---- byte planes: the 16-bit codes of rows a_row and a_row + 64,
+  // codes a_seg .. a_seg + 15 of the tile, into this thread's slots of a
+  // raw stage (split by split_a below) ----
+  const int16_t* __restrict__ const x16 = static_cast<const int16_t*>(xv);
+  auto load_a16 = [&](int stage) {
+    uint8_t* const raw = smem + stage * PB_RAW_STAGE + 2 * a_seg;
+    const int k = a_k;
+    int c = a_c;
+    int kh = a_kh;
+    int kw = a_kw;
+    uint32_t pack[2][8] = {{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u},
+                           {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
+#pragma unroll
+    for (int j = 0; j < 16 / VEC; ++j) {
+      const bool kin = k + j * VEC < K;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int ih = a_ih[p] + kh;
+        const int iw = a_iw[p] + kw;
+        const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                        static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+        const int16_t* src =
+            ok ? x16 + (static_cast<int64_t>(a_img[p] + ih) * g.W + iw) * g.C + c
+               : x16;
+        uint8_t* const dst = raw + (a_row + 64 * p) * PB_RAW_STRIDE;
+        if constexpr (VEC == 16) {
+          cp_async16(smem_u32(dst), src, ok);
+          cp_async16(smem_u32(dst + 16), ok ? src + 8 : x16, ok);
+        } else {
+          const uint32_t v = ok ? static_cast<uint16_t>(__ldg(src)) : 0u;
+          pack[p][j >> 1] |= v << (16 * (j & 1));
+        }
+      }
+      c += VEC;
+      if (c >= g.C) {
+        c = 0;
+        if (++kw == g.KW) {
+          kw = 0;
+          ++kh;
+        }
+      }
+    }
+    if constexpr (VEC != 16) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint8_t* const dst = raw + (a_row + 64 * p) * PB_RAW_STRIDE;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack[p][0], pack[p][1], pack[p][2], pack[p][3]);
+        *reinterpret_cast<uint4*>(dst + 16) =
+            make_uint4(pack[p][4], pack[p][5], pack[p][6], pack[p][7]);
+      }
+    }
+    a_k += TC_BK;
+    a_c += TC_BK;
+    while (a_c >= g.C) {
+      a_c -= g.C;
+      if (++a_kw == g.KW) {
+        a_kw = 0;
+        ++a_kh;
+      }
+    }
+  };
+
+  // the codes this thread loaded into raw stage `stage` -> its 16 bytes of
+  // each row in the lo and hi planes of A buffer `buf`
+  auto split_a = [&](int stage, int buf) {
+    const uint8_t* const raw = smem + stage * PB_RAW_STAGE + 2 * a_seg;
+    uint8_t* const lo = smem + PB_A_OFF + buf * 2 * TC_BM * TC_BK;
+    uint8_t* const hi = lo + TC_BM * TC_BK;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int row = a_row + 64 * p;
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(raw + row * PB_RAW_STRIDE);
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(raw + row * PB_RAW_STRIDE + 16);
+      *reinterpret_cast<uint4*>(lo + swz(row, a_seg)) = make_uint4(
+          __byte_perm(u.x, u.y, 0x6420), __byte_perm(u.z, u.w, 0x6420),
+          __byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
+      *reinterpret_cast<uint4*>(hi + swz(row, a_seg)) = make_uint4(
+          __byte_perm(u.x, u.y, 0x7531), __byte_perm(u.z, u.w, 0x7531),
+          __byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+    }
+  };
+
+  // the B tiles of both weight planes, (2, N, Kp) int8 K-major: plane
+  // e / 512, column (e / 4) % 128, 16 bytes (e % 4) of the tile's 64 K
+  const int kp = (K + 15) & ~15;
+  auto load_bpl = [&](int stage, int kt) {
+    uint8_t* const dst = smem + PB_B_OFF + stage * 2 * TC_BN * TC_BK;
+    const int8_t* const wp = static_cast<const int8_t*>(w);
+#pragma unroll
+    for (int q = 0; q < 2 * TC_BN * TC_BK / 16 / TC_THREADS; ++q) {
+      const int e = tid + TC_THREADS * q;
+      const int plane = e / (TC_BN * TC_BK / 16);
+      const int col = (e >> 2) & (TC_BN - 1);
+      const int seg = (e & 3) * 16;
+      const int gn = n0 + col;
+      const int gk = kt * TC_BK + seg;
+      const bool ok = gn < N && gk < kp;
+      cp_async16(smem_u32(dst + plane * TC_BN * TC_BK + swz(col, seg)),
+                 ok ? wp + (static_cast<size_t>(plane) * N + gn) * kp + gk
+                    : wp,
+                 ok);
+    }
+  };
+
   // acc[i][j][2 h + c]: row 64 i + 16 wq + gq + 8 h, column 64 wg + 8 j +
-  // 2 q + c, the wgmma m64nNk32 accumulator layout
+  // 2 q + c, the wgmma m64nNk32 accumulator layout; byte planes: acc holds
+  // ll, acc_mid mid and acc_hh hh, added into acc after the mainloop
   int acc[TC_MI][TC_NJ][4];
+  int acc_mid[TC_MI][TC_NJ][4];
+  int acc_hh[TC_MI][TC_NJ][4];
 #pragma unroll
   for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
     for (int j = 0; j < TC_NJ; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+      for (int r = 0; r < 4; ++r) {
+        acc[i][j][r] = 0;
+        if constexpr (PB) acc_mid[i][j][r] = acc_hh[i][j][r] = 0;
+      }
 
   // wgmma operands straight from the swizzled stages: A rows 64 i.., B
   // rows (columns of W) 64 wg..; the second 32 bytes of K at +32 bytes
@@ -574,13 +766,47 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
       const uint64_t db = wgmma_desc(b_sm + stage * TC_BN * TC_BK + 32 * kk);
 #pragma unroll
       for (int i = 0; i < TC_MI; ++i)
-        wgmma_m64n64k32(acc[i], wgmma_desc(a_sm + stage * TC_BM * TC_BK +
-                                           i * 64 * TC_BK + 32 * kk),
-                        db);
+        wgmma_m64n64k32<PL == PL_U8>(acc[i],
+                                     wgmma_desc(a_sm + stage * TC_BM * TC_BK +
+                                                i * 64 * TC_BK + 32 * kk),
+                                     db);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     warpgroup_fence(acc);
+  };
+
+  // byte planes: the four products of A buffer `buf` and B stage `stage`
+  constexpr bool HU = PL == PL_BYTES_U;
+  auto compute_planes = [&](int stage, int buf) {
+    warpgroup_fence(acc);
+    warpgroup_fence(acc_mid);
+    warpgroup_fence(acc_hh);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t a_lo = smem_u32(smem + PB_A_OFF) + buf * 2 * TC_BM * TC_BK;
+    const uint32_t a_hi = a_lo + TC_BM * TC_BK;
+    const uint32_t b_lo = smem_u32(smem + PB_B_OFF) +
+                          stage * 2 * TC_BN * TC_BK + wg * 64 * TC_BK;
+    const uint32_t b_hi = b_lo + TC_BN * TC_BK;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t dbl = wgmma_desc(b_lo + 32 * kk);
+      const uint64_t dbh = wgmma_desc(b_hi + 32 * kk);
+#pragma unroll
+      for (int i = 0; i < TC_MI; ++i) {
+        const uint64_t dal = wgmma_desc(a_lo + i * 64 * TC_BK + 32 * kk);
+        const uint64_t dah = wgmma_desc(a_hi + i * 64 * TC_BK + 32 * kk);
+        wgmma_m64n64k32<true, true>(acc[i], dal, dbl);
+        wgmma_m64n64k32<true, false>(acc_mid[i], dal, dbh);
+        wgmma_m64n64k32<HU, true>(acc_mid[i], dah, dbl);
+        wgmma_m64n64k32<HU, false>(acc_hh[i], dah, dbh);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    warpgroup_fence(acc);
+    warpgroup_fence(acc_mid);
+    warpgroup_fence(acc_hh);
   };
 
   // ---- mainloop: A tiles i+1 .. i+3 in flight (cp.async) while the tensor
@@ -590,7 +816,8 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
   // behind the mainloop.
   const bool staged = !bsearch && L <= DENSE_MAX_L;
   const int LS = ts_stride(L);
-  int32_t* const Ts = reinterpret_cast<int32_t*>(smem + TC_RING);
+  int32_t* const Ts =
+      reinterpret_cast<int32_t*>(smem + (PB ? PB_RING : TC_RING));
   if (staged) {
     for (int e = tid; e < TC_BN * L; e += TC_THREADS) {
       const int c = e / L;
@@ -600,31 +827,74 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
                 ok ? t + static_cast<size_t>(n0 + c) * L + l : t, ok);
     }
   }
+  if constexpr (PB) {
+    // Byte planes: raw A tiles and both B planes i+1 .. i+3 in flight
+    // while the tensor cores consume tile i.  Each thread splits its own
+    // raw codes of tile i (nothing to wait for but its own copies), then
+    // one barrier makes A buffer i % 2 and B stage i visible.  The other
+    // warpgroup may still read A buffer (i - 1) % 2; buffer i % 2 was last
+    // read before the barrier of iteration i - 1.
 #pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
-    if (s < nkt) {
-      load_a(s);
-      fetch_b(kt_begin + s);
-      if (s < TC_STAGES - 2) store_b(s);
+    for (int s = 0; s < TC_STAGES - 1; ++s) {
+      if (s < nkt) {
+        load_a16(s);
+        load_bpl(s, kt_begin + s);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-  }
-  for (int i = 0; i < nkt; ++i) {
-    cp_async_wait<TC_STAGES - 2>();
-    // shared-memory writes (cp.async, stores) -> wgmma's async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const int nxt = i + TC_STAGES - 1;
-    if (nxt - 1 < nkt) store_b((nxt - 1) % TC_STAGES);
-    if (nxt < nkt) {
-      load_a(nxt % TC_STAGES);
-      fetch_b(kt_begin + nxt);
+    for (int i = 0; i < nkt; ++i) {
+      cp_async_wait<TC_STAGES - 2>();
+      split_a(i % TC_STAGES, i & 1);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const int nxt = i + TC_STAGES - 1;
+      if (nxt < nkt) {
+        load_a16(nxt % TC_STAGES);
+        load_bpl(nxt % TC_STAGES, kt_begin + nxt);
+      }
+      cp_async_commit();
+      compute_planes(i % TC_STAGES, i & 1);
     }
-    cp_async_commit();
-    compute(i % TC_STAGES);
+  } else {
+#pragma unroll
+    for (int s = 0; s < TC_STAGES - 1; ++s) {
+      if (s < nkt) {
+        load_a(s);
+        fetch_b(kt_begin + s);
+        if (s < TC_STAGES - 2) store_b(s);
+      }
+      cp_async_commit();
+    }
+    for (int i = 0; i < nkt; ++i) {
+      cp_async_wait<TC_STAGES - 2>();
+      // shared-memory writes (cp.async, stores) -> wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const int nxt = i + TC_STAGES - 1;
+      if (nxt - 1 < nkt) store_b((nxt - 1) % TC_STAGES);
+      if (nxt < nkt) {
+        load_a(nxt % TC_STAGES);
+        fetch_b(kt_begin + nxt);
+      }
+      cp_async_commit();
+      compute(i % TC_STAGES);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (PB) {
+    // (hh << 16) + (mid << 8) + ll in uint32: the exact sum modulo 2^32
+#pragma unroll
+    for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+      for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[i][j][r] = static_cast<int>(
+              (static_cast<uint32_t>(acc_hh[i][j][r]) << 16) +
+              (static_cast<uint32_t>(acc_mid[i][j][r]) << 8) +
+              static_cast<uint32_t>(acc[i][j][r]));
+  }
 
   const int wm = 16 * wq;     // row of acc[i][..] = wm + 64 i + gq + 8 h
   const int wn = 64 * wg;     // column of acc[..][j] = wn + 8 j + 2 q + c
@@ -685,55 +955,80 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
   // Tables of up to 64 levels are staged in shared memory; longer ones are
   // binary-searched (sorted) or, for the float MVAU's sub-path, whose
   // tables need not be sorted, counted densely from global memory.
+  if (bsearch) {
+    // The 2 TC_MI searches of each of a thread's two columns in lockstep
+    // (count_sorted_smem's arithmetic on the global rows): every search
+    // takes the same ceil(log2(L + 1)) steps, so the 8 loads of a step go
+    // out together instead of one dependent chain after another.  Rows
+    // past M search too and are not stored; columns past N search row
+    // N - 1; a warp's 8-column group wholly past N searches nothing.
 #pragma unroll
-  for (int j = 0; j < TC_NJ; ++j)
+    for (int j = 0; j < TC_NJ; ++j) {
+      if (n0 + wn + 8 * j >= N) continue;
+      const int gn = n0 + wn + 8 * j + 2 * q;
+      const int32_t* const r0 = t + static_cast<size_t>(min(gn, N - 1)) * L;
+      const int32_t* const r1 =
+          t + static_cast<size_t>(min(gn + 1, N - 1)) * L;
+      int lo[TC_MI][4];
 #pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      const int col = wn + 8 * j + 2 * q + cc;
-      const int gn = n0 + col;
-      if (gn >= N) continue;
-      int cnt[TC_MI][2];
+      for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i) cnt[i][0] = cnt[i][1] = 0;
-      if (bsearch) {
-        // rows past M (a ragged last tile) search no level; a select on
-        // the length, since a branch around each search made every
-        // launch's dense count 16% slower on the H100
-        const int32_t* row = t + static_cast<size_t>(gn) * L;
-        const int rows = M - (m0 + wm + gq);
+        for (int r = 0; r < 4; ++r) lo[i][r] = 0;
+      for (int n = L + 1; n > 1;) {
+        const int h = n >> 1;
 #pragma unroll
         for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
-          for (int rr = 0; rr < 2; ++rr)
-            cnt[i][rr] = count_sorted(row, 64 * i + 8 * rr < rows ? L : 0,
-                                      acc[i][j][2 * rr + cc]);
-      } else if (staged) {
-        const int32_t* row = Ts + col * LS;
-#pragma unroll 5
-        for (int l = 0; l < L; ++l) {
-          const int tv = row[l];
-#pragma unroll
-          for (int i = 0; i < TC_MI; ++i)
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr)
-              cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
-        }
-      } else {
-        const int32_t* row = t + static_cast<size_t>(gn) * L;
-        for (int l = 0; l < L; ++l) {
-          const int tv = __ldg(row + l);
-#pragma unroll
-          for (int i = 0; i < TC_MI; ++i)
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr)
-              cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
-        }
+          for (int r = 0; r < 4; ++r)       // acc[..][r]: column cc = r & 1
+            lo[i][r] += acc[i][j][r] >= __ldg((r & 1 ? r1 : r0) + lo[i][r] +
+                                              h - 1)
+                            ? h : 0;
+        n -= h;
       }
 #pragma unroll
       for (int i = 0; i < TC_MI; ++i)
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) acc[i][j][2 * rr + cc] = cnt[i][rr];
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = lo[i][r];
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = wn + 8 * j + 2 * q + cc;
+        const int gn = n0 + col;
+        if (gn >= N) continue;
+        int cnt[TC_MI][2];
+#pragma unroll
+        for (int i = 0; i < TC_MI; ++i) cnt[i][0] = cnt[i][1] = 0;
+        if (staged) {
+          const int32_t* row = Ts + col * LS;
+#pragma unroll 5
+          for (int l = 0; l < L; ++l) {
+            const int tv = row[l];
+#pragma unroll
+            for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr)
+                cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
+          }
+        } else {
+          const int32_t* row = t + static_cast<size_t>(gn) * L;
+          for (int l = 0; l < L; ++l) {
+            const int tv = __ldg(row + l);
+#pragma unroll
+            for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr)
+                cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TC_MI; ++i)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) acc[i][j][2 * rr + cc] = cnt[i][rr];
+      }
+  }
 
   const bool pairs = (N & 1) == 0;
   if (gap) {
@@ -894,16 +1189,18 @@ mvau_conv_kernel(const int8_t* __restrict__ x, ConvGeom g,
     }
 }
 
-template <int VEC, int WK, int EPI>
-int launch_conv(const int8_t* x, const ConvGeom& g, const void* w,
+template <int VEC, int WK, int EPI, int PL>
+int launch_conv(const void* x, const ConvGeom& g, const void* w,
                 const int32_t* t, void* out, int32_t* ws, int* tile_counts,
                 int M, int K, int N, int L, bool bsearch, int splits,
                 const Epilogue& e, cudaStream_t stream) {
-  auto kern = mvau_conv_kernel<VEC, WK, EPI>;
+  constexpr bool PB = PL >= PL_BYTES;
+  auto kern = mvau_conv_kernel<VEC, WK, EPI, PL>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        PB ? PB_SMEM_MAX : TC_SMEM_MAX);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
@@ -916,32 +1213,35 @@ int launch_conv(const int8_t* x, const ConvGeom& g, const void* w,
   const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
   const bool w_vec = N % 8 == 0 && wa % (WK == W_PACKED4 ? 4 : 8) == 0;
   dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN, splits);
-  const int smem = TC_RING + (!bsearch && L <= DENSE_MAX_L
-                                  ? TC_BN * ts_stride(L) * 4 : 0);
+  const int smem = (PB ? PB_RING : TC_RING) +
+                   (!bsearch && L <= DENSE_MAX_L ? TC_BN * ts_stride(L) * 4
+                                                 : 0);
   kern<<<grid, TC_THREADS, smem, stream>>>(x, g, w, w_vec, t, out, ws,
                                            tile_counts, M, K, N, L, bsearch,
                                            per, e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the widest A copy that C and the activation's alignment allow
-template <int WK, int EPI>
+// the widest A copy that C and the activation's alignment allow (16 codes,
+// 4 codes or 1 code; the u8 and byte-plane routes take 16 or 1)
+template <int WK, int EPI, int PL = PL_S8>
 int launch_conv_any(const void* x, const ConvGeom& g, const void* w,
                     const int32_t* t, void* out, int32_t* ws,
                     int* tile_counts, int M, int K, int N, int L,
                     bool bsearch, int splits, const Epilogue& e,
                     cudaStream_t stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  const int8_t* xp = static_cast<const int8_t*>(x);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   if (g.C % 16 == 0 && xa % 16 == 0)
-    return launch_conv<16, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K,
-                                    N, L, bsearch, splits, e, stream);
-  if (g.C % 4 == 0 && xa % 4 == 0)
-    return launch_conv<4, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K,
-                                   N, L, bsearch, splits, e, stream);
-  return launch_conv<1, WK, EPI>(xp, g, w, t, out, ws, tile_counts, M, K, N,
-                                 L, bsearch, splits, e, stream);
+    return launch_conv<16, WK, EPI, PL>(x, g, w, t, out, ws, tile_counts, M,
+                                        K, N, L, bsearch, splits, e, stream);
+  if constexpr (PL == PL_S8) {
+    if (g.C % 4 == 0 && xa % 4 == 0)
+      return launch_conv<4, WK, EPI, PL>(x, g, w, t, out, ws, tile_counts, M,
+                                         K, N, L, bsearch, splits, e, stream);
+  }
+  return launch_conv<1, WK, EPI, PL>(x, g, w, t, out, ws, tile_counts, M, K,
+                                     N, L, bsearch, splits, e, stream);
 }
 
 // the integer MVAU's epilogues: codes, or codes + skip summed per image
@@ -1764,6 +2064,12 @@ int launch_core_any(const void* x, const ConvGeom& g, const void* w,
 
 }  // namespace
 
+// This file builds as two objects, compiled side by side: as it stands,
+// every entry point but the plane route's; with REPRO_MVAU_PLANES defined
+// (mvau_planes.cu), the plane route's alone, whose six instantiations of
+// mvau_conv_kernel take as long to compile as the rest together.
+#ifndef REPRO_MVAU_PLANES
+
 // Integer MVAU (mvau_int_pallas), GEMM form, on the int8 tensor cores.
 // x: (M, K) int8 codes.  w_kind: 0 = int8 codes (K, N), 3 = packed int4
 // (K, N/2).  t: (N, L) int32, each row sorted ascending when L > 64.
@@ -1815,6 +2121,8 @@ extern "C" int repro_empty_launch(int blocks, int threads, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif  // REPRO_MVAU_PLANES
+
 namespace {
 
 // the conv form's geometry, or false where the window does not fit
@@ -1829,6 +2137,7 @@ bool conv_geom(int B, int H, int W, int C, int kernel, int stride, int pad,
   return true;
 }
 
+#ifndef REPRO_MVAU_PLANES
 int launch_int_conv(const void* x, const void* w, int w_kind,
                     const int32_t* t, void* out, int B, const ConvGeom& g,
                     int N, int L, int splits, int32_t* ws, int* tile_counts,
@@ -1846,7 +2155,11 @@ int launch_int_conv(const void* x, const void* w, int w_kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+#endif  // REPRO_MVAU_PLANES
+
 }  // namespace
+
+#ifndef REPRO_MVAU_PLANES
 
 // Integer MVAU in conv form: the im2col node folded into the kernel.
 // x: (B, H, W, C) int8 NHWC codes.  w_kind: 0 = int8 (K, N), 3 = packed
@@ -1890,6 +2203,56 @@ extern "C" int repro_mvau_int_conv_gap(const void* x, const void* w,
                          tile_counts, int_epilogue(out_base, skip, g.OH * g.OW),
                          static_cast<cudaStream_t>(stream));
 }
+
+#else  // REPRO_MVAU_PLANES
+
+// The integer conv-form MVAU for codes that do not fit int8, on the int8
+// tensor cores (mvau_conv_kernel's PL_U8 and byte-plane routes), with the
+// plain epilogue (skip == nullptr; out (B, OH, OW, N) int32) or the
+// GlobalAccPool one (skip (B, OH, OW, N) int32, out (B, N) int32, OH * OW
+// dividing 16), as repro_mvau_int_conv and repro_mvau_int_conv_gap.
+// x_kind 1: x (B, H, W, C) uint8 codes 0..255 against w (K, N) int8.
+// x_kind 2 and 3: x (B, H, W, C) int16, the low 16 bits of each code,
+// whose high byte is signed (2) or unsigned (3: codes up to 65535), against
+// w (2, N, Kp) int8, the weights' byte planes (lo, hi) K-major, Kp = K
+// rounded up to a multiple of 16, zero past K; K at most PLANE_MAX_K.
+// t: (N, L) int32, sorted ascending when L > 64.  splits, ws, tile_counts
+// as for repro_mvau_int_conv.  The GEMM form (M, K) is B = 1, H = M, W = 1,
+// C = K, kernel 1, stride 1, pad 0.  Returns cudaGetLastError.
+extern "C" int repro_mvau_int_planes_conv(
+    const void* x, int x_kind, const void* w, const int32_t* t,
+    const int32_t* skip, int32_t* out, int B, int H, int W, int C,
+    int kernel, int stride, int pad, int N, int L, int out_base, int splits,
+    int32_t* ws, int* tile_counts, void* stream) {
+  ConvGeom g;
+  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g) || L < 0 ||
+      (skip != nullptr && 16 % (g.OH * g.OW) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int M = B * g.OH * g.OW;
+  const int K = kernel * kernel * C;
+  const bool bs = L > DENSE_MAX_L;
+  const Epilogue e = skip != nullptr
+                         ? int_epilogue(out_base, skip, g.OH * g.OW)
+                         : int_epilogue(out_base);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_kind == 1)
+    return launch_conv_any<W_I8, EPI_INT, PL_U8>(x, g, w, t, out, ws,
+                                                 tile_counts, M, K, N, L, bs,
+                                                 splits, e, s);
+  if ((x_kind == 2 || x_kind == 3) && K <= PLANE_MAX_K)
+    return x_kind == 2
+               ? launch_conv_any<W_I8, EPI_INT, PL_BYTES>(
+                     x, g, w, t, out, ws, tile_counts, M, K, N, L, bs,
+                     splits, e, s)
+               : launch_conv_any<W_I8, EPI_INT, PL_BYTES_U>(
+                     x, g, w, t, out, ws, tile_counts, M, K, N, L, bs,
+                     splits, e, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#endif  // REPRO_MVAU_PLANES
+
+#ifndef REPRO_MVAU_PLANES
 
 // The CUDA-core MVAU in conv form: the float MVAU (mvau_pallas), and the
 // integer MVAU (mvau_int_pallas) for codes that do not fit int8.  The GEMM
@@ -1958,3 +2321,5 @@ extern "C" int repro_mvau_i8(const int8_t* x, const int8_t* w,
                                           1, e,
                                           static_cast<cudaStream_t>(stream));
 }
+
+#endif  // REPRO_MVAU_PLANES

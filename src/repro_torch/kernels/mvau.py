@@ -2,18 +2,27 @@
 (``csrc/mvau.cu``), each beside its plain PyTorch version.
 
 Counterpart of the JAX package's ``kernels/mvau.py`` (``mvau_int_pallas``,
-``mvau_pallas``).  Three kernels serve every MVAU on the card:
+``mvau_pallas``).  Three kernels serve every MVAU on the card, and the
+integer MVAU takes one of three routes, chosen by the codes' ranges
+(:func:`int_route`, decided once when a graph is lowered) and carried by
+the dtype of the activation codes a wrapper is handed:
 
-* int8 activation codes x int8 (or packed int4) weight codes run the
-  tensor-core kernel (``mvau_conv_kernel``, int8 ``wgmma``) -- except the
-  GEMM form at decode shapes (M at most :data:`SMALL_M_ROWS`, tables of at
-  most :data:`SMALL_M_MAX_LEVELS` levels: :func:`int8_gemm_route`), which
-  runs ``mvau_small_m_kernel`` (``mma.sync`` with the output columns on the
+* ``int8`` -- int8 activation codes x int8 (or packed int4) weight codes on
+  the tensor cores (``mvau_conv_kernel``, ``wgmma`` s8.s8), except the GEMM
+  form at decode shapes (M at most :data:`SMALL_M_ROWS`, tables of at most
+  :data:`SMALL_M_MAX_LEVELS` levels: :func:`int8_gemm_route`), which runs
+  ``mvau_small_m_kernel`` (``mma.sync`` with the output columns on the
   MMA's 16-wide side, the threshold rows searched in shared memory);
-* everything else -- the float MVAU, and integer codes that do not fit
-  int8 (8-bit unsigned activations, 9- to 16-bit weights) -- runs the
-  CUDA-core kernel (``mvau_core_kernel``: float32 FMA, or exact int32
-  multiply-add).
+* ``planes`` -- codes of up to 16 bits on the same int8 tensor cores
+  (``mvau_conv_kernel``): uint8 activation codes (0..255) x int8 weights as
+  one ``wgmma`` u8.s8 (the DSE's (8, 8) point), and codes of 9 to 16 bits
+  on either side as byte planes, four ``wgmma`` products recombined
+  exactly (int16 activation codes x the weights' (2, N, Kp) byte planes
+  from :func:`weight_planes`; ``paper_w16a16()``), while K is at most
+  :data:`PLANE_MAX_K`;
+* ``core`` -- int32 activation codes (wider codes, or K past the limit) and
+  the float MVAU on the CUDA cores (``mvau_core_kernel``: exact int32
+  multiply-add, or float32 FMA).
 
 The wgmma and CUDA-core kernels read conv patch rows straight from the
 NHWC activation (:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col``
@@ -47,7 +56,9 @@ from repro_torch.kernels import ref
 __all__ = ["mvau_int", "mvau_int_conv", "mvau_int_conv_gap", "mvau", "mvau_conv",
            "mvau_int_plain", "mvau_int_conv_plain", "mvau_int_conv_gap_plain",
            "mvau_plain", "mvau_conv_plain", "tc_splits", "core_splits",
-           "int8_gemm_route", "SMALL_M_ROWS", "SMALL_M_MAX_LEVELS"]
+           "int8_gemm_route", "SMALL_M_ROWS", "SMALL_M_MAX_LEVELS",
+           "int_route", "code_kind", "weight_planes", "plane_matmul",
+           "plane_depth", "PLANE_MAX_K"]
 
 # weight kinds of csrc/mvau.cu
 _W_KIND = {torch.int8: 0, torch.int32: 1, torch.int16: 4}
@@ -118,6 +129,108 @@ def int8_gemm_route(m: int, levels: int) -> str:
     if m <= SMALL_M_ROWS and levels <= SMALL_M_MAX_LEVELS:
         return "small_m"
     return "wgmma"
+
+
+# The byte-plane route's longest K (csrc/mvau.cu PLANE_MAX_K): a k adds at
+# most 2 * 255 * 255 to a plane's sum, which then stays inside int32.
+PLANE_MAX_K = (2**31 - 1) // (2 * 255 * 255)
+# the activation-code kinds of csrc/mvau.cu's repro_mvau_int_planes_conv
+_X_KIND = {"u8": 1, "s16": 2, "u16": 3}
+
+
+def code_kind(lo: int, hi: int) -> Optional[str]:
+    """The narrowest tensor-core operand form of integer codes in [lo, hi]:
+    ``"s8"``, ``"u8"`` (0..255), ``"s16"``, ``"u16"`` (0..65535), or None
+    for codes wider than 16 bits."""
+    for kind, a, b in (("s8", -128, 127), ("u8", 0, 255),
+                       ("s16", -32768, 32767), ("u16", 0, 65535)):
+        if a <= lo and hi <= b:
+            return kind
+    return None
+
+
+def int_route(x_range: Tuple[int, int], w_range: Tuple[int, int],
+              k: int) -> Tuple[str, Optional[str], int]:
+    """The card's route for an integer MVAU of K = ``k`` whose activation
+    and weight codes lie in ``x_range`` and ``w_range``: ``(route, x kind,
+    wgmma products a K-step)``.
+
+    * ``("int8", "s8", 1)``: both fit int8, ``wgmma`` s8.s8;
+    * ``("planes", "u8", 1)``: unsigned activations of up to 8 bits
+      (0..255) against int8 weights, one ``wgmma`` u8.s8;
+    * ``("planes", "s16" | "u16", 4)``: codes of 9 to 16 bits on either
+      side (weights signed), byte planes: four products, while ``k`` is at
+      most :data:`PLANE_MAX_K`; ``"u16"`` where the activation codes reach
+      past 32,767 (their high byte is then unsigned);
+    * ``("core", None, 1)``: anything wider, or K past the limit, on the
+      CUDA cores."""
+    xk, wk = code_kind(*x_range), code_kind(*w_range)
+    if xk == "s8" and wk == "s8":
+        return "int8", "s8", 1
+    if xk == "u8" and wk == "s8":
+        return "planes", "u8", 1
+    if xk is None or wk not in ("s8", "u8", "s16") or k > PLANE_MAX_K:
+        return "core", None, 1
+    return "planes", "u16" if xk == "u16" else "s16", 4
+
+
+def plane_depth(k: int) -> int:
+    """K of the byte planes: ``k`` rounded up to a multiple of 16."""
+    return -(-k // 16) * 16
+
+
+def weight_planes(w: torch.Tensor, w_packed: bool = False) -> torch.Tensor:
+    """(K, N) integer weight codes within int16 (int8, int16 or int32; or
+    (K, N/2) packed int4 with ``w_packed``) -> their byte planes, the
+    operand of the byte-plane route: (2, N, Kp) int8, K-major, Kp =
+    :func:`plane_depth` (K), zero past K; plane 0 holds each code's low
+    byte (read as unsigned), plane 1 its high byte (signed), so that
+    ``code = 256 * plane1 + (plane0 & 255)``.  The lowering prepares them
+    once per graph; no call splits weights."""
+    if w_packed:
+        w = quant.unpack_int4(w)
+    wi = w.to(torch.int32)
+    _require(wi.ndim == 2, f"w must be 2-D, got shape {tuple(wi.shape)}")
+    k, n = wi.shape
+    _require(bool((wi >= -32768).all()) and bool((wi <= 32767).all()),
+             "weight codes must fit int16 for the byte planes")
+    out = torch.zeros((2, n, plane_depth(k)), dtype=torch.int8,
+                      device=w.device)
+    wt = wi.t()
+    out[0, :, :k] = (wt & 255).to(torch.uint8).view(torch.int8)
+    out[1, :, :k] = (wt >> 8).to(torch.int8)
+    return out
+
+
+def _matmul_i64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # exact: in int64 on the CPU, in float64 (sums below 2^53) on the card
+    if a.is_cuda:
+        return torch.matmul(a.to(torch.float64), b.to(torch.float64)
+                            ).to(torch.int64)
+    return torch.matmul(a.to(torch.int64), b.to(torch.int64))
+
+
+def plane_matmul(x: torch.Tensor, planes: torch.Tensor,
+                 x_unsigned: bool = False) -> torch.Tensor:
+    """The byte-plane route's arithmetic as plain tensor code: (M, K)
+    int16 codes (the low 16 bits of each; with ``x_unsigned`` codes up to
+    65535) x the (2, N, Kp) planes of :func:`weight_planes` -> (M, N) int32
+    ``(hh << 16) + (mid << 8) + ll`` in uint32, reinterpreted: ll = xl·wl,
+    mid = xl·wh + xh·wl, hh = xh·wh over the codes' low bytes xl, wl
+    (unsigned) and high bytes xh, wh (signed; xh unsigned with
+    ``x_unsigned``).  That is the exact product wherever it fits int32."""
+    k = x.shape[-1]
+    xi = x.to(torch.int32)
+    xl, xh = xi & 255, xi >> 8
+    if x_unsigned:
+        xh = xh & 255
+    wl = (planes[0, :, :k].to(torch.int32) & 255).t()
+    wh = planes[1, :, :k].to(torch.int32).t()
+    ll = _matmul_i64(xl, wl)
+    mid = _matmul_i64(xl, wh) + _matmul_i64(xh, wl)
+    hh = _matmul_i64(xh, wh)
+    v = ((hh << 16) + (mid << 8) + ll) & 0xFFFFFFFF
+    return (v - ((v >> 31) << 32)).to(torch.int32)
 
 
 def core_splits(m: int, n: int, k: int, sms: int) -> int:
@@ -193,8 +306,15 @@ def _core(x: torch.Tensor, w: torch.Tensor, w_kind: int,
 # Integer MVAU (replaces mvau_int_pallas)
 # ---------------------------------------------------------------------------
 def mvau_int_plain(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
-                   out_base: int = 0, w_packed: bool = False) -> torch.Tensor:
-    """Plain version: ``out_base + Σ_l 1[x @ w ≥ T[n, l]]`` as int32."""
+                   out_base: int = 0, w_packed: bool = False,
+                   x_unsigned: bool = False) -> torch.Tensor:
+    """Plain version: ``out_base + Σ_l 1[x @ w ≥ T[n, l]]`` as int32; for
+    (2, N, Kp) byte planes ``w`` (int16 ``x``), the byte-plane route's own
+    decomposition (:func:`plane_matmul`)."""
+    if w.ndim == 3:
+        acc = plane_matmul(x, w, x_unsigned)
+        return (out_base + quant.threshold_counts(acc, thresholds)
+                ).to(torch.int32)
     if w_packed:
         w = quant.unpack_int4(w)
     return ref.mvau_int(x, w, thresholds, out_base=out_base)
@@ -215,29 +335,87 @@ def _on_tensor_cores(x: torch.Tensor, w_kind: int) -> bool:
                                                 W_PACKED4)
 
 
+def _planes(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
+            geom: Tuple[int, ...], n: int, out_base, x_unsigned: bool,
+            skip: Optional[torch.Tensor] = None,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """One launch of the tensor-core kernel on the plane route, NHWC
+    ``x`` of ``geom`` = (B, H, W, C, kernel, stride, pad): uint8 codes
+    against (K, N) int8 weights, or int16 codes against (2, N, Kp) byte
+    planes -> (B, OH, OW, N) int32, or (B, N) with the GAP epilogue on
+    ``skip``.  Counted as ``mvau_int`` and ``mvau_int_planes`` (and
+    ``mvau_int_gap`` with a skip)."""
+    b, h, wd, c, kernel, stride, pad = geom
+    oh = (h + 2 * pad - kernel) // stride + 1
+    ow = (wd + 2 * pad - kernel) // stride + 1
+    k = kernel * kernel * c
+    if x.dtype == torch.uint8:
+        kind = "u8"
+        _require(w.dtype == torch.int8 and tuple(w.shape) == (k, n),
+                 f"uint8 codes take (K, N) = {(k, n)} int8 weights, got "
+                 f"{w.dtype} {tuple(w.shape)}")
+    else:
+        kind = "u16" if x_unsigned else "s16"
+        _require(w.dtype == torch.int8
+                 and tuple(w.shape) == (2, n, plane_depth(k)),
+                 f"int16 codes take (2, N, Kp) = {(2, n, plane_depth(k))} "
+                 f"int8 byte planes, got {w.dtype} {tuple(w.shape)}")
+        _require(k <= PLANE_MAX_K, f"K {k} is past the byte planes' limit "
+                 f"{PLANE_MAX_K}: int32 codes take the CUDA-core route")
+    _require(w.data_ptr() % 16 == 0, "the weights must be 16-byte aligned")
+    shape = (b, oh, ow, n) if skip is None else (b, n)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    splits, ws, counts = _split_scratch(b * oh * ow, n, k, x.device, splits)
+    rc = B.library().mvau_int_planes_conv(
+        x.data_ptr(), _X_KIND[kind], w.data_ptr(), thresholds.data_ptr(),
+        None if skip is None else skip.data_ptr(), out.data_ptr(), b, h, wd,
+        c, kernel, stride, pad, n, thresholds.shape[1], int(out_base),
+        splits, ws, counts, _stream())
+    B.check(rc, "mvau_int_planes")
+    if skip is None:
+        B.count_launch("mvau_int", "mvau_int_planes")
+    else:
+        B.count_launch("mvau_int", "mvau_int_gap", "mvau_int_planes")
+    return out
+
+
 def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
-             out_base: int = 0, w_packed: bool = False) -> torch.Tensor:
-    """Fused integer MVAU: (M, K) int8/int32 codes x (K, N) int8/int16/int32
-    codes (or (K, N/2) packed int4 with ``w_packed``) against (N, L) int32
-    thresholds -> (M, N) int32 codes.  Each threshold row is sorted
-    ascending, as the integer lowering leaves every ``mvau_int`` table: the
-    kernels binary-search tables longer than 64 levels.  int8 x int8 (or
-    packed int4) runs on the tensor cores: ``mvau_small_m_kernel`` where
-    :func:`int8_gemm_route` says ``"small_m"`` (counted as ``mvau_int`` and
-    ``mvau_int_small_m``), else the ``wgmma`` kernel; other codes run the
-    CUDA-core kernel on int32 activation codes (int8 codes are widened
-    first)."""
+             out_base: int = 0, w_packed: bool = False,
+             x_unsigned: bool = False) -> torch.Tensor:
+    """Fused integer MVAU: (M, K) int8/uint8/int16/int32 codes x (K, N)
+    int8/int16/int32 codes (or (K, N/2) packed int4 with ``w_packed``; or,
+    for int16 codes, the (2, N, Kp) byte planes of :func:`weight_planes`)
+    against (N, L) int32 thresholds -> (M, N) int32 codes.  Each threshold
+    row is sorted ascending, as the integer lowering leaves every
+    ``mvau_int`` table: the kernels binary-search tables longer than 64
+    levels.  int8 x int8 (or packed int4) runs on the tensor cores:
+    ``mvau_small_m_kernel`` where :func:`int8_gemm_route` says ``"small_m"``
+    (counted as ``mvau_int`` and ``mvau_int_small_m``), else the ``wgmma``
+    kernel; uint8 codes x int8 weights and int16 codes x byte planes
+    (``x_unsigned``: the int16 tensor holds codes up to 65535) take the
+    plane route of the same kernel (counted as ``mvau_int_planes`` too);
+    int32 codes run the CUDA-core kernel (counted as ``mvau_int_wide``)."""
     if not x.is_cuda:
-        return mvau_int_plain(x, w, thresholds, out_base, w_packed)
+        return mvau_int_plain(x, w, thresholds, out_base, w_packed,
+                              x_unsigned)
     dev = x.device
-    for name, t in (("x", x), ("w", w), ("thresholds", thresholds)):
+    for name, t in (("x", x), ("thresholds", thresholds)):
         _check_2d(name, t, dev)
-    _require(x.dtype in (torch.int8, torch.int32),
-             f"x must be int8 or int32, got {x.dtype}")
+    _check_on(dev, w=w)
     m, k = x.shape
+    _require(thresholds.dtype == torch.int32, "thresholds must be int32")
+    if x.dtype in (torch.uint8, torch.int16):
+        _require(not w_packed, "the plane route takes int8 weights")
+        n = w.shape[1]      # of (K, N) codes or (2, N, Kp) byte planes
+        _require(thresholds.shape[0] == n,
+                 f"thresholds rows {thresholds.shape[0]} != N {n}")
+        return _planes(x, w, thresholds, (1, m, 1, k, 1, 1, 0), n, out_base,
+                       x_unsigned).reshape(m, n)
+    _check_2d("w", w, dev)
+    _require(x.dtype in (torch.int8, torch.int32),
+             f"x must be int8, uint8, int16 or int32, got {x.dtype}")
     _require(w.shape[0] == k, f"w rows {w.shape[0]} != x cols {k}")
     n, w_kind = _w_kind(w, w_packed)
-    _require(thresholds.dtype == torch.int32, "thresholds must be int32")
     _require(thresholds.shape[0] == n,
              f"thresholds rows {thresholds.shape[0]} != N {n}")
     if not _on_tensor_cores(x, w_kind):
@@ -267,22 +445,27 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                kernel: int, stride: int, pad: int, w_packed: bool = False,
                floating: bool = False):
     """Checks the conv form's operands, for the kernels and their plain
-    versions alike: integer codes (x int8/int32; w int8/int16/int32 or
-    packed int4; int32 thresholds) or, with ``floating``, float32 x, w and
+    versions alike: integer codes (x int8/uint8/int16/int32; w
+    int8/int16/int32, packed int4, or for int16 x the (2, N, Kp) byte
+    planes; int32 thresholds) or, with ``floating``, float32 x, w and
     thresholds.  Returns (B, H, W, C, OH, OW, N)."""
     _require(x.ndim == 4, f"x must be 4-D NHWC, got shape {tuple(x.shape)}")
-    _require(w.ndim == 2 and thresholds.ndim == 2,
-             "w and thresholds must be 2-D")
+    planes = w.ndim == 3 and not floating
+    _require((w.ndim == 2 or planes) and thresholds.ndim == 2,
+             "w and thresholds must be 2-D (or w (2, N, Kp) byte planes)")
     if floating:
         _require(x.dtype == w.dtype == thresholds.dtype == torch.float32,
                  "the float MVAU takes float32 x, w and thresholds, got "
                  f"{x.dtype}, {w.dtype}, {thresholds.dtype}")
         n = w.shape[1]
     else:
-        _require(x.dtype in (torch.int8, torch.int32),
-                 f"x must be int8 or int32 codes, got {x.dtype}")
+        _require(x.dtype in (torch.int8, torch.uint8, torch.int16,
+                             torch.int32),
+                 f"x must be int8, uint8, int16 or int32 codes, got {x.dtype}")
         _require(thresholds.dtype == torch.int32, "thresholds must be int32")
-        n, _ = _w_kind(w, w_packed)
+        _require(not planes or (x.dtype == torch.int16 and not w_packed),
+                 "byte-plane weights go with int16 codes")
+        n = w.shape[1] if planes else _w_kind(w, w_packed)[0]
     _require(kernel >= 1 and stride >= 1 and pad >= 0,
              f"bad kernel/stride/pad {kernel}/{stride}/{pad}")
     b, h, wd, c = x.shape
@@ -290,8 +473,13 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     ow = (wd + 2 * pad - kernel) // stride + 1
     _require(oh >= 1 and ow >= 1,
              f"kernel {kernel} does not fit {h}x{wd} padded by {pad}")
-    _require(w.shape[0] == kernel * kernel * c,
-             f"w rows {w.shape[0]} != kernel²·C {kernel * kernel * c}")
+    if planes:
+        _require(tuple(w.shape) == (2, n, plane_depth(kernel * kernel * c)),
+                 f"byte planes {tuple(w.shape)} != (2, N, Kp) for K = "
+                 f"kernel²·C {kernel * kernel * c}")
+    else:
+        _require(w.shape[0] == kernel * kernel * c,
+                 f"w rows {w.shape[0]} != kernel²·C {kernel * kernel * c}")
     _require(thresholds.shape[0] == n,
              f"thresholds rows {thresholds.shape[0]} != N {n}")
     return b, h, wd, c, oh, ow, n
@@ -306,38 +494,46 @@ def _check_on(dev: torch.device, **tensors) -> None:
 def mvau_int_conv_plain(x: torch.Tensor, w: torch.Tensor,
                         thresholds: torch.Tensor, kernel: int, stride: int,
                         pad: int, out_base: int = 0,
-                        w_packed: bool = False) -> torch.Tensor:
+                        w_packed: bool = False,
+                        x_unsigned: bool = False) -> torch.Tensor:
     """Plain version of the conv form: :func:`mvau_int_plain` on the patch
     rows of ``ref.im2col`` -> (B, OH, OW, N) int32."""
     b, _, _, _, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                        w_packed)
     patches = ref.im2col(x, kernel, stride, pad)
     y = mvau_int_plain(patches.reshape(b * oh * ow, -1), w, thresholds,
-                       out_base, w_packed)
+                       out_base, w_packed, x_unsigned)
     return y.reshape(b, oh, ow, n)
 
 
 def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                   kernel: int, stride: int, pad: int, out_base: int = 0,
-                  w_packed: bool = False, *,
+                  w_packed: bool = False, *, x_unsigned: bool = False,
                   splits: Optional[int] = None) -> torch.Tensor:
     """Conv-form integer MVAU: the ``im2col`` node folded into the kernel.
 
-    (B, H, W, C) int8/int32 NHWC codes x (K, N) int8/int16/int32 codes (or
-    (K, N/2) packed int4 with ``w_packed``), K = kernel² · C in patch order
-    (kh, kw, c), against (N, L) int32 thresholds sorted ascending -> (B,
-    OH, OW, N) int32 codes: :func:`mvau_int` on the patch rows, which never
-    exist.  The kernel reads the activation itself, zero outside the image.
+    (B, H, W, C) int8/uint8/int16/int32 NHWC codes x (K, N)
+    int8/int16/int32 codes (or (K, N/2) packed int4 with ``w_packed``; or,
+    for int16 codes, the (2, N, Kp) byte planes of :func:`weight_planes`),
+    K = kernel² · C in patch order (kh, kw, c), against (N, L) int32
+    thresholds sorted ascending -> (B, OH, OW, N) int32 codes:
+    :func:`mvau_int` on the patch rows, which never exist, on the route the
+    codes' dtype names (``x_unsigned``: int16 codes up to 65535).  The
+    kernel reads the activation itself, zero outside the image.
     ``splits`` overrides the split-K planner (:func:`tc_splits`,
     :func:`core_splits`) for measurement."""
     if not x.is_cuda:
         return mvau_int_conv_plain(x, w, thresholds, kernel, stride, pad,
-                                   out_base, w_packed)
+                                   out_base, w_packed, x_unsigned)
     dev = x.device
     kernel, stride, pad = int(kernel), int(stride), int(pad)
     b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                         w_packed)
     _check_on(dev, x=x, w=w, thresholds=thresholds)
+    if x.dtype in (torch.uint8, torch.int16):
+        _require(not w_packed, "the plane route takes int8 weights")
+        return _planes(x, w, thresholds, (b, h, wd, c, kernel, stride, pad),
+                       n, out_base, x_unsigned, splits=splits)
     _, w_kind = _w_kind(w, w_packed)
     if not _on_tensor_cores(x, w_kind):
         return _core(x.to(torch.int32), w, w_kind, thresholds,
@@ -358,42 +554,45 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
 def mvau_int_conv_gap_plain(x: torch.Tensor, w: torch.Tensor,
                             thresholds: torch.Tensor, skip: torch.Tensor,
                             kernel: int, stride: int, pad: int,
-                            out_base: int = 0,
-                            w_packed: bool = False) -> torch.Tensor:
+                            out_base: int = 0, w_packed: bool = False,
+                            x_unsigned: bool = False) -> torch.Tensor:
     """Plain version of the fused tail: :func:`mvau_int_conv_plain`, plus
     ``skip``, then the spatial sum (``gap_plain``) -> (B, N) int32."""
     y = mvau_int_conv_plain(x, w, thresholds, kernel, stride, pad, out_base,
-                            w_packed)
+                            w_packed, x_unsigned)
     return kgap.gap_plain(y, skip)
 
 
 def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
                       thresholds: torch.Tensor, skip: torch.Tensor,
                       kernel: int, stride: int, pad: int, out_base: int = 0,
-                      w_packed: bool = False, *,
+                      w_packed: bool = False, *, x_unsigned: bool = False,
                       splits: Optional[int] = None) -> torch.Tensor:
-    """The int8 conv-form MVAU with the residual add and GlobalAccPool after
-    it folded into its epilogue: ``Σ_{oh, ow} (mvau_int_conv(x, ...) +
-    skip)`` -> (B, N) int32, wrapping like the reference's int32 sums.
+    """The tensor-core conv-form MVAU with the residual add and
+    GlobalAccPool after it folded into its epilogue: ``Σ_{oh, ow}
+    (mvau_int_conv(x, ...) + skip)`` -> (B, N) int32, wrapping like the
+    reference's int32 sums.
 
     Operands as for :func:`mvau_int_conv`, on the tensor cores only (int8
-    codes, int8 or packed int4 weights); ``skip`` is an integer tensor of
-    the conv output's shape (B, OH, OW, N), added as int32.  OH·OW must
-    divide 16: each image's rows then lie inside one warp's 16 accumulator
-    rows, summed in registers and by shuffles, and the (B, OH, OW, N) codes
-    are never written.  Counts one ``mvau_int`` launch (and one
-    ``mvau_int_gap``)."""
+    codes with int8 or packed int4 weights, or the plane route's uint8 or
+    int16 codes); ``skip`` is an integer tensor of the conv output's shape
+    (B, OH, OW, N), added as int32.  OH·OW must divide 16: each image's rows
+    then lie inside one warp's 16 accumulator rows, summed in registers and
+    by shuffles, and the (B, OH, OW, N) codes are never written.  Counts
+    one ``mvau_int`` launch (and one ``mvau_int_gap``, and on the plane
+    route one ``mvau_int_planes``)."""
     if not x.is_cuda:
         return mvau_int_conv_gap_plain(x, w, thresholds, skip, kernel, stride,
-                                       pad, out_base, w_packed)
+                                       pad, out_base, w_packed, x_unsigned)
     dev = x.device
     kernel, stride, pad = int(kernel), int(stride), int(pad)
     b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                         w_packed)
     _check_on(dev, x=x, w=w, thresholds=thresholds, skip=skip)
-    _, w_kind = _w_kind(w, w_packed)
-    _require(_on_tensor_cores(x, w_kind), "the fused GAP epilogue runs on the "
-             "int8 tensor cores: x must be int8 codes, w int8 or packed int4")
+    planes = x.dtype in (torch.uint8, torch.int16)
+    _require(planes or _on_tensor_cores(x, _w_kind(w, w_packed)[1]),
+             "the fused GAP epilogue runs on the tensor cores: x must be "
+             "int8 codes (w int8 or packed int4), uint8 or int16 codes")
     _require(16 % (oh * ow) == 0, f"the fused GAP epilogue needs OH·OW to "
              f"divide 16, got {oh}x{ow}")
     _require(tuple(skip.shape) == (b, oh, ow, n),
@@ -401,6 +600,11 @@ def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
     _require(skip.dtype in (torch.int8, torch.uint8, torch.int16, torch.int32),
              f"skip must be integer codes of at most 32 bits, got {skip.dtype}")
     skip = skip.to(torch.int32)
+    if planes:
+        _require(not w_packed, "the plane route takes int8 weights")
+        return _planes(x, w, thresholds, (b, h, wd, c, kernel, stride, pad),
+                       n, out_base, x_unsigned, skip=skip, splits=splits)
+    _, w_kind = _w_kind(w, w_packed)
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     splits, ws, counts = _split_scratch(b * oh * ow, n, kernel * kernel * c,
                                         dev, splits)

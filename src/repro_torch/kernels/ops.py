@@ -25,7 +25,7 @@ __all__ = ["mvau", "mvau_conv", "mvau_int", "mvau_int_conv",
            "residual_gaps", "folded_into", "conv_mvau_node",
            "conv_mvau_int_node", "conv_mvau_int_gap_node", "tail_fits",
            "graph_op_impls", "kernel_dispatch", "mvau_node", "mvau_int_node",
-           "prepare_tables"]
+           "prepare_tables", "int_route_of"]
 
 
 def _as_2d(x: torch.Tensor):
@@ -69,23 +69,25 @@ def mvau_conv(x_nhwc: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
 
 def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
              thresholds_int: torch.Tensor, out_base: int = 0,
-             w_packed: bool = False) -> torch.Tensor:
+             w_packed: bool = False, x_unsigned: bool = False) -> torch.Tensor:
     """Integer MVAU: integer codes in, int32 codes out (FINN path).
     ``w_packed`` feeds the (K, N//2) packed-int4 buffer straight to the
-    kernel, which unpacks it while loading its weight tile."""
+    kernel, which unpacks it while loading its weight tile; int16 codes
+    take the weights' byte planes (``x_unsigned``: codes up to 65535)."""
     x2, lead = _as_2d(x_codes)
     n = w_codes.shape[1] * (2 if w_packed else 1)
     t2 = _thresholds_2d(torch.as_tensor(thresholds_int, dtype=torch.int32,
                                         device=x_codes.device), n)
     y = kmvau.mvau_int(x2.contiguous(), w_codes.contiguous(), t2.contiguous(),
-                       out_base=int(out_base), w_packed=w_packed)
+                       out_base=int(out_base), w_packed=w_packed,
+                       x_unsigned=x_unsigned)
     return y.reshape(*lead, n)
 
 
 def mvau_int_conv(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
                   thresholds_int: torch.Tensor, kernel: int, stride: int,
-                  pad: int, out_base: int = 0,
-                  w_packed: bool = False) -> torch.Tensor:
+                  pad: int, out_base: int = 0, w_packed: bool = False,
+                  x_unsigned: bool = False) -> torch.Tensor:
     """Conv-form integer MVAU: (B, H, W, C) NHWC codes in, (B, OH, OW, N)
     int32 codes out, the patch rows read by the kernel itself."""
     n = w_codes.shape[1] * (2 if w_packed else 1)
@@ -93,22 +95,24 @@ def mvau_int_conv(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
                                         device=x_nhwc.device), n)
     return kmvau.mvau_int_conv(x_nhwc.contiguous(), w_codes.contiguous(),
                                t2.contiguous(), kernel, stride, pad,
-                               out_base=int(out_base), w_packed=w_packed)
+                               out_base=int(out_base), w_packed=w_packed,
+                               x_unsigned=x_unsigned)
 
 
 def mvau_int_conv_gap(x_nhwc: torch.Tensor, w_codes: torch.Tensor,
                       thresholds_int: torch.Tensor, skip: torch.Tensor,
                       kernel: int, stride: int, pad: int, out_base: int = 0,
-                      w_packed: bool = False) -> torch.Tensor:
-    """Conv-form int8 MVAU, plus ``skip``, summed over each image: (B, N)
-    int32, the (B, OH, OW, N) codes never written."""
+                      w_packed: bool = False,
+                      x_unsigned: bool = False) -> torch.Tensor:
+    """Conv-form tensor-core MVAU, plus ``skip``, summed over each image:
+    (B, N) int32, the (B, OH, OW, N) codes never written."""
     n = w_codes.shape[1] * (2 if w_packed else 1)
     t2 = _thresholds_2d(torch.as_tensor(thresholds_int, dtype=torch.int32,
                                         device=x_nhwc.device), n)
     return kmvau.mvau_int_conv_gap(x_nhwc.contiguous(), w_codes.contiguous(),
                                    t2.contiguous(), skip.contiguous(), kernel,
                                    stride, pad, out_base=int(out_base),
-                                   w_packed=w_packed)
+                                   w_packed=w_packed, x_unsigned=x_unsigned)
 
 
 def qmatmul(x: torch.Tensor, w_codes: torch.Tensor, scale: torch.Tensor,
@@ -173,14 +177,52 @@ def _pool_reader(readers, outputs, tensor):
     return pool
 
 
-def gap_tails(nodes, outputs) -> dict:
+def int_route_of(node, graph=None):
+    """``(route, x kind, wgmma products)`` of an ``mvau_int`` node on the
+    card (:func:`repro_torch.kernels.mvau.int_route`): ``int8``,
+    ``planes`` or ``core``.  The lowering's copy of a node carries it
+    (:func:`prepare_tables`); for a graph's own node it is read from the
+    x and w specs in ``graph.dtypes`` and K from the weights.  A node with
+    no specs to read keeps the ``int8_ok`` rule: ``int8`` or ``core``."""
+    if "int_route" in node.attrs:
+        return (node.attrs["int_route"], node.attrs["x_kind"],
+                node.attrs["plane_products"])
+    if node.attrs.get("int8_ok"):
+        return "int8", "s8", 1
+    if graph is not None:
+        route = _route_from_specs(node, graph.dtypes, graph.initializers)
+        if route is not None:
+            return route
+    return "core", None, 1
+
+
+def _route_from_specs(node, dtypes, initializers):
+    import numpy as np
+
+    xs = dtypes.get(node.inputs[0])
+    ws = dtypes.get(node.inputs[1])
+    w = initializers.get(node.inputs[1])
+    if xs is None or ws is None or w is None \
+            or not hasattr(xs, "qmin") or not hasattr(ws, "qmin"):
+        return None
+    return kmvau.int_route((xs.qmin, xs.qmax), (ws.qmin, ws.qmax),
+                           int(np.shape(w)[0]))
+
+
+def _on_tensor_cores(node, graph=None) -> bool:
+    return int_route_of(node, graph)[0] in ("int8", "planes")
+
+
+def gap_tails(nodes, outputs, graph=None) -> dict:
     """``{global_acc_pool output: (mvau_int node, add node)}`` for every
     tail ``im2col -> mvau_int -> add -> global_acc_pool`` that the lowering
-    runs as one launch of the int8 conv kernel with its GlobalAccPool
-    epilogue (:func:`conv_mvau_int_gap_node`).  It matches where
+    runs as one launch of the tensor-core conv kernel with its
+    GlobalAccPool epilogue (:func:`conv_mvau_int_gap_node`).  It matches
+    where
 
-    * the ``mvau_int`` is ``int8_ok`` and its ``im2col`` is folded into it
-      (:func:`conv_pairs`);
+    * the ``mvau_int`` runs on the tensor cores (the ``int8`` or ``planes``
+      route of :func:`int_route_of`, read from ``graph`` for a graph's own
+      nodes) and its ``im2col`` is folded into it (:func:`conv_pairs`);
     * its output's only reader is an ``add`` of two tensors, the other of
       which is the skip operand;
     * the ``add`` output's only reader is a ``global_acc_pool`` over axes
@@ -198,8 +240,8 @@ def gap_tails(nodes, outputs) -> dict:
     pairs = conv_pairs(nodes, outputs)
     tails = {}
     for n in nodes:
-        if (n.op != "mvau_int" or not n.attrs.get("int8_ok")
-                or n.inputs[0] not in pairs):
+        if (n.op != "mvau_int" or n.inputs[0] not in pairs
+                or not _on_tensor_cores(n, graph)):
             continue
         y = n.outputs[0]
         add = _sole_reader(readers, outputs, y, "add")
@@ -212,14 +254,14 @@ def gap_tails(nodes, outputs) -> dict:
     return tails
 
 
-def residual_gaps(nodes, outputs, tails=None) -> dict:
+def residual_gaps(nodes, outputs, tails=None, graph=None) -> dict:
     """``{global_acc_pool output: add node}`` for every ``add`` of two
     tensors whose output's only reader is a ``global_acc_pool`` over axes
     (1, 2) and is not a graph output, outside the fused ``tails``
     (:func:`gap_tails`): the lowering hands both operands to the GAP
     kernel, which adds them as it sums."""
     readers = _readers(nodes)
-    tails = gap_tails(nodes, outputs) if tails is None else tails
+    tails = gap_tails(nodes, outputs, graph) if tails is None else tails
     out = {}
     for n in nodes:
         if n.op != "add" or len(n.inputs) != 2:
@@ -230,13 +272,14 @@ def residual_gaps(nodes, outputs, tails=None) -> dict:
     return out
 
 
-def folded_into(nodes, outputs) -> dict:
+def folded_into(nodes, outputs, graph=None) -> dict:
     """``{tensor: the node whose step computes it}`` for every node the
     lowering folds into another's step: an ``im2col`` into its MVAU; a fused
     tail's ``add`` and ``global_acc_pool`` into its ``mvau_int``; a residual
-    ``add`` into its ``global_acc_pool``."""
+    ``add`` into its ``global_acc_pool``.  ``graph`` as for
+    :func:`gap_tails`."""
     into = dict(conv_pairs(nodes, outputs))
-    tails = gap_tails(nodes, outputs)
+    tails = gap_tails(nodes, outputs, graph)
     for pooled, (mv, add) in tails.items():
         into[add.outputs[0]] = into[pooled] = mv
     by_output = {n.outputs[0]: n for n in nodes}
@@ -245,7 +288,11 @@ def folded_into(nodes, outputs) -> dict:
     return into
 
 
-def kernel_dispatch(node, emulated: bool, folded=None) -> str:
+_INT_LABELS = {"int8": "fused-cuda", "planes": "fused-cuda-planes",
+               "core": "fused-cuda-core"}
+
+
+def kernel_dispatch(node, emulated: bool, folded=None, graph=None) -> str:
     """Which datapath a graph node executes on — the single decision point.
 
     ``emulated`` is True off the card (CPU tensors).  The deploy-time
@@ -261,12 +308,16 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     work: a folded ``im2col`` its MVAU's (the
     conv-form loader reads the patches), a fused tail's ``add`` and
     ``global_acc_pool`` their ``mvau_int``'s (the GAP epilogue), a residual
-    ``add`` its GAP's.
+    ``add`` its GAP's.  An ``mvau_int`` node's route comes from
+    :func:`int_route_of` (``graph`` supplies the specs of a graph's own
+    nodes).
 
     * ``fused-cuda`` — the fused integer MVAU on the int8 tensor cores
-      (``csrc/mvau.cu`` ``mvau_conv_kernel``);
+      (``csrc/mvau.cu`` ``mvau_conv_kernel``), int8 codes;
+    * ``fused-cuda-planes`` — the same kernel on codes of up to 16 bits:
+      uint8 codes (one ``wgmma`` u8.s8) or byte planes (four products);
     * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores
-      (``mvau_core_kernel``), for codes that do not fit int8;
+      (``mvau_core_kernel``), for codes wider than 16 bits;
     * ``cuda``       — the float MVAU (``mvau_core_kernel``) and
       GlobalAccPool (``gap_kernel``, with a residual add folded in or not)
       kernels;
@@ -279,11 +330,10 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     """
     op = node.op
     if folded is not None and not emulated:
-        return kernel_dispatch(folded, emulated)
+        return kernel_dispatch(folded, emulated, graph=graph)
     if op == "mvau_int":
         if not emulated:
-            return ("fused-cuda" if node.attrs.get("int8_ok")
-                    else "fused-cuda-core")
+            return _INT_LABELS[int_route_of(node, graph)[0]]
         if node.attrs.get("acc_f32_exact"):
             return "f32-gemm"
         return "ref-oracle"
@@ -303,10 +353,18 @@ def kernel_dispatch(node, emulated: bool, folded=None) -> str:
     return "xla"
 
 
-def prepare_tables(nodes, initializers, consts) -> None:
-    """Prepare the threshold tables of ``nodes`` (copies the lowering owns)
-    once, when a graph is lowered, instead of on every call:
+def prepare_tables(nodes, initializers, consts, dtypes=None) -> None:
+    """Prepare the threshold tables and routes of ``nodes`` (copies the
+    lowering owns) once, when a graph is lowered, instead of on every call:
 
+    * each ``mvau_int`` node records its card route (:func:`int_route_of`
+      from the x and w specs in ``dtypes``: ``int_route``, ``x_kind``,
+      ``plane_products``); on the plane route its weights are prepared once
+      as a constant of their own named in ``w_kernel``: the byte planes
+      (``<w>@planes``, :func:`repro_torch.kernels.mvau.weight_planes`) for
+      codes of 9 to 16 bits, unpacked int8 codes (``<w>@int8``) for packed
+      int4 weights against uint8 codes.  The node's own operands stay as
+      they are (the CPU runs them);
     * an ``mvau_int`` node's per-tensor (L,) table becomes a contiguous
       (N, L) int32 constant of its own (``<table>@<N>``), the form the
       kernels read, so no replay broadcasts and copies it;
@@ -322,6 +380,8 @@ def prepare_tables(nodes, initializers, consts) -> None:
     import numpy as np
 
     for node in nodes:
+        if node.op == "mvau_int":
+            _prepare_route(node, initializers, consts, dtypes or {})
         t_name = node.inputs[-1]
         if t_name not in initializers:
             continue
@@ -341,6 +401,32 @@ def prepare_tables(nodes, initializers, consts) -> None:
                                                       >= 0))
 
 
+def _prepare_route(node, initializers, consts, dtypes) -> None:
+    route = None
+    if not node.attrs.get("int8_ok"):
+        route = _route_from_specs(node, dtypes, initializers)
+    if route is None:
+        route = int_route_of(node)
+    node.attrs["int_route"], node.attrs["x_kind"], \
+        node.attrs["plane_products"] = route
+    w_name = node.inputs[1]
+    packed = bool(node.attrs.get("w_packed"))
+    if route[0] != "planes" or w_name not in consts:
+        return
+    if route[1] == "u8":
+        if not packed:
+            return
+        name = f"{w_name}@int8"
+        if name not in consts:
+            consts[name] = Q.unpack_int4(consts[w_name]).to(torch.int8
+                                                            ).contiguous()
+    else:
+        name = f"{w_name}@planes"
+        if name not in consts:
+            consts[name] = kmvau.weight_planes(consts[w_name], packed)
+    node.attrs["w_kernel"] = name
+
+
 def mvau_node(node, x, w, t):
     """Executor of an ``mvau`` node on (M, K) patch rows."""
     return mvau(x, w, t, out_base=node.attrs.get("out_base", 0),
@@ -348,46 +434,63 @@ def mvau_node(node, x, w, t):
                 out_bias=node.attrs.get("out_bias", 0.0))
 
 
-def _kernel_codes(node, x, w):
-    """The codes an ``mvau_int`` node hands its kernel on the card: an
-    ``int8_ok`` node's narrowed to int8 for the tensor cores, others as
-    stored for the CUDA cores."""
-    if node.attrs.get("int8_ok"):
+def _kernel_codes(node, x, w, wk=None):
+    """The operands an ``mvau_int`` node hands its kernel on the card:
+    ``(x, w, w_packed, x_unsigned)``.  On the ``int8`` route the codes are
+    narrowed to int8; on the ``planes`` route the activation codes to
+    uint8 (0..255) or to int16 (their low 16 bits: a wrapping cast, the
+    high byte read as unsigned for codes up to 65535), against the weights
+    the lowering prepared (``wk``: the byte planes, or unpacked int8 codes;
+    int8 codes as stored otherwise); on the ``core`` route as stored."""
+    route, kind, _ = int_route_of(node)
+    packed = bool(node.attrs.get("w_packed"))
+    if route == "int8":
         x = x.to(torch.int8)
-        if not node.attrs.get("w_packed"):
+        if not packed:
             w = w.to(torch.int8)
-    return x, w
+    elif route == "planes":
+        if kind != "u8" or packed:
+            if wk is None:
+                raise ValueError(
+                    f"mvau_int '{node.outputs[0]}' on the plane route needs "
+                    "the weights its lowering prepares (prepare_tables)")
+            w, packed = wk, False
+        x = x.to(torch.uint8 if kind == "u8" else torch.int16)
+    return x, w, packed, kind == "u16"
 
 
-def mvau_int_node(node, x, w, t):
-    """Executor of an ``mvau_int`` node on (M, K) patch rows or codes."""
+def mvau_int_node(node, x, w, t, wk=None):
+    """Executor of an ``mvau_int`` node on (M, K) patch rows or codes;
+    ``wk`` the weights the lowering prepared for the plane route."""
     base = node.attrs.get("out_base", 0)
     disp = kernel_dispatch(node, not x.is_cuda)
     packed = bool(node.attrs.get("w_packed"))
     if disp.startswith("fused-cuda"):
-        x, w = _kernel_codes(node, x, w)
-        return mvau_int(x, w, t, out_base=base, w_packed=packed)
+        x, w, packed, xu = _kernel_codes(node, x, w, wk)
+        return mvau_int(x, w, t, out_base=base, w_packed=packed,
+                        x_unsigned=xu)
     if packed:
         w = Q.unpack_int4(w)
     return ref.mvau_int_fast(x, w, t, out_base=base,
                              acc_f32_exact=disp == "f32-gemm")
 
 
-def conv_mvau_int_node(conv, node, x, w, t):
+def conv_mvau_int_node(conv, node, x, w, t, wk=None):
     """Executor of a folded ``im2col`` -> ``mvau_int`` pair (see
-    :func:`conv_pairs`) on the im2col node's input ``x``.  On the card an
-    ``int8_ok`` node's activation is narrowed to int8 (one cast, a ninth of
-    the patches') for the tensor-core kernel; other codes go to the
-    CUDA-core kernel as stored.  Either kernel reads the patch rows
-    itself.  Off the card the node takes its own route, as labelled, on
-    patches local to this call."""
+    :func:`conv_pairs`) on the im2col node's input ``x``.  On the card the
+    activation is narrowed once a call for the node's route
+    (:func:`_kernel_codes`: int8, uint8 or int16 codes for the tensor
+    cores, a ninth of the patches' bytes; int32 codes as stored for the
+    CUDA cores).  Either kernel reads the patch rows itself.  Off the card
+    the node takes its own route, as labelled, on patches local to this
+    call."""
     k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
     if not x.is_cuda:
         return mvau_int_node(node, ref.im2col(x, k, s, p), w, t)
-    x, w = _kernel_codes(node, x, w)
+    x, w, packed, xu = _kernel_codes(node, x, w, wk)
     return mvau_int_conv(x, w, t, k, s, p,
                          out_base=node.attrs.get("out_base", 0),
-                         w_packed=bool(node.attrs.get("w_packed")))
+                         w_packed=packed, x_unsigned=xu)
 
 
 def tail_fits(conv, node, x, w, skip) -> bool:
@@ -404,23 +507,24 @@ def tail_fits(conv, node, x, w, skip) -> bool:
                                torch.int32))
 
 
-def conv_mvau_int_gap_node(conv, node, pool, x, w, t, skip):
+def conv_mvau_int_gap_node(conv, node, pool, x, w, t, skip, wk=None):
     """Executor of a fused tail ``im2col -> mvau_int -> add ->
     global_acc_pool`` (see :func:`gap_tails`) on the im2col node's input
-    ``x``, the MVAU's weights and thresholds and the add's other operand
-    ``skip``.  On the card, where the operands fit (:func:`tail_fits`), one
-    launch of the int8 conv kernel with its GAP epilogue.  Off the card, or
-    for a skip that broadcasts or is float, the MVAU takes its own route,
-    as labelled, and the sum of its output and ``skip`` is pooled as
+    ``x``, the MVAU's weights and thresholds, the add's other operand
+    ``skip`` and the weights prepared for the plane route (``wk``).  On the
+    card, where the operands fit (:func:`tail_fits`), one launch of the
+    tensor-core conv kernel with its GAP epilogue.  Off the card, or for a
+    skip that broadcasts or is float, the MVAU takes its own route, as
+    labelled, and the sum of its output and ``skip`` is pooled as
     :func:`_gap_node` pools it (on the card, the GAP kernel)."""
     if not x.is_cuda or not tail_fits(conv, node, x, w, skip):
-        y = conv_mvau_int_node(conv, node, x, w, t)
+        y = conv_mvau_int_node(conv, node, x, w, t, wk)
         return _gap_node(pool, y, skip)
     k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]
-    x, w = _kernel_codes(node, x, w)
+    x, w, packed, xu = _kernel_codes(node, x, w, wk)
     return mvau_int_conv_gap(x, w, t, skip, k, s, p,
                              out_base=node.attrs.get("out_base", 0),
-                             w_packed=bool(node.attrs.get("w_packed")))
+                             w_packed=packed, x_unsigned=xu)
 
 
 def _gap_node(node, x, skip=None):

@@ -113,7 +113,8 @@ def count_sorted_steps(acc: torch.Tensor, thresholds: torch.Tensor
                        ) -> torch.Tensor:
     """``Σᵢ 1[acc ≥ Tᵢ]`` over (M, N) int32 accumulators and (N, L) tables
     sorted ascending, by the step arithmetic of ``csrc/mvau.cu``'s
-    ``count_sorted_smem`` (the small-M kernel's search), for tests to hold
+    ``count_sorted_smem`` (the small-M kernel's search, and the lockstep
+    search of ``mvau_conv_kernel``'s epilogue), for tests to hold
     against the dense count: the answer lies in [lo, lo + n), n = L + 1
     at the start; a step probes T[lo + h - 1], h = n // 2, adds h to lo
     where acc reaches it, and keeps n - h candidates either way, so every

@@ -53,12 +53,17 @@ BACKEND_ROOFLINE = {
 
 # Per backend, the peak of the unit a node's card dispatch label runs on.
 # "h100": the integer MVAU on the int8 tensor cores at the data sheet's
-# 1,979 TOP/s; on the CUDA cores (codes wider than int8) int32 multiply-add
-# at half the float32 rate (64 INT32 lanes per SM against 128 FP32, Hopper
-# white paper).
+# 1,979 TOP/s; on the plane route (codes of up to 16 bits on the same
+# tensor cores) that rate divided by the node's wgmma products a K-step
+# (1 for uint8 codes, 4 for byte planes); on the CUDA cores (wider codes)
+# int32 multiply-add at half the float32 rate (64 INT32 lanes per SM
+# against 128 FP32, Hopper white paper).
 KERNEL_PEAK_OPS = {
-    "h100": {"fused-cuda": 1979e12, "fused-cuda-core": 67e12 / 2},
+    "h100": {"fused-cuda": 1979e12, "fused-cuda-planes": 1979e12,
+             "fused-cuda-core": 67e12 / 2},
 }
+# the labels whose peak is divided by the node's plane products
+_PER_PRODUCT = {"fused-cuda-planes"}
 
 _MATMUL_OPS = {"matmul", "matmul_int", "mvau", "mvau_int"}
 _THRESHOLD_OPS = {"multithreshold", "multithreshold_int"}
@@ -153,7 +158,7 @@ def profile_deployed(dm, example, *, xla: bool = True,
         g.infer_shapes({dm.input_names[0]: example})
     kernels = {r["tensor"]: r["kernel"] for r in dm.dispatch_table()}
     unit_peaks = KERNEL_PEAK_OPS.get(be, {})
-    folded = kops.folded_into(g.nodes, g.outputs)
+    folded = kops.folded_into(g.nodes, g.outputs, g)
 
     rows = []
     for node in g.nodes:
@@ -162,8 +167,11 @@ def profile_deployed(dm, example, *, xla: bool = True,
                   + sum(_tensor_bytes(g, t) for t in node.outputs))
         # the unit this node runs on on the backend's card, whatever
         # device the artifact itself lives on
-        node_peak = unit_peaks.get(kops.kernel_dispatch(
-            node, False, folded.get(node.outputs[0])), peak)
+        into = folded.get(node.outputs[0])
+        label = kops.kernel_dispatch(node, False, into, g)
+        node_peak = unit_peaks.get(label, peak)
+        if label in _PER_PRODUCT and label in unit_peaks:
+            node_peak /= kops.int_route_of(into or node, g)[2]
         est_ms = max(flops / node_peak, nbytes / bw) * 1e3
         rows.append({
             "tensor": node.outputs[0], "op": node.op,

@@ -33,8 +33,8 @@ from repro_torch.core import fuzz as F  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 
 # seeds of the wide corpus held against the JAX interpreter: between them
-# 1,445-row M tiles with 255 levels and an integer residual GAP (0), CUDA-core
-# nodes (2, 23, 42; 255 levels at 42, a K the planner splits at 23), a fused
+# 1,445-row M tiles with 255 levels and an integer residual GAP (0), plane-
+# route nodes (2, 23, 42; 255 levels at 42, a K the planner splits at 23), a fused
 # GAP tail (7) and a float residual add (13)
 WIDE_JAX_SEEDS = (0, 2, 7, 13, 23, 42)
 
@@ -215,10 +215,11 @@ def _card_coverage():
 def test_wide_corpus_covers_the_card():
     """Over the card's seed range the corpus reaches: M past 128 with a
     ragged last tile, N past 128, a K the planner splits on the H100, more
-    than 64 levels on each integer route, both integer routes, a fused GAP
-    tail, a residual GAP and an ``add`` that stays float."""
+    than 64 levels on each tensor-core integer route (int8 and planes), both
+    of them, a fused GAP tail, a residual GAP and an ``add`` that stays
+    float."""
     seen = {k: [] for k in ("m_ragged", "n_wide", "split", "l64_int8",
-                            "l64_core", "int8", "core", "f32", "gap_tail",
+                            "l64_planes", "int8", "planes", "f32", "gap_tail",
                             "residual_gap", "float_add", "int_add")}
     coverage = _card_coverage()
     for seed, (info, summaries) in coverage.items():
@@ -267,7 +268,7 @@ def test_check_differential_catches_a_wrong_engine(monkeypatch):
 # the dense corpus: the GEMM form at decode and small-batch shapes
 # ---------------------------------------------------------------------------
 # dense seeds held against the JAX interpreter: int8 GEMM-form MVAUs on the
-# small-M route (16; 17 at K 1,440; 19 at 255 levels beside a CUDA-core
+# small-M route (16; 17 at K 1,440; 19 at 255 levels beside a plane-route
 # one) and past its limit (11: M 128 at K 1,440), standalone pairs (2)
 GEMM_JAX_SEEDS = (2, 11, 16, 17, 19)
 
@@ -312,13 +313,13 @@ def test_gemm_generator_is_seeded_and_on_grid():
 def test_gemm_corpus_covers_both_int8_routes():
     """Over the card's dense range the int8 GEMM form reaches the small-M
     kernel (with tables past 64 levels, K past 1,000, a ragged N and M on
-    the limit) and the wgmma kernel past the limit; the CUDA-core route
-    and the float MVAU run there too.  Every node is GEMM form."""
+    the limit) and the wgmma kernel past the limit; the plane route (8-bit
+    unsigned codes) and the float MVAU run there too.  Every node is GEMM form."""
     from repro_torch.kernels import mvau as KM
 
     seen = {k: [] for k in ("small_m", "small_m_l64", "small_m_deep",
                             "small_m_ragged_n", "small_m_at_limit",
-                            "wgmma", "core", "f32")}
+                            "wgmma", "planes", "f32")}
     for seed in F.GEMM_SEEDS:
         g, x, _ = F.gemm_hw_graph(seed)
         for dp in ("f32", "int"):

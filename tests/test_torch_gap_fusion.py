@@ -229,9 +229,12 @@ def test_tail_refused_when_an_intermediate_escapes(w6a4, case):
 
 def test_tail_refused_for_wide_codes(params):
     """``grid_point(8, 8)``: 8-bit unsigned activations are not ``int8_ok``,
-    so the MVAU runs on the CUDA cores and its tail is not fused; the
-    residual add folds into the GAP kernel.  Features and dispatch equal
-    JAX's."""
+    so a bare node's rule (no specs to read) refuses the tail and folds the
+    residual add into the GAP kernel; read with the graph's specs, r2b's
+    codes take the plane route of the tensor cores, so the lowering fuses
+    the tail there as for int8 codes (one launch with the GAP epilogue on
+    the card; on the CPU the MVAU, the add and the GAP in turn).  Features
+    and dispatch equal JAX's."""
     pj, pt = params
     dj = repro.compile(pj, JQ.QuantConfig.grid_point(8, 8), recipe="resnet9",
                        datapath="int")
@@ -241,12 +244,20 @@ def test_tail_refused_for_wide_codes(params):
     assert tops.gap_tails(g.nodes, g.outputs) == {}
     assert [a.outputs[0] for a in tops.residual_gaps(g.nodes, g.outputs)
             .values()] == ["r2b_res"]
-    assert "r2b_res" in dt.apply.folded and TAIL[0] not in dt.apply.folded
+    pool = next(n for n in g.nodes if n.op == "global_acc_pool")
+    assert [(mv.outputs[0], add.outputs[0]) for mv, add in tops.gap_tails(
+        g.nodes, g.outputs, g).values()] == [TAIL]
+    assert list(tops.gap_tails(g.nodes, g.outputs, g)) == [pool.outputs[0]]
+    assert tops.residual_gaps(g.nodes, g.outputs, graph=g) == {}
+    assert "r2b_res" in dt.apply.folded and TAIL[0] in dt.apply.folded
     x = _frames()
     np.testing.assert_array_equal(dt(x).numpy(), np.asarray(dj(x)))
     assert dt.dispatch_table() == dj.dispatch_table()
-    into = tops.folded_into(g.nodes, g.outputs)
+    into = tops.folded_into(g.nodes, g.outputs, g)
     r2b_add = next(n for n in g.nodes if n.outputs[0] == "r2b_res")
+    assert tops.kernel_dispatch(r2b_add, False, into["r2b_res"], g) \
+        == "fused-cuda-planes"
+    into = tops.folded_into(g.nodes, g.outputs)
     assert tops.kernel_dispatch(r2b_add, False, into["r2b_res"]) == "cuda"
 
 

@@ -42,10 +42,19 @@ grid.  It prints, per shape, the largest M up to which the small-M kernel
 is never slower; the least of them sets ``kernels/mvau.py``'s
 ``SMALL_M_ROWS``.
 
+The wide-code artifacts (``--only wide``, the committed library only):
+``paper_w16a16()`` and ``grid_point(8, 8)`` compiled at width 64 on the
+card, one forward at batch 64 recorded, and each of its 8 conv-form
+MVAUs timed on the inputs that forward gives it, on its real threshold
+tables (65,535 levels for the 16-bit baseline, binary-searched): the
+launch as the artifact runs it, the same launch with no levels (the
+product alone; the count is the difference), and the CUDA-core kernel on
+the same codes as int32 (held equal to the launch bit for bit).
+
 The variants compute wrong values; only the committed kernels are held
 against their plain versions.  Run on the machine with the card::
 
-    PYTHONPATH=src python3 tools/probe_mvau_conv.py [--only int8|core|gemm]
+    PYTHONPATH=src python3 tools/probe_mvau_conv.py [--only int8|core|gemm|wide]
 
 The variants are text edits of the source: an edit that no longer applies
 stops the run, naming the text it looked for.
@@ -93,9 +102,10 @@ def edit(text: str, old: str, new: str) -> str:
 
 
 def variants() -> dict:
-    no_mma = edit(SRC, """        wgmma_m64n64k32(acc[i], wgmma_desc(a_sm + stage * TC_BM * TC_BK +
-                                           i * 64 * TC_BK + 32 * kk),
-                        db);""", "        if (db == 1) acc[i][0][0] += 1;")
+    no_mma = edit(SRC, """        wgmma_m64n64k32<PL == PL_U8>(acc[i],
+                                     wgmma_desc(a_sm + stage * TC_BM * TC_BK +
+                                                i * 64 * TC_BK + 32 * kk),
+                                     db);""", "        if (db == 1) acc[i][0][0] += 1;")
     no_loads = edit(edit(
         SRC, "          cp_async16(smem_u32(dst + swz(row, a_seg)), src, ok);", ""),
         """            const uint2 v = __ldg(reinterpret_cast<const uint2*>(
@@ -108,9 +118,9 @@ def variants() -> dict:
               "  const long long T0 = clock64();\n  const int tid = threadIdx.x;\n"
               "  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
               "  // warpgroup")
-    ph = edit(ph, "  for (int i = 0; i < nkt; ++i) {\n    cp_async_wait",
+    ph = edit(ph, "  if constexpr (PB) {\n    // Byte planes: raw A tiles",
               "  const long long T1 = clock64();\n"
-              "  for (int i = 0; i < nkt; ++i) {\n    cp_async_wait")
+              "  if constexpr (PB) {\n    // Byte planes: raw A tiles")
     ph = edit(ph, "  cp_async_wait<0>();\n  __syncthreads();\n",
               "  cp_async_wait<0>();\n  __syncthreads();\n"
               "  const long long T2 = clock64();\n")
@@ -127,8 +137,9 @@ def variants() -> dict:
               "(unsigned long long)d[q]);\n"
               "    atomicAdd(&g_phase[5], 1ull);\n"
               "    atomicAdd(&g_phase[6], (unsigned long long)nkt);\n  }\n")
-    ph = edit(ph, "}\n\ntemplate <int VEC, int WK, int EPI>\nint launch_conv(",
-              stamps + "}\n\ntemplate <int VEC, int WK, int EPI>\n"
+    ph = edit(ph, "}\n\ntemplate <int VEC, int WK, int EPI, int PL>\n"
+              "int launch_conv(",
+              stamps + "}\n\ntemplate <int VEC, int WK, int EPI, int PL>\n"
               "int launch_conv(")
     return {"kernel": SRC, "no_mma": no_mma, "no_loads": no_loads,
             "phases": ph + DBG}
@@ -444,9 +455,91 @@ def probe_gemm(sms: int) -> None:
               f"{'' if best is not None else ' (the whole sweep)'}")
 
 
+def probe_wide() -> None:
+    """The wide-code artifacts' conv MVAUs on their own inputs and tables:
+    as run, product alone (no levels), and the CUDA-core route."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core.deploy import lower_graph
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels import ops as kops
+
+    data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
+    rng = np.random.default_rng(3)
+    x_np, _ = data.batch(rng.integers(0, 42, BATCH),
+                         rng.integers(0, 10_000, BATCH))
+    x = torch.from_numpy(x_np).cuda()
+    run_pair, run_tail = kops.conv_mvau_int_node, kops.conv_mvau_int_gap_node
+    for label, qcfg in (("paper_w16a16()", QuantConfig.paper_w16a16()),
+                        ("grid_point(8, 8)", QuantConfig.grid_point(8, 8))):
+        params = resnet9.init_params(torch.Generator().manual_seed(0), WIDTH,
+                                     device="cuda")
+        dm = repro_torch.compile(params, qcfg, recipe="resnet9",
+                                 datapath="int", device="cuda")
+        captured = []
+
+        def record(conv, node, xx, w, t, wk=None):
+            captured.append((conv, node, xx, w, t, wk))
+            return run_pair(conv, node, xx, w, t, wk)
+
+        def record_tail(conv, node, pool, xx, w, t, skip, wk=None):
+            captured.append((conv, node, xx, w, t, wk))
+            return run_tail(conv, node, pool, xx, w, t, skip, wk)
+
+        kops.conv_mvau_int_node = record
+        kops.conv_mvau_int_gap_node = record_tail
+        try:
+            fn = lower_graph(dm.graph, "cuda")
+        finally:
+            kops.conv_mvau_int_node = run_pair
+            kops.conv_mvau_int_gap_node = run_tail
+        fn(x)
+        torch.cuda.synchronize()
+        print(f"{label} at width {WIDTH}, batch {BATCH}, each conv MVAU on "
+              "the forward's own inputs (ms a launch, CUDA events): as run / "
+              "product alone (no levels) / count (the difference) / the "
+              "CUDA-core kernel on the same codes as int32")
+        tot = [0.0, 0.0, 0.0]
+        for conv, node, xx, w, t, wk in captured:
+            k, st, pd = (conv.attrs[a] for a in ("kernel", "stride", "pad"))
+            route, kind, prods = kops.int_route_of(node)
+            xk, wk2, packed, xu = kops._kernel_codes(node, xx, w, wk)
+            t0 = t[:, :0].contiguous()
+
+            def full():
+                return KM.mvau_int_conv(xk, wk2, t, k, st, pd, 0, packed,
+                                        x_unsigned=xu)
+
+            def product():
+                return KM.mvau_int_conv(xk, wk2, t0, k, st, pd, 0, packed,
+                                        x_unsigned=xu)
+
+            def core():
+                return KM.mvau_int_conv(xx.to(torch.int32), w, t, k, st, pd,
+                                        0, bool(node.attrs.get("w_packed")))
+
+            if not torch.equal(full(), core()):
+                raise SystemExit(f"{label} {node.outputs[0]}: the {route} "
+                                 "route differs from the CUDA-core route")
+            r = (cuda_ms(full, 10), cuda_ms(product, 10), cuda_ms(core, 10))
+            for i, v in enumerate(r):
+                tot[i] += v
+            b, h, wd, c = xx.shape
+            print(f"  {node.outputs[0].split('_')[0]:4s} {route:6s} "
+                  f"{kind or '-':4s} {prods} products  M {b * h * wd:6d} "
+                  f"K {k * k * c:5d} N {t.shape[0]:4d} L {t.shape[1]:5d} "
+                  f"(tables {4 * t.numel() / 1e6:.1f} MB): {r[0]:.4f} / "
+                  f"{r[1]:.4f} / {r[0] - r[1]:.4f} / {r[2]:.4f}")
+        print(f"  {label} sum over the 8 layers: {tot[0]:.4f} / "
+              f"{tot[1]:.4f} / {tot[0] - tot[1]:.4f} / {tot[2]:.4f} ms")
+        del dm, fn, captured, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("int8", "core", "gemm"),
+    ap.add_argument("--only", choices=("int8", "core", "gemm", "wide"),
                     default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -472,6 +565,8 @@ def main() -> int:
             probe(sub, sms)
     if args.only in (None, "gemm"):
         probe_gemm(sms)
+    if args.only in (None, "wide"):
+        probe_wide()
     print(smi)
     return 0
 
