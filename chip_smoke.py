@@ -18,9 +18,11 @@ ends the run with a non-zero exit if it fails:
    (odd shapes, int8/int16/int32 codes, packed int4, L from 15 to 65535,
    grid and off-grid floats; the conv forms on every kernel / stride / pad
    the im2col node takes, with forced K splits: the int8 tensor-core
-   kernel, its plane route (uint8 codes, and int16 codes as byte planes,
-   at their extremes; with the GAP epilogue too), the float MVAU and the
-   int32-code integer route on the CUDA-core kernel; the int8 kernel with
+   kernel, its plane route (uint8 codes, and int16 and int32 codes of up to
+   24 bits as byte planes against one or two weight planes, at their
+   extremes; with the GAP epilogue too, 65,535 levels, K at its limit),
+   the float MVAU and the int32-code integer route on the CUDA-core
+   kernel; the int8 kernel with
    its GlobalAccPool epilogue at r2b's shape
    at batch 1 and 64, forced splits 1/2/8, repeated launches and a skip
    that wraps the int32 sums; the GAP kernel with and without a residual
@@ -31,8 +33,9 @@ ends the run with a non-zero exit if it fails:
    im2col a PyTorch user would write, ``torch.add`` + ``torch.sum``); the
    MVAUs in conv form and in GEMM form on pre-built patches; the int32-code
    route in conv form; r2b's tail fused, unfused (conv, add, GAP) and the
-   conv alone; the plane route with 16-bit codes (four products) and
-   uint8 codes (one) beside ``torch.matmul`` in float64 + count and the
+   conv alone; the plane route with 16-bit codes (four products), uint8
+   codes (one), 16-bit codes x int8 weights (two) and 17-bit codes as
+   int32 (six) beside ``torch.matmul`` in float64 + count and the
    CUDA-core kernel on the same codes.
 2a. differential fuzz (path ``fuzz``): the random hardware-mapped graphs
    of ``repro_torch.core.fuzz`` -- the reference's corpus
@@ -106,10 +109,12 @@ ends the run with a non-zero exit if it fails:
 5. wide codes (path ``fsl_wide_codes``): ``grid_point(8, 8)`` and
    ``paper_w16a16()`` int artifacts (and w6a4 beside them) compiled on the
    card at the widest width their lowering admits, every MVAU on the
-   route its codes name (the plane route up to 16 bits, the 17-bit c2 of
-   the 16-bit baseline on the CUDA-core kernel) with its im2col folded in
-   and r2b with the GAP epilogue; card == CPU bit for bit at batch 2 and
-   on the timed batch-64 forward; batch-64 latency.
+   route its codes name (the plane route, the 17-bit c2 of the 16-bit
+   baseline too: six products; the (8, 8) point's 9-bit c2 two; none on
+   the CUDA-core kernel) with its im2col folded in and r2b with the GAP
+   epilogue; card == CPU bit for bit at batch 1 and on the timed batch-64
+   forward; buckets 1 and 64 captured and replayed == eager; batch-64
+   latency.
 6. LM decode path, Qwen2.5-3B at full width and depth with random weights
    drawn on the card: ``qmatmul`` held against its plain version (ragged
    shapes, the 7 decode projections at batch 4, a prefill shape, forced K
@@ -475,10 +480,13 @@ def check_kernels(torch, Q, KM, KG, ref):
     n_planes = check_plane_kernel(torch, KM, gen, err)
     log(f"kernel check mvau_int plane route (int8 tensor cores): {n_planes} "
         "cases bit for bit (uint8 codes x int8 weights; int16 codes, signed "
-        "and unsigned to 65535, x int16 weights' byte planes; codes at their "
-        "extremes half the time; 15 and 255 levels; conv form on every "
-        "kernel/stride/pad, C 3, 16, 24, N 8, 72, 136, K split planned, 2 "
-        "and 3; the GEMM form; the GAP epilogue at OH·OW 16 and 4)")
+        "and unsigned to 65535, and int32 codes, signed and unsigned to "
+        "2^24 - 1, x 16-bit weights' two byte planes or int8 weights' one: "
+        "1, 4, 2, 6 and 3 products; codes at their extremes half the time; "
+        "15 and 255 levels; conv form on every kernel/stride/pad, C 3, 16, "
+        "24, N 8, 72, 136, K split planned, 2 and 3; the GEMM form; the GAP "
+        "epilogue at OH·OW 16 and 4; 65,535 levels; K at PLANE_MAX_K; K past "
+        "it, a third weight plane and unknown kinds refused)")
 
     n_fused = check_fused_gap(torch, Q, KM, ri, err)
     log(f"kernel check mvau_int with the GAP epilogue: {n_fused} cases bit "
@@ -731,21 +739,42 @@ def check_core_int_kernel(torch, Q, KM, gen, err):
     return n_cases
 
 
-# the plane route's operand forms: (activation dtype, code range, weight
-# range); "u16" codes are int16 tensors read as unsigned
+# the plane route's operand forms: (name, activation code range, weight
+# code range); the route's kind and products follow from the ranges
+# (kernels.mvau.int_route): u8 one u8.s8 product; s16/u16 (int16 codes,
+# "u16" read as unsigned) x two weight planes, four products, and x one
+# (int8 weights), two; s24/u24 (int32 codes of up to 24 bits) x two weight
+# planes, six products, and x one, three
 PLANE_KINDS = (("u8", (0, 256), (-128, 128)),
                ("s16", (-32768, 32768), (-32768, 32768)),
-               ("u16", (0, 65536), (-32768, 32768)))
+               ("u16", (0, 65536), (-32768, 32768)),
+               ("s16w8", (-32768, 32768), (-128, 128)),
+               ("u16w8", (0, 65536), (-128, 128)),
+               ("s24", (-2**23, 2**23), (-32768, 32768)),
+               ("u24", (0, 2**24), (-32768, 32768)),
+               ("s24w8", (-2**23, 2**23), (-128, 128)),
+               ("u24w8", (0, 2**24), (-128, 128)))
+
+
+def plane_route(KM, kind):
+    """(x kind, products, x_unsigned) of a PLANE_KINDS form."""
+    _, (xlo, xhi), (wlo, whi) = next(k for k in PLANE_KINDS if k[0] == kind)
+    route, xk, prods = KM.int_route((xlo, xhi - 1), (wlo, whi - 1), 27)
+    check(route == "planes", f"{kind}: route {route}")
+    return xk, prods, xk in ("u16", "u24")
 
 
 def plane_operands(torch, KM, kind, xi, wi):
     """Codes ``xi`` (NHWC) and weights ``wi`` (K, N) as the plane route
-    takes them: uint8 codes and int8 weights, or int16 codes (a wrapping
-    cast of the low 16 bits) and the weights' byte planes."""
-    if kind == "u8":
+    takes them for form ``kind``: uint8 codes and int8 weights, or int16
+    codes (a wrapping cast of the low 16 bits) or int32 codes and the
+    weights' byte planes (two, or one of int8 weights)."""
+    xk, prods, _ = plane_route(KM, kind)
+    if xk == "u8":
         return xi.to(torch.uint8).cuda(), wi.to(torch.int8).cuda()
-    return (xi.to(torch.int32).to(torch.int16).cuda(),
-            KM.weight_planes(wi.to(torch.int16)).cuda())
+    return (xi.to(torch.int32).to(KM.x_dtype(xk)).cuda(),
+            KM.weight_planes(wi.to(torch.int32),
+                             planes=prods // KM.x_planes(xk)).cuda())
 
 
 def extreme_codes(torch, gen, lo, hi, shape):
@@ -756,13 +785,18 @@ def extreme_codes(torch, gen, lo, hi, shape):
 
 
 def check_plane_kernel(torch, KM, gen, err):
-    """The plane route of ``mvau_conv_kernel`` against its plain version:
-    uint8 codes x int8 weights (one u8.s8 product) and int16 codes x the
-    byte planes of int16 weights (four products; the codes signed, and
-    unsigned up to 65535), codes at their extremes half the time, so that
-    int16 sums leave int32 and wrap alike in both; 15 and 255 levels; the
-    conv form on every kernel/stride/pad with K split planned, 2 and 3, the
-    GEMM form, and the GAP epilogue.  Bit for bit."""
+    """The plane route of ``mvau_conv_kernel`` against its plain version,
+    for every form of PLANE_KINDS (one u8.s8 product; 16-bit codes, signed
+    and unsigned to 65535, against two weight planes (four products) or one
+    (two); 24-bit codes, signed and unsigned to 2^24 - 1, against two (six)
+    or one (three)): codes at their extremes half the time, so that the
+    sums leave int32 and wrap alike in both; 15 and 255 levels; the conv
+    form on every kernel/stride/pad, odd C, ragged M and N, with K split
+    planned, 2 and 3; the GEMM form; the GAP epilogue at OH·OW 16 and 4
+    with and without a split; 65,535 levels; K at PLANE_MAX_K.  Bit for
+    bit.  Then the entry point refuses K past the limit, a third weight
+    plane and an unknown kind, and the wrapper a K past the limit: nothing
+    falls back to the CUDA cores."""
     n_cases = 0
 
     def one(got, want, label):
@@ -772,8 +806,13 @@ def check_plane_kernel(torch, KM, gen, err):
         check(torch.equal(got, want), f"mvau_int plane route {label} "
               f"differs by {d}")
 
+    def tables(n, levels):
+        return torch.sort(torch.randint(-2**31, 2**31 - 1, (n, levels),
+                                        generator=gen), dim=1
+                          ).values.to(torch.int32).cuda()
+
     for kind, (xlo, xhi), (wlo, whi) in PLANE_KINDS:
-        xu = kind == "u16"
+        xu = plane_route(KM, kind)[2]
         for levels in (15, 255):
             for kernel, stride, pad in KSP:
                 for c, n in ((3, 8), (16, 72), (24, 136)):
@@ -781,9 +820,7 @@ def check_plane_kernel(torch, KM, gen, err):
                     xi = extreme_codes(torch, gen, xlo, xhi, (3, 9, 9, c))
                     wi = extreme_codes(torch, gen, wlo, whi, (k, n))
                     x, w = plane_operands(torch, KM, kind, xi, wi)
-                    t = torch.sort(torch.randint(-2**31, 2**31 - 1,
-                                                 (n, levels), generator=gen),
-                                   dim=1).values.to(torch.int32).cuda()
+                    t = tables(n, levels)
                     want = KM.mvau_int_conv_plain(x, w, t, kernel, stride,
                                                   pad, -3, x_unsigned=xu)
                     label = (f"{kind} L={levels} C={c} N={n} k/s/p="
@@ -803,9 +840,7 @@ def check_plane_kernel(torch, KM, gen, err):
             xi = extreme_codes(torch, gen, xlo, xhi, (5, side, side, c))
             wi = extreme_codes(torch, gen, wlo, whi, (9 * c, n))
             x, w = plane_operands(torch, KM, kind, xi, wi)
-            t = torch.sort(torch.randint(-2**31, 2**31 - 1, (n, 15),
-                                         generator=gen), dim=1
-                           ).values.to(torch.int32).cuda()
+            t = tables(n, 15)
             skip = torch.randint(-2**20, 2**20, (5, side, side, n),
                                  generator=gen).to(torch.int32).cuda()
             want = KM.mvau_int_conv_gap_plain(x, w, t, skip, 3, 1, 1, 2,
@@ -815,6 +850,66 @@ def check_plane_kernel(torch, KM, gen, err):
                                          x_unsigned=xu, splits=splits),
                     want, f"{kind} GAP epilogue {side}x{side}x{c} N={n}")
                 n_cases += 1
+        # 65,535 levels (binary search), and K at the planes' limit (the
+        # GEMM form, 130 rows, one split and several)
+        xi = extreme_codes(torch, gen, xlo, xhi, (2, 9, 9, 16))
+        wi = extreme_codes(torch, gen, wlo, whi, (144, 72))
+        x, w = plane_operands(torch, KM, kind, xi, wi)
+        t = tables(72, 65535)
+        want = KM.mvau_int_conv_plain(x, w, t, 3, 1, 1, -3, x_unsigned=xu)
+        for splits in (None, 2):
+            one(KM.mvau_int_conv(x, w, t, 3, 1, 1, -3, x_unsigned=xu,
+                                 splits=splits),
+                want, f"{kind} L=65535 splits={splits}")
+            n_cases += 1
+        kmax = KM.PLANE_MAX_K
+        xi = extreme_codes(torch, gen, xlo, xhi, (130, kmax))
+        wi = extreme_codes(torch, gen, wlo, whi, (kmax, 24))
+        x, w = plane_operands(torch, KM, kind, xi, wi)
+        t = tables(24, 15)
+        want = KM.mvau_int_plain(x, w, t, 0, x_unsigned=xu)
+        one(KM.mvau_int(x, w, t, 0, x_unsigned=xu), want,
+            f"{kind} K={kmax} (the limit)")
+        for splits in (1, 4):
+            one(KM.mvau_int_conv(x.reshape(1, 130, 1, kmax), w, t, 1, 1, 0,
+                                 0, x_unsigned=xu, splits=splits
+                                 ).reshape(130, 24),
+                want, f"{kind} K={kmax} splits={splits}")
+            n_cases += 1
+        n_cases += 1
+        if kind != "u8":
+            xi = torch.zeros((4, kmax + 1), dtype=torch.int32)
+            x, w = plane_operands(torch, KM, kind, xi,
+                                  torch.zeros((kmax + 1, 8),
+                                              dtype=torch.int32))
+            try:
+                KM.mvau_int(x, w, tables(8, 15), 0, x_unsigned=xu)
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure(f"{kind}: K {kmax + 1} past the planes' "
+                                   "limit did not raise")
+    # the entry point itself refuses what it does not take
+    from repro_torch.kernels import build as B
+
+    lib = B.library()
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.int32, device="cuda")
+    t = torch.zeros((8, 15), dtype=torch.int32, device="cuda")
+    out = torch.empty((1, 4, 4, 8), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for x_kind, w_planes, c in ((4, 2, KM.PLANE_MAX_K + 16), (4, 3, 16),
+                                (2, 0, 16), (6, 2, 16), (1, 1, 16)):
+        w = torch.zeros((max(w_planes, 1), 8, KM.plane_depth(c)),
+                        dtype=torch.int8, device="cuda")
+        xx = (x if c == 16 else torch.zeros((1, 1, 1, c), dtype=torch.int32,
+                                            device="cuda"))
+        side = 4 if c == 16 else 1
+        rc = lib.mvau_int_planes_conv(
+            xx.data_ptr(), x_kind, w.data_ptr(), w_planes, t.data_ptr(),
+            None, out.data_ptr(), 1, side, side, c, 1, 1, 0, 8, 15, 0, 1,
+            None, None, stream)
+        check(rc != 0, f"the plane entry took x_kind {x_kind}, w_planes "
+              f"{w_planes}, C {c}")
     return n_cases
 
 
@@ -836,7 +931,8 @@ def time_kernels(torch, Q, KM, KG, ref, err):
     tot = {"mvau_int": [0.0, 0.0, 0.0, 0, 0], "mvau": [0.0, 0.0, 0.0, 0, 0]}
     conv = {"gemm_form_ms": 0.0, "gemm_form_bytes": 0, "library_im2col_ms": 0.0,
             "int32_codes_cuda_core_ms": 0.0, "int32_codes_plain_ms": 0.0,
-            "int32_codes_bound_ms": 0.0, "layer_ms": []}
+            "int32_codes_bound_ms": 0.0, "int32_codes_library_ms": 0.0,
+            "layer_ms": []}
     flt = {"matmul_only_ms": 0.0, "gemm_form_ms": 0.0, "layers": []}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, hw, cin, n in layer_shapes(WIDTH, BATCH, IMG):
@@ -901,6 +997,17 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         core_bound = max((4 * x4i.numel() + w.numel() + 4 * t.numel()
                           + 4 * m * n) / PEAK_BYTES_PER_S,
                          2 * m * k * n / PEAK_INT32_OPS) * 1e3
+        # its yardstick: torch.matmul in float64 on the patch rows (exact:
+        # the sums lie far below 2^53), then the count
+        xd, wd = x.to(torch.float64), w.to(torch.float64)
+
+        def lib_f64():
+            acc = torch.matmul(xd, wd).to(torch.int32)
+            return ref.threshold_counts_fast(acc, t)
+
+        check(torch.equal(lib_f64(), want), f"{name}: the float64 yardstick "
+              "computes another function")
+        core_lib = cuda_ms(torch, lib_f64, reps=5)
         plain = cuda_ms(torch, lambda: KM.mvau_int_conv_plain(x4, w, t, 3, 1, 1),
                         reps=10)
         lib = cuda_ms(torch, lib_int)
@@ -916,7 +1023,8 @@ def time_kernels(torch, Q, KM, KG, ref, err):
                        ("library_im2col_ms", lib2),
                        ("int32_codes_cuda_core_ms", core_ms),
                        ("int32_codes_plain_ms", core_plain),
-                       ("int32_codes_bound_ms", core_bound)):
+                       ("int32_codes_bound_ms", core_bound),
+                       ("int32_codes_library_ms", core_lib)):
             conv[key] += v
         rows.append(("mvau_int", name, m, k, n, ms, plain, lib,
                      max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3,
@@ -926,7 +1034,7 @@ def time_kernels(torch, Q, KM, KG, ref, err):
                      f"{KM.tc_splits(m, n, k, sms)}; int32 codes (CUDA cores, "
                      f"conv form): kernel_ms={core_ms:.4f} plain_ms="
                      f"{core_plain:.4f} bound_ms={core_bound:.4f} library_ms="
-                     "none"))
+                     f"{core_lib:.4f} (torch.matmul in float64 + count)"))
 
         # float MVAU: the CUDA-core kernel in conv form on the float32 NHWC
         # activation; the plain version and the library on patch rows
@@ -990,7 +1098,8 @@ def time_kernels(torch, Q, KM, KG, ref, err):
         f"ms); int32-code route (CUDA cores, conv form) "
         f"{conv['int32_codes_cuda_core_ms']:.4f} ms (bound "
         f"{conv['int32_codes_bound_ms']:.4f} ms at the int32 rate, plain "
-        f"{conv['int32_codes_plain_ms']:.4f} ms, no library call); "
+        f"{conv['int32_codes_plain_ms']:.4f} ms, torch.matmul in float64 + "
+        f"count {conv['int32_codes_library_ms']:.4f} ms); "
         f"torch._int_mm + count {tot['mvau_int'][2]:.4f} ms on pre-built "
         f"patches, {conv['library_im2col_ms']:.4f} ms with the unfold im2col")
     f_ms, f_lib = tot["mvau"][0], tot["mvau"][2]
@@ -1058,6 +1167,7 @@ def time_kernels(torch, Q, KM, KG, ref, err):
               int32_codes_cuda_core_ms=conv["int32_codes_cuda_core_ms"],
               int32_codes_plain_ms=conv["int32_codes_plain_ms"],
               int32_codes_bound_ms=conv["int32_codes_bound_ms"],
+              int32_codes_library_ms=conv["int32_codes_library_ms"],
               layer_ms=conv["layer_ms"]),
         entry("mvau", "src/repro_torch/csrc/mvau.cu",
               "src/repro/kernels/mvau.py:140", tot["mvau"], PEAK_F32_OPS,
@@ -1079,31 +1189,41 @@ def time_kernels(torch, Q, KM, KG, ref, err):
     ]
 
 
+# the plane route's forms timed at the main path's layer shapes: (key,
+# PLANE_KINDS form, the timed codes' range or None for the form's own)
+TIMED_PLANES = (("16", "u16", None), ("u8", "u8", None),
+                ("x2w1", "u16w8", None), ("x3w2", "s24", (0, 2**17)))
+
+
 def time_plane_kernels(torch, KM, ref, gen, err):
     """The plane route at the main path's 8 layer shapes at batch 64, 15
     levels: 16-bit codes (unsigned to 65535) x 16-bit weights as byte
-    planes (the entry's numbers: four wgmma products a K-step), and uint8
-    codes x int8 weights (one u8.s8 product: ``u8_*``).  Each layer is
-    held against its plain version bit for bit twice: on codes at their
-    extremes (int32 sums that wrap, alike in both), and on the timed codes,
-    whose weights are bounded so that every sum fits int32 and the library
-    yardstick (``torch.matmul`` in float64 on pre-built patches, exact
-    below 2^53, then the threshold count) computes the same function.
-    Beside each: the CUDA-core kernel on the same codes as int32
-    (``core_ms``).  The bound counts each operand read once (int16 codes,
-    both weight planes, the tables) and the int32 codes written once,
-    against the int8 tensor-core rate over the products' operations."""
+    planes (the entry's numbers: four wgmma products a K-step); uint8 codes
+    x int8 weights (one u8.s8 product: ``u8_*``); 16-bit codes x int8
+    weights (two products: ``x2w1_*``); 17-bit codes as int32, the range of
+    w16a16's c2, x 16-bit weights (three activation planes, six products:
+    ``x3w2_*``).  Each layer is held against its plain version bit for bit
+    twice: on codes at the form's extremes (int32 sums that wrap, alike in
+    both), and on the timed codes, whose weights are bounded so that every
+    sum fits int32 and the library yardstick (``torch.matmul`` in float64
+    on pre-built patches, exact below 2^53, then the threshold count)
+    computes the same function.  Beside each: the CUDA-core kernel on the
+    same codes as int32 (``core_ms``).  The bound counts each operand read
+    once (the codes as the kernel takes them, the weight planes, the
+    tables) and the int32 codes written once, against the int8 tensor-core
+    rate over the products' operations."""
     dev = "cuda"
     L = 15
-    tot = {"16": [0.0, 0.0, 0.0, 0, 0], "u8": [0.0, 0.0, 0.0, 0, 0]}
-    core = {"16": 0.0, "u8": 0.0}
+    tot = {key: [0.0, 0.0, 0.0, 0, 0] for key, _, _ in TIMED_PLANES}
+    core = {key: 0.0 for key, _, _ in TIMED_PLANES}
+    forms = {kind: (xr, wr) for kind, xr, wr in PLANE_KINDS}
     layers = []
     for name, hw, cin, n in layer_shapes(WIDTH, BATCH, IMG):
         m, k = BATCH * hw * hw, 9 * cin
         row = {"layer": name}
-        for kind, (xlo, xhi), (wlo, whi) in (PLANE_KINDS[2], PLANE_KINDS[0]):
-            key = "u8" if kind == "u8" else "16"
-            xu = kind == "u16"
+        for key, kind, timed in TIMED_PLANES:
+            (xlo, xhi), (wlo, whi) = forms[kind]
+            _, prods, xu = plane_route(KM, kind)
             # extremes: wrapped sums, kernel == plain
             xe = extreme_codes(torch, gen, xlo, xhi, (BATCH, hw, hw, cin))
             we = extreme_codes(torch, gen, wlo, whi, (k, n))
@@ -1119,6 +1239,7 @@ def time_plane_kernels(torch, KM, ref, gen, err):
             check(torch.equal(got, want), f"mvau_int plane route {kind} "
                   f"{name} at its extremes differs by {d}")
             # the timed codes: every sum inside int32
+            xlo, xhi = timed or (xlo, xhi)
             wlim = min(whi, max(1, (2**31 - 1) // (k * (xhi - 1))))
             xi = torch.randint(xlo, xhi, (BATCH, hw, hw, cin), generator=gen)
             wi = torch.randint(-wlim, wlim, (k, n), generator=gen)
@@ -1127,8 +1248,7 @@ def time_plane_kernels(torch, KM, ref, gen, err):
             t = torch.sort(torch.randint(-tr, tr, (n, L), generator=gen),
                            dim=1).values.to(torch.int32).to(dev)
             x32 = xi.to(torch.int32).to(dev)
-            w_core = wi.to(torch.int8 if kind == "u8" else torch.int16
-                           ).to(dev)
+            w_core = wi.to(torch.int8 if whi <= 128 else torch.int16).to(dev)
             xp = ref.im2col(x32, 3, 1, 1).reshape(m, k).to(torch.float64)
             wd = wi.to(torch.float64).to(dev)
 
@@ -1151,7 +1271,6 @@ def time_plane_kernels(torch, KM, ref, gen, err):
             lib_ms = cuda_ms(torch, lib, reps=5)
             core_ms = cuda_ms(torch, lambda: KM.mvau_int_conv(
                 x32, w_core, t, 3, 1, 1))
-            prods = 1 if kind == "u8" else 4
             nbytes = (x.element_size() * x.numel() + w.numel()
                       + 4 * t.numel() + 4 * m * n)
             ops = prods * 2 * m * k * n
@@ -1161,28 +1280,32 @@ def time_plane_kernels(torch, KM, ref, gen, err):
             bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3
             row[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                         "bound_ms": bound, "core_ms": core_ms}
-            log(f"kernel mvau_int_planes {kind:3s} {name:4s} M={m:6d} "
+            log(f"kernel mvau_int_planes {kind:5s} {name:4s} M={m:6d} "
                 f"K={k:5d} N={n:4d}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
                 f"({prods} products) cuda_core_ms={core_ms:.4f}")
         layers.append(row)
-    u8 = tot["u8"]
-    u8_b = max(u8[3] / PEAK_BYTES_PER_S, u8[4] / PEAK_INT8_OPS) * 1e3
-    b16 = max(tot["16"][3] / PEAK_BYTES_PER_S,
-              tot["16"][4] / PEAK_INT8_OPS) * 1e3
-    log(f"kernel mvau_int_planes sum over the 8 layers at batch {BATCH}: "
-        f"16-bit byte planes {tot['16'][0]:.4f} ms (bound {b16:.4f} ms, "
-        f"library {tot['16'][2]:.4f} ms, CUDA-core kernel on the same codes "
-        f"{core['16']:.4f} ms); uint8 one plane {u8[0]:.4f} ms (bound "
-        f"{u8_b:.4f} ms, library {u8[2]:.4f} ms, CUDA-core kernel "
-        f"{core['u8']:.4f} ms)")
+    bounds = {key: max(v[3] / PEAK_BYTES_PER_S, v[4] / PEAK_INT8_OPS) * 1e3
+              for key, v in tot.items()}
+    log(f"kernel mvau_int_planes sum over the 8 layers at batch {BATCH}: " +
+        "; ".join(f"{key} {tot[key][0]:.4f} ms (bound {bounds[key]:.4f} ms, "
+                  f"library {tot[key][2]:.4f} ms, CUDA-core kernel on the "
+                  f"same codes {core[key]:.4f} ms)" for key, _, _ in
+                  TIMED_PLANES))
+    extra = {}
+    for key in ("u8", "x2w1", "x3w2"):
+        ms, plain, lib_ms = tot[key][:3]
+        extra.update({f"{key}_ms": ms, f"{key}_plain_ms": plain,
+                      f"{key}_library_ms": lib_ms,
+                      f"{key}_bound_ms": bounds[key],
+                      f"{key}_cuda_core_ms": core[key]})
     return {"t": tot["16"],
             "form": "conv, 16-bit codes as byte planes (4 wgmma products "
                     "a K-step), 15 levels; u8_*: uint8 codes x int8 "
-                    "weights, one u8.s8 product",
-            "cuda_core_ms": core["16"], "u8_ms": u8[0], "u8_plain_ms": u8[1],
-            "u8_library_ms": u8[2], "u8_bound_ms": u8_b,
-            "u8_cuda_core_ms": core["u8"], "layer_ms": layers}
+                    "weights, one u8.s8 product; x2w1_*: 16-bit codes x "
+                    "int8 weights, 2 products; x3w2_*: 17-bit codes as "
+                    "int32 x 16-bit weights, 6 products",
+            "cuda_core_ms": core["16"], **extra, "layer_ms": layers}
 
 
 def time_fused_gap(torch, KM, KG, ref, gen, err):
@@ -1405,12 +1528,14 @@ def main_path(torch, np, B):
 
     f_int, d = delta(lambda: dm_int(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 0,
                 "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"int forward launches {d}")
     f_f32, d = delta(lambda: dm_f32(x_q))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 8,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 8,
                 "gap": 1, "qmatmul": 0, "qmatmul_rows": 0},
           f"f32 forward launches {d}")
     (f_interp,), d = delta(lambda: execute(dm_f32.graph, {"x": x_q}))
@@ -1422,7 +1547,8 @@ def main_path(torch, np, B):
                         RESNET9_BUILD_STEPS)
     (f_hw,), d = delta(lambda: execute(hw, {"x": x_q}))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 8,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 8,
                 "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"build_dataflow graph launches {d}")
     (f_interp_int,) = execute(dm_int.graph, {"x": x})
@@ -1452,7 +1578,8 @@ def main_path(torch, np, B):
     unfused = unfused_lowering(dm_int)
     f_unf, d = delta(lambda: unfused(x))
     check(d == {"mvau_int": 8, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 0,
                 "gap": 1, "qmatmul": 0, "qmatmul_rows": 0}
           and torch.equal(f_unf, f_int),
           f"unfused int forward: launches {d}, or features differ")
@@ -1462,13 +1589,15 @@ def main_path(torch, np, B):
     feats = pipe.deploy(params, datapath="int")
     f_flip, d = delta(lambda: feats(x))
     check(d == {"mvau_int": 16, "mvau_int_gap": 2, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 0,
                 "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
           f"flip ensemble {d}")
     feats_f32 = pipe.deploy(params, datapath="f32")
     f_flip32, d = delta(lambda: feats_f32(x))
     check(d == {"mvau_int": 0, "mvau_int_gap": 0, "mvau_int_wide": 0,
-                "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 16,
+                "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 16,
                 "gap": 2, "qmatmul": 0, "qmatmul_rows": 0},
           f"f32 flip ensemble {d}")
     check(torch.equal(f_flip, f_flip32), "flip ensemble int != f32")
@@ -2557,13 +2686,14 @@ def wide_code_path(torch, np, B):
     sum) and the paper's 16-bit baseline ``paper_w16a16()`` (16-bit codes;
     17-bit at c2) -- compiled on the card at the widest of widths 64, 32,
     16, 8 that the integer lowering admits (it refuses a layer whose
-    reachable sums leave int32): every MVAU whose codes fit 16 bits on the
-    tensor cores' plane route (uint8 codes as one u8.s8 product, wider ones
-    as byte planes), the 17-bit one on the CUDA-core kernel, each with its
-    im2col folded in and r2b with the GAP epilogue: card == CPU bit for bit
-    on a small batch and at batch 64, launches per forward, batch-64
-    latency beside w6a4's.  Returns the launch counts of the counted
-    forwards."""
+    reachable sums leave int32): every MVAU on the tensor cores' plane
+    route (uint8 codes as one u8.s8 product, wider ones as byte planes:
+    (8, 8)'s c2 two products against one weight plane, w16a16's 16-bit
+    layers four, its 17-bit c2 six), none on the CUDA-core kernel, each
+    with its im2col folded in and r2b with the GAP epilogue: card == CPU
+    bit for bit at batch 1 and 64, launches per forward, the buckets 1 and
+    64 captured as CUDA graphs and replayed == eager, batch-64 latency
+    beside w6a4's.  Returns the launch counts of the counted forwards."""
     import repro_torch
     from repro_torch.core.graph import GraphBuildError
     from repro_torch.core.quant import QuantConfig
@@ -2608,12 +2738,14 @@ def wide_code_path(torch, np, B):
                    str(g.initializers[n.inputs[1]].dtype))
                   for n in g.nodes if n.op == "mvau_int"]
         int8 = label == "paper_w6a4()"
-        # every MVAU on the tensor cores but one whose codes pass 16 bits
-        want = {t: ("int8" if int8 else "planes"
-                    if g.dtypes[n.inputs[0]].total_bits <= 16 else "core")
-                for n in g.nodes if n.op == "mvau_int"
-                for t in [n.outputs[0]]}
-        wide = sum(r == "core" for r in want.values())
+        # every MVAU on the tensor cores
+        want = {n.outputs[0]: "int8" if int8 else "planes"
+                for n in g.nodes if n.op == "mvau_int"}
+        prods = [r[2] for r in routes.values()]
+        p2, p6 = prods.count(2), prods.count(6)
+        check(int8 or (p2, p6) == ((1, 0) if label == "grid_point(8, 8)"
+                                   else (0, 1)),
+              f"{label}: products a K-step {prods}")
         check({t: r[0] for t, r in routes.items()} == want
               and all(table[t] == labels[r] for t, r in want.items())
               and len(dm.apply.folded) == 10
@@ -2626,27 +2758,39 @@ def wide_code_path(torch, np, B):
         check(dm.weight_bytes() == dm_cpu.weight_bytes(),
               f"{label}: weight bytes differ between card and CPU")
         B.reset_launch_counts()
-        f = dm(x[:2])
+        f = dm(x[:1])
         torch.cuda.synchronize()
         run = dict(B.launch_counts)
         check(run == {"mvau_int": 8, "mvau_int_gap": 1,
-                      "mvau_int_planes": 0 if int8 else 8 - wide,
-                      "mvau_int_wide": wide, "mvau_int_small_m": 0,
+                      "mvau_int_planes": 0 if int8 else 8,
+                      "mvau_int_planes2": p2, "mvau_int_planes6": p6,
+                      "mvau_int_wide": 0, "mvau_int_small_m": 0,
                       "mvau": 0, "gap": 0, "qmatmul": 0, "qmatmul_rows": 0},
               f"{label} forward launches {run}")
         for k, v in run.items():
             counts[k] += v
-        check(f.shape == (2, 8 * width) and bool(torch.isfinite(f).all()),
+        check(f.shape == (1, 8 * width) and bool(torch.isfinite(f).all()),
               f"{label}: features {tuple(f.shape)}")
-        check(torch.equal(f.cpu(), dm_cpu(x_np[:2])),
+        check(torch.equal(f.cpu(), dm_cpu(x_np[:1])),
               f"{label}: card features != CPU features")
         f = dm(x)
         check(torch.equal(f.cpu(), dm_cpu(x_np)),
               f"{label}: card features != CPU features at batch {BATCH}")
         lat[label] = wall_ms(torch, lambda: dm(x), reps=5)
+        # buckets 1 and 64 as CUDA graphs: each replay == the eager run;
+        # these launches are no path's
+        saved = dict(B.launch_counts)
+        dm.warmup((1, BATCH), x[:1])
+        for b in (1, BATCH):
+            (eager,) = dm.apply(x[:b])
+            check(torch.equal(dm.batched(x[:b]), eager)
+                  and torch.equal(eager, f[:b]),
+                  f"{label}: bucket {b} replay != eager")
+        B.launch_counts.update(saved)
         log(f"{label} int artifact at width {width} (compiled on the card in "
             f"{secs:.2f} s, weight bytes {dm.weight_bytes()}): card == CPU "
-            f"bit for bit at batch 2 and {BATCH}; launches a forward {run}; "
+            f"bit for bit at batch 1 and {BATCH}, buckets 1 and {BATCH} "
+            f"replayed == eager; launches a forward {run}; "
             f"batch {BATCH} {lat[label]:.3f} ms ({BATCH / lat[label] * 1e3:.1f}"
             f" images/s); layers (name, kernel, codes, products, weight "
             f"codes): {layers}")
@@ -5400,6 +5544,16 @@ def main() -> int:
             int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                        e))]
         check(not spilled, f"ptxas: {section.split()[0]} spills in {spilled}")
+        # the plane route's instantiations: (VEC, PlaneKind) -> registers
+        planes = sorted({(int(m.group(2)), int(m.group(1)), int(r))
+                         for e in entries for m in [re.match(
+                             r"\S*mvau_conv_kernelILi(\d+)ELi\d+ELi\d+ELi(\d+)"
+                             r"EE", e)] if m and int(m.group(2)) > 0
+                         for r in re.findall(r"Used (\d+) registers", e)})
+        if planes:
+            log(f"  ptxas {section.split()[0]}: mvau_conv_kernel plane kinds "
+                "(PlaneKind, VEC, registers) " + ", ".join(
+                    f"({k}, {v}, {r})" for k, v, r in planes))
     B.library()
 
     err = check_kernels(torch, Q, KM, KG, ref)
@@ -5530,9 +5684,10 @@ def main() -> int:
               f"kernel {name} never ran on the dist path")
     # the integer MVAU's routes: int8 wgmma, the int8 GEMM form at decode
     # shapes (mvau_small_m_kernel), the plane route of the tensor cores for
-    # codes of up to 16 bits (grid_point(8, 8), the 8- and 16-bit Table II
-    # rows, paper_w16a16()), and the CUDA cores for wider codes (the 16-bit
-    # artifacts' c2, whose input is a 17-bit residual sum)
+    # codes of up to 24 bits (grid_point(8, 8), the 8- and 16-bit Table II
+    # rows, paper_w16a16(), the 16-bit artifacts' c2, whose input is a
+    # 17-bit residual sum, among them), and the CUDA cores for wider codes
+    # (the kernel phase's int32 codes; no artifact's layer)
     mv = next(k for k in kernels if k["name"] == "mvau_int")
     mv["launches_by_route"] = {
         "int8_wgmma": {p: c["mvau_int"] - c["mvau_int_wide"]
@@ -5555,6 +5710,17 @@ def main() -> int:
               ("fsl_wide_codes", "fsl_train", "dse", "fuzz")),
           f"the plane route never ran on its paths: "
           f"{planes['launches_by_path']}")
+    # its two-product (the (8, 8) point's 9-bit c2 x int8 weights) and
+    # six-product (w16a16's 17-bit c2) kinds, by path; the wide artifacts
+    # run no MVAU on the CUDA cores
+    for key, name in (("x2w1", "mvau_int_planes2"),
+                      ("x3w2", "mvau_int_planes6")):
+        planes[f"{key}_launches_by_path"] = {p: c[name]
+                                             for p, c in paths.items()}
+        check(paths["fsl_wide_codes"][name] > 0,
+              f"the plane route's {key} kind never ran on fsl_wide_codes")
+    check(mv["launches_by_route"]["cuda_core"]["fsl_wide_codes"] == 0,
+          "an MVAU of the wide-code artifacts ran on the CUDA cores")
     kernels.append(planes)
     # the small-M kernel: its own entry, its launches those of lm-tiny's
     # eager int steps (its main path), the replays and the fuzz beside them

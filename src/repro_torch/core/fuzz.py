@@ -20,7 +20,7 @@ Two corpora:
   stream of its own, with shapes that reach the edges of the card's kernel
   tiles: M past 128 rows with a ragged last tile, N past 128 columns, K
   deep enough to split, 8-bit activations (255-level, binary-searched
-  tables, the CUDA-core route) beside narrower ones (the int8 ``wgmma``
+  tables, the plane route) beside narrower ones (the int8 ``wgmma``
   route), and residual blocks whose ``add`` lowers to integers (a fused
   GAP tail or the GAP kernel with a skip operand) or stays float.
 
@@ -446,7 +446,7 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
                      ) -> Dict[str, Any]:
     """What the card's kernels get from artifact ``dm`` on input ``x``: per
     MVAU node its route (``int8`` wgmma, ``int8_small_m`` for the int8
-    GEMM form the small-M kernel takes, ``planes`` for codes of up to 16
+    GEMM form the small-M kernel takes, ``planes`` for codes of up to 24
     bits on the same tensor cores, ``core`` for wider codes on the CUDA
     cores, ``f32`` for the float MVAU), its form (``conv``: its
     ``im2col`` folded in, or ``gemm``), GEMM shape M x K x N,
@@ -469,19 +469,25 @@ def lowering_summary(dm, x: np.ndarray, sms: int = H100_SMS
         xs = g.shapes[n.inputs[0]]
         m, k = batch * int(np.prod(xs[:-1])), int(xs[-1])
         nn, levels = g.shapes[n.outputs[0]][-1], g.shapes[n.inputs[2]][-1]
+        kind = None
         if n.op == "mvau":
             route = "f32"
         else:
-            route = kops.int_route_of(n, g)[0]
+            route, kind, _ = kops.int_route_of(n, g)
             if (route == "int8" and n.inputs[0] not in conv
                     and kmvau.int8_gemm_route(m, int(levels)) == "small_m"):
                 route = "int8_small_m"
-        planner = {"int8": kmvau.tc_splits, "planes": kmvau.tc_splits,
-                   "int8_small_m": lambda *_: 1}.get(route, kmvau.core_splits)
+        if route in ("int8", "planes"):
+            splits = kmvau.tc_splits(m, int(nn), k, sms,
+                                     kmvau.plane_tile_rows(kind))
+        elif route == "int8_small_m":
+            splits = 1
+        else:
+            splits = kmvau.core_splits(m, int(nn), k, sms)
         nodes.append({"tensor": n.outputs[0], "route": route,
                       "form": "conv" if n.inputs[0] in conv else "gemm",
                       "m": m, "k": k, "n": int(nn), "levels": int(levels),
-                      "splits": planner(m, int(nn), k, sms)})
+                      "splits": splits})
     tails = kops.gap_tails(g.nodes, g.outputs, g)
     float_adds = [n for n in g.nodes if n.op == "add" and any(
         (p := g.producer(i)) is not None and p.op == "dequantize"

@@ -42,15 +42,17 @@
 //   ResNet-9's shapes at batch 64, 0.035 ms at 3.35 TB/s); measured on the
 //   H100 (PERF.md) it is held by instruction issue: the dense threshold
 //   count, the B transposes, each tile's prologue.  Its plane route takes
-//   integer codes of up to 16 bits on the same tensor cores: uint8 codes
-//   (0..255, the a8 configs) as one wgmma u8.s8, and codes of 9 to 16 bits
-//   (w16a16 and the like) as byte planes, four wgmma products recombined
-//   exactly (see the notes above the kernel).
+//   integer activation codes of up to 24 bits against weights of up to 16
+//   on the same tensor cores: uint8 codes (0..255, the a8 configs) as one
+//   wgmma u8.s8, and wider codes as byte planes, one wgmma product for
+//   each pair of an activation and a weight plane (2 to 6), recombined
+//   exactly (see the notes above the kernel): the 16-bit codes of w16a16
+//   and the like, and the 17-bit residual sums that feed w16a16's c2.
 // * mvau_core_kernel -- everything else on the CUDA cores: the float MVAU
-//   (float32 FMA, never TF32), and integer codes wider than 16 bits, or
-//   whose K is past the byte planes' int32 limit (int32 activation codes
-//   x int8, int16, int32 or packed int4 weights, exact int32 multiply-add:
-//   the 17-bit residual sums that feed w16a16's c2).  A 128 x
+//   (float32 FMA, never TF32), and integer activation codes wider than 24
+//   bits or weights wider than 16, or K past the byte planes' int32 limit
+//   (int32 activation codes x int8, int16, int32 or packed int4 weights,
+//   exact int32 multiply-add).  A 128 x
 //   128 (or 128 x 64) block tile of 8 x 8 register-tiled accumulators a
 //   thread, a 4-stage cp.async ring of 16-k stages, split K in one launch.
 //   Bound by operations (the float ResNet-9 at batch 64: 96.6 GFLOP, 0.72
@@ -171,11 +173,9 @@ constexpr int TC_STAGES = 4;
 constexpr int TC_THREADS = 256;
 constexpr int TC_RING = TC_STAGES * (TC_BM + TC_BN) * TC_BK;   // 65,536 B
 // + the block's threshold rows, staged at the start (up to 64 levels):
-// row stride ts_stride(L) words
-constexpr int TC_SMEM_MAX = TC_RING + TC_BN * 65 * 4;          // 98,816 B
+// row stride ts_stride(L) words (Planes::SMEM_MAX: 98,816 B in all)
 static_assert(TC_BM * TC_BN * 4 <= TC_RING,
               "the GAP epilogue stages a 128 x 128 int32 tile in the ring");
-constexpr int TC_MI = 2;   // 64-row wgmma blocks a thread's accumulators span
 constexpr int TC_NJ = 8;   // 8-column accumulator tiles of a warpgroup
 
 // What the A and B tiles of one launch hold (see the byte-plane notes above
@@ -183,28 +183,53 @@ constexpr int TC_NJ = 8;   // 8-column accumulator tiles of a warpgroup
 enum PlaneKind {
   PL_S8 = 0,      // int8 x int8 (or packed int4): s8.s8
   PL_U8 = 1,      // uint8 codes (0..255) x int8: u8.s8
-  PL_BYTES = 2,   // 16-bit codes x 16-bit weights as byte planes, four
-                  // products; the codes' high byte signed (s8)
-  PL_BYTES_U = 3, // the same, the codes' high byte unsigned (u8): 16-bit
-                  // unsigned codes up to 65535
+  // Byte planes, P_x activation planes x P_w weight planes: X2 codes of 9
+  // to 16 bits (int16), X3 codes of 17 to 24 bits (int32); W2 16-bit
+  // weights, W1 int8 weights; U the codes' top plane unsigned (u8: codes up
+  // to 65535 or 2^24 - 1), else signed (s8)
+  PL_X2W2 = 2, PL_X2W2U = 3, PL_X2W1 = 4, PL_X2W1U = 5,
+  PL_X3W2 = 6, PL_X3W2U = 7, PL_X3W1 = 8, PL_X3W1U = 9,
 };
-// Shared memory of the byte-plane route: a ring of raw 16-bit A tiles (rows
-// of 144 bytes: a warp's 16-byte reads of 8 rows x 4 segments then fill the
-// banks once), a ring of B tiles of both weight planes, two buffers of A's
-// byte planes (written one tile ahead of the wgmma that reads them), then
-// the threshold rows.  Every tile starts on a multiple of 1,024 bytes.
-constexpr int PB_RAW_STRIDE = 2 * TC_BK + 16;
-constexpr int PB_RAW_STAGE = TC_BM * PB_RAW_STRIDE;                // 18,432 B
-constexpr int PB_B_OFF = TC_STAGES * PB_RAW_STAGE;                 // 73,728 B
-constexpr int PB_A_OFF = PB_B_OFF + TC_STAGES * 2 * TC_BN * TC_BK;  // 139,264
-constexpr int PB_RING = PB_A_OFF + 2 * 2 * TC_BM * TC_BK;           // 172,032
-constexpr int PB_SMEM_MAX = PB_RING + TC_BN * 65 * 4;              // 205,312
-// The longest K whose byte-plane sums stay inside int32: a k adds at most
-// 255 * 255 (ll), 255 * 128 + 255 * 255 < 2 * 255 * 255 (mid) or 255 * 128
-// (hh) to a plane's sum.
+
+// The shape of one plane kind's launch.  Shared memory of the byte-plane
+// kinds: a ring of raw A tiles as the codes come (int16 or int32; rows of
+// 144 or 272 bytes, 16 past a multiple of 128, so that a warp's 16-byte
+// reads of 8 rows x 4 segments fill the banks once), a ring of B tiles of
+// the weight planes, two buffers of A's byte planes (written one tile ahead
+// of the wgmma that reads them), then the threshold rows.  Every tile
+// starts on a multiple of 1,024 bytes:
+//   X2W2 205,312 B, X2W1 172,544, X3W2 193,024, X3W1 160,256.
+// Registers: one int32 accumulator set a byte shift (P_x + P_w - 1 sets).
+// The X2 kinds keep the 128 x 128 tile (X2W2: 3 sets, 192 registers a
+// thread; X2W1: 2 sets, 128); the X3 kinds take a 64 x 128 tile (MI = 1:
+// 4 or 3 sets of 32 registers), whose raw int32 stages then hold the ring
+// at 4 stages: at 128 rows four sets would be the whole register file.
+template <int PL>
+struct Planes {
+  static constexpr bool PB = PL >= PL_X2W2;
+  static constexpr int PX = PL >= PL_X3W2 ? 3 : 2;
+  static constexpr int PW = PB && ((PL - PL_X2W2) & 2) ? 1 : 2;
+  static constexpr bool XU = PB && ((PL - PL_X2W2) & 1);
+  static constexpr int SETS = PB ? PX + PW - 1 : 1;
+  static constexpr int MI = PB && PX == 3 ? 1 : 2;   // 64-row wgmma blocks
+  static constexpr int BM = 64 * MI;                 // rows of the tile
+  static constexpr int XB = PX == 3 ? 4 : 2;         // bytes of a raw code
+  static constexpr int RAW_STRIDE = XB * TC_BK + 16;
+  static constexpr int RAW_STAGE = BM * RAW_STRIDE;
+  static constexpr int B_OFF = TC_STAGES * RAW_STAGE;
+  static constexpr int A_OFF = B_OFF + TC_STAGES * PW * TC_BN * TC_BK;
+  static constexpr int RING = PB ? A_OFF + 2 * PX * BM * TC_BK : TC_RING;
+  static constexpr int SMEM_MAX = RING + TC_BN * 65 * 4;
+  static_assert(!PB || BM * TC_BN * 4 <= TC_STAGES * RAW_STAGE,
+                "the GAP epilogue stages its skip tile in the raw ring");
+  static_assert(SMEM_MAX <= 232448, "more shared memory than a block has");
+};
+// The longest K whose byte-plane sums stay inside int32: a k adds to one
+// accumulator set at most two products of bytes (X2W2's shift 8: xl wh +
+// xh wl; X3W2's shifts 8 and 16), each at most 255 * 255 (u8 x u8; u8 x s8
+// and s8 x s8 products are smaller in magnitude), so a set's sum lies in
+// [-2 * 255 * 128 K, 2 * 255 * 255 K].
 constexpr int PLANE_MAX_K = 2147483647 / (2 * 255 * 255);          // 16,512
-static_assert(TC_BM * TC_BN * 4 <= PB_RAW_STAGE * TC_STAGES,
-              "the GAP epilogue stages its skip tile in the raw ring");
 
 struct ConvGeom {
   int H, W, C;             // activation image and channels
@@ -305,6 +330,23 @@ __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[8][4], uint64_t da,
   }
 }
 
+// wgmma_m64n64k32 with the operand types as arguments: au and bu are
+// constants once the caller's loops are unrolled
+__device__ __forceinline__ void wgmma_plane(int (&d)[8][4], uint64_t da,
+                                            uint64_t db, bool au, bool bu) {
+  if (au) {
+    if (bu)
+      wgmma_m64n64k32<true, true>(d, da, db);
+    else
+      wgmma_m64n64k32<true, false>(d, da, db);
+  } else {
+    if (bu)
+      wgmma_m64n64k32<false, true>(d, da, db);
+    else
+      wgmma_m64n64k32<false, false>(d, da, db);
+  }
+}
+
 // Row stride, in words, of the staged threshold block: odd, so that the 4
 // columns a warp reads at once (2 q, q < 4) hit distinct banks.
 __host__ __device__ __forceinline__ int ts_stride(int L) { return L | 1; }
@@ -338,16 +380,17 @@ __device__ __forceinline__ int skip_word(int row, int col) {
   return row * TC_BN + (col ^ ((row & 3) << 3));
 }
 
-// cp.async of the skip operand's rows m0 .. m0 + 127, columns n0 .. n0 +
-// 127 into a 128 x 128 int32 tile (skip_word order) at smem; zero past M
-// and N.  16-byte copies where N and the pointer allow, else 4-byte ones.
+// cp.async of the skip operand's rows m0 .. m0 + rows - 1, columns n0 ..
+// n0 + 127 into a rows x 128 int32 tile (skip_word order) at smem; zero
+// past M and N.  16-byte copies where N and the pointer allow, else 4-byte
+// ones.
 __device__ __forceinline__ void stage_skip(uint8_t* smem,
                                            const int32_t* __restrict__ skip,
                                            int m0, int n0, int M, int N,
-                                           int tid) {
+                                           int rows, int tid) {
   int32_t* const Ss = reinterpret_cast<int32_t*>(smem);
   const bool vec = N % 4 == 0 && (reinterpret_cast<uintptr_t>(skip) & 15) == 0;
-  for (int e = tid; e < TC_BM * (TC_BN / 4); e += TC_THREADS) {
+  for (int e = tid; e < rows * (TC_BN / 4); e += TC_THREADS) {
     const int row = e / (TC_BN / 4);
     const int col = 4 * (e % (TC_BN / 4));
     const int gm = m0 + row;
@@ -368,18 +411,19 @@ __device__ __forceinline__ void stage_skip(uint8_t* smem,
   cp_async_commit();
 }
 
-// One step of a reduce-scatter across lanes HALF apart: the lane whose
-// HALF bit is set keeps w[HALF .. 2 HALF - 1] and sends w[0 .. HALF - 1],
-// its partner the other way round; w[0 .. HALF - 1] then holds the pair's
-// sums of the half this lane keeps.
-template <int HALF>
-__device__ __forceinline__ void reduce_scatter(uint32_t (&w)[32], int lane) {
-  const bool upper = (lane & HALF) != 0;
+// One step of a reduce-scatter across lanes XOR apart: the lane whose XOR
+// bit is set keeps w[HALF .. 2 HALF - 1] and sends w[0 .. HALF - 1], its
+// partner the other way round; w[0 .. HALF - 1] then holds the pair's sums
+// of the half this lane keeps.
+template <int XOR, int HALF, int NW>
+__device__ __forceinline__ void reduce_scatter(uint32_t (&w)[NW], int lane) {
+  static_assert(2 * HALF <= NW, "a step halves the words it is given");
+  const bool upper = (lane & XOR) != 0;
 #pragma unroll
   for (int k = 0; k < HALF; ++k) {
     const uint32_t send = upper ? w[k] : w[k + HALF];
     const uint32_t keep = upper ? w[k + HALF] : w[k];
-    w[k] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+    w[k] = keep + __shfl_xor_sync(0xffffffffu, send, XOR);
   }
 }
 
@@ -402,43 +446,50 @@ struct Epilogue {
   int pool;              // output rows per image (OH * OW, dividing 16), or 0
 };
 
-// Byte planes (PL_BYTES, PL_BYTES_U): integer codes of 9 to 16 bits on
-// either side of the product, exact on the int8 tensor cores.  A code is
-// c = 256 hi + lo with lo = c & 255 in [0, 255] (u8) and hi = c >> 8 in
-// the code's own sign (s8, or u8 for unsigned codes up to 65535), so
-//   sum_k x w = ll + 256 mid + 65536 hh,   ll = sum xl wl,
-//   mid = sum (xl wh + xh wl),   hh = sum xh wh,
-// each product one wgmma with its own operand types (u8.u8, u8.s8, s8.u8
-// or u8.u8, s8.s8 or u8.s8).  The three sums are three accumulator sets of
-// the same 128 x 128 tile, 192 registers a thread, so the route runs one
-// block an SM (__launch_bounds__(256, 1)) rather than split the tile: the
-// tile keeps its 16 wgmma a warpgroup per K-tile, and the split-K and
-// GlobalAccPool epilogues stay as they are.  While K <= PLANE_MAX_K each
-// sum stays inside int32 (no .satfinite, nothing wraps); the three are
-// added as uint32 (hh << 16) + (mid << 8) + ll, which is the exact sum
-// modulo 2^32, and that sum lies in int32: the integer lowering refuses any
-// layer whose reachable partial sums leave it.
-// * A: the (B, H, W, C) int16 codes (the low 16 bits of each code) by
-//   16-byte cp.async into a ring of raw tiles; after the wait each thread
-//   splits the codes it loaded with byte permutes into the lo and hi
-//   planes of one of two A buffers (64-byte swizzle), then the block syncs
-//   and the tensor cores read both planes.  Odd C: 2-byte loads.
-// * B: the weights' two byte planes, prepared once when the graph is
-//   lowered as (2, N, Kp) int8, K-major and K padded to a multiple of 16
-//   with zeros, so each plane's tile is a 16-byte cp.async copy with no
+// Byte planes (PL_X2W2 .. PL_X3W1U): integer codes of 9 to 24 bits on the
+// activation side and of up to 16 bits on the weight side, exact on the
+// int8 tensor cores.  A code of P bytes is c = sum_p 256^p c_p, its lower
+// bytes c_p in [0, 255] (u8) and its top byte in the code's own sign (s8,
+// or u8 for unsigned codes up to 65535 or 2^24 - 1; an int8 weight is one
+// plane, its top byte).  So, with P_x planes of x and P_w of w,
+//   sum_k x w = sum_s 256^s acc_s,   acc_s = sum_{i + j = s} sum_k x_i w_j,
+// each x_i w_j one wgmma with its own operand types.  The products of one
+// shift s share an accumulator set: 16-bit x 16-bit codes give four
+// products in three sets (ll; xl wh + xh wl; hh), 16-bit codes x int8
+// weights two in two, 24-bit codes x 16-bit weights six in four (shifts 0,
+// 8, 16, 24), x int8 weights three in three.  Every set is a full
+// accumulator of the tile (see Planes for the tile and registers), so the
+// route runs one block an SM (__launch_bounds__(256, 1)); the tile keeps
+// its 16 (MI = 2) or 8 (MI = 1) wgmma a warpgroup and product per K-tile,
+// and the split-K and GlobalAccPool epilogues stay as they are.  While K
+// <= PLANE_MAX_K each set's sum stays inside int32 (no .satfinite, nothing
+// wraps); the sets are added as uint32 sum_s acc_s << 8 s, which is the
+// exact sum modulo 2^32, and that sum lies in int32: the integer lowering
+// refuses any layer whose reachable partial sums leave it.
+// * A: the (B, H, W, C) codes as the graph holds them, int16 (the low 16
+//   bits of each code) or int32, by 16-byte cp.async into a ring of raw
+//   tiles; after the wait each thread splits the codes it loaded with byte
+//   permutes into the P_x planes of one of two A buffers (64-byte
+//   swizzle), then the block syncs and the tensor cores read the planes.
+//   Odd C: one load a code.
+// * B: the weights' byte planes, prepared once when the graph is lowered
+//   as (P_w, N, Kp) int8, K-major and K padded to a multiple of 16 with
+//   zeros, so each plane's tile is a 16-byte cp.async copy with no
 //   transpose.
 // PL_U8 (8-bit unsigned codes, 0..255, against int8 weights: the DSE's
 // (8, 8) point) is the int8 kernel with a u8 A operand.
 template <int VEC, int WK, int EPI, int PL>
-__global__ void __launch_bounds__(TC_THREADS,
-                                  PL >= PL_BYTES ? 1 : 2)
+__global__ void __launch_bounds__(TC_THREADS, Planes<PL>::PB ? 1 : 2)
 mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
                  const void* __restrict__ w, bool w_vec,
                  const int32_t* __restrict__ t, void* __restrict__ out,
                  int32_t* __restrict__ ws, int* __restrict__ tile_counts,
                  int M, int K, int N, int L, bool bsearch, int kt_per_split,
                  Epilogue e) {
-  constexpr bool PB = PL >= PL_BYTES;
+  using P = Planes<PL>;
+  constexpr bool PB = P::PB;
+  constexpr int MI = P::MI;
+  constexpr int BM = P::BM;
   const int8_t* __restrict__ x = static_cast<const int8_t*>(xv);
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ int s_last;
@@ -448,27 +499,27 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // warpgroup wg computes all 128 rows x columns 64 wg .. 64 wg + 63 with
-  // wgmma m64n64k32 (two 64-row blocks); its warp wq owns rows 16 wq .. +15
+  // warpgroup wg computes all BM rows x columns 64 wg .. 64 wg + 63 with
+  // wgmma m64n64k32 (MI 64-row blocks); its warp wq owns rows 16 wq .. +15
   // of each block
   const int wg = warp >> 2;
   const int wq = warp & 3;
   const int gq = lane >> 2;
   const int q = lane & 3;
-  const int m0 = blockIdx.x * TC_BM;
+  const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * TC_BN;
   const int KT = max(1, (K + TC_BK - 1) / TC_BK);
   const int kt_begin = blockIdx.z * kt_per_split;
   const int nkt = min(KT, kt_begin + kt_per_split) - kt_begin;
 
-  // ---- A: rows a_row and a_row + 64, 16-byte segment a_seg of each ------
+  // ---- A: rows a_row (and a_row + 64), codes a_seg .. a_seg + 15 of each
   const int a_row = tid >> 2;
   const int a_seg = (tid & 3) * 16;
   int a_img[2], a_ih[2], a_iw[2];
   {
     const int ohw = g.OH * g.OW;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < MI; ++p) {
       const int m = m0 + a_row + 64 * p;
       if (m < M) {
         const int b = m / ohw;
@@ -496,6 +547,19 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     a_kh = tap / g.KW;
     a_kw = tap - a_kh * g.KW;
   }
+
+  // the next K-tile's (kh, kw, c)
+  auto advance_a = [&]() {
+    a_k += TC_BK;
+    a_c += TC_BK;
+    while (a_c >= g.C) {
+      a_c -= g.C;
+      if (++a_kw == g.KW) {
+        a_kw = 0;
+        ++a_kh;
+      }
+    }
+  };
 
   auto load_a = [&](int stage) {
     uint8_t* const dst = As + stage * TC_BM * TC_BK;
@@ -541,15 +605,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
         *reinterpret_cast<uint4*>(dst + swz(a_row + 64 * p, a_seg)) =
             make_uint4(pack[p][0], pack[p][1], pack[p][2], pack[p][3]);
     }
-    a_k += TC_BK;
-    a_c += TC_BK;
-    while (a_c >= g.C) {
-      a_c -= g.C;
-      if (++a_kw == g.KW) {
-        a_kw = 0;
-        ++a_kh;
-      }
-    }
+    advance_a();
   };
 
   // ---- B: rows k .. k+3 (k = 4 b_kg) x columns n .. n+7 (n = 8 b_nc) -----
@@ -630,99 +686,146 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     }
   };
 
-  // ---- byte planes: the 16-bit codes of rows a_row and a_row + 64,
-  // codes a_seg .. a_seg + 15 of the tile, into this thread's slots of a
-  // raw stage (split by split_a below) ----
-  const int16_t* __restrict__ const x16 = static_cast<const int16_t*>(xv);
-  auto load_a16 = [&](int stage) {
-    uint8_t* const raw = smem + stage * PB_RAW_STAGE + 2 * a_seg;
-    const int k = a_k;
-    int c = a_c;
-    int kh = a_kh;
-    int kw = a_kw;
-    uint32_t pack[2][8] = {{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u},
-                           {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
+  // ---- byte planes: the raw codes (int16 or int32) of rows a_row (and
+  // a_row + 64), codes a_seg .. a_seg + 15 of the tile, into this thread's
+  // slots of a raw stage (split by split_a below).  int32 codes take four
+  // 16-byte chunks a row, read and written in the order chunk c ^ a_rot: a
+  // quarter-warp's 8 threads (2 rows x 4 segments) then meet each bank once
+  // (rows 16 bytes past a multiple of 128 apart, segments 64 bytes) ----
+  using XT = std::conditional_t<P::XB == 4, int32_t, int16_t>;
+  const XT* __restrict__ const xr = static_cast<const XT*>(xv);
+  const int a_rot = P::XB == 4 ? (tid & 2) : 0;
+  auto load_raw = [&](int stage) {
+    if constexpr (PB) {
+      uint8_t* const raw = smem + stage * P::RAW_STAGE + P::XB * a_seg;
+      // VEC 16: two or four 16-byte copies a row of every 16 codes (XB of
+      // them, in the order chunk u ^ a_rot); VEC 1 (C not a multiple of
+      // 16): a code at a time, row by row (a 4-byte copy of an int32 code,
+      // or an int16 code loaded and stored), four codes an unrolled step:
+      // unrolled whole, the loads of the 16-bit kinds' byte planes held
+      // more registers than the three accumulator sets left (ptxas spilled
+      // at 255; 238 registers so)
 #pragma unroll
-    for (int j = 0; j < 16 / VEC; ++j) {
-      const bool kin = k + j * VEC < K;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int ih = a_ih[p] + kh;
-        const int iw = a_iw[p] + kw;
-        const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
-                        static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
-        const int16_t* src =
-            ok ? x16 + (static_cast<int64_t>(a_img[p] + ih) * g.W + iw) * g.C + c
-               : x16;
-        uint8_t* const dst = raw + (a_row + 64 * p) * PB_RAW_STRIDE;
+      for (int p = 0; p < MI; ++p) {
+        uint8_t* const dst = raw + (a_row + 64 * p) * P::RAW_STRIDE;
         if constexpr (VEC == 16) {
-          cp_async16(smem_u32(dst), src, ok);
-          cp_async16(smem_u32(dst + 16), ok ? src + 8 : x16, ok);
-        } else {
-          const uint32_t v = ok ? static_cast<uint16_t>(__ldg(src)) : 0u;
-          pack[p][j >> 1] |= v << (16 * (j & 1));
-        }
-      }
-      c += VEC;
-      if (c >= g.C) {
-        c = 0;
-        if (++kw == g.KW) {
-          kw = 0;
-          ++kh;
-        }
-      }
-    }
-    if constexpr (VEC != 16) {
+          const int ih = a_ih[p] + a_kh;
+          const int iw = a_iw[p] + a_kw;
+          const bool ok =
+              a_k < K &&
+              static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+              static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+          const XT* src =
+              ok ? xr + (static_cast<int64_t>(a_img[p] + ih) * g.W + iw) * g.C +
+                       a_c
+                 : xr;
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint8_t* const dst = raw + (a_row + 64 * p) * PB_RAW_STRIDE;
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(pack[p][0], pack[p][1], pack[p][2], pack[p][3]);
-        *reinterpret_cast<uint4*>(dst + 16) =
-            make_uint4(pack[p][4], pack[p][5], pack[p][6], pack[p][7]);
+          for (int u = 0; u < P::XB; ++u) {
+            const int cu = u ^ a_rot;
+            cp_async16(smem_u32(dst + 16 * cu),
+                       ok ? src + cu * (16 / P::XB) : xr, ok);
+          }
+        } else {
+          int c = a_c;
+          int kh = a_kh;
+          int kw = a_kw;
+#pragma unroll 4
+          for (int j = 0; j < 16; ++j) {
+            const int ih = a_ih[p] + kh;
+            const int iw = a_iw[p] + kw;
+            const bool ok =
+                a_k + j < K &&
+                static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+            const XT* src =
+                ok ? xr + (static_cast<int64_t>(a_img[p] + ih) * g.W + iw) *
+                              g.C + c
+                   : xr;
+            if constexpr (P::XB == 4) {
+              cp_async4(smem_u32(dst + 4 * j), src, ok);
+            } else {
+              *reinterpret_cast<int16_t*>(dst + 2 * j) =
+                  ok ? __ldg(src) : static_cast<int16_t>(0);
+            }
+            if (++c == g.C) {
+              c = 0;
+              if (++kw == g.KW) {
+                kw = 0;
+                ++kh;
+              }
+            }
+          }
+        }
       }
     }
-    a_k += TC_BK;
-    a_c += TC_BK;
-    while (a_c >= g.C) {
-      a_c -= g.C;
-      if (++a_kw == g.KW) {
-        a_kw = 0;
-        ++a_kh;
-      }
-    }
+    advance_a();
   };
 
   // the codes this thread loaded into raw stage `stage` -> its 16 bytes of
-  // each row in the lo and hi planes of A buffer `buf`
+  // each row in each of the P_x planes of A buffer `buf` (plane p: byte p
+  // of every code)
   auto split_a = [&](int stage, int buf) {
-    const uint8_t* const raw = smem + stage * PB_RAW_STAGE + 2 * a_seg;
-    uint8_t* const lo = smem + PB_A_OFF + buf * 2 * TC_BM * TC_BK;
-    uint8_t* const hi = lo + TC_BM * TC_BK;
+    if constexpr (PB) {
+      const uint8_t* const raw = smem + stage * P::RAW_STAGE + P::XB * a_seg;
+      uint8_t* const pl = smem + P::A_OFF + buf * P::PX * BM * TC_BK;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int row = a_row + 64 * p;
-      const uint4 u =
-          *reinterpret_cast<const uint4*>(raw + row * PB_RAW_STRIDE);
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(raw + row * PB_RAW_STRIDE + 16);
-      *reinterpret_cast<uint4*>(lo + swz(row, a_seg)) = make_uint4(
-          __byte_perm(u.x, u.y, 0x6420), __byte_perm(u.z, u.w, 0x6420),
-          __byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
-      *reinterpret_cast<uint4*>(hi + swz(row, a_seg)) = make_uint4(
-          __byte_perm(u.x, u.y, 0x7531), __byte_perm(u.z, u.w, 0x7531),
-          __byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+      for (int p = 0; p < MI; ++p) {
+        const int row = a_row + 64 * p;
+        const uint8_t* const src = raw + row * P::RAW_STRIDE;
+        if constexpr (P::PX == 2) {
+          const uint4 u = *reinterpret_cast<const uint4*>(src);
+          const uint4 v = *reinterpret_cast<const uint4*>(src + 16);
+          *reinterpret_cast<uint4*>(pl + swz(row, a_seg)) = make_uint4(
+              __byte_perm(u.x, u.y, 0x6420), __byte_perm(u.z, u.w, 0x6420),
+              __byte_perm(v.x, v.y, 0x6420), __byte_perm(v.z, v.w, 0x6420));
+          *reinterpret_cast<uint4*>(pl + BM * TC_BK + swz(row, a_seg)) =
+              make_uint4(
+                  __byte_perm(u.x, u.y, 0x7531), __byte_perm(u.z, u.w, 0x7531),
+                  __byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
+        } else {
+          // four codes a chunk, a 4 x 4 byte transpose each: word c of
+          // plane b holds byte b of codes 4 c .. 4 c + 3
+          uint4 ch[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            ch[c] = *reinterpret_cast<const uint4*>(src + 16 * (c ^ a_rot));
+          if (a_rot) {
+            const uint4 t0 = ch[0], t1 = ch[1];
+            ch[0] = ch[2];
+            ch[1] = ch[3];
+            ch[2] = t0;
+            ch[3] = t1;
+          }
+          uint32_t b0[4], b1[4], b2[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t lo01 = __byte_perm(ch[c].x, ch[c].y, 0x5140);
+            const uint32_t lo23 = __byte_perm(ch[c].z, ch[c].w, 0x5140);
+            const uint32_t hi01 = __byte_perm(ch[c].x, ch[c].y, 0x7362);
+            const uint32_t hi23 = __byte_perm(ch[c].z, ch[c].w, 0x7362);
+            b0[c] = __byte_perm(lo01, lo23, 0x5410);
+            b1[c] = __byte_perm(lo01, lo23, 0x7632);
+            b2[c] = __byte_perm(hi01, hi23, 0x5410);
+          }
+          *reinterpret_cast<uint4*>(pl + swz(row, a_seg)) =
+              make_uint4(b0[0], b0[1], b0[2], b0[3]);
+          *reinterpret_cast<uint4*>(pl + BM * TC_BK + swz(row, a_seg)) =
+              make_uint4(b1[0], b1[1], b1[2], b1[3]);
+          *reinterpret_cast<uint4*>(pl + 2 * BM * TC_BK + swz(row, a_seg)) =
+              make_uint4(b2[0], b2[1], b2[2], b2[3]);
+        }
+      }
     }
   };
 
-  // the B tiles of both weight planes, (2, N, Kp) int8 K-major: plane
+  // the B tiles of the weight planes, (P_w, N, Kp) int8 K-major: plane
   // e / 512, column (e / 4) % 128, 16 bytes (e % 4) of the tile's 64 K
   const int kp = (K + 15) & ~15;
   auto load_bpl = [&](int stage, int kt) {
-    uint8_t* const dst = smem + PB_B_OFF + stage * 2 * TC_BN * TC_BK;
+    uint8_t* const dst = smem + P::B_OFF + stage * P::PW * TC_BN * TC_BK;
     const int8_t* const wp = static_cast<const int8_t*>(w);
 #pragma unroll
-    for (int q = 0; q < 2 * TC_BN * TC_BK / 16 / TC_THREADS; ++q) {
+    for (int q = 0; q < P::PW * TC_BN * TC_BK / 16 / TC_THREADS; ++q) {
       const int e = tid + TC_THREADS * q;
       const int plane = e / (TC_BN * TC_BK / 16);
       const int col = (e >> 2) & (TC_BN - 1);
@@ -738,20 +841,19 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
   };
 
   // acc[i][j][2 h + c]: row 64 i + 16 wq + gq + 8 h, column 64 wg + 8 j +
-  // 2 q + c, the wgmma m64nNk32 accumulator layout; byte planes: acc holds
-  // ll, acc_mid mid and acc_hh hh, added into acc after the mainloop
-  int acc[TC_MI][TC_NJ][4];
-  int acc_mid[TC_MI][TC_NJ][4];
-  int acc_hh[TC_MI][TC_NJ][4];
+  // 2 q + c, the wgmma m64nNk32 accumulator layout; byte planes: accs[s]
+  // holds the products of shift 8 s, added into acc = accs[0] after the
+  // mainloop
+  int accs[P::SETS][MI][TC_NJ][4];
+  int (&acc)[MI][TC_NJ][4] = accs[0];
 #pragma unroll
-  for (int i = 0; i < TC_MI; ++i)
+  for (int s = 0; s < P::SETS; ++s)
 #pragma unroll
-    for (int j = 0; j < TC_NJ; ++j)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[i][j][r] = 0;
-        if constexpr (PB) acc_mid[i][j][r] = acc_hh[i][j][r] = 0;
-      }
+      for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) accs[s][i][j][r] = 0;
 
   // wgmma operands straight from the swizzled stages: A rows 64 i.., B
   // rows (columns of W) 64 wg..; the second 32 bytes of K at +32 bytes
@@ -765,7 +867,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     for (int kk = 0; kk < 2; ++kk) {
       const uint64_t db = wgmma_desc(b_sm + stage * TC_BN * TC_BK + 32 * kk);
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
         wgmma_m64n64k32<PL == PL_U8>(acc[i],
                                      wgmma_desc(a_sm + stage * TC_BM * TC_BK +
                                                 i * 64 * TC_BK + 32 * kk),
@@ -776,37 +878,37 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     warpgroup_fence(acc);
   };
 
-  // byte planes: the four products of A buffer `buf` and B stage `stage`
-  constexpr bool HU = PL == PL_BYTES_U;
+  // byte planes: the P_x P_w products of A buffer `buf` and B stage
+  // `stage`, x plane i times w plane j into set i + j; a plane is u8 but
+  // for the top one (s8; the codes' u8 for the U kinds)
   auto compute_planes = [&](int stage, int buf) {
-    warpgroup_fence(acc);
-    warpgroup_fence(acc_mid);
-    warpgroup_fence(acc_hh);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    const uint32_t a_lo = smem_u32(smem + PB_A_OFF) + buf * 2 * TC_BM * TC_BK;
-    const uint32_t a_hi = a_lo + TC_BM * TC_BK;
-    const uint32_t b_lo = smem_u32(smem + PB_B_OFF) +
-                          stage * 2 * TC_BN * TC_BK + wg * 64 * TC_BK;
-    const uint32_t b_hi = b_lo + TC_BN * TC_BK;
+    if constexpr (PB) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const uint64_t dbl = wgmma_desc(b_lo + 32 * kk);
-      const uint64_t dbh = wgmma_desc(b_hi + 32 * kk);
+      for (int s = 0; s < P::SETS; ++s) warpgroup_fence(accs[s]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint32_t a0 =
+          smem_u32(smem + P::A_OFF) + buf * P::PX * BM * TC_BK;
+      const uint32_t b0 = smem_u32(smem + P::B_OFF) +
+                          stage * P::PW * TC_BN * TC_BK + wg * 64 * TC_BK;
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i) {
-        const uint64_t dal = wgmma_desc(a_lo + i * 64 * TC_BK + 32 * kk);
-        const uint64_t dah = wgmma_desc(a_hi + i * 64 * TC_BK + 32 * kk);
-        wgmma_m64n64k32<true, true>(acc[i], dal, dbl);
-        wgmma_m64n64k32<true, false>(acc_mid[i], dal, dbh);
-        wgmma_m64n64k32<HU, true>(acc_mid[i], dah, dbl);
-        wgmma_m64n64k32<HU, false>(acc_hh[i], dah, dbh);
-      }
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int px = 0; px < P::PX; ++px) {
+            const uint64_t da = wgmma_desc(a0 + px * BM * TC_BK +
+                                           i * 64 * TC_BK + 32 * kk);
+#pragma unroll
+            for (int pw = 0; pw < P::PW; ++pw)
+              wgmma_plane(accs[px + pw][i], da,
+                          wgmma_desc(b0 + pw * TC_BN * TC_BK + 32 * kk),
+                          px < P::PX - 1 || P::XU, pw < P::PW - 1);
+          }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int s = 0; s < P::SETS; ++s) warpgroup_fence(accs[s]);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    warpgroup_fence(acc);
-    warpgroup_fence(acc_mid);
-    warpgroup_fence(acc_hh);
   };
 
   // ---- mainloop: A tiles i+1 .. i+3 in flight (cp.async) while the tensor
@@ -817,7 +919,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
   const bool staged = !bsearch && L <= DENSE_MAX_L;
   const int LS = ts_stride(L);
   int32_t* const Ts =
-      reinterpret_cast<int32_t*>(smem + (PB ? PB_RING : TC_RING));
+      reinterpret_cast<int32_t*>(smem + P::RING);
   if (staged) {
     for (int e = tid; e < TC_BN * L; e += TC_THREADS) {
       const int c = e / L;
@@ -828,7 +930,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     }
   }
   if constexpr (PB) {
-    // Byte planes: raw A tiles and both B planes i+1 .. i+3 in flight
+    // Byte planes: raw A tiles and the B planes i+1 .. i+3 in flight
     // while the tensor cores consume tile i.  Each thread splits its own
     // raw codes of tile i (nothing to wait for but its own copies), then
     // one barrier makes A buffer i % 2 and B stage i visible.  The other
@@ -837,7 +939,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
 #pragma unroll
     for (int s = 0; s < TC_STAGES - 1; ++s) {
       if (s < nkt) {
-        load_a16(s);
+        load_raw(s);
         load_bpl(s, kt_begin + s);
       }
       cp_async_commit();
@@ -849,7 +951,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
       __syncthreads();
       const int nxt = i + TC_STAGES - 1;
       if (nxt < nkt) {
-        load_a16(nxt % TC_STAGES);
+        load_raw(nxt % TC_STAGES);
         load_bpl(nxt % TC_STAGES, kt_begin + nxt);
       }
       cp_async_commit();
@@ -883,17 +985,19 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
   cp_async_wait<0>();
   __syncthreads();
   if constexpr (PB) {
-    // (hh << 16) + (mid << 8) + ll in uint32: the exact sum modulo 2^32
+    // sum_s accs[s] << 8 s in uint32: the exact sum modulo 2^32
 #pragma unroll
-    for (int i = 0; i < TC_MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < TC_NJ; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] = static_cast<int>(
-              (static_cast<uint32_t>(acc_hh[i][j][r]) << 16) +
-              (static_cast<uint32_t>(acc_mid[i][j][r]) << 8) +
-              static_cast<uint32_t>(acc[i][j][r]));
+        for (int r = 0; r < 4; ++r) {
+          uint32_t v = static_cast<uint32_t>(acc[i][j][r]);
+#pragma unroll
+          for (int s = 1; s < P::SETS; ++s)
+            v += static_cast<uint32_t>(accs[s][i][j][r]) << (8 * s);
+          acc[i][j][r] = static_cast<int>(v);
+        }
   }
 
   const int wm = 16 * wq;     // row of acc[i][..] = wm + 64 i + gq + 8 h
@@ -901,17 +1005,17 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
 
   // ---- split K: the last block of a tile adds the other splits' sums ----
   // Scratch holds, per tile and split, the block's accumulators in thread
-  // order (16 int4 a thread, a warp's stores contiguous): no bounds, no
+  // order (8 MI int4 a thread, a warp's stores contiguous): no bounds, no
   // index arithmetic, and the last block reads them back the same way.
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   int4* const part = reinterpret_cast<int4*>(ws) +
-      (static_cast<size_t>(tile) * gridDim.z) * (TC_BM * TC_BN / 4);
+      (static_cast<size_t>(tile) * gridDim.z) * (BM * TC_BN / 4);
   if (gridDim.z > 1) {
 #pragma unroll
-    for (int i = 0; i < TC_MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < TC_NJ; ++j)
-        __stcg(part + blockIdx.z * (TC_BM * TC_BN / 4) +
+        __stcg(part + blockIdx.z * (BM * TC_BN / 4) +
                    (TC_NJ * i + j) * TC_THREADS + tid,
                make_int4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
                          acc[i][j][3]));
@@ -922,24 +1026,24 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     __syncthreads();
     if (!s_last) return;
   }
-  // GAP epilogue: the block's 128 x 128 tile of the skip operand goes into
+  // GAP epilogue: the block's BM x 128 tile of the skip operand goes into
   // the ring, idle since the mainloop, by cp.async now, and lands while the
   // other splits' sums are added and the thresholds counted
   const bool gap = EPI == EPI_INT && e.pool > 0;
-  if (gap) stage_skip(smem, e.skip, m0, n0, M, N, tid);
+  if (gap) stage_skip(smem, e.skip, m0, n0, M, N, BM, tid);
   if (gridDim.z > 1) {
     __threadfence();
     for (int z = 0; z < static_cast<int>(gridDim.z); ++z) {
       if (z == static_cast<int>(blockIdx.z)) continue;
-      int4 v[TC_MI][TC_NJ];
+      int4 v[MI][TC_NJ];
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < TC_NJ; ++j)
-          v[i][j] = __ldcg(part + z * (TC_BM * TC_BN / 4) +
+          v[i][j] = __ldcg(part + z * (BM * TC_BN / 4) +
                            (TC_NJ * i + j) * TC_THREADS + tid);
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < TC_NJ; ++j) {
           acc[i][j][0] += v[i][j].x;
@@ -956,7 +1060,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
   // binary-searched (sorted) or, for the float MVAU's sub-path, whose
   // tables need not be sorted, counted densely from global memory.
   if (bsearch) {
-    // The 2 TC_MI searches of each of a thread's two columns in lockstep
+    // The 2 MI searches of each of a thread's two columns in lockstep
     // (count_sorted_smem's arithmetic on the global rows): every search
     // takes the same ceil(log2(L + 1)) steps, so the 8 loads of a step go
     // out together instead of one dependent chain after another.  Rows
@@ -969,15 +1073,15 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
       const int32_t* const r0 = t + static_cast<size_t>(min(gn, N - 1)) * L;
       const int32_t* const r1 =
           t + static_cast<size_t>(min(gn + 1, N - 1)) * L;
-      int lo[TC_MI][4];
+      int lo[MI][4];
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int r = 0; r < 4; ++r) lo[i][r] = 0;
       for (int n = L + 1; n > 1;) {
         const int h = n >> 1;
 #pragma unroll
-        for (int i = 0; i < TC_MI; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int r = 0; r < 4; ++r)       // acc[..][r]: column cc = r & 1
             lo[i][r] += acc[i][j][r] >= __ldg((r & 1 ? r1 : r0) + lo[i][r] +
@@ -986,7 +1090,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
         n -= h;
       }
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[i][j][r] = lo[i][r];
     }
@@ -998,16 +1102,16 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
         const int col = wn + 8 * j + 2 * q + cc;
         const int gn = n0 + col;
         if (gn >= N) continue;
-        int cnt[TC_MI][2];
+        int cnt[MI][2];
 #pragma unroll
-        for (int i = 0; i < TC_MI; ++i) cnt[i][0] = cnt[i][1] = 0;
+        for (int i = 0; i < MI; ++i) cnt[i][0] = cnt[i][1] = 0;
         if (staged) {
           const int32_t* row = Ts + col * LS;
 #pragma unroll 5
           for (int l = 0; l < L; ++l) {
             const int tv = row[l];
 #pragma unroll
-            for (int i = 0; i < TC_MI; ++i)
+            for (int i = 0; i < MI; ++i)
 #pragma unroll
               for (int rr = 0; rr < 2; ++rr)
                 cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
@@ -1017,14 +1121,14 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
           for (int l = 0; l < L; ++l) {
             const int tv = __ldg(row + l);
 #pragma unroll
-            for (int i = 0; i < TC_MI; ++i)
+            for (int i = 0; i < MI; ++i)
 #pragma unroll
               for (int rr = 0; rr < 2; ++rr)
                 cnt[i][rr] = count_ge(cnt[i][rr], acc[i][j][2 * rr + cc], tv);
           }
         }
 #pragma unroll
-        for (int i = 0; i < TC_MI; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr) acc[i][j][2 * rr + cc] = cnt[i][rr];
       }
@@ -1046,7 +1150,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     __syncthreads();
     const int32_t* const Ss = reinterpret_cast<const int32_t*>(smem);
 #pragma unroll
-    for (int i = 0; i < TC_MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = wm + 64 * i + gq + 8 * rr;
@@ -1074,28 +1178,31 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     constexpr unsigned FULL = 0xffffffffu;
     if (e.pool == 16) {
       // One image per warp and 64-row block: add the thread's two row
-      // halves, then reduce-scatter the 32 sums across the 8 lanes of a
-      // column quad (xor 16, 8, 4: each step keeps half and sends half,
-      // 28 shuffles in all).  Lane gq ends with the sums of flat index
-      // 4 gq .. 4 gq + 3 of (i, j, c): i = gq / 4, j = 2 (gq % 4) + k / 2.
-      uint32_t w[TC_MI * TC_NJ * 2];
+      // halves, then reduce-scatter the 16 MI sums across the 8 lanes of a
+      // column quad (xor 16, 8, 4: each step keeps half and sends half, 28
+      // shuffles in all at MI = 2).  Lane gq ends with the sums of flat
+      // index 2 MI gq .. 2 MI gq + 2 MI - 1 of (i, j, c): i = MI gq / 8
+      // and j = (MI gq + k) % 8 for its pairs k < MI (MI = 2: i = gq / 4,
+      // j = 2 (gq % 4) + k; MI = 1: i = 0, j = gq).
+      uint32_t w[MI * TC_NJ * 2];
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < TC_NJ; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
             w[(i * TC_NJ + j) * 2 + c] = static_cast<uint32_t>(acc[i][j][c]) +
                                          static_cast<uint32_t>(acc[i][j][2 + c]);
-      reduce_scatter<16>(w, lane);
-      reduce_scatter<8>(w, lane);
-      reduce_scatter<4>(w, lane);
-      const int gm = m0 + wm + 64 * (gq >> 2);   // the image's first row
+      reduce_scatter<16, 8 * MI>(w, lane);
+      reduce_scatter<8, 4 * MI>(w, lane);
+      reduce_scatter<4, 2 * MI>(w, lane);
+      // the image's first row
+      const int gm = m0 + wm + 64 * ((MI * gq) >> 3);
       if (gm >= M) return;
       int32_t* const row = pooled + static_cast<size_t>(gm / 16) * N;
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int gn = n0 + wn + 8 * (2 * (gq & 3) + kk) + 2 * q;
+      for (int kk = 0; kk < MI; ++kk) {
+        const int gn = n0 + wn + 8 * ((MI * gq + kk) & (TC_NJ - 1)) + 2 * q;
         const int c0 = static_cast<int>(w[2 * kk]);
         const int c1 = static_cast<int>(w[2 * kk + 1]);
         if (pairs && gn + 1 < N) {
@@ -1113,7 +1220,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     const int span = e.pool < 8 ? e.pool : 8;
     for (int off = 4; off < 4 * span; off <<= 1)
 #pragma unroll
-      for (int i = 0; i < TC_MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < TC_NJ; ++j)
 #pragma unroll
@@ -1124,7 +1231,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
                     __shfl_xor_sync(FULL, acc[i][j][r], off)));
     if ((gq & (span - 1)) != 0) return;
 #pragma unroll
-    for (int i = 0; i < TC_MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int gm = m0 + wm + 64 * i + gq + 8 * rr;
@@ -1146,7 +1253,7 @@ mvau_conv_kernel(const void* __restrict__ xv, ConvGeom g,
     return;
   }
 #pragma unroll
-  for (int i = 0; i < TC_MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int gm = m0 + wm + 64 * i + gq + 8 * rr;
@@ -1194,13 +1301,13 @@ int launch_conv(const void* x, const ConvGeom& g, const void* w,
                 const int32_t* t, void* out, int32_t* ws, int* tile_counts,
                 int M, int K, int N, int L, bool bsearch, int splits,
                 const Epilogue& e, cudaStream_t stream) {
-  constexpr bool PB = PL >= PL_BYTES;
+  using P = Planes<PL>;
   auto kern = mvau_conv_kernel<VEC, WK, EPI, PL>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        PB ? PB_SMEM_MAX : TC_SMEM_MAX);
+        P::SMEM_MAX);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
@@ -1212,8 +1319,8 @@ int launch_conv(const void* x, const ConvGeom& g, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
   const bool w_vec = N % 8 == 0 && wa % (WK == W_PACKED4 ? 4 : 8) == 0;
-  dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN, splits);
-  const int smem = (PB ? PB_RING : TC_RING) +
+  dim3 grid((M + P::BM - 1) / P::BM, (N + TC_BN - 1) / TC_BN, splits);
+  const int smem = P::RING +
                    (!bsearch && L <= DENSE_MAX_L ? TC_BN * ts_stride(L) * 4
                                                  : 0);
   kern<<<grid, TC_THREADS, smem, stream>>>(x, g, w, w_vec, t, out, ws,
@@ -2064,10 +2171,12 @@ int launch_core_any(const void* x, const ConvGeom& g, const void* w,
 
 }  // namespace
 
-// This file builds as two objects, compiled side by side: as it stands,
+// This file builds as three objects, compiled side by side: as it stands,
 // every entry point but the plane route's; with REPRO_MVAU_PLANES defined
-// (mvau_planes.cu), the plane route's alone, whose six instantiations of
-// mvau_conv_kernel take as long to compile as the rest together.
+// (mvau_planes.cu), the plane route's entry point and its uint8 and 16-bit
+// kinds; with REPRO_MVAU_PLANES24 too (mvau_planes24.cu), its kinds for
+// codes of 17 to 24 bits.  Six instantiations of mvau_conv_kernel's plane
+// route took as long to compile as the rest of the file together.
 #ifndef REPRO_MVAU_PLANES
 
 // Integer MVAU (mvau_int_pallas), GEMM form, on the int8 tensor cores.
@@ -2155,6 +2264,36 @@ int launch_int_conv(const void* x, const void* w, int w_kind,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+#else  // REPRO_MVAU_PLANES
+
+// the plane route's operands, as repro_mvau_int_planes_conv takes them
+#define REPRO_PLANES_PARAMS                                                  \
+  const void *x, const void *w, const int32_t *t, const int32_t *skip,       \
+      int32_t *out, int B, int H, int W, int C, int kernel, int stride,      \
+      int pad, int N, int L, int out_base, int splits, int32_t *ws,          \
+      int *tile_counts, void *stream
+#define REPRO_PLANES_ARGS                                                    \
+  x, w, t, skip, out, B, H, W, C, kernel, stride, pad, N, L, out_base,       \
+      splits, ws, tile_counts, stream
+
+// one launch of plane kind PL
+template <int PL>
+int launch_planes(REPRO_PLANES_PARAMS) {
+  ConvGeom g;
+  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g) || L < 0 ||
+      (skip != nullptr && 16 % (g.OH * g.OW) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int K = kernel * kernel * C;
+  if (Planes<PL>::PB && K > PLANE_MAX_K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Epilogue e = skip != nullptr
+                         ? int_epilogue(out_base, skip, g.OH * g.OW)
+                         : int_epilogue(out_base);
+  return launch_conv_any<W_I8, EPI_INT, PL>(
+      x, g, w, t, out, ws, tile_counts, B * g.OH * g.OW, K, N, L,
+      L > DENSE_MAX_L, splits, e, static_cast<cudaStream_t>(stream));
+}
+
 #endif  // REPRO_MVAU_PLANES
 
 }  // namespace
@@ -2204,49 +2343,62 @@ extern "C" int repro_mvau_int_conv_gap(const void* x, const void* w,
                          static_cast<cudaStream_t>(stream));
 }
 
+#elif defined(REPRO_MVAU_PLANES24)
+
+// The X3 kinds of the plane route (codes of 17 to 24 bits), reached through
+// repro_mvau_int_planes_conv and built as an object of their own
+// (mvau_planes24.cu) beside the entry point's, so that the two compile side
+// by side.  x_unsigned: the codes' top plane is u8, else s8.
+extern "C" int repro_mvau_int_planes24(int x_unsigned, int w_planes,
+                                       REPRO_PLANES_PARAMS) {
+  if (w_planes == 2)
+    return x_unsigned ? launch_planes<PL_X3W2U>(REPRO_PLANES_ARGS)
+                      : launch_planes<PL_X3W2>(REPRO_PLANES_ARGS);
+  if (w_planes == 1)
+    return x_unsigned ? launch_planes<PL_X3W1U>(REPRO_PLANES_ARGS)
+                      : launch_planes<PL_X3W1>(REPRO_PLANES_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 #else  // REPRO_MVAU_PLANES
+
+extern "C" int repro_mvau_int_planes24(int x_unsigned, int w_planes,
+                                       REPRO_PLANES_PARAMS);
 
 // The integer conv-form MVAU for codes that do not fit int8, on the int8
 // tensor cores (mvau_conv_kernel's PL_U8 and byte-plane routes), with the
 // plain epilogue (skip == nullptr; out (B, OH, OW, N) int32) or the
 // GlobalAccPool one (skip (B, OH, OW, N) int32, out (B, N) int32, OH * OW
 // dividing 16), as repro_mvau_int_conv and repro_mvau_int_conv_gap.
-// x_kind 1: x (B, H, W, C) uint8 codes 0..255 against w (K, N) int8.
-// x_kind 2 and 3: x (B, H, W, C) int16, the low 16 bits of each code,
-// whose high byte is signed (2) or unsigned (3: codes up to 65535), against
-// w (2, N, Kp) int8, the weights' byte planes (lo, hi) K-major, Kp = K
-// rounded up to a multiple of 16, zero past K; K at most PLANE_MAX_K.
-// t: (N, L) int32, sorted ascending when L > 64.  splits, ws, tile_counts
-// as for repro_mvau_int_conv.  The GEMM form (M, K) is B = 1, H = M, W = 1,
-// C = K, kernel 1, stride 1, pad 0.  Returns cudaGetLastError.
+// x_kind 1: x (B, H, W, C) uint8 codes 0..255 against w (K, N) int8
+// (w_planes 0).  x_kind 2 and 3: x (B, H, W, C) int16, the low 16 bits of
+// each code, whose high byte is signed (2) or unsigned (3: codes up to
+// 65535).  x_kind 4 and 5: x (B, H, W, C) int32 codes of up to 24 bits,
+// their third byte signed (4: -2^23 .. 2^23 - 1) or unsigned (5: up to
+// 2^24 - 1); the fourth byte is not read.  With x_kind 2 to 5, w is
+// (w_planes, N, Kp) int8, the weights' byte planes K-major, Kp = K rounded
+// up to a multiple of 16, zero past K: w_planes 2 for 16-bit weights (low
+// byte, high byte), 1 for int8 weights (the codes); K at most
+// PLANE_MAX_K.  t: (N, L) int32, sorted ascending when L > 64.  splits,
+// ws, tile_counts as for repro_mvau_int_conv.  The GEMM form (M, K) is B =
+// 1, H = M, W = 1, C = K, kernel 1, stride 1, pad 0.  Returns
+// cudaGetLastError, or cudaErrorInvalidValue for any other kind.
 extern "C" int repro_mvau_int_planes_conv(
-    const void* x, int x_kind, const void* w, const int32_t* t,
+    const void* x, int x_kind, const void* w, int w_planes, const int32_t* t,
     const int32_t* skip, int32_t* out, int B, int H, int W, int C,
     int kernel, int stride, int pad, int N, int L, int out_base, int splits,
     int32_t* ws, int* tile_counts, void* stream) {
-  ConvGeom g;
-  if (!conv_geom(B, H, W, C, kernel, stride, pad, &g) || L < 0 ||
-      (skip != nullptr && 16 % (g.OH * g.OW) != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int M = B * g.OH * g.OW;
-  const int K = kernel * kernel * C;
-  const bool bs = L > DENSE_MAX_L;
-  const Epilogue e = skip != nullptr
-                         ? int_epilogue(out_base, skip, g.OH * g.OW)
-                         : int_epilogue(out_base);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_kind == 1)
-    return launch_conv_any<W_I8, EPI_INT, PL_U8>(x, g, w, t, out, ws,
-                                                 tile_counts, M, K, N, L, bs,
-                                                 splits, e, s);
-  if ((x_kind == 2 || x_kind == 3) && K <= PLANE_MAX_K)
-    return x_kind == 2
-               ? launch_conv_any<W_I8, EPI_INT, PL_BYTES>(
-                     x, g, w, t, out, ws, tile_counts, M, K, N, L, bs,
-                     splits, e, s)
-               : launch_conv_any<W_I8, EPI_INT, PL_BYTES_U>(
-                     x, g, w, t, out, ws, tile_counts, M, K, N, L, bs,
-                     splits, e, s);
+  const bool xu = x_kind == 3 || x_kind == 5;
+  if (x_kind == 1 && w_planes == 0)
+    return launch_planes<PL_U8>(REPRO_PLANES_ARGS);
+  if ((x_kind == 2 || x_kind == 3) && w_planes == 2)
+    return xu ? launch_planes<PL_X2W2U>(REPRO_PLANES_ARGS)
+              : launch_planes<PL_X2W2>(REPRO_PLANES_ARGS);
+  if ((x_kind == 2 || x_kind == 3) && w_planes == 1)
+    return xu ? launch_planes<PL_X2W1U>(REPRO_PLANES_ARGS)
+              : launch_planes<PL_X2W1>(REPRO_PLANES_ARGS);
+  if (x_kind == 4 || x_kind == 5)
+    return repro_mvau_int_planes24(xu, w_planes, REPRO_PLANES_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -29,7 +29,8 @@ from typing import Dict, List, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mvau.cu", "mvau_planes.cu", "gap.cu", "qmatmul.cu")
+SOURCES = ("mvau.cu", "mvau_planes.cu", "mvau_planes24.cu", "gap.cu",
+           "qmatmul.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,10 +39,12 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the main path went through the kernels).  ``mvau_int_gap`` counts the
 # launches of the integer conv MVAU that carry the GlobalAccPool epilogue
 # (``mvau.mvau_int_conv_gap``), ``mvau_int_planes`` those of the plane
-# route (uint8 codes, or 9- to 16-bit codes as byte planes, on the int8
-# tensor cores), ``mvau_int_wide`` those that run on the CUDA-core route
-# (int32 codes) and ``mvau_int_small_m`` those of the GEMM form at decode
-# shapes (``mvau_small_m_kernel``); each of them is an ``mvau_int`` launch
+# route (uint8 codes, or 9- to 24-bit codes as byte planes, on the int8
+# tensor cores; ``mvau_int_planes2`` and ``mvau_int_planes6`` those of its
+# two-product (16-bit codes x int8 weights) and six-product (24-bit codes x
+# 16-bit weights) kinds), ``mvau_int_wide`` those that run on the CUDA-core
+# route (int32 codes past it) and ``mvau_int_small_m`` those of the GEMM
+# form at decode shapes (``mvau_small_m_kernel``); each of them is an ``mvau_int`` launch
 # too.  ``qmatmul_rows`` counts the
 # launches of qmatmul's many-row route (``qmm_rows_kernel``), each of them
 # a ``qmatmul`` launch too.  A launch made while a CUDA graph
@@ -49,7 +52,9 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every replay of the graph adds its record here: the counts stay "kernels
 # that ran".
 launch_counts: Dict[str, int] = {"mvau_int": 0, "mvau_int_gap": 0,
-                                  "mvau_int_planes": 0, "mvau_int_wide": 0,
+                                  "mvau_int_planes": 0,
+                                  "mvau_int_planes2": 0,
+                                  "mvau_int_planes6": 0, "mvau_int_wide": 0,
                                   "mvau_int_small_m": 0, "mvau": 0, "gap": 0,
                                   "qmatmul": 0, "qmatmul_rows": 0}
 _COUNT_LOCK = threading.Lock()
@@ -246,8 +251,8 @@ class KernelLibrary:
         self.mvau_int_conv_gap.argtypes = ([p, p, i, p, p, p] + [i] * 11
                                            + [p, p, p])
         self.mvau_int_planes_conv = lib.repro_mvau_int_planes_conv
-        self.mvau_int_planes_conv.argtypes = ([p, i, p, p, p, p] + [i] * 11
-                                              + [p, p, p])
+        self.mvau_int_planes_conv.argtypes = ([p, i, p, i, p, p, p]
+                                              + [i] * 11 + [p, p, p])
         self.mvau_core_conv = lib.repro_mvau_core_conv
         self.mvau_core_conv.argtypes = ([p, i, p, i, p, p] + [i] * 10
                                         + [f, f, f, i, p, p, p])

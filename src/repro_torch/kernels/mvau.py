@@ -13,16 +13,19 @@ the dtype of the activation codes a wrapper is handed:
   :data:`SMALL_M_MAX_LEVELS` levels: :func:`int8_gemm_route`), which runs
   ``mvau_small_m_kernel`` (``mma.sync`` with the output columns on the
   MMA's 16-wide side, the threshold rows searched in shared memory);
-* ``planes`` -- codes of up to 16 bits on the same int8 tensor cores
-  (``mvau_conv_kernel``): uint8 activation codes (0..255) x int8 weights as
-  one ``wgmma`` u8.s8 (the DSE's (8, 8) point), and codes of 9 to 16 bits
-  on either side as byte planes, four ``wgmma`` products recombined
-  exactly (int16 activation codes x the weights' (2, N, Kp) byte planes
-  from :func:`weight_planes`; ``paper_w16a16()``), while K is at most
-  :data:`PLANE_MAX_K`;
-* ``core`` -- int32 activation codes (wider codes, or K past the limit) and
-  the float MVAU on the CUDA cores (``mvau_core_kernel``: exact int32
-  multiply-add, or float32 FMA).
+* ``planes`` -- activation codes of up to 24 bits against weights of up to
+  16 on the same int8 tensor cores (``mvau_conv_kernel``): uint8 activation
+  codes (0..255) x int8 weights as one ``wgmma`` u8.s8 (the DSE's (8, 8)
+  point), and wider codes as byte planes, one ``wgmma`` product for each
+  pair of an activation plane and a weight plane, recombined exactly: int16
+  codes (9 to 16 bits, two planes) or int32 codes (17 to 24 bits, three
+  planes) x the weights' (P_w, N, Kp) byte planes from
+  :func:`weight_planes` (two for 16-bit weights, one for int8 weights), 2
+  to 6 products (``paper_w16a16()``, its 17-bit c2 among them), while K is
+  at most :data:`PLANE_MAX_K`;
+* ``core`` -- int32 activation codes past 24 bits (or weights past 16, or
+  K past the limit) and the float MVAU on the CUDA cores
+  (``mvau_core_kernel``: exact int32 multiply-add, or float32 FMA).
 
 The wgmma and CUDA-core kernels read conv patch rows straight from the
 NHWC activation (:func:`mvau_int_conv`, :func:`mvau_conv`: the ``im2col``
@@ -58,7 +61,8 @@ __all__ = ["mvau_int", "mvau_int_conv", "mvau_int_conv_gap", "mvau", "mvau_conv"
            "mvau_plain", "mvau_conv_plain", "tc_splits", "core_splits",
            "int8_gemm_route", "SMALL_M_ROWS", "SMALL_M_MAX_LEVELS",
            "int_route", "code_kind", "weight_planes", "plane_matmul",
-           "plane_depth", "PLANE_MAX_K"]
+           "plane_depth", "plane_tile_rows", "x_planes", "x_dtype",
+           "PLANE_MAX_K"]
 
 # weight kinds of csrc/mvau.cu
 _W_KIND = {torch.int8: 0, torch.int32: 1, torch.int16: 4}
@@ -100,13 +104,15 @@ def _plan(tiles: int, k_tiles: int, sms: int) -> int:
     return max(1, min(k_tiles // 16, (2 * sms) // tiles))
 
 
-def tc_splits(m: int, n: int, k: int, sms: int) -> int:
-    """K-splits of one tensor-core launch: 1 where the output tiles cover
-    the SMs, else up to two blocks per SM, each split keeping at least 16
-    K-tiles (shorter splits lose more to the partial-sum round trip than
-    the extra blocks gain: ``tools/probe_mvau_conv.py``'s sweep on the
-    H100).  The split changes no bit (integer sums)."""
-    bm, bn, bk = TC_TILE
+def tc_splits(m: int, n: int, k: int, sms: int, bm: int = TC_TILE[0]) -> int:
+    """K-splits of one tensor-core launch of ``bm``-row tiles (64 for the
+    plane route's 24-bit codes, :func:`plane_tile_rows`): 1 where the
+    output tiles cover the SMs, else up to two blocks per SM, each split
+    keeping at least 16 K-tiles (shorter splits lose more to the
+    partial-sum round trip than the extra blocks gain:
+    ``tools/probe_mvau_conv.py``'s sweep on the H100).  The split changes
+    no bit (integer sums)."""
+    _, bn, bk = TC_TILE
     return _plan(-(-m // bm) * -(-n // bn), -(-k // bk), sms)
 
 
@@ -131,19 +137,26 @@ def int8_gemm_route(m: int, levels: int) -> str:
     return "wgmma"
 
 
-# The byte-plane route's longest K (csrc/mvau.cu PLANE_MAX_K): a k adds at
-# most 2 * 255 * 255 to a plane's sum, which then stays inside int32.
+# The byte-plane route's longest K (csrc/mvau.cu PLANE_MAX_K): a k adds to
+# one accumulator set at most two byte products, 2 * 255 * 255, so every
+# set's sum stays inside int32, for every plane kind.
 PLANE_MAX_K = (2**31 - 1) // (2 * 255 * 255)
 # the activation-code kinds of csrc/mvau.cu's repro_mvau_int_planes_conv
-_X_KIND = {"u8": 1, "s16": 2, "u16": 3}
+_X_KIND = {"u8": 1, "s16": 2, "u16": 3, "s24": 4, "u24": 5}
+# activation planes of each kind, and its tensor's dtype on the card
+_X_PLANES = {"u8": 1, "s16": 2, "u16": 2, "s24": 3, "u24": 3}
+_X_DTYPE = {"u8": torch.uint8, "s16": torch.int16, "u16": torch.int16,
+            "s24": torch.int32, "u24": torch.int32}
 
 
 def code_kind(lo: int, hi: int) -> Optional[str]:
     """The narrowest tensor-core operand form of integer codes in [lo, hi]:
-    ``"s8"``, ``"u8"`` (0..255), ``"s16"``, ``"u16"`` (0..65535), or None
-    for codes wider than 16 bits."""
+    ``"s8"``, ``"u8"`` (0..255), ``"s16"``, ``"u16"`` (0..65535),
+    ``"s24"`` (-2^23 .. 2^23 - 1), ``"u24"`` (0 .. 2^24 - 1), or None for
+    codes wider than 24 bits."""
     for kind, a, b in (("s8", -128, 127), ("u8", 0, 255),
-                       ("s16", -32768, 32767), ("u16", 0, 65535)):
+                       ("s16", -32768, 32767), ("u16", 0, 65535),
+                       ("s24", -2**23, 2**23 - 1), ("u24", 0, 2**24 - 1)):
         if a <= lo and hi <= b:
             return kind
     return None
@@ -158,12 +171,18 @@ def int_route(x_range: Tuple[int, int], w_range: Tuple[int, int],
     * ``("int8", "s8", 1)``: both fit int8, ``wgmma`` s8.s8;
     * ``("planes", "u8", 1)``: unsigned activations of up to 8 bits
       (0..255) against int8 weights, one ``wgmma`` u8.s8;
-    * ``("planes", "s16" | "u16", 4)``: codes of 9 to 16 bits on either
-      side (weights signed), byte planes: four products, while ``k`` is at
-      most :data:`PLANE_MAX_K`; ``"u16"`` where the activation codes reach
-      past 32,767 (their high byte is then unsigned);
-    * ``("core", None, 1)``: anything wider, or K past the limit, on the
-      CUDA cores."""
+    * ``("planes", "s16" | "u16", 2 P_w)``: activation codes of up to 16
+      bits against weights that do not both fit 8 bits, two activation
+      byte planes; ``"u16"`` where the codes reach past 32,767 (their high
+      byte is then unsigned);
+    * ``("planes", "s24" | "u24", 3 P_w)``: activation codes of 17 to 24
+      bits, three planes; ``"u24"`` where they reach past 2^23 - 1;
+
+      P_w, the weights' planes, is 1 for int8 weights and 2 for weights of
+      up to 16 bits, so 2, 4, 3 or 6 products, each one ``wgmma``, while
+      ``k`` is at most :data:`PLANE_MAX_K`;
+    * ``("core", None, 1)``: activation codes past 24 bits, weights past
+      16, or K past the limit, on the CUDA cores."""
     xk, wk = code_kind(*x_range), code_kind(*w_range)
     if xk == "s8" and wk == "s8":
         return "int8", "s8", 1
@@ -171,7 +190,28 @@ def int_route(x_range: Tuple[int, int], w_range: Tuple[int, int],
         return "planes", "u8", 1
     if xk is None or wk not in ("s8", "u8", "s16") or k > PLANE_MAX_K:
         return "core", None, 1
-    return "planes", "u16" if xk == "u16" else "s16", 4
+    if xk in ("s8", "u8"):
+        xk = "s16"
+    return "planes", xk, _X_PLANES[xk] * (1 if wk == "s8" else 2)
+
+
+def x_planes(kind: str) -> int:
+    """Activation byte planes of plane-route kind ``kind``: 1 (``u8``), 2
+    (``s16``, ``u16``) or 3 (``s24``, ``u24``)."""
+    return _X_PLANES[kind]
+
+
+def x_dtype(kind: str) -> torch.dtype:
+    """The dtype in which the card's plane route takes activation codes of
+    ``kind``: uint8, int16 (the low 16 bits) or int32."""
+    return _X_DTYPE[kind]
+
+
+def plane_tile_rows(kind: Optional[str]) -> int:
+    """Rows of the tensor-core kernel's output tile for activation codes of
+    ``kind``: 64 for three planes (24-bit codes: four accumulator sets of a
+    128-row tile would fill the register file), else 128."""
+    return 64 if kind in ("s24", "u24") else TC_TILE[0]
 
 
 def plane_depth(k: int) -> int:
@@ -179,26 +219,35 @@ def plane_depth(k: int) -> int:
     return -(-k // 16) * 16
 
 
-def weight_planes(w: torch.Tensor, w_packed: bool = False) -> torch.Tensor:
-    """(K, N) integer weight codes within int16 (int8, int16 or int32; or
-    (K, N/2) packed int4 with ``w_packed``) -> their byte planes, the
-    operand of the byte-plane route: (2, N, Kp) int8, K-major, Kp =
-    :func:`plane_depth` (K), zero past K; plane 0 holds each code's low
-    byte (read as unsigned), plane 1 its high byte (signed), so that
-    ``code = 256 * plane1 + (plane0 & 255)``.  The lowering prepares them
-    once per graph; no call splits weights."""
+def weight_planes(w: torch.Tensor, w_packed: bool = False,
+                  planes: int = 2) -> torch.Tensor:
+    """(K, N) integer weight codes (int8, int16 or int32; or (K, N/2)
+    packed int4 with ``w_packed``) -> their byte planes, the weight operand
+    of the byte-plane route: (``planes``, N, Kp) int8, K-major, Kp =
+    :func:`plane_depth` (K), zero past K.  Two planes for codes within
+    int16: plane 0 holds each code's low byte (read as unsigned), plane 1
+    its high byte (signed), so that ``code = 256 * plane1 + (plane0 &
+    255)``; one plane for codes within int8: the codes.  The lowering
+    prepares them once per graph; no call splits weights."""
     if w_packed:
         w = quant.unpack_int4(w)
     wi = w.to(torch.int32)
     _require(wi.ndim == 2, f"w must be 2-D, got shape {tuple(wi.shape)}")
+    _require(planes in (1, 2), f"weights take 1 or 2 byte planes, not "
+             f"{planes}")
+    lim = 128 if planes == 1 else 32768
+    _require(bool((wi >= -lim).all()) and bool((wi < lim).all()),
+             f"weight codes must fit int{8 * planes} for {planes} byte "
+             "plane(s)")
     k, n = wi.shape
-    _require(bool((wi >= -32768).all()) and bool((wi <= 32767).all()),
-             "weight codes must fit int16 for the byte planes")
-    out = torch.zeros((2, n, plane_depth(k)), dtype=torch.int8,
+    out = torch.zeros((planes, n, plane_depth(k)), dtype=torch.int8,
                       device=w.device)
     wt = wi.t()
-    out[0, :, :k] = (wt & 255).to(torch.uint8).view(torch.int8)
-    out[1, :, :k] = (wt >> 8).to(torch.int8)
+    if planes == 1:
+        out[0, :, :k] = wt.to(torch.int8)
+    else:
+        out[0, :, :k] = (wt & 255).to(torch.uint8).view(torch.int8)
+        out[1, :, :k] = (wt >> 8).to(torch.int8)
     return out
 
 
@@ -213,23 +262,30 @@ def _matmul_i64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def plane_matmul(x: torch.Tensor, planes: torch.Tensor,
                  x_unsigned: bool = False) -> torch.Tensor:
     """The byte-plane route's arithmetic as plain tensor code: (M, K)
-    int16 codes (the low 16 bits of each; with ``x_unsigned`` codes up to
-    65535) x the (2, N, Kp) planes of :func:`weight_planes` -> (M, N) int32
-    ``(hh << 16) + (mid << 8) + ll`` in uint32, reinterpreted: ll = xl·wl,
-    mid = xl·wh + xh·wl, hh = xh·wh over the codes' low bytes xl, wl
-    (unsigned) and high bytes xh, wh (signed; xh unsigned with
-    ``x_unsigned``).  That is the exact product wherever it fits int32."""
+    int16 codes (the low 16 bits of each; two planes) or int32 codes (of
+    up to 24 bits; three planes, the fourth byte not read) x the (P_w, N,
+    Kp) planes of :func:`weight_planes` -> (M, N) int32 ``Σ_s acc_s << 8
+    s`` in uint32, reinterpreted, where ``acc_s`` sums the products
+    ``x_i · w_j`` with ``i + j = s`` over the codes' bytes: every byte
+    unsigned but the top one, which takes the code's sign (unsigned with
+    ``x_unsigned``: codes up to 65535 or 2^24 - 1); a single weight plane
+    is the int8 codes themselves.  That is the exact product wherever it
+    fits int32."""
+    _require(x.dtype in (torch.int16, torch.int32),
+             f"the byte planes take int16 or int32 codes, got {x.dtype}")
     k = x.shape[-1]
+    px, pw = (2 if x.dtype == torch.int16 else 3), planes.shape[0]
     xi = x.to(torch.int32)
-    xl, xh = xi & 255, xi >> 8
-    if x_unsigned:
-        xh = xh & 255
-    wl = (planes[0, :, :k].to(torch.int32) & 255).t()
-    wh = planes[1, :, :k].to(torch.int32).t()
-    ll = _matmul_i64(xl, wl)
-    mid = _matmul_i64(xl, wh) + _matmul_i64(xh, wl)
-    hh = _matmul_i64(xh, wh)
-    v = ((hh << 16) + (mid << 8) + ll) & 0xFFFFFFFF
+    xs = [(xi >> (8 * i)) & 255 for i in range(px)]
+    if not x_unsigned:
+        xs[-1] = xs[-1] - ((xs[-1] & 128) << 1)
+    wp = [planes[j, :, :k].to(torch.int32) for j in range(pw)]
+    ws = [(p & 255 if j < pw - 1 else p).t() for j, p in enumerate(wp)]
+    sets = [0] * (px + pw - 1)
+    for i in range(px):
+        for j in range(pw):
+            sets[i + j] = sets[i + j] + _matmul_i64(xs[i], ws[j])
+    v = sum(acc << (8 * s) for s, acc in enumerate(sets)) & 0xFFFFFFFF
     return (v - ((v >> 31) << 32)).to(torch.int32)
 
 
@@ -248,16 +304,19 @@ def _sm_count(index: int) -> int:
 
 
 def _split_scratch(m: int, n: int, k: int, dev: torch.device,
-                   splits: Optional[int], core: bool = False
+                   splits: Optional[int], core: bool = False,
+                   bm: int = TC_TILE[0]
                    ) -> Tuple[int, Optional[int], Optional[int]]:
     """(splits, scratch pointer, counters pointer) for one launch of the
-    tensor-core kernel, or of the CUDA-core one (``core``); the scratch
-    holds each output tile's and split's partial sums, 32 bits each."""
+    tensor-core kernel on ``bm``-row tiles, or of the CUDA-core one
+    (``core``); the scratch holds each output tile's and split's partial
+    sums, 32 bits each."""
     if core:
-        bm, bn, bk, planner = CORE_TILE_M, core_tile_n(n), CORE_TILE_K, \
-            core_splits
+        bm, bn, bk = CORE_TILE_M, core_tile_n(n), CORE_TILE_K
+        planner = core_splits
     else:
-        (bm, bn, bk), planner = TC_TILE, tc_splits
+        _, bn, bk = TC_TILE
+        planner = functools.partial(tc_splits, bm=bm)
     if splits is None:
         splits = planner(m, n, k, _sm_count(dev.index or 0))
     kt = max(1, -(-k // bk))
@@ -309,8 +368,8 @@ def mvau_int_plain(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                    out_base: int = 0, w_packed: bool = False,
                    x_unsigned: bool = False) -> torch.Tensor:
     """Plain version: ``out_base + Σ_l 1[x @ w ≥ T[n, l]]`` as int32; for
-    (2, N, Kp) byte planes ``w`` (int16 ``x``), the byte-plane route's own
-    decomposition (:func:`plane_matmul`)."""
+    (P_w, N, Kp) byte planes ``w`` (int16 or int32 ``x``), the byte-plane
+    route's own decomposition (:func:`plane_matmul`)."""
     if w.ndim == 3:
         acc = plane_matmul(x, w, x_unsigned)
         return (out_base + quant.threshold_counts(acc, thresholds)
@@ -341,10 +400,11 @@ def _planes(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
             splits: Optional[int] = None) -> torch.Tensor:
     """One launch of the tensor-core kernel on the plane route, NHWC
     ``x`` of ``geom`` = (B, H, W, C, kernel, stride, pad): uint8 codes
-    against (K, N) int8 weights, or int16 codes against (2, N, Kp) byte
-    planes -> (B, OH, OW, N) int32, or (B, N) with the GAP epilogue on
-    ``skip``.  Counted as ``mvau_int`` and ``mvau_int_planes`` (and
-    ``mvau_int_gap`` with a skip)."""
+    against (K, N) int8 weights, or int16 or int32 codes against (P_w, N,
+    Kp) byte planes -> (B, OH, OW, N) int32, or (B, N) with the GAP
+    epilogue on ``skip``.  Counted as ``mvau_int`` and ``mvau_int_planes``
+    (and ``mvau_int_planes2`` or ``mvau_int_planes6`` for two or six
+    products, and ``mvau_int_gap`` with a skip)."""
     b, h, wd, c, kernel, stride, pad = geom
     oh = (h + 2 * pad - kernel) // stride + 1
     ow = (wd + 2 * pad - kernel) // stride + 1
@@ -355,27 +415,37 @@ def _planes(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                  f"uint8 codes take (K, N) = {(k, n)} int8 weights, got "
                  f"{w.dtype} {tuple(w.shape)}")
     else:
-        kind = "u16" if x_unsigned else "s16"
-        _require(w.dtype == torch.int8
-                 and tuple(w.shape) == (2, n, plane_depth(k)),
-                 f"int16 codes take (2, N, Kp) = {(2, n, plane_depth(k))} "
-                 f"int8 byte planes, got {w.dtype} {tuple(w.shape)}")
+        _require(x.dtype in (torch.int16, torch.int32),
+                 f"the plane route takes uint8, int16 or int32 codes, got "
+                 f"{x.dtype}")
+        kind = ("u" if x_unsigned else "s") + (
+            "16" if x.dtype == torch.int16 else "24")
+        kp = plane_depth(k)
+        _require(w.dtype == torch.int8 and w.ndim == 3
+                 and w.shape[0] in (1, 2) and tuple(w.shape[1:]) == (n, kp),
+                 f"int16 and int32 codes take (P_w, N, Kp) = (1 or 2, {n}, "
+                 f"{kp}) int8 byte planes, got {w.dtype} {tuple(w.shape)}")
         _require(k <= PLANE_MAX_K, f"K {k} is past the byte planes' limit "
-                 f"{PLANE_MAX_K}: int32 codes take the CUDA-core route")
+                 f"{PLANE_MAX_K}: such codes take the CUDA-core route")
     _require(w.data_ptr() % 16 == 0, "the weights must be 16-byte aligned")
     shape = (b, oh, ow, n) if skip is None else (b, n)
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
-    splits, ws, counts = _split_scratch(b * oh * ow, n, k, x.device, splits)
+    splits, ws, counts = _split_scratch(b * oh * ow, n, k, x.device, splits,
+                                        bm=plane_tile_rows(kind))
     rc = B.library().mvau_int_planes_conv(
-        x.data_ptr(), _X_KIND[kind], w.data_ptr(), thresholds.data_ptr(),
+        x.data_ptr(), _X_KIND[kind], w.data_ptr(),
+        0 if kind == "u8" else w.shape[0], thresholds.data_ptr(),
         None if skip is None else skip.data_ptr(), out.data_ptr(), b, h, wd,
         c, kernel, stride, pad, n, thresholds.shape[1], int(out_base),
         splits, ws, counts, _stream())
     B.check(rc, "mvau_int_planes")
-    if skip is None:
-        B.count_launch("mvau_int", "mvau_int_planes")
-    else:
-        B.count_launch("mvau_int", "mvau_int_gap", "mvau_int_planes")
+    names = ["mvau_int", "mvau_int_planes"]
+    products = 1 if kind == "u8" else x_planes(kind) * w.shape[0]
+    if products in (2, 6):
+        names.append(f"mvau_int_planes{products}")
+    if skip is not None:
+        names.append("mvau_int_gap")
+    B.count_launch(*names)
     return out
 
 
@@ -384,17 +454,19 @@ def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
              x_unsigned: bool = False) -> torch.Tensor:
     """Fused integer MVAU: (M, K) int8/uint8/int16/int32 codes x (K, N)
     int8/int16/int32 codes (or (K, N/2) packed int4 with ``w_packed``; or,
-    for int16 codes, the (2, N, Kp) byte planes of :func:`weight_planes`)
-    against (N, L) int32 thresholds -> (M, N) int32 codes.  Each threshold
-    row is sorted ascending, as the integer lowering leaves every
-    ``mvau_int`` table: the kernels binary-search tables longer than 64
-    levels.  int8 x int8 (or packed int4) runs on the tensor cores:
-    ``mvau_small_m_kernel`` where :func:`int8_gemm_route` says ``"small_m"``
-    (counted as ``mvau_int`` and ``mvau_int_small_m``), else the ``wgmma``
-    kernel; uint8 codes x int8 weights and int16 codes x byte planes
-    (``x_unsigned``: the int16 tensor holds codes up to 65535) take the
-    plane route of the same kernel (counted as ``mvau_int_planes`` too);
-    int32 codes run the CUDA-core kernel (counted as ``mvau_int_wide``)."""
+    for int16 and int32 codes, the (P_w, N, Kp) byte planes of
+    :func:`weight_planes`) against (N, L) int32 thresholds -> (M, N) int32
+    codes.  Each threshold row is sorted ascending, as the integer lowering
+    leaves every ``mvau_int`` table: the kernels binary-search tables
+    longer than 64 levels.  int8 x int8 (or packed int4) runs on the tensor
+    cores: ``mvau_small_m_kernel`` where :func:`int8_gemm_route` says
+    ``"small_m"`` (counted as ``mvau_int`` and ``mvau_int_small_m``), else
+    the ``wgmma`` kernel; uint8 codes x int8 weights, and int16 or int32
+    codes (up to 24 bits) x byte planes (``x_unsigned``: the codes' top
+    byte unsigned, int16 codes up to 65535, int32 codes up to 2^24 - 1),
+    take the plane route of the same kernel (counted as
+    ``mvau_int_planes`` too); int32 codes x (K, N) weights run the
+    CUDA-core kernel (counted as ``mvau_int_wide``)."""
     if not x.is_cuda:
         return mvau_int_plain(x, w, thresholds, out_base, w_packed,
                               x_unsigned)
@@ -404,9 +476,9 @@ def mvau_int(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     _check_on(dev, w=w)
     m, k = x.shape
     _require(thresholds.dtype == torch.int32, "thresholds must be int32")
-    if x.dtype in (torch.uint8, torch.int16):
+    if x.dtype in (torch.uint8, torch.int16) or w.ndim == 3:
         _require(not w_packed, "the plane route takes int8 weights")
-        n = w.shape[1]      # of (K, N) codes or (2, N, Kp) byte planes
+        n = w.shape[1]      # of (K, N) codes or (P_w, N, Kp) byte planes
         _require(thresholds.shape[0] == n,
                  f"thresholds rows {thresholds.shape[0]} != N {n}")
         return _planes(x, w, thresholds, (1, m, 1, k, 1, 1, 0), n, out_base,
@@ -446,13 +518,13 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                floating: bool = False):
     """Checks the conv form's operands, for the kernels and their plain
     versions alike: integer codes (x int8/uint8/int16/int32; w
-    int8/int16/int32, packed int4, or for int16 x the (2, N, Kp) byte
-    planes; int32 thresholds) or, with ``floating``, float32 x, w and
-    thresholds.  Returns (B, H, W, C, OH, OW, N)."""
+    int8/int16/int32, packed int4, or for int16 and int32 x the (P_w, N,
+    Kp) byte planes; int32 thresholds) or, with ``floating``, float32 x, w
+    and thresholds.  Returns (B, H, W, C, OH, OW, N)."""
     _require(x.ndim == 4, f"x must be 4-D NHWC, got shape {tuple(x.shape)}")
     planes = w.ndim == 3 and not floating
     _require((w.ndim == 2 or planes) and thresholds.ndim == 2,
-             "w and thresholds must be 2-D (or w (2, N, Kp) byte planes)")
+             "w and thresholds must be 2-D (or w (P_w, N, Kp) byte planes)")
     if floating:
         _require(x.dtype == w.dtype == thresholds.dtype == torch.float32,
                  "the float MVAU takes float32 x, w and thresholds, got "
@@ -463,8 +535,9 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
                              torch.int32),
                  f"x must be int8, uint8, int16 or int32 codes, got {x.dtype}")
         _require(thresholds.dtype == torch.int32, "thresholds must be int32")
-        _require(not planes or (x.dtype == torch.int16 and not w_packed),
-                 "byte-plane weights go with int16 codes")
+        _require(not planes or (x.dtype in (torch.int16, torch.int32)
+                                and not w_packed),
+                 "byte-plane weights go with int16 or int32 codes")
         n = w.shape[1] if planes else _w_kind(w, w_packed)[0]
     _require(kernel >= 1 and stride >= 1 and pad >= 0,
              f"bad kernel/stride/pad {kernel}/{stride}/{pad}")
@@ -474,8 +547,9 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     _require(oh >= 1 and ow >= 1,
              f"kernel {kernel} does not fit {h}x{wd} padded by {pad}")
     if planes:
-        _require(tuple(w.shape) == (2, n, plane_depth(kernel * kernel * c)),
-                 f"byte planes {tuple(w.shape)} != (2, N, Kp) for K = "
+        _require(w.shape[0] in (1, 2) and tuple(w.shape[1:])
+                 == (n, plane_depth(kernel * kernel * c)),
+                 f"byte planes {tuple(w.shape)} != (1 or 2, N, Kp) for K = "
                  f"kernel²·C {kernel * kernel * c}")
     else:
         _require(w.shape[0] == kernel * kernel * c,
@@ -514,12 +588,13 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
 
     (B, H, W, C) int8/uint8/int16/int32 NHWC codes x (K, N)
     int8/int16/int32 codes (or (K, N/2) packed int4 with ``w_packed``; or,
-    for int16 codes, the (2, N, Kp) byte planes of :func:`weight_planes`),
-    K = kernel² · C in patch order (kh, kw, c), against (N, L) int32
-    thresholds sorted ascending -> (B, OH, OW, N) int32 codes:
-    :func:`mvau_int` on the patch rows, which never exist, on the route the
-    codes' dtype names (``x_unsigned``: int16 codes up to 65535).  The
-    kernel reads the activation itself, zero outside the image.
+    for int16 and int32 codes, the (P_w, N, Kp) byte planes of
+    :func:`weight_planes`), K = kernel² · C in patch order (kh, kw, c),
+    against (N, L) int32 thresholds sorted ascending -> (B, OH, OW, N)
+    int32 codes: :func:`mvau_int` on the patch rows, which never exist, on
+    the route the operands name (``x_unsigned``: the codes' top byte
+    unsigned).  The kernel reads the activation itself, zero outside the
+    image.
     ``splits`` overrides the split-K planner (:func:`tc_splits`,
     :func:`core_splits`) for measurement."""
     if not x.is_cuda:
@@ -530,7 +605,7 @@ def mvau_int_conv(x: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor,
     b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                         w_packed)
     _check_on(dev, x=x, w=w, thresholds=thresholds)
-    if x.dtype in (torch.uint8, torch.int16):
+    if x.dtype in (torch.uint8, torch.int16) or w.ndim == 3:
         _require(not w_packed, "the plane route takes int8 weights")
         return _planes(x, w, thresholds, (b, h, wd, c, kernel, stride, pad),
                        n, out_base, x_unsigned, splits=splits)
@@ -574,8 +649,9 @@ def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
     reference's int32 sums.
 
     Operands as for :func:`mvau_int_conv`, on the tensor cores only (int8
-    codes with int8 or packed int4 weights, or the plane route's uint8 or
-    int16 codes); ``skip`` is an integer tensor of the conv output's shape
+    codes with int8 or packed int4 weights, or the plane route's uint8
+    codes, or int16 or int32 codes with byte planes); ``skip`` is an
+    integer tensor of the conv output's shape
     (B, OH, OW, N), added as int32.  OH·OW must divide 16: each image's rows
     then lie inside one warp's 16 accumulator rows, summed in registers and
     by shuffles, and the (B, OH, OW, N) codes are never written.  Counts
@@ -589,10 +665,11 @@ def mvau_int_conv_gap(x: torch.Tensor, w: torch.Tensor,
     b, h, wd, c, oh, ow, n = _conv_dims(x, w, thresholds, kernel, stride, pad,
                                         w_packed)
     _check_on(dev, x=x, w=w, thresholds=thresholds, skip=skip)
-    planes = x.dtype in (torch.uint8, torch.int16)
+    planes = x.dtype in (torch.uint8, torch.int16) or w.ndim == 3
     _require(planes or _on_tensor_cores(x, _w_kind(w, w_packed)[1]),
              "the fused GAP epilogue runs on the tensor cores: x must be "
-             "int8 codes (w int8 or packed int4), uint8 or int16 codes")
+             "int8 codes (w int8 or packed int4), uint8 codes, or codes "
+             "with byte-plane weights")
     _require(16 % (oh * ow) == 0, f"the fused GAP epilogue needs OH·OW to "
              f"divide 16, got {oh}x{ow}")
     _require(tuple(skip.shape) == (b, oh, ow, n),

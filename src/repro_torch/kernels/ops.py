@@ -73,7 +73,8 @@ def mvau_int(x_codes: torch.Tensor, w_codes: torch.Tensor,
     """Integer MVAU: integer codes in, int32 codes out (FINN path).
     ``w_packed`` feeds the (K, N//2) packed-int4 buffer straight to the
     kernel, which unpacks it while loading its weight tile; int16 codes
-    take the weights' byte planes (``x_unsigned``: codes up to 65535)."""
+    take the weights' byte planes, and so do int32 codes where they are
+    given (``x_unsigned``: the codes' top byte unsigned)."""
     x2, lead = _as_2d(x_codes)
     n = w_codes.shape[1] * (2 if w_packed else 1)
     t2 = _thresholds_2d(torch.as_tensor(thresholds_int, dtype=torch.int32,
@@ -314,10 +315,11 @@ def kernel_dispatch(node, emulated: bool, folded=None, graph=None) -> str:
 
     * ``fused-cuda`` — the fused integer MVAU on the int8 tensor cores
       (``csrc/mvau.cu`` ``mvau_conv_kernel``), int8 codes;
-    * ``fused-cuda-planes`` — the same kernel on codes of up to 16 bits:
-      uint8 codes (one ``wgmma`` u8.s8) or byte planes (four products);
+    * ``fused-cuda-planes`` — the same kernel on activation codes of up to
+      24 bits: uint8 codes (one ``wgmma`` u8.s8) or byte planes (2 to 6
+      products);
     * ``fused-cuda-core`` — the fused integer MVAU on the CUDA cores
-      (``mvau_core_kernel``), for codes wider than 16 bits;
+      (``mvau_core_kernel``), for codes wider than that;
     * ``cuda``       — the float MVAU (``mvau_core_kernel``) and
       GlobalAccPool (``gap_kernel``, with a residual add folded in or not)
       kernels;
@@ -361,10 +363,11 @@ def prepare_tables(nodes, initializers, consts, dtypes=None) -> None:
       from the x and w specs in ``dtypes``: ``int_route``, ``x_kind``,
       ``plane_products``); on the plane route its weights are prepared once
       as a constant of their own named in ``w_kernel``: the byte planes
-      (``<w>@planes``, :func:`repro_torch.kernels.mvau.weight_planes`) for
-      codes of 9 to 16 bits, unpacked int8 codes (``<w>@int8``) for packed
-      int4 weights against uint8 codes.  The node's own operands stay as
-      they are (the CPU runs them);
+      (:func:`repro_torch.kernels.mvau.weight_planes`) against activation
+      codes of 9 to 24 bits, two of 16-bit weights (``<w>@planes``) or one
+      of int8 weights (``<w>@planes1``), unpacked int8 codes
+      (``<w>@int8``) for packed int4 weights against uint8 codes.  The
+      node's own operands stay as they are (the CPU runs them);
     * an ``mvau_int`` node's per-tensor (L,) table becomes a contiguous
       (N, L) int32 constant of its own (``<table>@<N>``), the form the
       kernels read, so no replay broadcasts and copies it;
@@ -421,9 +424,10 @@ def _prepare_route(node, initializers, consts, dtypes) -> None:
             consts[name] = Q.unpack_int4(consts[w_name]).to(torch.int8
                                                             ).contiguous()
     else:
-        name = f"{w_name}@planes"
+        pw = route[2] // kmvau.x_planes(route[1])
+        name = f"{w_name}@planes" + ("1" if pw == 1 else "")
         if name not in consts:
-            consts[name] = kmvau.weight_planes(consts[w_name], packed)
+            consts[name] = kmvau.weight_planes(consts[w_name], packed, pw)
     node.attrs["w_kernel"] = name
 
 
@@ -438,10 +442,12 @@ def _kernel_codes(node, x, w, wk=None):
     """The operands an ``mvau_int`` node hands its kernel on the card:
     ``(x, w, w_packed, x_unsigned)``.  On the ``int8`` route the codes are
     narrowed to int8; on the ``planes`` route the activation codes to
-    uint8 (0..255) or to int16 (their low 16 bits: a wrapping cast, the
-    high byte read as unsigned for codes up to 65535), against the weights
-    the lowering prepared (``wk``: the byte planes, or unpacked int8 codes;
-    int8 codes as stored otherwise); on the ``core`` route as stored."""
+    uint8 (0..255), to int16 (their low 16 bits: a wrapping cast, the high
+    byte read as unsigned for codes up to 65535) or to int32 (codes of 17
+    to 24 bits, as the graph holds them; the third byte unsigned for codes
+    past 2^23 - 1), against the weights the lowering prepared (``wk``: the
+    byte planes, or unpacked int8 codes; int8 codes as stored otherwise);
+    on the ``core`` route as stored."""
     route, kind, _ = int_route_of(node)
     packed = bool(node.attrs.get("w_packed"))
     if route == "int8":
@@ -455,8 +461,8 @@ def _kernel_codes(node, x, w, wk=None):
                     f"mvau_int '{node.outputs[0]}' on the plane route needs "
                     "the weights its lowering prepares (prepare_tables)")
             w, packed = wk, False
-        x = x.to(torch.uint8 if kind == "u8" else torch.int16)
-    return x, w, packed, kind == "u16"
+        x = x.to(kmvau.x_dtype(kind))
+    return x, w, packed, kind in ("u16", "u24")
 
 
 def mvau_int_node(node, x, w, t, wk=None):
@@ -480,8 +486,8 @@ def conv_mvau_int_node(conv, node, x, w, t, wk=None):
     :func:`conv_pairs`) on the im2col node's input ``x``.  On the card the
     activation is narrowed once a call for the node's route
     (:func:`_kernel_codes`: int8, uint8 or int16 codes for the tensor
-    cores, a ninth of the patches' bytes; int32 codes as stored for the
-    CUDA cores).  Either kernel reads the patch rows itself.  Off the card
+    cores, a ninth of the patches' bytes or less; int32 codes as stored for
+    the plane route's 24-bit codes and for the CUDA cores).  Either kernel reads the patch rows itself.  Off the card
     the node takes its own route, as labelled, on patches local to this
     call."""
     k, s, p = conv.attrs["kernel"], conv.attrs["stride"], conv.attrs["pad"]

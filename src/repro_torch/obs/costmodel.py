@@ -53,9 +53,10 @@ BACKEND_ROOFLINE = {
 
 # Per backend, the peak of the unit a node's card dispatch label runs on.
 # "h100": the integer MVAU on the int8 tensor cores at the data sheet's
-# 1,979 TOP/s; on the plane route (codes of up to 16 bits on the same
-# tensor cores) that rate divided by the node's wgmma products a K-step
-# (1 for uint8 codes, 4 for byte planes); on the CUDA cores (wider codes)
+# 1,979 TOP/s; on the plane route (activation codes of up to 24 bits on
+# the same tensor cores) that rate divided by the node's wgmma products a
+# K-step (1 for uint8 codes; 2, 3, 4 or 6 for byte planes: activation
+# planes times weight planes); on the CUDA cores (wider codes)
 # int32 multiply-add at half the float32 rate (64 INT32 lanes per SM
 # against 128 FP32, Hopper white paper).
 KERNEL_PEAK_OPS = {

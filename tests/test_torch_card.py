@@ -113,33 +113,46 @@ def test_conv_mvau_wrapper_raises_on_the_card(card):
 
 
 # ---------------------------------------------------------------------------
-# The plane route of the tensor-core kernel: codes of up to 16 bits
+# The plane route of the tensor-core kernel: codes of up to 24 bits
 # ---------------------------------------------------------------------------
 def _plane_operands(kind, x, w, dev):
-    """uint8 codes x int8 weights, or int16 codes (their low 16 bits) x
-    the weights' byte planes."""
+    """uint8 codes x int8 weights, or int16 codes (their low 16 bits) or
+    int32 codes x the weights' byte planes (two, or one for the ``w8``
+    forms' int8 weights)."""
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     if kind == "u8":
         return xt.to(torch.uint8).to(dev), wt.to(torch.int8).to(dev)
-    return (xt.to(torch.int32).to(torch.int16).to(dev),
-            KM.weight_planes(wt.to(torch.int16)).to(dev))
+    xk = "u" + kind[1:3] if kind[0] == "u" else "s" + kind[1:3]
+    return (xt.to(torch.int32).to(KM.x_dtype(xk)).to(dev),
+            KM.weight_planes(wt.to(torch.int32),
+                             planes=1 if kind.endswith("w8") else 2).to(dev))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,xr,wr", [("u8", (0, 256), (-128, 128)),
                                         ("s16", (-32768, 32768),
                                          (-32768, 32768)),
-                                        ("u16", (0, 65536), (-32768, 32768))])
+                                        ("u16", (0, 65536), (-32768, 32768)),
+                                        ("s16w8", (-32768, 32768),
+                                         (-128, 128)),
+                                        ("u16w8", (0, 65536), (-128, 128)),
+                                        ("s24", (-2**23, 2**23),
+                                         (-32768, 32768)),
+                                        ("u24", (0, 2**24), (-32768, 32768)),
+                                        ("u24w8", (0, 2**24), (-128, 128))])
 @pytest.mark.parametrize("kernel,stride,pad", [(1, 1, 0), (3, 1, 1), (3, 2, 1),
                                                (3, 2, 0)])
 @pytest.mark.parametrize("c", [3, 16, 24])
 def test_plane_route_equals_plain(card, kind, xr, wr, kernel, stride, pad, c):
     """The plane route (uint8 codes as one u8.s8 product; int16 codes as
-    byte planes, four products) against its plain version, codes at their
-    extremes half the time (16-bit sums that leave int32 wrap alike in
-    both): batch 1 and 3, 7x7 and 9x9, N 8, 72 and 136, 15 and 255 levels,
-    K split planned, 2 and 3, and the GEMM form; each launch counted as
-    ``mvau_int`` and ``mvau_int_planes``.  Bit for bit."""
+    byte planes against two weight planes, four products, or one, two;
+    int32 codes of up to 24 bits against two, six, or one, three) against
+    its plain version, codes at their extremes half the time (sums that
+    leave int32 wrap alike in both): batch 1 and 3, 7x7 and 9x9, N 8, 72
+    and 136, 15 and 255 levels, K split planned, 2 and 3, and the GEMM
+    form; each launch counted as ``mvau_int`` and ``mvau_int_planes`` (and
+    ``mvau_int_planes2`` / ``mvau_int_planes6`` for two and six products).
+    Bit for bit."""
     rng = np.random.default_rng(30 * kernel + c)
 
     def codes(lo, hi, shape):
@@ -147,8 +160,10 @@ def test_plane_route_equals_plain(card, kind, xr, wr, kernel, stride, pad, c):
         return np.where(rng.random(shape) < 0.5, ends,
                         rng.integers(lo, hi, size=shape))
 
-    xu = kind == "u16"
+    xu = kind[0] == "u" and kind != "u8"
     k = kernel * kernel * c
+    prods = {"u8": 1, "s16": 4, "u16": 4, "s16w8": 2, "u16w8": 2, "s24": 6,
+             "u24": 6, "u24w8": 3}[kind]
     for n in (8, 72, 136):
         for batch, hw, levels in ((1, 7, 15), (3, 9, 255)):
             x, w = _plane_operands(kind, codes(*xr, (batch, hw, hw, c)),
@@ -165,6 +180,10 @@ def test_plane_route_equals_plain(card, kind, xr, wr, kernel, stride, pad, c):
                 assert B.launch_counts["mvau_int"] == before["mvau_int"] + 1
                 assert B.launch_counts["mvau_int_planes"] == \
                     before["mvau_int_planes"] + 1
+                for p in (2, 6):
+                    name = f"mvau_int_planes{p}"
+                    assert B.launch_counts[name] == \
+                        before[name] + int(prods == p)
     x2, w2 = _plane_operands(kind, codes(*xr, (37, c)), codes(*wr, (c, 24)),
                              card)
     t = _t(np.sort(rng.integers(-2**31, 2**31 - 1, size=(24, 15)), axis=1
@@ -191,6 +210,13 @@ def test_plane_route_refuses_what_it_cannot_run(card):
         KM.mvau_int_conv(x[..., :32].to(torch.uint8),
                          torch.zeros((32, 4), dtype=torch.int8, device=card),
                          t, 1, 1, 0, w_packed=True)
+    # int32 codes: K past the limit, and a third weight plane
+    with pytest.raises(ValueError, match="limit"):
+        KM.mvau_int_conv(x.to(torch.int32), w, t, 1, 1, 0)
+    with pytest.raises(ValueError, match="planes"):
+        KM.mvau_int_conv(x[..., :32].to(torch.int32),
+                         torch.zeros((3, 8, 32), dtype=torch.int8,
+                                     device=card), t, 1, 1, 0)
     assert B.launch_counts == before
 
 
@@ -314,11 +340,11 @@ def test_core_kernel_repeats_bit_for_bit_and_resets_counters(card):
                                     "table2_row_12_6_6"])
 def test_wide_code_artifacts_card_equal_cpu(card, config):
     """Artifacts whose codes do not fit int8 (16- and 12-bit weights stored
-    as int16; 8-bit unsigned activations) run every MVAU whose codes fit
-    16 bits on the tensor cores' plane route (paper_w16a16's c2, whose
-    input is a 17-bit residual sum, on the CUDA-core kernel) with its
-    im2col folded in, r2b with the GAP epilogue, and equal the CPU run bit
-    for bit."""
+    as int16; 8-bit unsigned activations) run every MVAU on the tensor
+    cores' plane route (paper_w16a16's c2, whose input is a 17-bit residual
+    sum, as int32 codes in six products; grid_point(8, 8)'s 9-bit c2
+    against one weight plane in two) with its im2col folded in, r2b with
+    the GAP epilogue, and equal the CPU run bit for bit."""
     from repro_torch.kernels import ops as kops
 
     qcfg = {"paper_w16a16": lambda: Q.QuantConfig.paper_w16a16(),
@@ -332,22 +358,26 @@ def test_wide_code_artifacts_card_equal_cpu(card, config):
     dm = repro_torch.compile(params, qcfg, recipe="resnet9", datapath="int")
     dm_cpu = repro_torch.compile(cpu, qcfg, recipe="resnet9", datapath="int",
                                  device="cpu")
-    wide = sum(kops.int_route_of(n, dm.graph)[0] == "core"
+    prods = [kops.int_route_of(n, dm.graph)[2]
+             for n in dm.graph.nodes if n.op == "mvau_int"]
+    assert all(kops.int_route_of(n, dm.graph)[0] == "planes"
                for n in dm.graph.nodes if n.op == "mvau_int")
-    assert wide == int(config == "paper_w16a16")
+    assert (prods.count(2), prods.count(6)) == {
+        "paper_w16a16": (0, 1), "grid_point_8_8": (1, 0),
+        "table2_row_12_6_6": (0, 0)}[config]
     labels = {(r["op"], r["kernel"]) for r in dm.dispatch_table()
               if r["op"] in ("im2col", "mvau_int")}
-    assert labels == ({("im2col", "fused-cuda-planes"),
-                       ("mvau_int", "fused-cuda-planes")}
-                      | ({("im2col", "fused-cuda-core"),
-                          ("mvau_int", "fused-cuda-core")} if wide else set()))
+    assert labels == {("im2col", "fused-cuda-planes"),
+                      ("mvau_int", "fused-cuda-planes")}
     assert len(dm.apply.folded) == 10 and "r2b_res" in dm.apply.folded
     before = dict(B.launch_counts)
     f = dm(x)
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta["mvau_int"] == 8 and delta["gap"] == 0
-    assert delta["mvau_int_gap"] == 1 and delta["mvau_int_wide"] == wide
-    assert delta["mvau_int_planes"] == 8 - wide
+    assert delta["mvau_int_gap"] == 1 and delta["mvau_int_wide"] == 0
+    assert delta["mvau_int_planes"] == 8
+    assert (delta["mvau_int_planes2"], delta["mvau_int_planes6"]) == (
+        prods.count(2), prods.count(6))
     assert torch.equal(f.cpu(), dm_cpu(x))
     assert dm.weight_bytes() == dm_cpu.weight_bytes()
 
@@ -536,7 +566,8 @@ def test_skip_that_broadcasts_or_is_float_on_the_card(card, int8_ok, skip):
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta == {"mvau_int": 1, "mvau_int_gap": int(fused),
                      "mvau_int_wide": int(not int8_ok),
-                     "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                     "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                     "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 0,
                      "gap": 1 - int(fused), "qmatmul": 0,
                      "qmatmul_rows": 0}
     (want,) = lower_graph(g, "cpu")(_t(x, "cpu"), _t(s, "cpu"))
@@ -560,7 +591,8 @@ def test_w6a4_width64_fuses_the_tail_on_the_card(card):
     f = dm(x)
     delta = {k: B.launch_counts[k] - before[k] for k in before}
     assert delta == {"mvau_int": 8, "mvau_int_gap": 1, "mvau_int_wide": 0,
-                     "mvau_int_planes": 0, "mvau_int_small_m": 0, "mvau": 0,
+                     "mvau_int_planes": 0, "mvau_int_planes2": 0,
+                     "mvau_int_planes6": 0, "mvau_int_small_m": 0, "mvau": 0,
                      "gap": 0, "qmatmul": 0,
                      "qmatmul_rows": 0}
     assert torch.equal(f.cpu(), dm_cpu(x))

@@ -277,16 +277,16 @@ def test_profile_counts_the_reference_flops_and_bytes(artifacts):
 @pytest.mark.parametrize("qcfg,peak", [
     ("paper_w6a4", 1979e12),           # int8 tensor cores
     ("grid_point_8_8", 1979e12),       # the plane route on the same cores
-    ("paper_w16a16", 67e12 / 2),       # its 17-bit c2: int32 on the CUDA cores
+    ("paper_w16a16", 1979e12),         # its 17-bit c2 too: 6 products
 ])
 def test_h100_model_takes_each_mvau_at_its_units_peak(qcfg, peak):
     """The "h100" roofline times an integer MVAU at the peak of the unit
     its card kernel runs on: w6a4's int8 codes on the tensor cores; w8a8's
-    and w16a16's codes of up to 16 bits on the same tensor cores' plane
-    route, at the int8 rate over the node's ``wgmma`` products (4 for byte
-    planes); w16a16's 17-bit c2 on the CUDA cores' int32 rate (its
-    65,535-level tables make it memory-bound all the same).  ``peak`` is
-    the slowest unit the artifact reaches."""
+    and w16a16's codes on the same tensor cores' plane route, at the int8
+    rate over the node's ``wgmma`` products (2 to 6 for byte planes;
+    w16a16's 17-bit c2 takes 6); codes past 24 bits would take the CUDA
+    cores' int32 rate.  ``peak`` is the slowest unit the artifact
+    reaches."""
     from repro_torch.kernels import ops as tops
 
     units = {"int8": 1979e12, "planes": 1979e12, "core": 67e12 / 2}

@@ -81,13 +81,14 @@ def test_wide_artifact_equals_reference(params, config):
             assert w.dtype == np.asarray(dj.graph.initializers[n.inputs[1]]
                                          ).dtype
             assert not n.attrs["int8_ok"]
-            # on the card codes of up to 16 bits run the tensor cores'
-            # plane route, wider ones (paper_w16a16's c2, whose input is a
-            # residual sum of 17 bits) the CUDA-core kernel; a node read
-            # without the graph's specs keeps the int8_ok rule
+            # on the card codes of up to 24 bits run the tensor cores'
+            # plane route (paper_w16a16's c2 too, whose input is a
+            # residual sum of 17 bits), wider ones the CUDA-core kernel; a
+            # node read without the graph's specs keeps the int8_ok rule
             bits = dt.graph.dtypes[n.inputs[0]].total_bits
+            assert bits <= 17
             assert tops.kernel_dispatch(n, False, graph=dt.graph) == (
-                "fused-cuda-planes" if bits <= 16 else "fused-cuda-core")
+                "fused-cuda-planes" if bits <= 24 else "fused-cuda-core")
             assert tops.kernel_dispatch(n, False) == "fused-cuda-core"
 
 

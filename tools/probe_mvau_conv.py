@@ -49,7 +49,9 @@ MVAUs timed on the inputs that forward gives it, on its real threshold
 tables (65,535 levels for the 16-bit baseline, binary-searched): the
 launch as the artifact runs it, the same launch with no levels (the
 product alone; the count is the difference), and the CUDA-core kernel on
-the same codes as int32 (held equal to the launch bit for bit).
+the same codes as int32 (held equal to the launch bit for bit), as run
+and product alone.  It first prints the registers and spills ``ptxas``
+gave every instantiation of the plane route's kernel.
 
 The variants compute wrong values; only the committed kernels are held
 against their plain versions.  Run on the machine with the card::
@@ -455,9 +457,36 @@ def probe_gemm(sms: int) -> None:
               f"{'' if best is not None else ' (the whole sweep)'}")
 
 
+# mvau_conv_kernel's PL template argument (csrc/mvau.cu PlaneKind)
+PLANE_KINDS = {1: "u8 (1 product)", 2: "x2w2 s (4)", 3: "x2w2 u (4)",
+               4: "x2w1 s (2)", 5: "x2w1 u (2)", 6: "x3w2 s (6)",
+               7: "x3w2 u (6)", 8: "x3w1 s (3)", 9: "x3w1 u (3)"}
+
+
+def plane_resources(report: str) -> list:
+    """(kind, VEC, registers, spill store bytes, spill load bytes) of each
+    plane-route instantiation of mvau_conv_kernel in a ``-Xptxas -v``
+    report."""
+    rows = []
+    for entry in report.split("Compiling entry function '")[1:]:
+        m = re.match(r"\S*mvau_conv_kernelILi(\d+)ELi\d+ELi\d+ELi(\d+)EE",
+                     entry)
+        if not m or int(m.group(2)) == 0:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        rows.append((PLANE_KINDS[int(m.group(2))], int(m.group(1)),
+                     int(regs.group(1)) if regs else -1,
+                     int(spill.group(1)) if spill else -1,
+                     int(spill.group(2)) if spill else -1))
+    return sorted(set(rows))
+
+
 def probe_wide() -> None:
     """The wide-code artifacts' conv MVAUs on their own inputs and tables:
-    as run, product alone (no levels), and the CUDA-core route."""
+    as run, product alone (no levels), and the CUDA-core route as run and
+    product alone; first the plane route's registers and spills."""
     import numpy as np
 
     import repro_torch
@@ -466,6 +495,11 @@ def probe_wide() -> None:
     from repro_torch.data.synthetic import SyntheticImages
     from repro_torch.kernels import ops as kops
 
+    print("plane route instantiations of mvau_conv_kernel (ptxas): kind, "
+          "VEC, registers, spill stores / loads (bytes)")
+    for kind, vec, regs, st, ld in plane_resources(B.library().info.ptxas):
+        print(f"  {kind:16s} VEC {vec:2d}: {regs} registers, spills {st} / "
+              f"{ld}")
     data = SyntheticImages(n_base=32, n_novel=10, seed=0, img=IMG)
     rng = np.random.default_rng(3)
     x_np, _ = data.batch(rng.integers(0, 42, BATCH),
@@ -500,8 +534,9 @@ def probe_wide() -> None:
         print(f"{label} at width {WIDTH}, batch {BATCH}, each conv MVAU on "
               "the forward's own inputs (ms a launch, CUDA events): as run / "
               "product alone (no levels) / count (the difference) / the "
-              "CUDA-core kernel on the same codes as int32")
-        tot = [0.0, 0.0, 0.0]
+              "CUDA-core kernel on the same codes as int32, as run / its "
+              "product alone")
+        tot = [0.0, 0.0, 0.0, 0.0]
         for conv, node, xx, w, t, wk in captured:
             k, st, pd = (conv.attrs[a] for a in ("kernel", "stride", "pad"))
             route, kind, prods = kops.int_route_of(node)
@@ -516,14 +551,15 @@ def probe_wide() -> None:
                 return KM.mvau_int_conv(xk, wk2, t0, k, st, pd, 0, packed,
                                         x_unsigned=xu)
 
-            def core():
-                return KM.mvau_int_conv(xx.to(torch.int32), w, t, k, st, pd,
+            def core(tt=t):
+                return KM.mvau_int_conv(xx.to(torch.int32), w, tt, k, st, pd,
                                         0, bool(node.attrs.get("w_packed")))
 
             if not torch.equal(full(), core()):
                 raise SystemExit(f"{label} {node.outputs[0]}: the {route} "
                                  "route differs from the CUDA-core route")
-            r = (cuda_ms(full, 10), cuda_ms(product, 10), cuda_ms(core, 10))
+            r = (cuda_ms(full, 10), cuda_ms(product, 10), cuda_ms(core, 10),
+                 cuda_ms(lambda: core(t0), 10))
             for i, v in enumerate(r):
                 tot[i] += v
             b, h, wd, c = xx.shape
@@ -531,9 +567,11 @@ def probe_wide() -> None:
                   f"{kind or '-':4s} {prods} products  M {b * h * wd:6d} "
                   f"K {k * k * c:5d} N {t.shape[0]:4d} L {t.shape[1]:5d} "
                   f"(tables {4 * t.numel() / 1e6:.1f} MB): {r[0]:.4f} / "
-                  f"{r[1]:.4f} / {r[0] - r[1]:.4f} / {r[2]:.4f}")
+                  f"{r[1]:.4f} / {r[0] - r[1]:.4f} / {r[2]:.4f} / "
+                  f"{r[3]:.4f}")
         print(f"  {label} sum over the 8 layers: {tot[0]:.4f} / "
-              f"{tot[1]:.4f} / {tot[0] - tot[1]:.4f} / {tot[2]:.4f} ms")
+              f"{tot[1]:.4f} / {tot[0] - tot[1]:.4f} / {tot[2]:.4f} / "
+              f"{tot[3]:.4f} ms")
         del dm, fn, captured, params
 
 
